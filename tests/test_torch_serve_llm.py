@@ -1,0 +1,254 @@
+"""ray_tpu_torch.serve.llm held against the JAX reference on the CPU.
+
+The oracle is the reference's: greedy decode through the paged engine
+must give exactly the tokens of recompute-everything greedy decode with
+the JAX model's full forward pass, on the same weights (carried across
+by ``params_from_numpy``), alone, batched and under preemption.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu.models import gpt2 as jgpt2
+from ray_tpu.serve.llm.model_runner import ModelRunner as JRunner
+from ray_tpu_torch.models import gpt2 as tgpt2
+from ray_tpu_torch.models.convert import params_from_numpy
+from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine, SamplingParams
+from ray_tpu_torch.serve.llm.config import resolve_model
+from ray_tpu_torch.serve.llm.kv_cache import NoFreeBlocks, PagedKVCache
+from ray_tpu_torch.serve.llm.model_runner import ModelRunner
+from ray_tpu_torch.serve.llm.scheduler import IterationScheduler, Sequence
+
+JCFG = dataclasses.replace(jgpt2.tiny(), dtype=jnp.float32)
+TCFG = dataclasses.replace(tgpt2.tiny(), dtype=torch.float32)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_torch_threads():
+    """Tiny shapes gain nothing from intra-op threads, and the suite runs
+    beside other test workers on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def tiny_cfg(**kw):
+    base = dict(model="gpt2:tiny", num_blocks=64, block_size=8,
+                max_num_seqs=4, max_model_len=64, max_prefill_tokens=32,
+                prefill_len_buckets=(16, 32, 64),
+                decode_batch_buckets=(1, 2, 4), share_weights=False)
+    base.update(kw)
+    return EngineConfig(**base)
+
+
+@pytest.fixture(scope="module")
+def jparams():
+    """The JAX init with every block matrix scaled ×10: at the init scale
+    the tied LM head makes greedy decode repeat the last token, and an
+    engine that ignored its context would pass; here tokens vary."""
+    p = jgpt2.init_params(jax.random.key(0), JCFG)
+    blocks = dict(p["blocks"])
+    for name in ("attn_qkv", "attn_out", "mlp_in", "mlp_out"):
+        blocks[name] = dict(blocks[name], kernel=blocks[name]["kernel"] * 10)
+    return dict(p, blocks=blocks)
+
+
+def make_engine(jparams, **kw):
+    tp = params_from_numpy(jax.tree.map(np.asarray, jparams), TCFG, "cpu")
+    return LLMEngine(tiny_cfg(**kw), tp, device="cpu", model_cfg=TCFG)
+
+
+_jax_forward = jax.jit(lambda p, t: jgpt2.forward(p, t, JCFG))
+
+
+def jax_greedy(jparams, prompt, n):
+    """Reference greedy: the JAX full forward recomputed per token.  The
+    tokens are padded to n_positions so one program serves every length:
+    the model is causal, so the padding cannot reach the last real
+    position's logits."""
+    toks, out = list(prompt), []
+    for _ in range(n):
+        padded = np.zeros((1, JCFG.n_positions), np.int32)
+        padded[0, :len(toks)] = toks
+        logits = np.asarray(_jax_forward(jparams, jnp.asarray(padded)))
+        out.append(int(np.argmax(logits[0, len(toks) - 1])))
+        toks.append(out[-1])
+    return out
+
+
+def test_engine_solo_matches_jax_oracle(jparams):
+    eng = make_engine(jparams)
+    try:
+        prompt = np.random.default_rng(1).integers(1, 100, 7).tolist()
+        got = eng.generate(prompt, SamplingParams(max_tokens=8))
+        assert got == jax_greedy(jparams, prompt, 8)
+    finally:
+        eng.shutdown()
+
+
+def test_engine_concurrent_matches_jax_oracle(jparams):
+    eng = make_engine(jparams)
+    try:
+        rng = np.random.default_rng(2)
+        prompts = [rng.integers(1, 200, rng.integers(3, 20)).tolist()
+                   for _ in range(4)]
+        streams = [eng.submit(p, SamplingParams(max_tokens=6))
+                   for p in prompts]
+        outs = [s.tokens() for s in streams]
+        for p, o in zip(prompts, outs):
+            assert o == jax_greedy(jparams, p, 6)
+        assert len({t for o in outs for t in o}) > 8     # not a repeat
+        st = eng.stats()
+        assert st["decode_steps"] < 4 * 6        # batched, not serial
+        assert st["compiles"] <= 3 + 3           # bounded bucket shapes
+    finally:
+        eng.shutdown()
+
+
+def test_engine_preemption_matches_jax_oracle(jparams):
+    eng = make_engine(jparams, num_blocks=6, block_size=4, max_model_len=32,
+                      max_prefill_tokens=16, prefill_len_buckets=(16, 32))
+    try:
+        sp = SamplingParams(max_tokens=12)
+        prompts = [[1 + 7 * i, 2, 3] for i in range(3)]
+        outs = [s.tokens() for s in [eng.submit(p, sp) for p in prompts]]
+        assert eng.stats()["preemptions"] >= 1
+        for p, o in zip(prompts, outs):
+            assert o == jax_greedy(jparams, p, 12)
+        assert eng.cache.free_block_count() == 6   # all blocks returned
+    finally:
+        eng.shutdown()
+
+
+def test_oversize_prompt_and_cancel(jparams):
+    eng = make_engine(jparams)
+    try:
+        with pytest.raises(RuntimeError, match="max_prefill_tokens"):
+            eng.submit(list(range(60)), SamplingParams(max_tokens=8)).tokens()
+        s = eng.submit([1, 2, 3], SamplingParams(max_tokens=40))
+        s.cancel()
+        eng.generate([4, 5], SamplingParams(max_tokens=2))
+        assert eng.cache.free_block_count() == 64
+    finally:
+        eng.shutdown()
+
+
+# ---------------------------------------------------------- cache units
+def test_kv_cache_alloc_refcount_and_pressure():
+    c = PagedKVCache(num_blocks=4, n_layer=1, block_size=2, n_kv=1,
+                     head_dim=4)
+    c.alloc_seq("a", 3)                       # 2 blocks
+    assert c.free_block_count() == 2
+    c.fork_seq("a", "b")                      # shared, no new blocks
+    assert c.free_seq("a") == 0               # still referenced by b
+    assert c.free_seq("b") == 2               # last ref frees
+    c.alloc_seq("c", 7)                       # 4 blocks: pool full
+    with pytest.raises(NoFreeBlocks):
+        c.alloc_seq("d", 1)
+    blk, off, grew = c.append_slot("c")       # slot 8 fits the last block
+    assert (off, grew) == (1, False)
+    with pytest.raises(NoFreeBlocks):
+        c.append_slot("c")
+    c.free_seq("c")
+    c.alloc_seq("e", 2)
+    _, _, grew = c.append_slot("e")
+    assert grew and c.free_block_count() == 2
+    c.rollback_slot("e", grew)
+    assert c.free_block_count() == 3 and c.fill("e") == 2
+
+
+def test_kv_cache_device_writes_match_reference_loops():
+    """scatter_prefill / write_token land where the reference's per-block
+    numpy loops put them."""
+    rng = np.random.default_rng(4)
+    L, bs, KV, D = 2, 4, 2, 3
+    c = PagedKVCache(num_blocks=8, n_layer=L, block_size=bs, n_kv=KV,
+                     head_dim=D)
+    ref = np.zeros((8, L, 2, bs, KV, D), np.float32)
+    table = c.alloc_seq("s", 7)
+    ks = rng.standard_normal((L, 16, KV, D)).astype(np.float32)
+    vs = rng.standard_normal((L, 16, KV, D)).astype(np.float32)
+    c.scatter_prefill("s", torch.from_numpy(ks), torch.from_numpy(vs), 7)
+    for i, b in enumerate(table):
+        lo, hi = i * bs, min(7, i * bs + bs)
+        ref[b, :, 0, :hi - lo] = ks[:, lo:hi]
+        ref[b, :, 1, :hi - lo] = vs[:, lo:hi]
+    c.alloc_seq("t", 1)
+    slots = [c.append_slot("s"), c.append_slot("t")]
+    k1 = rng.standard_normal((L, 2, KV, D)).astype(np.float32)
+    v1 = rng.standard_normal((L, 2, KV, D)).astype(np.float32)
+    c.write_token([s[0] for s in slots], [s[1] for s in slots],
+                  torch.from_numpy(k1), torch.from_numpy(v1))
+    for i, (b, off, _) in enumerate(slots):
+        ref[b, :, 0, off] = k1[:, i]
+        ref[b, :, 1, off] = v1[:, i]
+    b, off, _ = c.append_slot("t")             # one token, scalar form
+    c.write_token(b, off, torch.from_numpy(k1[:, 0]),
+                  torch.from_numpy(v1[:, 0]))
+    ref[b, :, 0, off], ref[b, :, 1, off] = k1[:, 0], v1[:, 0]
+    np.testing.assert_array_equal(c.pool.numpy(), ref)
+
+
+def test_scheduler_admission_preempt_order():
+    s = IterationScheduler(max_num_seqs=2, max_prefill_tokens=8,
+                           max_model_len=16)
+    with pytest.raises(ValueError):
+        s.add(Sequence("x", list(range(9)), SamplingParams()))
+    a = Sequence("a", [1, 2], SamplingParams(max_tokens=4))
+    b = Sequence("b", [1, 2, 3], SamplingParams(max_tokens=4))
+    s.add(a)
+    s.add(b)
+    assert s.plan(10, lambda n: 1).prefill is a
+    s.start_running(a)
+    s.start_running(b)
+    b.arrival = a.arrival + 1
+    assert s.victim() is b
+    b.output = [7, 8]
+    s.preempt(b)
+    assert b.prompt[-2:] == [7, 8] and s.waiting[0] is b
+    assert b.generated == 2
+
+
+# ------------------------------------------------- runner and config rules
+@pytest.mark.parametrize("temperature,top_k", [(0.0, 0), (0.8, 0),
+                                               (1.3, 5)])
+def test_sampling_matches_reference(temperature, top_k):
+    rng = np.random.default_rng(5)
+    sp = SamplingParams(temperature=temperature, top_k=top_k, seed=3)
+    for step in range(4):
+        logits = rng.standard_normal(300).astype(np.float32)
+        assert ModelRunner.sample(logits, sp, step) == \
+            JRunner.sample(logits, sp, step)
+
+
+def test_entry_points_raise_without_card_unless_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ModelRunner(tiny_cfg())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LLMEngine(tiny_cfg())
+    eng = LLMEngine(tiny_cfg(), device="cpu", start=False)
+    assert eng.cache.pool.device.type == "cpu"
+    assert eng.runner.params["wte"].device.type == "cpu"
+    eng.shutdown()
+
+
+def test_later_slices_raise_not_implemented():
+    with pytest.raises(NotImplementedError, match="later slice"):
+        ModelRunner(tiny_cfg(share_weights=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        resolve_model(tiny_cfg(model="llama:tiny"))
+    assert EngineConfig().share_weights is True      # reference default
+
+
+def test_engine_rejects_uncovered_buckets():
+    with pytest.raises(ValueError, match="max_model_len"):
+        LLMEngine(tiny_cfg(prefill_len_buckets=(16, 32)), device="cpu")
+    with pytest.raises(ValueError, match="max_num_seqs"):
+        LLMEngine(tiny_cfg(decode_batch_buckets=(1, 2)), device="cpu")
