@@ -9,10 +9,13 @@
    times the kernel, the plain version and the closest single PyTorch
    call (a yardstick only: the port never calls it).
 3. Engine phase: serves GPT-2 124M (full width, random weights from the
-   seed) through ``LLMEngine`` — 16 concurrent greedy requests — checks
-   every request, checks that both kernels were launched by that run,
-   and teacher-forces the engine's output through the full ``forward`` to
-   hold the engine's per-step logits to it.
+   seed, block matrices scaled x3 so the context decides the logits)
+   through ``LLMEngine`` — 16 concurrent greedy requests — checks every
+   request, checks that both kernels were launched by that run, and
+   teacher-forces the engine's output through the full ``forward`` to
+   hold the engine's per-step logits to it.  Then plants one fault at a
+   time in the decode step's inputs and requires the same check to fail
+   on each.
 4. Prints one JSON line of per-kernel numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -37,21 +40,37 @@ PEAKS = {"H100 PCIe": (2.0e12, 756e12), "H100 NVL": (3.9e12, 835e12),
          "H200": (4.8e12, 989e12), "H100": (3.35e12, 989e12)}
 
 # Tolerances, each with its reason:
-# LayerNorm y (bf16): both versions compute in f32 and round once; a sum
-# taken in another order can move the f32 value across a rounding
-# boundary, so one bf16 step (2^-7 relative: 8 significant bits) at the
-# output's magnitude.  mu/rstd (f32): summation order only.
-LN_Y_REL = 2.0 ** -7
+# bf16 outputs (LayerNorm y, flash out), held element by element: both
+# versions compute in f32 and round once; a sum taken in another order
+# can move the f32 value across a rounding boundary, which is one bf16
+# step of that element (at most 2^-7 of it: 8 significant bits).  Values
+# near zero get a floor of four bf16 steps at the reference's rms.
+#   |kernel - plain| <= BF16_REL * |plain| + BF16_RMS_FLOOR * rms(plain)
+BF16_REL = 2.0 ** -7
+BF16_RMS_FLOOR = 4 * 2.0 ** -8
+# LayerNorm mu/rstd (f32): summation order only.
 LN_STAT_TOL = 1e-5
-# Flash out (bf16, |out| <= max|v|): the same f32 arithmetic in another
-# order, then one rounding; two bf16 steps at the output's magnitude.
-FLASH_OUT_REL = 2.0 ** -6
 # lse (f32, base 2): exp2/log2 approximations and summation order.
 FLASH_LSE_TOL = 1e-3
 # Engine logits vs teacher-forced full forward, both bf16 through 12
 # layers: matmuls of other shapes (bucket padding, batch 16 vs 1) round
 # differently at every layer; logits here have std ~0.5.
 ENGINE_LOGIT_TOL = 0.1
+# The engine serves GPT-2's init with every block matrix scaled x3.  At
+# the init scale attention is nearly uniform, and a KV length one short
+# moves the logits less than ENGINE_LOGIT_TOL; at x10 (the CPU tests'
+# float32 scale) attention is so sharp that bf16 rounding alone moves
+# them past it.  PERF.md gives the sweep.
+ENGINE_BLOCK_SCALE = 3.0
+# Faults planted in the decode step's inputs, one run each after the
+# main path: each must push the logits past ENGINE_LOGIT_TOL, or the
+# engine check could not see it.
+FAULTS = {
+    "position_plus_1": lambda t, p, pool, tab, n: (t, p + 1, pool, tab, n),
+    "kv_len_minus_1": lambda t, p, pool, tab, n: (t, p, pool, tab, n - 1),
+    "block_table_rolled": lambda t, p, pool, tab, n: (
+        t, p, pool, np.roll(tab, 1, axis=1), n),
+}
 
 
 def fail(msg: str) -> None:
@@ -117,6 +136,17 @@ def device_ms(fn, iters: int = 20, reps: int = 5) -> float:
     return a.elapsed_time(b) / (iters * reps)
 
 
+def bf16_excess(out: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """(max |out - ref|, the largest ratio of an element's error to its
+    limit, the limit's rms floor): the check passes when the ratio is at
+    most 1."""
+    o, r = out.float(), ref.float()
+    err = (o - r).abs()
+    floor = BF16_RMS_FLOOR * r.pow(2).mean().sqrt()
+    ratio = (err / (BF16_REL * r.abs() + floor)).max()
+    return err.max().item(), ratio.item(), floor.item()
+
+
 def bound_ms(nbytes: float, flops: float, card) -> tuple:
     bw, fl = card
     t_bytes, t_ops = nbytes / bw * 1e3, flops / fl * 1e3
@@ -136,14 +166,14 @@ def check_layer_norm(gen, card, dev) -> list:
         y, mu, rstd = ln.ln_fwd(x, scale, bias, 1e-5, want_stats=True)
         yp, mup, rstdp = ln.ln_fwd_plain(x, scale, bias, 1e-5)
         torch.cuda.synchronize()
-        err = (y.float() - yp.float()).abs().max().item()
-        tol = LN_Y_REL * max(1.0, yp.float().abs().max().item())
+        err, ratio, floor = bf16_excess(y, yp)
         serr = max((mu - mup).abs().max().item(),
                    ((rstd - rstdp).abs() / rstdp.abs()).max().item())
         name = f"layer_norm_fwd({N}x{E} bf16)"
-        print(f"{name} max_abs_err {err:.6g} tol {tol:.6g} "
+        print(f"{name} max_abs_err {err:.6g} worst_err/limit {ratio:.4g} "
+              f"(limit {BF16_REL:.6g}*|ref| + {floor:.6g}) "
               f"stats_err {serr:.3g} tol {LN_STAT_TOL}", flush=True)
-        if not (err <= tol and serr <= LN_STAT_TOL):
+        if not (ratio <= 1.0 and serr <= LN_STAT_TOL):
             fail(f"{name} disagrees with its plain version")
         kern = lambda: ln.ln_fwd(x, scale, bias, 1e-5)  # noqa: E731
         k_ms, c_ms = device_ms(kern), call_ms(kern)
@@ -173,14 +203,14 @@ def check_flash(gen, card, dev) -> list:
         out, lse = fa.flash_attention(q, k, v, causal, want_lse=True)
         outp, lsep = fa.flash_attention_plain(q, k, v, causal, want_lse=True)
         torch.cuda.synchronize()
-        err = (out.float() - outp.float()).abs().max().item()
-        tol = FLASH_OUT_REL * max(1.0, outp.float().abs().max().item())
+        err, ratio, floor = bf16_excess(out, outp)
         lerr = (lse - lsep).abs().max().item()
         name = f"flash_attention_fwd(1x{T}x{H}x{D} bf16" \
             f"{', causal' if causal else ''})"
-        print(f"{name} max_abs_err {err:.6g} tol {tol:.6g} "
+        print(f"{name} max_abs_err {err:.6g} worst_err/limit {ratio:.4g} "
+              f"(limit {BF16_REL:.6g}*|ref| + {floor:.6g}) "
               f"lse_err {lerr:.3g} tol {FLASH_LSE_TOL}", flush=True)
-        if not (err <= tol and lerr <= FLASH_LSE_TOL):
+        if not (ratio <= 1.0 and lerr <= FLASH_LSE_TOL):
             fail(f"{name} disagrees with its plain version")
         if not causal:
             continue
@@ -250,12 +280,13 @@ def profile_steps(runner, pool, dev) -> dict:
 
 
 # ----------------------------------------------------------------- engine
-def engine_phase(dev) -> dict:
+def engine_phase(dev, block_scale: float = ENGINE_BLOCK_SCALE) -> dict:
     from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.ops import layer_norm as ln
     from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine, \
         SamplingParams
+    from ray_tpu_torch.serve.llm.config import resolve_model
     from ray_tpu_torch.serve.llm.model_runner import ModelRunner
 
     cfg = EngineConfig(model="gpt2:gpt2-124m", block_size=16,
@@ -265,11 +296,17 @@ def engine_phase(dev) -> dict:
                        decode_batch_buckets=(1, 2, 4, 8, 16),
                        share_weights=False, seed=SEED)
     t0 = time.perf_counter()
-    eng = LLMEngine(cfg, start=False, device=dev)
+    mod, mcfg = resolve_model(cfg)
+    params = mod.init_params(torch.Generator().manual_seed(SEED), mcfg,
+                             device=dev)
+    for name in ("attn_qkv", "attn_out", "mlp_in", "mlp_out"):
+        params["blocks"][name]["kernel"].mul_(block_scale)
+    eng = LLMEngine(cfg, params, start=False, device=dev)
     setup_s = time.perf_counter() - t0
     runner = eng.runner
     rec = dict(logits={}, emit_at={}, prefill=[], decode=[])
     last = {}
+    fault = {"fn": None}
 
     def sample(logits, sp, step):
         last["logits"] = np.array(logits, np.float32)
@@ -291,42 +328,25 @@ def engine_phase(dev) -> dict:
         return res
 
     def timed_decode(tokens, *a):
+        if fault["fn"] is not None:
+            tokens, *a = fault["fn"](tokens, *a)
         t = time.perf_counter()
         res = decode(tokens, *a)
         rec["decode"].append((len(tokens), time.perf_counter() - t))
         return res
 
-    runner.sample, eng._emit = sample, record_emit
-    runner.prefill, runner.decode = timed_prefill, timed_decode
-    eng.start()
-    try:
-        V = runner.vocab
-        rng = np.random.default_rng(SEED)
-        # warm-up: one short request per prefill bucket
-        for n in (40, 100, 200, 400, 900):
-            eng.generate(rng.integers(0, V, n).tolist(),
-                         SamplingParams(max_tokens=2))
-        rec["prefill"].clear()
-        rec["decode"].clear()
-        lens = rng.integers(32, 961, size=16)
-        prompts = [rng.integers(0, V, int(n)).tolist() for n in lens]
-        sp = SamplingParams(max_tokens=32)
-        ln.launches = fa.launches = 0
-        t_sub = time.perf_counter()
+    def serve(prompts, sp):
+        """Submit every prompt at once; wait for every stream."""
+        for v in rec.values():
+            v.clear()
+        t = time.perf_counter()
         streams = [eng.submit(p, sp) for p in prompts]
         outs = [s.tokens() for s in streams]
-        wall = time.perf_counter() - t_sub
-        launches = {"layer_norm_fwd": ln.launches,
-                    "flash_attention_fwd": fa.launches}
-        stats = eng.stats()
-        for p, o in zip(prompts, outs):
-            if len(o) != 32 or not all(0 <= t < V for t in o):
-                fail(f"request of {len(p)} tokens returned {o}")
-        print(f"engine launches {launches}", flush=True)
-        for k, n in launches.items():
-            if n <= 0:
-                fail(f"{k} was not launched on the engine's path")
-        # teacher-force each request's output through the full forward
+        return streams, outs, t, time.perf_counter() - t
+
+    def logits_err(streams, prompts, outs) -> float:
+        """Teacher-force each request's output through the full forward:
+        the largest difference from the logits the engine sampled."""
         max_err = 0.0
         with torch.no_grad():
             for s, p, o in zip(streams, prompts, outs):
@@ -339,28 +359,77 @@ def engine_phase(dev) -> dict:
                     fail(f"engine logits {got.shape} vs {tuple(ref.shape)}")
                 err = float(np.abs(got - ref.cpu().numpy()).max())
                 max_err = max(max_err, err)
+        return max_err
+
+    runner.sample, eng._emit = sample, record_emit
+    runner.prefill, runner.decode = timed_prefill, timed_decode
+    eng.start()
+    try:
+        V = runner.vocab
+        rng = np.random.default_rng(SEED)
+        # warm-up: one short request per prefill bucket
+        for n in (40, 100, 200, 400, 900):
+            eng.generate(rng.integers(0, V, n).tolist(),
+                         SamplingParams(max_tokens=2))
+        lens = rng.integers(32, 961, size=16)
+        prompts = [rng.integers(0, V, int(n)).tolist() for n in lens]
+        ln.launches = fa.launches = 0
+        streams, outs, t_sub, wall = serve(prompts,
+                                           SamplingParams(max_tokens=32))
+        launches = {"layer_norm_fwd": ln.launches,
+                    "flash_attention_fwd": fa.launches}
+        stats = eng.stats()
+        timing = dict(emit_at=dict(rec["emit_at"]),
+                      prefill=list(rec["prefill"]), decode=list(rec["decode"]))
+        for p, o in zip(prompts, outs):
+            if len(o) != 32 or not all(0 <= t < V for t in o):
+                fail(f"request of {len(p)} tokens returned {o}")
+        print(f"engine launches {launches}", flush=True)
+        for k, n in launches.items():
+            if n <= 0:
+                fail(f"{k} was not launched on the engine's path")
+        max_err = logits_err(streams, prompts, outs)
         print(f"engine logits_max_abs_err {max_err:.6g} tol "
               f"{ENGINE_LOGIT_TOL}", flush=True)
         if max_err > ENGINE_LOGIT_TOL:
             fail("engine logits disagree with the full forward")
-        ttft = sorted(rec["emit_at"][s.seq_id][0] - t_sub for s in streams)
+        distinct = len({t for o in outs for t in o})
+        # Controls: the same check on runs with a planted fault must fail.
+        controls = {}
+        for fname, fn in FAULTS.items():
+            fault["fn"] = fn
+            try:
+                c_streams, c_outs, _, _ = serve(
+                    prompts[:4], SamplingParams(max_tokens=8))
+            finally:
+                fault["fn"] = None
+            controls[fname] = logits_err(c_streams, prompts[:4], c_outs)
+            print(f"engine control {fname} logits_max_abs_err "
+                  f"{controls[fname]:.6g} (must exceed {ENGINE_LOGIT_TOL})",
+                  flush=True)
+            if controls[fname] <= ENGINE_LOGIT_TOL:
+                fail(f"planted fault {fname} passed the engine check")
+        ttft = sorted(timing["emit_at"][s.seq_id][0] - t_sub
+                      for s in streams)
         gaps = sorted(np.concatenate(
-            [np.diff(rec["emit_at"][s.seq_id]) for s in streams]))
-        pf_tok = sum(n for n, _ in rec["prefill"])
-        pf_s = sum(t for _, t in rec["prefill"])
-        dc_tok = sum(n for n, _ in rec["decode"])
-        dc_s = sum(t for _, t in rec["decode"])
-        res = dict(setup_s=setup_s, wall_s=wall, stats=stats,
-                   prefill_tok_s=pf_tok / pf_s, prefill_steps=len(
-                       rec["prefill"]), decode_tok_s=dc_tok / dc_s,
-                   decode_steps=len(rec["decode"]),
-                   decode_step_ms=1e3 * dc_s / len(rec["decode"]),
+            [np.diff(timing["emit_at"][s.seq_id]) for s in streams]))
+        pf_tok = sum(n for n, _ in timing["prefill"])
+        pf_s = sum(t for _, t in timing["prefill"])
+        dc_tok = sum(n for n, _ in timing["decode"])
+        dc_s = sum(t for _, t in timing["decode"])
+        res = dict(setup_s=setup_s, block_scale=block_scale, wall_s=wall,
+                   stats=stats, prefill_tok_s=pf_tok / pf_s,
+                   prefill_steps=len(timing["prefill"]),
+                   decode_tok_s=dc_tok / dc_s,
+                   decode_steps=len(timing["decode"]),
+                   decode_step_ms=1e3 * dc_s / len(timing["decode"]),
                    ttft_p50_ms=1e3 * ttft[len(ttft) // 2],
                    ttft_max_ms=1e3 * ttft[-1],
                    tpot_p50_ms=1e3 * gaps[len(gaps) // 2],
                    tpot_max_ms=1e3 * gaps[-1],
-                   output_tok_s=16 * 32 / wall,
-                   logits_max_abs_err=max_err, launches=launches)
+                   output_tok_s=16 * 32 / wall, distinct_tokens=distinct,
+                   logits_max_abs_err=max_err,
+                   control_logits_max_abs_err=controls, launches=launches)
         for k, val in res.items():
             print(f"engine {k} {val}", flush=True)
         res["profile"] = profile_steps(runner, eng.cache.pool, dev)

@@ -173,34 +173,12 @@ void launch(const void* q, const void* k, const void* v, void* o, float* lse,
       os, causal, s_scale);
 }
 
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, float* lse,
-             int B, int T_len, int H, int D, Strides qs, Strides ks,
-             Strides vs, Strides os, int causal, float s_scale,
-             cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      launch<T, 32>(q, k, v, o, lse, B, T_len, H, qs, ks, vs, os, causal,
-                    s_scale, stream);
-      return 0;
-    case 64:
-      launch<T, 64>(q, k, v, o, lse, B, T_len, H, qs, ks, vs, os, causal,
-                    s_scale, stream);
-      return 0;
-    case 128:
-      launch<T, 128>(q, k, v, o, lse, B, T_len, H, qs, ks, vs, os, causal,
-                     s_scale, stream);
-      return 0;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 // q, k, v, o: (B, T, H, D) with the given element strides for B, T and H
 // and a contiguous D.  lse: (B*H, T) float32 or null.  dtype: 0 = float32,
-// 1 = bfloat16.  s_scale = softmax scale * log2(e).  D in {32, 64, 128}.
+// 1 = bfloat16.  s_scale = softmax scale * log2(e).  D = 64, the head
+// dim of every GPT-2 preset; other head dims are refused.
 // Returns cudaGetLastError() after the launch.
 extern "C" int rtt_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse, int B,
@@ -212,15 +190,14 @@ extern "C" int rtt_flash_attention_fwd(
   const Strides qs{q_sb, q_st, q_sh}, ks{k_sb, k_st, k_sh},
       vs{v_sb, v_st, v_sh}, os{o_sb, o_st, o_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc;
+  if (D != 64) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    rc = launch_d<float>(q, k, v, o, lse, B, T_len, H, D, qs, ks, vs, os,
-                         causal, s_scale, s);
+    launch<float, 64>(q, k, v, o, lse, B, T_len, H, qs, ks, vs, os, causal,
+                      s_scale, s);
   else if (dtype == 1)
-    rc = launch_d<__nv_bfloat16>(q, k, v, o, lse, B, T_len, H, D, qs, ks, vs,
-                                 os, causal, s_scale, s);
+    launch<__nv_bfloat16, 64>(q, k, v, o, lse, B, T_len, H, qs, ks, vs, os,
+                              causal, s_scale, s);
   else
-    rc = (int)cudaErrorInvalidValue;
-  if (rc != 0) return rc;
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -17,7 +17,7 @@
 // both reductions are warp shuffles with no shared memory and no
 // __syncthreads, and the output is written once.  Neighbouring lanes
 // touch neighbouring elements, so every load and store is coalesced.
-// Rows wider than the largest register tile take a loop that re-reads
+// Rows wider than the register tile (E > 768) take a loop that re-reads
 // the row from L1/L2 instead; no width is refused.
 
 #include <cuda_runtime.h>
@@ -27,6 +27,9 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr int kRowsPerBlock = 4;
+// The register tile: E <= 768 (GPT-2 124M's width) in registers, 24
+// values a lane.  Wider rows take the generic loop.
+constexpr int kTilePerLane = 24;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -121,12 +124,7 @@ void launch(const void* x, long long x_row_stride, const float* scale,
 #define RTT_LN_CASE(P)                                                    \
   layer_norm_fwd_kernel<T, P><<<grid, block, 0, stream>>>(                \
       xp, x_row_stride, scale, bias, yp, mu, rstd, n_rows, E, eps)
-  if (per_lane <= 4) RTT_LN_CASE(4);
-  else if (per_lane <= 8) RTT_LN_CASE(8);
-  else if (per_lane <= 16) RTT_LN_CASE(16);
-  else if (per_lane <= 24) RTT_LN_CASE(24);
-  else if (per_lane <= 32) RTT_LN_CASE(32);
-  else if (per_lane <= 64) RTT_LN_CASE(64);
+  if (per_lane <= kTilePerLane) RTT_LN_CASE(kTilePerLane);
   else RTT_LN_CASE(0);
 #undef RTT_LN_CASE
 }

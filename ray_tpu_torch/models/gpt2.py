@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.models._common import normal_init as _dense_init
+from ray_tpu_torch.ops.attention import NEG_INF
 from ray_tpu_torch.ops.layer_norm import layer_norm
 
 Params = Dict[str, Any]
@@ -138,8 +139,10 @@ def dense_causal_attention(q, k, v, cfg: GPT2Config) -> torch.Tensor:
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     mask = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
-    logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
-    probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    # The reference's jnp.where with a float32 fill promotes the scores to
+    # float32; masked_fill keeps the dtype, and NEG_INF overflows bf16.
+    logits = logits.float().masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 

@@ -29,7 +29,7 @@ from ray_tpu_torch import _build
 from ray_tpu_torch.ops.attention import NEG_INF
 
 LOG2E = math.log2(math.e)
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (64,)                 # every GPT-2 preset
 
 # Kernel launches since the last reset.
 launches = 0

@@ -99,9 +99,3 @@ def _ensure_shutdown():
     yield
     if ray_tpu.is_initialized():
         ray_tpu.shutdown()
-
-
-def pytest_configure(config):
-    config.addinivalue_line(
-        "markers", "cuda: needs a CUDA device (ray_tpu_torch kernels); "
-        "skips without one")

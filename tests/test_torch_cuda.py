@@ -1,8 +1,8 @@
 """ray_tpu_torch's CUDA kernels against their plain versions, on the card.
 
-Every test here needs a CUDA device and skips without one.  The file
-imports neither JAX nor ray_tpu, so it runs on a machine with a card and
-no JAX:
+Every test here needs a CUDA device and skips without one (the
+``cuda_device`` fixture decides).  The file imports neither JAX nor
+ray_tpu, so it runs on a machine with a card and no JAX:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
@@ -23,13 +23,14 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("N", [1024, 16])
-def test_layer_norm_kernel_matches_plain(cuda_device, N):
+# 768: GPT-2 124M's width, the register-tile path; 1600: GPT-2 XL's,
+# wider than the tile, the generic loop.
+@pytest.mark.parametrize("N,E", [(1024, 768), (16, 768), (33, 1600)])
+def test_layer_norm_kernel_matches_plain(cuda_device, N, E):
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    x = torch.randn((N, 768), generator=g, device=cuda_device)
-    s = 1 + 0.1 * torch.randn(768, generator=g, device=cuda_device)
-    b = 0.1 * torch.randn(768, generator=g, device=cuda_device)
+    x = torch.randn((N, E), generator=g, device=cuda_device)
+    s = 1 + 0.1 * torch.randn(E, generator=g, device=cuda_device)
+    b = 0.1 * torch.randn(E, generator=g, device=cuda_device)
     for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2 ** -7 * 8)):
         y, mu, rstd = t_ln.ln_fwd(x.to(dt), s, b, 1e-5, want_stats=True)
         yp, mup, rstdp = t_ln.ln_fwd_plain(x.to(dt), s, b, 1e-5)
@@ -37,7 +38,6 @@ def test_layer_norm_kernel_matches_plain(cuda_device, N):
         torch.testing.assert_close(mu, mup, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.cuda
 @pytest.mark.parametrize("T", [64, 333, 1024])
 def test_flash_kernel_matches_plain(cuda_device, T):
     g = torch.Generator(device=cuda_device).manual_seed(0)

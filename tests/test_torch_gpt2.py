@@ -91,6 +91,26 @@ def test_forward_decode_matches_jax(models):
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=ATOL)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_attention_matches_jax(dtype):
+    """The CPU's attention (what ``auto`` resolves to off the card), in
+    both activation dtypes: bf16 scores are masked in float32, as the
+    reference's ``jnp.where`` promotes them."""
+    rng = np.random.default_rng(4)
+    q, k, v = (rng.standard_normal((2, 9, 4, 16)).astype(np.float32)
+               for _ in range(3))
+    ref = jgpt2.dense_causal_attention(
+        *(jnp.asarray(a, getattr(jnp, dtype)) for a in (q, k, v)), None)
+    got = tgpt2.dense_causal_attention(
+        *(torch.from_numpy(a).to(getattr(torch, dtype)) for a in (q, k, v)),
+        None)
+    assert got.dtype == getattr(torch, dtype)
+    # bf16: one bf16 step (2^-7 relative) of |out| <= max|v| ~ 3
+    tol = 1e-5 if dtype == "float32" else 2 ** -7 * 4
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)), atol=tol)
+
+
 @pytest.mark.parametrize("E", [64, 128])
 def test_layer_norm_matches_both_reference_branches(E):
     """The port takes the fused op at every E; the reference takes its
