@@ -8,6 +8,8 @@
    its plain PyTorch version on the card (bf16, stated tolerances) and
    times the kernel, the plain version and the closest single PyTorch
    call (a yardstick only: the port never calls it).
+   The backward kernels are held the same way at the training path's
+   shapes.
 3. Engine phase: serves GPT-2 124M (full width, random weights from the
    seed, block matrices scaled x3 so the context decides the logits)
    through ``LLMEngine`` — 16 concurrent greedy requests — checks every
@@ -16,7 +18,15 @@
    hold the engine's per-step logits to it.  Then plants one fault at a
    time in the decode step's inputs and requires the same check to fail
    on each.
-4. Prints one JSON line of per-kernel numbers, then, as the last line,
+4. Train phase: trains GPT-2 124M (full width, random init from the seed,
+   batch 32 x seq 1024, remat on) through ``spmd.build_train_program``.
+   Holds every parameter's step-0 gradient to an independent reference
+   (plain autograd through dense attention and the plain LayerNorm),
+   requires two planted backward faults to fail that check, then runs six
+   steps on one batch with host syncs made errors, and checks the falling
+   loss, the step count and each kernel's launches per step.  Prints the
+   step time, tokens/s, the model-FLOP share and one profiled step.
+5. Prints one JSON line of per-kernel numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
@@ -48,8 +58,22 @@ PEAKS = {"H100 PCIe": (2.0e12, 756e12), "H100 NVL": (3.9e12, 835e12),
 #   |kernel - plain| <= BF16_REL * |plain| + BF16_RMS_FLOOR * rms(plain)
 BF16_REL = 2.0 ** -7
 BF16_RMS_FLOOR = 4 * 2.0 ** -8
+# Flash backward dq, dk, dv: two of those steps.  Each output is a sum of
+# terms that are themselves rounded to bf16 (p and ds, the reference's
+# rounding points), so a last-bit float32 difference in s or dp (sums in
+# another order) flips some of those roundings.  Kernel and plain version
+# are each within one step of the exactly computed pipeline (the CPU test
+# test_flash_bwd_plain_within_one_step_of_exact holds the plain version
+# to it), hence within two steps of each other.
+FLASH_BWD_STEPS = 2
 # LayerNorm mu/rstd (f32): summation order only.
 LN_STAT_TOL = 1e-5
+# LayerNorm dscale/dbias (f32 sums over the rows): the kernel and the
+# plain version add the same float32 terms in other orders.  A sum taken
+# through a chain of d roundings is within d * 2^-24 * sum|terms| of the
+# exact sum; the kernel's chain is rows-per-lane + 8 warps + the partial
+# rows, and 64 more cover the plain reduction's tree.
+LN_SUM_DEPTH_PAD = 64
 # lse (f32, base 2): exp2/log2 approximations and summation order.
 FLASH_LSE_TOL = 1e-3
 # Engine logits vs teacher-forced full forward, both bf16 through 12
@@ -70,6 +94,29 @@ FAULTS = {
     "kv_len_minus_1": lambda t, p, pool, tab, n: (t, p, pool, tab, n - 1),
     "block_table_rolled": lambda t, p, pool, tab, n: (
         t, p, pool, np.roll(tab, 1, axis=1), n),
+}
+
+
+# Train phase: GPT-2 124M at the flagship training shape.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 32, 1024, 6
+TRAIN_LR = 3e-4                      # default_optimizer's own
+# Step-0 gradients, kernel path vs the independent reference, both bf16
+# activations: the relative L2 error ||g - g_ref|| / ||g_ref|| of the
+# worst parameter leaf.  Set from the healthy error and the two planted
+# faults measured on the card at GPT-2's init (PERF.md, train phase):
+# healthy 0.0137, faults 0.36 and 0.38, so 0.05 sits 3.6x above the one
+# and 7x below the others.
+GRAD_REL_TOL = 0.05
+BLOCK_MATRICES = ("attn_qkv", "attn_out", "mlp_in", "mlp_out")
+# Faults planted in the backward kernels' inputs, one run each: each must
+# push some leaf past GRAD_REL_TOL.
+GRAD_FAULTS = {
+    "flash_bwd_lse_rolled": ("flash_attention", "flash_attention_bwd",
+                             lambda f: lambda q, k, v, lse, d, do, c: f(
+                                 q, k, v, lse.roll(1, 0), d, do, c)),
+    "ln_bwd_rstd_rolled": ("layer_norm", "ln_bwd",
+                           lambda f: lambda x, s, g, mu, rstd: f(
+                               x, s, g, mu, rstd.roll(1, 0))),
 }
 
 
@@ -136,14 +183,15 @@ def device_ms(fn, iters: int = 20, reps: int = 5) -> float:
     return a.elapsed_time(b) / (iters * reps)
 
 
-def bf16_excess(out: torch.Tensor, ref: torch.Tensor) -> tuple:
+def bf16_excess(out: torch.Tensor, ref: torch.Tensor,
+                steps: int = 1) -> tuple:
     """(max |out - ref|, the largest ratio of an element's error to its
-    limit, the limit's rms floor): the check passes when the ratio is at
-    most 1."""
+    limit of ``steps`` bf16 steps, the limit's rms floor): the check
+    passes when the ratio is at most 1."""
     o, r = out.float(), ref.float()
     err = (o - r).abs()
-    floor = BF16_RMS_FLOOR * r.pow(2).mean().sqrt()
-    ratio = (err / (BF16_REL * r.abs() + floor)).max()
+    floor = steps * BF16_RMS_FLOOR * r.pow(2).mean().sqrt()
+    ratio = (err / (steps * BF16_REL * r.abs() + floor)).max()
     return err.max().item(), ratio.item(), floor.item()
 
 
@@ -232,13 +280,147 @@ def check_flash(gen, card, dev) -> list:
     return rows
 
 
+def check_layer_norm_bwd(gen, card, dev) -> list:
+    from ray_tpu_torch.ops import layer_norm as ln
+    rows = []
+    E = 768
+    for N in (TRAIN_BATCH * TRAIN_SEQ, 333):     # the train shape, ragged
+        x = torch.randn((N, E), generator=gen, device=dev).to(torch.bfloat16)
+        g = torch.randn((N, E), generator=gen, device=dev).to(torch.bfloat16)
+        scale = 1 + 0.1 * torch.randn((E,), generator=gen, device=dev)
+        bias = torch.zeros((E,), device=dev)
+        _, mu, rstd = ln.ln_fwd_plain(x, scale, bias, 1e-5)
+        dx, ds, db = ln.ln_bwd(x, scale, g, mu, rstd)
+        dxp, dsp, dbp = ln.ln_bwd_plain(x, scale, g, mu, rstd)
+        torch.cuda.synchronize()
+        err, ratio, floor = bf16_excess(dx, dxp)
+        # the f32 sums: each column within depth * 2^-24 * sum|terms|
+        xhat = (x.float() - mu[:, None]) * rstd[:, None]
+        nb = ln.bwd_blocks(N, dev)
+        depth = -(-N // (nb * ln.BWD_WARPS)) + ln.BWD_WARPS + nb \
+            + LN_SUM_DEPTH_PAD
+        sum_ratio = max(
+            ((k - p).abs() / (depth * 2.0 ** -24 * t.abs().sum(0))).max()
+            .item() for k, p, t in ((ds, dsp, g.float() * xhat),
+                                    (db, dbp, g.float())))
+        name = f"layer_norm_bwd({N}x{E} bf16)"
+        print(f"{name} max_abs_err {err:.6g} worst_err/limit {ratio:.4g} "
+              f"(limit {BF16_REL:.6g}*|ref| + {floor:.6g}) dscale/dbias "
+              f"worst_err/limit {sum_ratio:.4g} (limit {depth}*2^-24*"
+              f"sum|terms|)", flush=True)
+        if not (ratio <= 1.0 and sum_ratio <= 1.0):
+            fail(f"{name} disagrees with its plain version")
+        if N < TRAIN_BATCH * TRAIN_SEQ:
+            continue
+        kern = lambda: ln.ln_bwd(x, scale, g, mu, rstd)  # noqa: E731
+        k_ms, c_ms = device_ms(kern), call_ms(kern)
+        p_ms = device_ms(lambda: ln.ln_bwd_plain(x, scale, g, mu, rstd),
+                         iters=5)
+        s16 = scale.to(torch.bfloat16)
+        mu2, rstd2 = mu[:, None], rstd[:, None]
+        l_ms = device_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+            g, x, [E], mu2, rstd2, s16, s16, [True, True, True]))
+        nbytes = 3 * N * E * 2 + 2 * N * 4 + 3 * E * 4
+        b_ms, b_by = bound_ms(nbytes, 10 * N * E, card)
+        rows.append(dict(name=name, shape=(N, E), max_abs_err=err,
+                         ms=k_ms, call_ms=c_ms, plain_ms=p_ms,
+                         library_ms=l_ms, bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
+def check_flash_bwd(gen, card, dev) -> list:
+    import torch.nn.functional as F
+    from ray_tpu_torch.ops import flash_attention as fa
+    rows = []
+    H, D = 12, 64
+    for B, T, causal in ((TRAIN_BATCH, TRAIN_SEQ, True), (1, 333, True),
+                         (1, 333, False)):
+        qkv = torch.randn((B, T, 3, H * D), generator=gen,
+                          device=dev).to(torch.bfloat16)
+        q, k, v = [qkv[:, :, i].unflatten(-1, (H, D)) for i in range(3)]
+        do = torch.randn((B, T, H, D), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        out, lse = fa.flash_attention_plain(q, k, v, causal, want_lse=True)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2) \
+            .reshape(B * H, T)
+        del out
+        got = fa.flash_attention_bwd(q, k, v, lse, delta, do, causal)
+        ref = fa.flash_attention_bwd_plain(q, k, v, lse, delta, do, causal)
+        torch.cuda.synchronize()
+        name = f"flash_attention_bwd({B}x{T}x{H}x{D} bf16" \
+            f"{', causal' if causal else ''})"
+        errs = {n: bf16_excess(a, r, FLASH_BWD_STEPS) for n, a, r in
+                zip(("dq", "dk", "dv"), got, ref)}
+        del got, ref
+        err = max(e[0] for e in errs.values())
+        ratio = max(e[1] for e in errs.values())
+        print(f"{name} max_abs_err {err:.6g} worst_err/limit {ratio:.4g} "
+              f"(limit {FLASH_BWD_STEPS}*({BF16_REL:.6g}*|ref| + floor)) "
+              + " ".join(f"{n}:{e[1]:.3g}(floor {e[2]:.3g})"
+                         for n, e in errs.items()), flush=True)
+        if ratio > 1.0:
+            fail(f"{name} disagrees with its plain version")
+        if not causal:
+            continue
+        kern = lambda: fa.flash_attention_bwd(  # noqa: E731
+            q, k, v, lse, delta, do, True)
+        k_ms, c_ms = device_ms(kern, iters=5), call_ms(kern, iters=10)
+        p_ms = device_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, lse, delta, do, True), iters=3, reps=2)
+        # yardstick: SDPA's backward on a retained graph, by CUDA events
+        # over back-to-back calls (autograd does not capture into a graph)
+        qt, kt, vt = [t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v)]
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        dot = do.transpose(1, 2).contiguous()
+        l_ms = call_ms(lambda: torch.autograd.grad(
+            o, (qt, kt, vt), dot, retain_graph=True), iters=10)
+        del o
+        pairs = T * (T + 1) // 2
+        flops = 5 * 2 * D * pairs * B * H
+        nbytes = 7 * B * T * H * D * 2 + 2 * B * H * T * 4
+        b_ms, b_by = bound_ms(nbytes, flops, card)
+        rows.append(dict(name=name, shape=(B, T, H, D), max_abs_err=err,
+                         ms=k_ms, call_ms=c_ms, plain_ms=p_ms,
+                         library_ms=l_ms, bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
 # ---------------------------------------------------------------- profile
-def profile_steps(runner, pool, dev) -> dict:
-    """One prefill at the longest bucket and one decode step at batch 16,
-    each under torch.profiler: wall time, summed device time, the device's
-    busy share and the kernels that take the most device time."""
+def profile_once(name: str, fn, tag: str = "") -> dict:
+    """``fn`` once under torch.profiler: wall time, summed device time,
+    the device's busy share and the kernels that take the most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    by_kernel = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:     # kernels only
+            continue
+        dt = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0)) / 1e3
+        if dt > 0:
+            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + dt
+    dev_ms = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    res = dict(wall_ms=wall, device_ms=dev_ms,
+               busy=dev_ms / wall if wall else float("nan"),
+               top=[(k[:90], v) for k, v in top])
+    tag = f" [{tag}]" if tag else ""
+    print(f"profile {name} wall_ms {wall:.4g} device_ms {dev_ms:.4g} "
+          f"busy {res['busy']:.3f}{tag}", flush=True)
+    for k, v in top:
+        print(f"profile {name}   {v:.4g} ms  {k[:90]}{tag}", flush=True)
+    return res
+def profile_steps(runner, pool, dev) -> dict:
+    """One prefill at the longest bucket and one decode step at batch 16,
+    each under torch.profiler."""
     rng = np.random.default_rng(SEED + 1)
     V, maxb = runner.vocab, runner.cfg.max_blocks_per_seq
     tables = rng.integers(0, pool.shape[0], (16, maxb)).astype(np.int32)
@@ -253,29 +435,7 @@ def profile_steps(runner, pool, dev) -> dict:
     out = {}
     for name, fn in steps.items():
         fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t) * 1e3
-        by_kernel = {}
-        for ev in prof.key_averages():
-            if ev.device_type != DeviceType.CUDA:     # kernels only
-                continue
-            dt = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0)) / 1e3
-            if dt > 0:
-                by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + dt
-        dev_ms = sum(by_kernel.values())
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
-        out[name] = dict(wall_ms=wall, device_ms=dev_ms,
-                         busy=dev_ms / wall if wall else float("nan"))
-        print(f"profile {name} wall_ms {wall:.4g} device_ms {dev_ms:.4g} "
-              f"busy {out[name]['busy']:.3f}", flush=True)
-        for k, v in top:
-            print(f"profile {name}   {v:.4g} ms  {k[:90]}", flush=True)
+        out[name] = profile_once(name, fn)
     return out
 
 
@@ -299,7 +459,7 @@ def engine_phase(dev, block_scale: float = ENGINE_BLOCK_SCALE) -> dict:
     mod, mcfg = resolve_model(cfg)
     params = mod.init_params(torch.Generator().manual_seed(SEED), mcfg,
                              device=dev)
-    for name in ("attn_qkv", "attn_out", "mlp_in", "mlp_out"):
+    for name in BLOCK_MATRICES:
         params["blocks"][name]["kernel"].mul_(block_scale)
     eng = LLMEngine(cfg, params, start=False, device=dev)
     setup_s = time.perf_counter() - t0
@@ -438,6 +598,178 @@ def engine_phase(dev, block_scale: float = ENGINE_BLOCK_SCALE) -> dict:
         eng.shutdown()
 
 
+# ------------------------------------------------------------------ train
+def leaf_grads(params, loss_of) -> tuple:
+    """(loss, gradient of every param leaf) by plain autograd."""
+    from ray_tpu_torch.parallel.transforms import tree_leaves
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        loss = loss_of()
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    return loss.detach(), grads
+
+
+def leaf_names(params, prefix="") -> list:
+    if isinstance(params, dict):
+        return [n for k, v in params.items()
+                for n in leaf_names(v, f"{prefix}{k}.")]
+    return [prefix[:-1]]
+
+
+def grad_check(cfg, params, batch, block_scale: float = 1.0) -> tuple:
+    """Step-0 gradients of every leaf on the kernel path against an
+    independent reference: plain autograd through dense attention and the
+    plain LayerNorm, on the same card, at the same params with the block
+    matrices scaled by ``block_scale``.  Then the same comparison with
+    each planted fault.  Returns (worst healthy relative L2 error, its
+    leaf, {fault: worst relative error}); fails only on a non-finite
+    loss."""
+    import dataclasses
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import layer_norm as ln
+    names = leaf_names(params)
+    if block_scale != 1.0:
+        params = {**params, "blocks": {
+            k: ({**v, "kernel": v["kernel"] * block_scale}
+                if k in BLOCK_MATRICES else v)
+            for k, v in params["blocks"].items()}}
+    kernel_ln = gpt2._layer_norm
+    gpt2._layer_norm = ln.layer_norm_plain
+    try:
+        ref_loss, ref = leaf_grads(params, lambda: gpt2.loss_fn(
+            params, batch, dataclasses.replace(cfg, attn_impl="dense")))
+    finally:
+        gpt2._layer_norm = kernel_ln
+    ref_norms = [r.float().norm() for r in ref]
+
+    def errors(label: str) -> tuple:
+        loss, got = leaf_grads(params, lambda: gpt2.loss_fn(
+            params, batch, cfg))
+        errs = [((g.float() - r.float()).norm() / n).item()
+                for g, r, n in zip(got, ref, ref_norms)]
+        order = sorted(range(len(errs)), key=lambda i: -errs[i])
+        print(f"train grads x{block_scale} {label}: loss {loss.item():.6f} "
+              f"(reference {ref_loss.item():.6f}) worst leaf "
+              f"{names[order[0]]} rel_err {errs[order[0]]:.4g} (limit "
+              f"{GRAD_REL_TOL}); next "
+              + ", ".join(f"{names[i]} {errs[i]:.3g}" for i in order[1:4]),
+              flush=True)
+        if not math.isfinite(loss.item()):
+            fail(f"non-finite loss in the gradient check ({label})")
+        return errs[order[0]], names[order[0]]
+
+    worst, worst_leaf = errors("healthy")
+    controls = {}
+    for fname, (modname, attr, plant) in GRAD_FAULTS.items():
+        mod = {"flash_attention": fa, "layer_norm": ln}[modname]
+        orig = getattr(mod, attr)
+        setattr(mod, attr, plant(orig))
+        try:
+            controls[fname] = errors(f"control {fname}")[0]
+        finally:
+            setattr(mod, attr, orig)
+    return worst, worst_leaf, controls
+
+
+def train_phase(dev, card, tag: str) -> dict:
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import layer_norm as ln
+    from ray_tpu_torch.parallel import spmd
+
+    cfg = gpt2.gpt2_small()                  # remat "full", bf16 activations
+    B, T, L = TRAIN_BATCH, TRAIN_SEQ, cfg.n_layer
+    t0 = time.perf_counter()
+    prog = spmd.build_train_program(
+        loss_fn=lambda p, b: gpt2.loss_fn(p, b, cfg),
+        init_params_fn=lambda g: gpt2.init_params(g, cfg, device=dev),
+        optimizer=spmd.default_optimizer(lr=TRAIN_LR, warmup=1,
+                                         total_steps=1000), device=dev)
+    state = prog.init_fn(torch.Generator(device=dev).manual_seed(SEED))
+    toks = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, T + 1)).astype(np.int32)
+    batch = spmd.shard_batch(prog, {"inputs": toks[:, :-1],
+                                    "targets": toks[:, 1:]})
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # -- step-0 gradients against an independent reference
+    worst, worst_leaf, controls = grad_check(cfg, state.params, batch)
+    if worst > GRAD_REL_TOL:
+        fail("step-0 gradients disagree with the independent reference")
+    for fname, err in controls.items():
+        if err <= GRAD_REL_TOL:
+            fail(f"planted fault {fname} passed the gradient check")
+
+    # -- the main path: six steps on one batch, no host sync inside a step
+    per_step = {"layer_norm_fwd": 2 * L + 1 + 2 * L,   # forward + replay
+                "layer_norm_bwd": 2 * L + 1,
+                "flash_attention_fwd": L + L,
+                "flash_attention_bwd": L}
+    counters = {"layer_norm_fwd": (ln, "launches"),
+                "layer_norm_bwd": (ln, "bwd_launches"),
+                "flash_attention_fwd": (fa, "launches"),
+                "flash_attention_bwd": (fa, "bwd_launches")}
+
+    def counts() -> dict:
+        return {k: getattr(m, a) for k, (m, a) in counters.items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    for m, a in counters.values():
+        setattr(m, a, 0)
+    metrics, step_s, step_counts = [], [], []
+    for _ in range(TRAIN_STEPS):
+        before = counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, m = prog.step_fn(state, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        metrics.append(m)
+        step_counts.append({k: v - before[k] for k, v in counts().items()})
+    launches = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [m["loss"].item() for m in metrics]
+    gnorms = [m["grad_norm"].item() for m in metrics]
+    print(f"train launches {launches} per step {step_counts[-1]} "
+          f"(expected per step {per_step})", flush=True)
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        fail("non-finite loss or grad norm in training")
+    if not losses[-1] < losses[0]:
+        fail(f"loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    if int(state.step.item()) != TRAIN_STEPS:
+        fail(f"state.step is {int(state.step.item())}, not {TRAIN_STEPS}")
+    for c in step_counts:
+        if c != per_step:
+            fail(f"launches per step {c}, expected {per_step}")
+    steady = step_s[1:]
+    step_ms = 1e3 * sum(steady) / len(steady)
+    tok_s = B * T / (step_ms / 1e3)
+    flop_share = gpt2.flops_per_token(cfg, T) * tok_s / card[1]
+    res = dict(setup_s=setup_s, grad_rel_err=worst, grad_worst_leaf=worst_leaf,
+               grad_rel_tol=GRAD_REL_TOL, grad_controls=controls,
+               losses=losses, grad_norms=gnorms,
+               step_ms_each=[1e3 * s for s in step_s], step_ms=step_ms,
+               tokens_per_s=tok_s, model_flop_share=flop_share,
+               peak_mem_gb=peak_gb, launches=launches,
+               launches_per_step=step_counts[-1])
+    for k, val in res.items():
+        print(f"train {k} {val} [{tag}]", flush=True)
+    res["profile"] = profile_once(
+        "train_step", lambda: prog.step_fn(state, batch), tag)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one GPU",
@@ -446,7 +778,8 @@ def main() -> int:
     from ray_tpu_torch import _build
     from ray_tpu_torch._device import disable_tf32, resolve_device
 
-    print(gpu_line(), flush=True)
+    tag = gpu_line()
+    print(tag, flush=True)
     dev = resolve_device(None)
     name = torch.cuda.get_device_name(0)
     card_key, card = peaks(name)
@@ -458,31 +791,43 @@ def main() -> int:
     print(f"build_s {time.perf_counter() - t0:.2f}", flush=True)
     disable_tf32()
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    ln_rows = check_layer_norm(gen, card, dev)
-    fa_rows = check_flash(gen, card, dev)
-    for r in ln_rows + fa_rows:
+    rows = {"layer_norm_fwd": check_layer_norm(gen, card, dev),
+            "flash_attention_fwd": check_flash(gen, card, dev),
+            "layer_norm_bwd": check_layer_norm_bwd(gen, card, dev),
+            "flash_attention_bwd": check_flash_bwd(gen, card, dev)}
+    for r in (r for rs in rows.values() for r in rs):
         for key in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms"):
             print(f"{r['name']} {'kernel_ms' if key == 'ms' else key} "
-                  f"{r[key]:.6g}", flush=True)
+                  f"{r[key]:.6g} [{tag}]", flush=True)
     eng = engine_phase(dev)
+    train = train_phase(dev, card, tag)
 
-    def kernel_row(row, kname, source, replaces):
+    def kernel_row(row, kname, source, replaces, phase):
         return {"name": kname, "route": "cuda", "source": source,
                 "replaces": replaces,
-                "launches": eng["launches"][kname],
+                "launches": phase["launches"][kname],
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"]}
 
+    # forward kernels: the engine phase's launches; backward kernels: the
+    # train phase's (each phase's counts were zeroed just before it ran)
     kernels = [
-        kernel_row(ln_rows[0], "layer_norm_fwd",
+        kernel_row(rows["layer_norm_fwd"][0], "layer_norm_fwd",
                    "ray_tpu_torch/csrc/layer_norm.cu",
-                   "ray_tpu/ops/layer_norm.py:33"),
-        kernel_row(next(r for r in fa_rows if r["shape"][1] == 1024),
+                   "ray_tpu/ops/layer_norm.py:33", eng),
+        kernel_row(next(r for r in rows["flash_attention_fwd"]
+                        if r["shape"][1] == 1024),
                    "flash_attention_fwd",
                    "ray_tpu_torch/csrc/flash_attention.cu",
-                   "ray_tpu/ops/flash_attention.py:50"),
+                   "ray_tpu/ops/flash_attention.py:50", eng),
+        kernel_row(rows["layer_norm_bwd"][0], "layer_norm_bwd",
+                   "ray_tpu_torch/csrc/layer_norm.cu",
+                   "ray_tpu/ops/layer_norm.py:47", train),
+        kernel_row(rows["flash_attention_bwd"][0], "flash_attention_bwd",
+                   "ray_tpu_torch/csrc/flash_attention_bwd.cu",
+                   "ray_tpu/ops/flash_attention.py:103", train),
     ]
     for k in kernels:
         if not all(math.isfinite(k[x]) for x in ("ms", "plain_ms",

@@ -39,10 +39,17 @@ _F = ctypes.c_float
 # ctypes never cuts them to 32 bits.  Each returns cudaGetLastError().
 SIGNATURES: Dict[str, List] = {
     "rtt_layer_norm_fwd": [_P, _I64, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "rtt_layer_norm_bwd": [_P, _I64, _P, _P, _I64, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _P],
     "rtt_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I64, _I64, _I64, _I64, _I64, _I64,
                                 _I64, _I64, _I64, _I64, _I64, _I64,
                                 _I, _F, _I, _P],
+    "rtt_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I,
+                                _I64, _I64, _I64, _I64, _I64, _I64,
+                                _I64, _I64, _I64, _I64, _I64, _I64,
+                                _I, _F, _F, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

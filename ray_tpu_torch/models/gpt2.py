@@ -1,4 +1,5 @@
-"""GPT-2 family, serving subset (port of ``ray_tpu/models/gpt2.py``).
+"""GPT-2 family (port of ``ray_tpu/models/gpt2.py``): serving and the
+single-device training half.
 
 Params are a nested dict of tensors with the reference's keys and shapes:
 per-layer leaves are stacked on a leading ``n_layer`` axis, and the qkv
@@ -9,9 +10,13 @@ logits come back in float32.
 
 On CUDA, ``attn_impl="auto"`` resolves to the flash kernel
 (``ops/flash_attention.py``) and every LayerNorm is the fused kernel
-(``ops/layer_norm.py``).  Remat, meshes, the overlap-scheduled block,
-pipelines and the loss functions belong to the training and multi-GPU
-slices.
+(``ops/layer_norm.py``); under autograd both go through their
+``torch.autograd.Function``s, whose backwards are kernels too.  Training:
+``loss_fn`` (logsumexp cross entropy, optionally chunked over the
+sequence or the vocabulary) and per-block remat with
+``torch.utils.checkpoint`` (``remat_policy="full"``).  The selective remat
+policies, meshes, the overlap-scheduled block and pipelines belong to
+later slices.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.models._common import normal_init as _dense_init
@@ -41,9 +47,21 @@ class GPT2Config:
     n_head: int = 12
     dtype: torch.dtype = torch.bfloat16          # activation dtype
     param_dtype: torch.dtype = torch.float32
+    remat: bool = True
+    # full: recompute each block in the backward (torch.utils.checkpoint
+    # around the block).  The reference's selective policies (dots, attn,
+    # attn_qkv) raise NotImplementedError here until a later slice ports
+    # them; none may quietly act as full remat.  Ignored when remat=False.
+    remat_policy: str = "full"  # full | dots | attn | attn_qkv
     # "auto" resolves per device: the flash kernel on CUDA, dense
     # attention elsewhere.
     attn_impl: str = "auto"    # auto | dense | flash
+    # >0: the LM head and cross entropy in this many sequence chunks, each
+    # checkpointed, so the (B, T, vocab) f32 logits never exist at once.
+    loss_chunks: int = 0
+    # >0: the LM head chunked over the VOCAB axis instead (running
+    # logsumexp, each chunk checkpointed); exclusive with loss_chunks.
+    loss_vocab_chunks: int = 0
 
     @property
     def head_dim(self) -> int:
@@ -120,11 +138,6 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def _layer(blocks: Params, i: int) -> Params:
-    """Layer ``i``'s params as views into the stacked leaves."""
-    return _map(lambda t: t[i], blocks)
-
-
 # ------------------------------------------------------------------ forward
 def _layer_norm(x, scale, bias, eps=1e-5):
     # The fused kernel serves every E on CUDA (the reference's E % 128
@@ -199,14 +212,43 @@ def _embed(params: Params, tokens: torch.Tensor, positions: torch.Tensor,
         + F.embedding(positions, params["wpe"]).to(cfg.dtype)
 
 
+def _layers(blocks: Params, n_layer: int):
+    """Every layer's params as views of the stacked leaves, one ``unbind``
+    per leaf (its backward is one stack, not one scatter per layer)."""
+    per_leaf = _map(lambda t: t.unbind(0), blocks)
+    return [_map(lambda u: u[i], per_leaf) for i in range(n_layer)]
+
+
+def _check_remat(cfg: GPT2Config) -> None:
+    if cfg.remat_policy in ("dots", "attn", "attn_qkv"):
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} is not ported yet (a later "
+            f"slice: ROADMAP queue A, selective remat policies); use "
+            f"remat_policy='full' or remat=False")
+    if cfg.remat_policy != "full":
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} "
+                         f"(expected 'full', 'dots', 'attn' or 'attn_qkv')")
+
+
 def forward_hidden(params: Params, tokens: torch.Tensor,
                    cfg: GPT2Config) -> torch.Tensor:
-    """tokens (B, T) int → final-LN hidden states (B, T, E) in cfg.dtype."""
+    """tokens (B, T) int → final-LN hidden states (B, T, E) in cfg.dtype.
+
+    With ``cfg.remat`` each block runs under ``torch.utils.checkpoint``
+    whenever grad is enabled: the backward replays the block's forward."""
     B, T = tokens.shape
     attn = _resolve_attn(cfg, tokens.device)
+    if cfg.remat:
+        _check_remat(cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
     x = _embed(params, tokens, torch.arange(T, device=tokens.device), cfg)
-    for i in range(cfg.n_layer):
-        x = _block(x, _layer(params["blocks"], i), cfg, attn)
+    for lp in _layers(params["blocks"], cfg.n_layer):
+        if remat:
+            # no dropout anywhere: no RNG state to save and restore
+            x = checkpoint(_block, x, lp, cfg, attn, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = _block(x, lp, cfg, attn)
     return _layer_norm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
 
 
@@ -215,6 +257,93 @@ def forward(params: Params, tokens: torch.Tensor,
     """tokens (B, T) int → logits (B, T, vocab) in float32."""
     x = forward_hidden(params, tokens, cfg)
     return (x @ params["wte"].to(cfg.dtype).t()).float()
+
+
+def _ce_sum(x: torch.Tensor, wte: torch.Tensor,
+            tgt: torch.Tensor) -> torch.Tensor:
+    """Summed next-token NLL of one sequence chunk (checkpointed body)."""
+    logits = (x @ wte.t()).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    correct = logits.gather(-1, tgt[..., None])[..., 0]
+    return (lse - correct).sum()
+
+
+def _chunked_ce(x: torch.Tensor, wte: torch.Tensor, tgt: torch.Tensor,
+                n_chunks: int) -> torch.Tensor:
+    """Mean next-token NLL with the LM head applied per sequence chunk;
+    each chunk's (B, T/c, V) logits live only inside one checkpointed
+    call and are recomputed in the backward."""
+    B, T, E = x.shape
+    if T % n_chunks:
+        raise ValueError(f"seq len {T} not divisible by loss_chunks "
+                         f"{n_chunks}")
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for xc, tc in zip(x.chunk(n_chunks, dim=1), tgt.chunk(n_chunks, dim=1)):
+        total = total + checkpoint(_ce_sum, xc, wte, tc, use_reentrant=False,
+                                   preserve_rng_state=False)
+    return total / (B * T)
+
+
+def _vocab_chunk(x, w, off: int, V: int, tgt, run_lse, correct):
+    """One vocab slice: fold its logsumexp into the running one, and pick
+    up the correct-class logit where the target falls in the slice."""
+    vc_len = w.shape[0]
+    logits = (x @ w.t()).float()
+    valid = (off + torch.arange(vc_len, device=x.device)) < V
+    logits = logits.masked_fill(~valid, -math.inf)   # padded columns out
+    run_lse = torch.logaddexp(run_lse, torch.logsumexp(logits, dim=-1))
+    local = tgt - off
+    in_chunk = (local >= 0) & (local < vc_len)
+    got = logits.gather(-1, local.clamp(0, vc_len - 1)[..., None])[..., 0]
+    return run_lse, correct + torch.where(in_chunk, got, 0.0)
+
+
+def _vocab_chunked_ce(x: torch.Tensor, wte: torch.Tensor, tgt: torch.Tensor,
+                      n_chunks: int) -> torch.Tensor:
+    """Mean next-token NLL with the LM head applied per VOCAB chunk
+    (online logsumexp over the vocab axis): neither the (B, T, V) logits
+    nor their gradient exist at once.  V is padded to a multiple of
+    ``n_chunks`` with rows whose logits are masked to -inf."""
+    B, T, E = x.shape
+    V = wte.shape[0]
+    vc_len = -(-V // n_chunks)
+    pad = vc_len * n_chunks - V
+    if pad:
+        wte = torch.cat([wte, wte.new_zeros((pad, E))])
+    run_lse = torch.full((B, T), -math.inf, dtype=torch.float32,
+                         device=x.device)
+    correct = torch.zeros((B, T), dtype=torch.float32, device=x.device)
+    for c, w in enumerate(wte.split(vc_len)):
+        run_lse, correct = checkpoint(
+            _vocab_chunk, x, w, c * vc_len, V, tgt, run_lse, correct,
+            use_reentrant=False, preserve_rng_state=False)
+    return (run_lse - correct).mean()
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
+            cfg: GPT2Config) -> torch.Tensor:
+    """Next-token cross entropy.  batch: {"tokens": (B, T+1)} or an
+    {"inputs", "targets"} pair of (B, T) integer tensors."""
+    if "inputs" in batch:
+        inp, tgt = batch["inputs"], batch["targets"]
+    else:
+        inp, tgt = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
+    tgt = tgt.long()
+    if cfg.loss_chunks and cfg.loss_vocab_chunks:
+        raise ValueError("loss_chunks and loss_vocab_chunks are exclusive")
+    x = forward_hidden(params, inp, cfg)
+    wte = params["wte"].to(cfg.dtype)
+    if cfg.loss_vocab_chunks:
+        return _vocab_chunked_ce(x, wte, tgt, cfg.loss_vocab_chunks)
+    if cfg.loss_chunks:
+        return _chunked_ce(x, wte, tgt, cfg.loss_chunks)
+    # logsumexp, not log_softmax (which would make a second (B, T, V)
+    # float32 tensor to read one element a row); the correct-class logit
+    # is gathered from the activation-dtype logits, as in the reference.
+    logits = x @ wte.t()
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    correct = logits.gather(-1, tgt[..., None])[..., 0]
+    return (lse - correct.float()).mean()
 
 
 # -------------------------------------------------- inference (KV cache)
@@ -230,9 +359,8 @@ def forward_prefill(params: Params, tokens: torch.Tensor, cfg: GPT2Config,
     attn = _resolve_attn(cfg, tokens.device)
     x = _embed(params, tokens, torch.arange(T, device=tokens.device), cfg)
     ks, vs = [], []
-    for i in range(cfg.n_layer):
-        x, (k, v) = _block(x, _layer(params["blocks"], i), cfg, attn,
-                           collect_kv=True)
+    for lp in _layers(params["blocks"], cfg.n_layer):
+        x, (k, v) = _block(x, lp, cfg, attn, collect_kv=True)
         ks.append(k)
         vs.append(v)
     x = _layer_norm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
@@ -259,8 +387,7 @@ def forward_decode(params: Params, tokens: torch.Tensor,
     dt = cfg.dtype
     x = _embed(params, tokens, positions, cfg)                   # (B, E)
     ks, vs = [], []
-    for i in range(cfg.n_layer):
-        lp = _layer(params["blocks"], i)
+    for i, lp in enumerate(_layers(params["blocks"], cfg.n_layer)):
         # per-layer pools are views of the one pool tensor, not copies
         k_pool, v_pool = kv_pool[:, i, 0], kv_pool[:, i, 1]
         h = _layer_norm(x, lp["ln_1"]["scale"], lp["ln_1"]["bias"])
@@ -281,6 +408,13 @@ def forward_decode(params: Params, tokens: torch.Tensor,
     x = _layer_norm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
     logits = x @ params["wte"].to(dt).t()
     return logits.float(), torch.stack(ks), torch.stack(vs)
+
+
+def flops_per_token(cfg: GPT2Config, seq_len: int) -> float:
+    """Approximate train-step FLOPs/token (fwd+bwd ≈ 6*N + attention term)."""
+    n = param_count_analytic(cfg)
+    attn = 12 * cfg.n_layer * cfg.n_embd * seq_len  # 2*2*3 * L * E * T
+    return 6 * n + attn
 
 
 def param_count_analytic(cfg: GPT2Config) -> int:

@@ -1,10 +1,19 @@
-"""Flash-attention forward (port of ``ray_tpu/ops/flash_attention.py``).
+"""Flash attention, forward and backward (port of
+``ray_tpu/ops/flash_attention.py``).
 
 The public layout is the reference's ``(B, T, H, D)``.  On CUDA tensors
-``flash_attention`` launches the hand-written kernel in
-``csrc/flash_attention.cu`` or raises; on CPU tensors it runs
-``flash_attention_plain``, the same online-softmax arithmetic written
-densely in PyTorch.
+the forward launches the hand-written kernel in ``csrc/flash_attention.cu``
+and the backward the one in ``csrc/flash_attention_bwd.cu``, or they
+raise; on CPU tensors they run ``flash_attention_plain`` and
+``flash_attention_bwd_plain``, the same arithmetic written densely in
+PyTorch.
+
+``flash_attention`` goes through ``FlashAttentionFn`` (the reference's
+``custom_vjp``) whenever grad is enabled and an input requires it, on
+every device: its forward also writes the base-2 lse, and its backward
+computes ``delta = sum_D do * o`` in float32 outside the kernel, casts the
+cotangent to q's dtype and calls ``flash_attention_bwd``.  Inference keeps
+the lse-free forward.
 
 Differences from the reference, each forced by the card:
 - The kernel reads q, k and v through their strides (head dim
@@ -14,8 +23,10 @@ Differences from the reference, each forced by the card:
   taken and there is no dense fallback for untileable lengths, and no
   TPU-measured ``pick_block_size``.
 - The optional lse is base 2 (``m + log2 l``), ``(B·H, T)`` float32: the
-  residual the training slice's backward will consume.
-The backward kernel is a later slice.
+  residual the backward consumes.
+- The backward is two deterministic launches (a dK/dV pass and a dQ
+  pass) instead of one pass with dq carried across the grid, which on a
+  GPU would take float atomics (``csrc/flash_attention_bwd.cu``).
 """
 
 from __future__ import annotations
@@ -31,8 +42,9 @@ from ray_tpu_torch.ops.attention import NEG_INF
 LOG2E = math.log2(math.e)
 HEAD_DIMS = (64,)                 # every GPT-2 preset
 
-# Kernel launches since the last reset.
+# Kernel launches since the last reset (one per call of each wrapper).
 launches = 0
+bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -99,13 +111,131 @@ def _flash_kernel(q, k, v, causal: bool, want_lse: bool):
     return (out, lse) if want_lse else out
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, want_lse: bool = False) -> Result:
-    """(B, T, H, D)×3 → (B, T, H, D) tiled attention (forward only);
-    with ``want_lse`` also the base-2 lse, ``(B·H, T)`` float32."""
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, want_lse: bool = False
+                        ) -> Result:
+    """The forward alone: the kernel on a CUDA tensor, the plain version
+    on a CPU tensor."""
     if q.device.type == "cuda":
         return _flash_kernel(q, k, v, causal, want_lse)
     return flash_attention_plain(q, k, v, causal, want_lse)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, lse: torch.Tensor,
+                              delta: torch.Tensor, do: torch.Tensor,
+                              causal: bool = True
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The backward kernel's arithmetic, untiled, with the reference's
+    rounding points: ``p`` and ``ds`` rounded to the storage type before
+    their products, ``k·scale`` rounded for the dq product, ``dk``
+    scaled after the sum.  lse, delta: ``(B·H, T)`` float32; do in q's
+    dtype.  Returns (dq, dk, dv) in q's dtype."""
+    B, T, H, D = q.shape
+    dt = q.dtype
+    scale = 1.0 / math.sqrt(D)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * (scale * LOG2E)
+    if causal:
+        pos = torch.arange(T, device=q.device)
+        s = s.masked_fill(~(pos[:, None] >= pos[None, :]), NEG_INF)
+    p = torch.exp2(s - lse.reshape(B, H, T, 1))
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    dsl = (p * (dp - delta.reshape(B, H, T, 1))).to(dt).float()
+    dk = torch.einsum("bhqk,bqhd->bkhd", dsl, qf) * scale
+    ks = (kf * scale).to(dt).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", dsl, ks)
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def _flash_bwd_kernel(q, k, v, lse, delta, do, causal: bool):
+    global bwd_launches
+    B, T, H, D = q.shape
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in (k, v, do)):
+        raise TypeError(f"flash backward takes float32 or bfloat16 q/k/v/do "
+                        f"of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}/"
+                        f"{do.dtype}")
+    if any(t.shape != q.shape for t in (k, v, do)):
+        raise ValueError("q, k, v, do must share a shape")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash kernel takes head dims {HEAD_DIMS}, not {D}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (B * H, T) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be ({B * H}, {T}) float32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    if any(t.device != q.device for t in (k, v, do, lse, delta)):
+        raise ValueError("flash backward inputs must be on one device")
+    if do.stride(3) != 1:
+        do = do.contiguous()
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("flash kernel needs a contiguous head dim")
+    lse, delta = lse.contiguous(), delta.contiguous()
+    dq, dk, dv = (torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    fn = _build.lib().rtt_flash_attention_bwd
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), B, T, H, D,
+                q.stride(0), q.stride(1), q.stride(2),
+                k.stride(0), k.stride(1), k.stride(2),
+                v.stride(0), v.stride(1), v.stride(2),
+                do.stride(0), do.stride(1), do.stride(2),
+                int(causal), LOG2E / math.sqrt(D), 1.0 / math.sqrt(D),
+                _DTYPES[q.dtype], stream)
+    _build.check(rc, "rtt_flash_attention_bwd")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        lse: torch.Tensor, delta: torch.Tensor,
+                        do: torch.Tensor, causal: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) from the forward's base-2 lse and ``delta``: the
+    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    if q.device.type == "cuda":
+        return _flash_bwd_kernel(q, k, v, lse, delta, do, causal)
+    return flash_attention_bwd_plain(q, k, v, lse, delta, do, causal)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with the fused backward; saves q, k, v, the output
+    and the compact base-2 lse.  Returns (out, lse); lse carries no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = flash_attention_fwd(q, k, v, causal, want_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        B, T, H, _ = q.shape
+        # delta = sum_D do * o in float32, in the residual layout
+        delta = (g.float() * out.float()).sum(dim=-1)          # (B, T, H)
+        delta = delta.transpose(1, 2).reshape(B * H, T)
+        dq, dk, dv = flash_attention_bwd(q, k, v, lse, delta,
+                                         g.to(q.dtype), ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, want_lse: bool = False) -> Result:
+    """(B, T, H, D)×3 → (B, T, H, D) tiled attention, differentiable;
+    with ``want_lse`` also the base-2 lse, ``(B·H, T)`` float32."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out, lse = FlashAttentionFn.apply(q, k, v, causal)
+        return (out, lse) if want_lse else out
+    return flash_attention_fwd(q, k, v, causal, want_lse)
 
 
 def flash_attention_for_model(q, k, v, cfg=None, **_):

@@ -48,3 +48,78 @@ def test_flash_kernel_matches_plain(cuda_device, T):
         ref, rlse = t_flash.flash_attention_plain(q, k, v, causal, True)
         torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
         torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=1e-4)
+
+
+def _two_steps(out, ref):
+    """Two bf16 steps of each element (chip_smoke.py's FLASH_BWD_STEPS:
+    the outputs sum terms rounded to bf16 at the reference's points)."""
+    r = ref.float()
+    limit = 2 * (2 ** -7 * r.abs() + 4 * 2 ** -8 * r.pow(2).mean().sqrt())
+    assert ((out.float() - r).abs() <= limit).all()
+
+
+# (33, 1600): wider than the register tile, the generic loop; 333 rows:
+# a ragged last stripe.
+@pytest.mark.parametrize("N,E", [(1024, 768), (333, 768), (33, 1600)])
+def test_layer_norm_bwd_kernel_matches_plain(cuda_device, N, E):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn((N, E), generator=g, device=cuda_device)
+    gy = torch.randn((N, E), generator=g, device=cuda_device)
+    s = 1 + 0.1 * torch.randn(E, generator=g, device=cuda_device)
+    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2 ** -7 * 8)):
+        _, mu, rstd = t_ln.ln_fwd_plain(x.to(dt), s, torch.zeros_like(s))
+        dx, ds, db = t_ln.ln_bwd(x.to(dt), s, gy.to(dt), mu, rstd)
+        dxp, dsp, dbp = t_ln.ln_bwd_plain(x.to(dt), s, gy.to(dt), mu, rstd)
+        assert dx.dtype == dt and ds.dtype == db.dtype == torch.float32
+        torch.testing.assert_close(dx.float(), dxp.float(), atol=tol, rtol=0)
+        # float32 sums of N terms of size ~1 in other orders
+        torch.testing.assert_close(ds, dsp, atol=1e-6 * N, rtol=1e-5)
+        torch.testing.assert_close(db, dbp, atol=1e-6 * N, rtol=1e-5)
+
+
+@pytest.mark.parametrize("T", [64, 333])
+def test_flash_bwd_kernel_matches_plain(cuda_device, T):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    qkv = torch.randn((2, T, 3, 768), generator=g, device=cuda_device)
+    do = torch.randn((2, T, 12, 64), generator=g, device=cuda_device)
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = [qkv.to(dt)[:, :, i].unflatten(-1, (12, 64))
+                   for i in range(3)]
+        for causal in (True, False):
+            out, lse = t_flash.flash_attention_plain(q, k, v, causal, True)
+            delta = (do.float() * out.float()).sum(-1).transpose(1, 2) \
+                .reshape(-1, T)
+            got = t_flash.flash_attention_bwd(q, k, v, lse, delta,
+                                              do.to(dt), causal)
+            ref = t_flash.flash_attention_bwd_plain(q, k, v, lse, delta,
+                                                    do.to(dt), causal)
+            for a, r in zip(got, ref):
+                assert a.dtype == dt and a.is_contiguous()
+                if dt == torch.float32:
+                    torch.testing.assert_close(a, r, atol=1e-4, rtol=1e-4)
+                else:
+                    _two_steps(a, r)
+
+
+def test_cuda_outputs_carry_grad_fn_and_backward_launches(cuda_device):
+    """The regression test for outputs that autograd could not see: on a
+    CUDA tensor that requires grad both ops return a Function's output,
+    and backward launches the backward kernels."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn((4, 64, 768), generator=g, device=cuda_device,
+                    dtype=torch.bfloat16).requires_grad_()
+    s = torch.ones(768, device=cuda_device, requires_grad=True)
+    b = torch.zeros(768, device=cuda_device, requires_grad=True)
+    before = (t_ln.bwd_launches, t_flash.bwd_launches)
+    y = t_ln.layer_norm(x, s, b)
+    assert isinstance(y.grad_fn, t_ln.LayerNormFn._backward_cls)
+    q = y.view(4, 64, 12, 64)
+    o = t_flash.flash_attention(q, q, q, True)
+    assert isinstance(o.grad_fn, t_flash.FlashAttentionFn._backward_cls)
+    o.float().sum().backward()
+    torch.cuda.synchronize()
+    assert (t_ln.bwd_launches, t_flash.bwd_launches) == \
+        (before[0] + 1, before[1] + 1)
+    for t in (x, s, b):
+        assert t.grad is not None and torch.isfinite(t.grad).all()
+        assert t.grad.abs().sum() > 0

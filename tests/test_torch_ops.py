@@ -46,7 +46,7 @@ def _few_torch_threads():
 
 
 def _t(a):
-    return torch.from_numpy(np.asarray(a))
+    return torch.from_numpy(np.array(a))
 
 
 # ------------------------------------------------------------ layer norm
@@ -148,6 +148,183 @@ def test_flash_reads_strided_views():
     torch.testing.assert_close(got, ref, atol=0, rtol=0)
 
 
+# ------------------------------------------------------------- backwards
+# Tolerances: float32 on both sides; the sums run in other orders (and the
+# reference's dscale/dbias add per-block partials), so agreement is to a
+# few float32 roundings of the largest terms: 1e-5 absolute at these O(1)
+# inputs, 1e-4 for gradients that pass through a softmax's sums.
+@pytest.mark.parametrize("E", [128, 768])
+def test_ln_bwd_plain_matches_jax(E):
+    """N = 24 rows: the reference takes three blocks of 8 rows and sums
+    their partial rows outside its kernel."""
+    rng = np.random.default_rng(7)
+    N = 24
+    x = rng.standard_normal((N, E)).astype(np.float32) * 2 + 0.5
+    g = rng.standard_normal((N, E)).astype(np.float32)
+    scale = (1 + 0.1 * rng.standard_normal(E)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(E)).astype(np.float32)
+    _, mu, rstd = j_ln._ln_fwd(jnp.asarray(x), jnp.asarray(scale),
+                               jnp.asarray(bias), 1e-5, None)
+    ref = j_ln._ln_bwd(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(g),
+                       mu, rstd, None)
+    got = t_ln.ln_bwd_plain(_t(x), _t(scale), _t(g),
+                            _t(np.asarray(mu)[0]), _t(np.asarray(rstd)[0]))
+    for a, r in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=1e-5,
+                                   rtol=1e-5)
+
+
+def _flat(a):
+    """(B, T, H, D) → the reference's kernel layout (B·H, T, D)."""
+    B, T, H, D = a.shape
+    return a.transpose(0, 2, 1, 3).reshape(B * H, T, D)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_plain_matches_jax(causal):
+    """The same lse and delta go into both backwards; block 16 gives the
+    reference four key blocks and its dq carried across them."""
+    rng = np.random.default_rng(8)
+    B, T, H, D = 2, 64, 2, 16
+    q, k, v = _qkv(rng, B, T, H, D)
+    do = rng.standard_normal((B, T, H, D)).astype(np.float32)
+    _, lse = j_flash._flash_forward_lse(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        block_size=16, interpret=None)
+    delta = rng.standard_normal((B * H, 1, T)).astype(np.float32)
+    ref = j_flash._flash_backward_flat(
+        *(jnp.asarray(_flat(a)) for a in (q, k, v)), lse,
+        jnp.asarray(delta), jnp.asarray(_flat(do)), causal=causal,
+        block_size=16, interpret=None)
+    got = t_flash.flash_attention_bwd_plain(
+        _t(q), _t(k), _t(v), _t(np.asarray(lse)[:, 0]), _t(delta[:, 0]),
+        _t(do), causal)
+    for a, r in zip(got, ref):
+        np.testing.assert_allclose(_flat(a.numpy()), np.asarray(r),
+                                   atol=1e-4, rtol=1e-4)
+
+
+def test_flash_bwd_plain_within_one_step_of_exact():
+    """bf16: the plain backward (float32 sums) is within one bf16 step of
+    the same rounded pipeline computed in float64 — the premise of the
+    card's two-step limit between kernel and plain version."""
+    import math
+    rng = np.random.default_rng(13)
+    B, T, H, D = 1, 256, 4, 64
+    bf = torch.bfloat16
+    q, k, v, do = (_t(rng.standard_normal((B, T, H, D)).astype(
+        np.float32)).to(bf) for _ in range(4))
+    out, lse = t_flash.flash_attention_plain(q, k, v, True, want_lse=True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2) \
+        .reshape(B * H, T)
+    got = t_flash.flash_attention_bwd_plain(q, k, v, lse, delta, do, True)
+    # the same pipeline in float64, rounded to bf16 at the same points
+    scale = 1 / math.sqrt(D)
+    qd, kd, vd, dod = (a.double() for a in (q, k, v, do))
+    s = torch.einsum("bqhd,bkhd->bhqk", qd, kd) * (scale * t_flash.LOG2E)
+    s = s.masked_fill(~torch.ones(T, T, dtype=torch.bool).tril(), -1e300)
+    p = torch.exp2(s - lse.double().reshape(B, H, T, 1))
+    dsl = (p * (torch.einsum("bqhd,bkhd->bhqk", dod, vd)
+                - delta.double().reshape(B, H, T, 1))).to(bf).double()
+    exact = (torch.einsum("bhqk,bkhd->bqhd", dsl,
+                          (kd * scale).to(bf).double()),
+             torch.einsum("bhqk,bqhd->bkhd", dsl, qd) * scale,
+             torch.einsum("bhqk,bqhd->bkhd", p.to(bf).double(), dod))
+    for a, r in zip(got, exact):
+        r = r.to(bf).double()
+        limit = 2 ** -7 * r.abs() + 4 * 2 ** -8 * r.pow(2).mean().sqrt()
+        assert ((a.double() - r).abs() <= limit).all()
+
+
+def _cotangent(T):
+    """The non-uniform cotangent of tests/test_ops.py: weights 0.5..1.5
+    along the sequence, so every dQ/dK/dV path is exercised."""
+    return np.linspace(0.5, 1.5, T, dtype=np.float32)[None, :, None, None]
+
+
+def _torch_grads(fn, arrays, w):
+    ts = [_t(a).requires_grad_() for a in arrays]
+    out = fn(*ts)
+    return out, torch.autograd.grad((out * _t(w)).sum(), ts)
+
+
+def test_layer_norm_grads_match_jax():
+    import jax
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((2, 16, 128)).astype(np.float32) * 2 + 0.5
+    s = (1 + 0.1 * rng.standard_normal(128)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(128)).astype(np.float32)
+    w = _cotangent(16)[..., 0]
+    ref = jax.grad(lambda *a: (j_ln.layer_norm(*a) * w).sum(),
+                   argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (x, s, b)))
+    out, got = _torch_grads(t_ln.layer_norm, (x, s, b), w)
+    assert isinstance(out.grad_fn, t_ln.LayerNormFn._backward_cls)
+    for a, r in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=1e-4,
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_grads_match_jax(causal):
+    import jax
+    rng = np.random.default_rng(10)
+    q, k, v = _qkv(rng, 2, 64, 4, 16)
+    w = _cotangent(64)
+    ref = jax.grad(
+        lambda *a: (j_flash.flash_attention(*a, causal, 16) * w).sum(),
+        argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    out, got = _torch_grads(
+        lambda *a: t_flash.flash_attention(*a, causal), (q, k, v), w)
+    assert isinstance(out.grad_fn, t_flash.FlashAttentionFn._backward_cls)
+    for a, r in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=1e-4,
+                                   rtol=1e-4)
+
+
+def test_flash_grads_ragged_length_match_dense():
+    """T = 37: no tile divides it; held to jax.grad of the reference's
+    dense attention."""
+    import jax
+    rng = np.random.default_rng(11)
+    q, k, v = _qkv(rng, 1, 37, 2, 8)
+    w = _cotangent(37)
+    ref = jax.grad(
+        lambda *a: (j_attn.dense_attention(*a, causal=True) * w).sum(),
+        argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    _, got = _torch_grads(t_flash.flash_attention_for_model, (q, k, v), w)
+    for a, r in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=1e-4,
+                                   rtol=1e-4)
+
+
+def test_backward_cpu_tensors_take_plain_versions():
+    """On a CPU tensor the Functions run the plain backwards: no kernel
+    launch is counted, forward or backward."""
+    rng = np.random.default_rng(12)
+    x = _t(rng.standard_normal((3, 32)).astype(np.float32)).requires_grad_()
+    q = _t(rng.standard_normal((1, 8, 2, 4)).astype(np.float32)) \
+        .requires_grad_()
+    before = (t_ln.launches, t_ln.bwd_launches, t_flash.launches,
+              t_flash.bwd_launches)
+    t_ln.layer_norm(x, torch.ones(32), torch.zeros(32)).sum().backward()
+    t_flash.flash_attention(q, q, q).sum().backward()
+    assert x.grad is not None and q.grad is not None
+    assert (t_ln.launches, t_ln.bwd_launches, t_flash.launches,
+            t_flash.bwd_launches) == before
+
+
+def test_inference_keeps_the_stats_free_forward():
+    """Without grad the ops return plain tensors (no Function node), so
+    serving writes no mu/rstd or lse."""
+    x = torch.randn(2, 8, 2, 16, requires_grad=True)
+    with torch.no_grad():
+        assert t_flash.flash_attention(x, x, x).grad_fn is None
+        assert t_ln.layer_norm(x, torch.ones(16),
+                               torch.zeros(16)).grad_fn is None
+    out, lse = t_flash.flash_attention(x, x, x, want_lse=True)
+    assert out.grad_fn is not None and not lse.requires_grad
+
+
 # -------------------------------------------------------- paged attention
 def _paged_inputs():
     rng = np.random.default_rng(0)
@@ -220,9 +397,11 @@ def test_kernel_modules_import_without_nvcc():
         "from ray_tpu_torch import _build\n"
         "from ray_tpu_torch.ops import flash_attention, layer_norm\n"
         "from ray_tpu_torch.serve import llm\n"
-        "x = torch.randn(2, 8, 4, 16)\n"
-        "flash_attention.flash_attention(x, x, x)\n"
-        "layer_norm.layer_norm(x, torch.ones(16), torch.zeros(16))\n"
+        "x = torch.randn(2, 8, 4, 16, requires_grad=True)\n"
+        "flash_attention.flash_attention(x, x, x).sum().backward()\n"
+        "layer_norm.layer_norm(x, torch.ones(16), torch.zeros(16))"
+        ".sum().backward()\n"
+        "from ray_tpu_torch.parallel import spmd\n"
         "assert _build._lib is None\n"
         "try:\n"
         "    _build.find_nvcc()\n"
