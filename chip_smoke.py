@@ -3,17 +3,21 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, then builds the CUDA kernels
-   from ``ray_tpu_torch/csrc`` with nvcc for sm_90a.
+   from ``ray_tpu_torch/csrc`` with nvcc for sm_90a, and prints, for each
+   bf16 tensor-core kernel, ptxas's registers, shared memory and spill
+   bytes and the HMMA instructions in its SASS (``cuobjdump -sass``);
+   fails if one has none.
 2. Kernel phase: at the serving path's shapes, holds each kernel against
    its plain PyTorch version on the card (bf16, stated tolerances) and
    times the kernel, the plain version and the closest single PyTorch
    call (a yardstick only: the port never calls it).
-   The backward kernels are held the same way at the training path's
-   shapes.
+   The backward kernels, and the flash forward once more, are held the
+   same way at the training path's shapes.
 3. Engine phase: serves GPT-2 124M (full width, random weights from the
    seed, block matrices scaled x3 so the context decides the logits)
    through ``LLMEngine`` — 16 concurrent greedy requests — checks every
-   request, checks that both kernels were launched by that run, and
+   request, checks that both kernels were launched by that run (and the
+   float32 flash kernel never), and
    teacher-forces the engine's output through the full ``forward`` to
    hold the engine's per-step logits to it.  Then plants one fault at a
    time in the decode step's inputs and requires the same check to fail
@@ -24,7 +28,8 @@
    (plain autograd through dense attention and the plain LayerNorm),
    requires two planted backward faults to fail that check, then runs six
    steps on one batch with host syncs made errors, and checks the falling
-   loss, the step count and each kernel's launches per step.  Prints the
+   loss, the step count and each kernel's launches per step (none of the
+   float32 flash kernels).  Prints the
    step time, tokens/s, the model-FLOP share and one profiled step.
 5. Prints one JSON line of per-kernel numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
@@ -202,6 +207,35 @@ def bound_ms(nbytes: float, flops: float, card) -> tuple:
 
 
 # ---------------------------------------------------------------- kernels
+# The bf16 tensor-core kernels, by a piece of their mangled names.
+TC_KERNELS = ("flash_fwd_tc_kernelILi64E", "flash_fwd_tc_kernelILi128E",
+              "flash_bwd_dkdv_tc_kernel", "flash_bwd_dq_tc_kernel")
+
+
+def tc_report(tag: str) -> dict:
+    """For each bf16 tensor-core kernel of the build: ptxas's registers a
+    thread, shared memory a block and spill bytes, and the HMMA
+    instructions in its SASS.  Fails if one has no HMMA."""
+    from ray_tpu_torch import _build
+    res = _build.kernel_resources()
+    hmma = _build.sass_counts("HMMA")
+    out = {}
+    for key in TC_KERNELS:
+        names = [n for n in hmma if key in n]
+        rnames = [n for n in res if key in n]
+        if len(names) != 1 or len(rnames) != 1:
+            fail(f"kernel {key}: {len(names)} SASS functions and "
+                 f"{len(rnames)} ptxas entries")
+        out[key] = dict(res[rnames[0]], hmma=hmma[names[0]])
+        print(f"sass {key} " + " ".join(f"{k} {v}" for k, v in
+                                        out[key].items()) + f" [{tag}]",
+              flush=True)
+        if out[key]["hmma"] == 0:
+            fail(f"kernel {key} has no HMMA: it does not use the tensor "
+                 f"cores")
+    return out
+
+
 def check_layer_norm(gen, card, dev) -> list:
     import torch.nn.functional as F
     from ray_tpu_torch.ops import layer_norm as ln
@@ -243,9 +277,11 @@ def check_flash(gen, card, dev) -> list:
     from ray_tpu_torch.ops import flash_attention as fa
     rows = []
     H, D = 12, 64
-    for T, causal in ((64, True), (333, True), (1024, True), (333, False)):
+    # the serving shapes at B = 1, then the train step's (32, 1024)
+    for B, T, causal in ((1, 64, True), (1, 333, True), (1, 1024, True),
+                         (1, 333, False), (TRAIN_BATCH, TRAIN_SEQ, True)):
         # q/k/v as the model makes them: strided views of one qkv tensor
-        qkv = torch.randn((1, T, 3, H * D), generator=gen,
+        qkv = torch.randn((B, T, 3, H * D), generator=gen,
                           device=dev).to(torch.bfloat16)
         q, k, v = [qkv[:, :, i].unflatten(-1, (H, D)) for i in range(3)]
         out, lse = fa.flash_attention(q, k, v, causal, want_lse=True)
@@ -253,9 +289,12 @@ def check_flash(gen, card, dev) -> list:
         torch.cuda.synchronize()
         err, ratio, floor = bf16_excess(out, outp)
         lerr = (lse - lsep).abs().max().item()
-        name = f"flash_attention_fwd(1x{T}x{H}x{D} bf16" \
+        del out, outp, lse, lsep
+        name = f"flash_attention_fwd({B}x{T}x{H}x{D} bf16" \
             f"{', causal' if causal else ''})"
-        print(f"{name} max_abs_err {err:.6g} worst_err/limit {ratio:.4g} "
+        bm = fa.forward_block_m(B, T, H, dev)
+        print(f"{name} block_m {bm} max_abs_err {err:.6g} "
+              f"worst_err/limit {ratio:.4g} "
               f"(limit {BF16_REL:.6g}*|ref| + {floor:.6g}) "
               f"lse_err {lerr:.3g} tol {FLASH_LSE_TOL}", flush=True)
         if not (ratio <= 1.0 and lerr <= FLASH_LSE_TOL):
@@ -264,16 +303,24 @@ def check_flash(gen, card, dev) -> list:
             continue
         kern = lambda: fa.flash_attention(q, k, v, True)  # noqa: E731
         k_ms, c_ms = device_ms(kern), call_ms(kern)
+        # the tile height the wrapper did not pick, for the record
+        other = [x for x in fa.BLOCK_MS if x != bm][0]
+        o_ms = device_ms(lambda: fa._flash_kernel(q, k, v, True, False,
+                                                  other))
+        print(f"{name} kernel_ms {k_ms:.6g} at block_m {bm}, {o_ms:.6g} "
+              f"at block_m {other}", flush=True)
         p_ms = device_ms(lambda: fa.flash_attention_plain(q, k, v, True),
-                         iters=5)
+                         **(dict(iters=5) if B == 1
+                            else dict(iters=3, reps=2)))
         qt, kt, vt = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
         l_ms = device_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True))
+        del qt, kt, vt
         pairs = T * (T + 1) // 2            # causal: what the data needs
-        flops = 4 * D * pairs * H
-        nbytes = 4 * T * H * D * 2
+        flops = 4 * D * pairs * B * H
+        nbytes = 4 * B * T * H * D * 2
         b_ms, b_by = bound_ms(nbytes, flops, card)
-        rows.append(dict(name=name, shape=(1, T, H, D), max_abs_err=err,
+        rows.append(dict(name=name, shape=(B, T, H, D), max_abs_err=err,
                          ms=k_ms, call_ms=c_ms, plain_ms=p_ms,
                          library_ms=l_ms,
                          bound_ms=b_ms, bound_by=b_by))
@@ -408,13 +455,20 @@ def profile_once(name: str, fn, tag: str = "") -> dict:
         if dt > 0:
             by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + dt
     dev_ms = sum(by_kernel.values())
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    # the port's hand-written kernels, whatever their rank
+    ours = {k: v for k, v in by_kernel.items()
+            if "flash_" in k or "layer_norm_" in k}
     res = dict(wall_ms=wall, device_ms=dev_ms,
                busy=dev_ms / wall if wall else float("nan"),
-               top=[(k[:90], v) for k, v in top])
+               top=[(k[:90], v) for k, v in top],
+               hand_written_ms=sum(ours.values()))
     tag = f" [{tag}]" if tag else ""
     print(f"profile {name} wall_ms {wall:.4g} device_ms {dev_ms:.4g} "
-          f"busy {res['busy']:.3f}{tag}", flush=True)
+          f"busy {res['busy']:.3f} hand-written kernels "
+          f"{res['hand_written_ms']:.4g} ms{tag}", flush=True)
+    for k, v in sorted(ours.items(), key=lambda kv: -kv[1]):
+        print(f"profile {name}   ours {v:.4g} ms  {k[:90]}{tag}", flush=True)
     for k, v in top:
         print(f"profile {name}   {v:.4g} ms  {k[:90]}{tag}", flush=True)
     return res
@@ -533,21 +587,25 @@ def engine_phase(dev, block_scale: float = ENGINE_BLOCK_SCALE) -> dict:
                          SamplingParams(max_tokens=2))
         lens = rng.integers(32, 961, size=16)
         prompts = [rng.integers(0, V, int(n)).tolist() for n in lens]
-        ln.launches = fa.launches = 0
+        ln.launches = fa.launches = fa.f32_launches = 0
         streams, outs, t_sub, wall = serve(prompts,
                                            SamplingParams(max_tokens=32))
         launches = {"layer_norm_fwd": ln.launches,
                     "flash_attention_fwd": fa.launches}
+        f32_launches = fa.f32_launches
         stats = eng.stats()
         timing = dict(emit_at=dict(rec["emit_at"]),
                       prefill=list(rec["prefill"]), decode=list(rec["decode"]))
         for p, o in zip(prompts, outs):
             if len(o) != 32 or not all(0 <= t < V for t in o):
                 fail(f"request of {len(p)} tokens returned {o}")
-        print(f"engine launches {launches}", flush=True)
+        print(f"engine launches {launches} float32 flash {f32_launches}",
+              flush=True)
         for k, n in launches.items():
             if n <= 0:
                 fail(f"{k} was not launched on the engine's path")
+        if f32_launches:
+            fail("the float32 flash kernel ran on the engine's bf16 path")
         max_err = logits_err(streams, prompts, outs)
         print(f"engine logits_max_abs_err {max_err:.6g} tol "
               f"{ENGINE_LOGIT_TOL}", flush=True)
@@ -711,11 +769,15 @@ def train_phase(dev, card, tag: str) -> dict:
     per_step = {"layer_norm_fwd": 2 * L + 1 + 2 * L,   # forward + replay
                 "layer_norm_bwd": 2 * L + 1,
                 "flash_attention_fwd": L + L,
-                "flash_attention_bwd": L}
+                "flash_attention_bwd": L,
+                "flash_attention_fwd_f32": 0,          # bf16 activations
+                "flash_attention_bwd_f32": 0}
     counters = {"layer_norm_fwd": (ln, "launches"),
                 "layer_norm_bwd": (ln, "bwd_launches"),
                 "flash_attention_fwd": (fa, "launches"),
-                "flash_attention_bwd": (fa, "bwd_launches")}
+                "flash_attention_bwd": (fa, "bwd_launches"),
+                "flash_attention_fwd_f32": (fa, "f32_launches"),
+                "flash_attention_bwd_f32": (fa, "f32_bwd_launches")}
 
     def counts() -> dict:
         return {k: getattr(m, a) for k, (m, a) in counters.items()}
@@ -789,6 +851,7 @@ def main() -> int:
     _build.build()
     _build.lib()
     print(f"build_s {time.perf_counter() - t0:.2f}", flush=True)
+    tc_report(tag)
     disable_tf32()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = {"layer_norm_fwd": check_layer_norm(gen, card, dev),
@@ -812,13 +875,14 @@ def main() -> int:
                 "library_ms": row["library_ms"]}
 
     # forward kernels: the engine phase's launches; backward kernels: the
-    # train phase's (each phase's counts were zeroed just before it ran)
+    # train phase's (each phase's counts were zeroed just before it ran).
+    # Both flash rows are timed at the train step's (32, 1024, 12, 64).
     kernels = [
         kernel_row(rows["layer_norm_fwd"][0], "layer_norm_fwd",
                    "ray_tpu_torch/csrc/layer_norm.cu",
                    "ray_tpu/ops/layer_norm.py:33", eng),
         kernel_row(next(r for r in rows["flash_attention_fwd"]
-                        if r["shape"][1] == 1024),
+                        if r["shape"][0] == TRAIN_BATCH),
                    "flash_attention_fwd",
                    "ray_tpu_torch/csrc/flash_attention.cu",
                    "ray_tpu/ops/flash_attention.py:50", eng),

@@ -4,8 +4,11 @@ At first use every source is compiled by ``nvcc`` for ``sm_90a`` — one
 ``nvcc -c`` per source, all started together — and the objects are linked
 into ``_build/libray_tpu_torch_kernels.so``, which is bound with
 ``ctypes``.  The kernels expose a plain C interface (no PyTorch headers),
-so a build takes seconds.  A stamp of the sources and flags decides when
-to rebuild, and a file lock keeps concurrent builders from racing.
+so a build takes seconds.  A stamp of the sources (``*.cu`` and the
+``*.cuh`` headers they share) and flags decides when to rebuild, and a
+file lock keeps concurrent builders from racing.  Each source's compiler
+output, with ptxas's registers, shared memory and spills per kernel, is
+kept in ``_build/<source>.log``.
 
 Nothing here runs at import: the CPU tests import every module of the
 package on a machine with no ``nvcc``.
@@ -17,6 +20,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -28,7 +32,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 LIB_NAME = "libray_tpu_torch_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -44,7 +48,7 @@ SIGNATURES: Dict[str, List] = {
     "rtt_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I64, _I64, _I64, _I64, _I64, _I64,
                                 _I64, _I64, _I64, _I64, _I64, _I64,
-                                _I, _F, _I, _P],
+                                _I, _F, _I, _I, _P],
     "rtt_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I,
                                 _I64, _I64, _I64, _I64, _I64, _I64,
@@ -80,7 +84,7 @@ def sources() -> List[Path]:
 
 def _stamp(srcs: List[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()
@@ -102,14 +106,14 @@ def build(verbose: bool = False) -> Path:
                 return lib_path
             nvcc = find_nvcc()
             objs = [BUILD_DIR / (s.stem + ".o") for s in srcs]
-            extra = ["-Xptxas", "-v"] if verbose else []
             procs = [subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, *extra, "-c", str(s), "-o", str(o)],
+                [nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
                 for s, o in zip(srcs, objs)]
             failed = []
             for s, p in zip(srcs, procs):
                 out, _ = p.communicate()
+                (BUILD_DIR / (s.stem + ".log")).write_text(out)
                 if verbose and out:
                     print(out, flush=True)
                 if p.returncode != 0:
@@ -148,3 +152,52 @@ def check(rc: int, name: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if rc != 0:
         raise KernelError(f"{name} failed to launch: cudaError {rc}")
+
+
+def kernel_resources() -> Dict[str, dict]:
+    """Per kernel (mangled name) of the last build, from ptxas's report
+    in ``_build/*.log``: registers a thread, static shared memory a
+    block, and the bytes of spill stores and loads."""
+    out: Dict[str, dict] = {}
+    for log in sorted(BUILD_DIR.glob("*.log")):
+        cur: Optional[dict] = None
+        for line in log.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                cur = out.setdefault(m.group(1), {})
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                cur["spill_stores"] = int(m.group(1))
+                cur["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                cur["smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def sass_counts(opcode: str) -> Dict[str, int]:
+    """Per kernel (mangled name) of the built library, the SASS
+    instructions with this opcode (``cuobjdump -sass``), e.g. ``HMMA``
+    for tensor-core products."""
+    tool = Path(find_nvcc()).parent / "cuobjdump"
+    res = subprocess.run([str(tool), "-sass", str(BUILD_DIR / LIB_NAME)],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        raise KernelError(f"cuobjdump failed: {res.stderr}")
+    counts: Dict[str, int] = {}
+    cur: Optional[str] = None
+    op = re.compile(r"\b" + re.escape(opcode) + r"[.\s]")
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            counts[cur] = 0
+        elif cur is not None and op.search(line):
+            counts[cur] += 1
+    return counts

@@ -2,11 +2,16 @@
 ``ray_tpu/ops/flash_attention.py``).
 
 The public layout is the reference's ``(B, T, H, D)``.  On CUDA tensors
-the forward launches the hand-written kernel in ``csrc/flash_attention.cu``
-and the backward the one in ``csrc/flash_attention_bwd.cu``, or they
-raise; on CPU tensors they run ``flash_attention_plain`` and
+the forward launches the hand-written kernels in ``csrc/flash_attention.cu``
+and the backward those in ``csrc/flash_attention_bwd.cu``, or they raise;
+on CPU tensors they run ``flash_attention_plain`` and
 ``flash_attention_bwd_plain``, the same arithmetic written densely in
-PyTorch.
+PyTorch.  On the card the dtype picks the kernel, explicitly: bf16 (every
+main path) launches the tensor-core kernels and counts ``launches`` /
+``bwd_launches``; float32 launches the scalar kernels and counts
+``f32_launches`` / ``f32_bwd_launches``.  A bf16 operand the tensor-core
+kernels cannot read (a base pointer not 16-byte aligned, a stride not a
+multiple of 8 elements) raises.
 
 ``flash_attention`` goes through ``FlashAttentionFn`` (the reference's
 ``custom_vjp``) whenever grad is enabled and an input requires it, on
@@ -42,9 +47,12 @@ from ray_tpu_torch.ops.attention import NEG_INF
 LOG2E = math.log2(math.e)
 HEAD_DIMS = (64,)                 # every GPT-2 preset
 
-# Kernel launches since the last reset (one per call of each wrapper).
+# Kernel launches since the last reset (one per call of each wrapper):
+# the bf16 tensor-core kernels, and the float32 scalar kernels apart.
 launches = 0
 bwd_launches = 0
+f32_launches = 0
+f32_bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -56,7 +64,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           ) -> Result:
     """The kernel's arithmetic, untiled: scores scaled by scale·log2(e),
     masked to ``NEG_INF``, ``p = exp2(s - m)``, ``l`` clamped to 1e-30;
-    everything in float32, output in ``q.dtype``.  Returns ``out`` or
+    everything in float32 except that ``p`` is rounded to ``q.dtype``
+    before the p·v product (the reference's ``p.astype(v.dtype)``; a
+    no-op in float32), output in ``q.dtype``.  The reference and the
+    kernel round p against the running max of each key tile, this
+    untiled version against the row's final max.  Returns ``out`` or
     ``(out, lse)`` with ``lse`` ``(B·H, T)`` base 2."""
     B, T, H, D = q.shape
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
@@ -68,7 +80,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = s.amax(dim=-1)                                  # (B, H, T)
     p = torch.exp2(s - m[..., None])
     l = p.sum(dim=-1).clamp_min(1e-30)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float()) \
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).float(),
+                       v.float()) \
         / l.transpose(1, 2)[..., None]
     out = out.to(q.dtype)
     if not want_lse:
@@ -76,8 +89,38 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, (m + torch.log2(l)).reshape(B * H, T)
 
 
-def _flash_kernel(q, k, v, causal: bool, want_lse: bool):
-    global launches
+# Query rows a block of the bf16 forward owns: 128 while that still gives
+# every SM at least two blocks, else 64 (the prefill at B = 1, T = 1024
+# has 96 blocks of 128 rows for the H100's 132 SMs).
+BLOCK_MS = (64, 128)
+_sm_counts: dict = {}
+
+
+def forward_block_m(B: int, T: int, H: int, device: torch.device) -> int:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = \
+            torch.cuda.get_device_properties(idx).multi_processor_count
+    return 128 if -(-T // 128) * B * H >= 2 * _sm_counts[idx] else 64
+
+
+def _check_tc_operands(**tensors) -> None:
+    """The bf16 kernels copy rows with 16-byte cp.async: each base pointer
+    16-byte aligned, each (B, T, H) stride a multiple of 8 elements."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16 or any(t.stride(i) % 8 for i in range(3)):
+            raise ValueError(
+                f"flash kernel needs bf16 {name} 16-byte aligned with "
+                f"strides that are multiples of 8, got pointer "
+                f"{t.data_ptr():#x} strides {tuple(t.stride())}")
+
+
+def _flash_kernel(q, k, v, causal: bool, want_lse: bool,
+                  block_m: Optional[int] = None):
+    """The kernel for q's dtype; ``block_m`` (bf16 only) overrides
+    ``forward_block_m``."""
+    global launches, f32_launches
     B, T, H, D = q.shape
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash kernel takes float32 or bfloat16 q/k/v of "
@@ -91,6 +134,14 @@ def _flash_kernel(q, k, v, causal: bool, want_lse: bool):
         raise ValueError("flash kernel needs a contiguous head dim")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k, v must be on one device")
+    tensor_cores = q.dtype == torch.bfloat16
+    if tensor_cores:
+        _check_tc_operands(q=q, k=k, v=v)
+        if block_m is None:
+            block_m = forward_block_m(B, T, H, q.device)
+        if block_m not in BLOCK_MS:
+            raise ValueError(f"block_m must be one of {BLOCK_MS}, not "
+                             f"{block_m}")
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse: Optional[torch.Tensor] = None
     if want_lse:
@@ -105,9 +156,13 @@ def _flash_kernel(q, k, v, causal: bool, want_lse: bool):
                 k.stride(0), k.stride(1), k.stride(2),
                 v.stride(0), v.stride(1), v.stride(2),
                 out.stride(0), out.stride(1), out.stride(2),
-                int(causal), LOG2E / math.sqrt(D), _DTYPES[q.dtype], stream)
+                int(causal), LOG2E / math.sqrt(D), _DTYPES[q.dtype],
+                block_m or 0, stream)
     _build.check(rc, "rtt_flash_attention_fwd")
-    launches += 1
+    if tensor_cores:
+        launches += 1
+    else:
+        f32_launches += 1
     return (out, lse) if want_lse else out
 
 
@@ -151,7 +206,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
 
 
 def _flash_bwd_kernel(q, k, v, lse, delta, do, causal: bool):
-    global bwd_launches
+    global bwd_launches, f32_bwd_launches
     B, T, H, D = q.shape
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in (k, v, do)):
         raise TypeError(f"flash backward takes float32 or bfloat16 q/k/v/do "
@@ -171,6 +226,9 @@ def _flash_bwd_kernel(q, k, v, lse, delta, do, causal: bool):
         do = do.contiguous()
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash kernel needs a contiguous head dim")
+    tensor_cores = q.dtype == torch.bfloat16
+    if tensor_cores:
+        _check_tc_operands(q=q, k=k, v=v, do=do)
     lse, delta = lse.contiguous(), delta.contiguous()
     dq, dk, dv = (torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
                   for _ in range(3))
@@ -187,7 +245,10 @@ def _flash_bwd_kernel(q, k, v, lse, delta, do, causal: bool):
                 int(causal), LOG2E / math.sqrt(D), 1.0 / math.sqrt(D),
                 _DTYPES[q.dtype], stream)
     _build.check(rc, "rtt_flash_attention_bwd")
-    bwd_launches += 1
+    if tensor_cores:
+        bwd_launches += 1
+    else:
+        f32_bwd_launches += 1
     return dq, dk, dv
 
 

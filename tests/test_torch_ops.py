@@ -148,6 +148,35 @@ def test_flash_reads_strided_views():
     torch.testing.assert_close(got, ref, atol=0, rtol=0)
 
 
+# (causal, reference block, bitwise-equal share at least): measured with
+# seed 14.  Before the plain version rounded p to bf16 the shares were
+# 0.657 / 0.630 (block 32) and 0.649 / 0.620 (block 128); after, 0.855 /
+# 0.733 and 0.9997 / 0.9998.  With one block of 128 the reference rounds
+# p against the final max as the plain version does; with four blocks of
+# 32 it rounds against the running max of each block.
+@pytest.mark.parametrize("causal,block,share", [
+    (True, 32, 0.85), (False, 32, 0.73), (True, 128, 0.999),
+    (False, 128, 0.999)])
+def test_flash_plain_rounds_p_where_jax_does(causal, block, share):
+    """bf16: the plain forward rounds p to bf16 before the p·v product,
+    the reference's rounding point (``p.astype(v.dtype)``); held to the
+    reference in interpret mode within one bf16 step of each element
+    (2^-7·|ref| + 4·2^-8·rms(ref): one rounding of the output, plus the
+    summation order of float32 sums)."""
+    rng = np.random.default_rng(14)
+    q, k, v = _qkv(rng, 2, 128, 2, 64)
+    ref = np.asarray(j_flash.flash_attention(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), causal,
+        block).astype(jnp.float32))
+    got = t_flash.flash_attention_plain(
+        *(_t(a).to(torch.bfloat16) for a in (q, k, v)), causal)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    limit = 2 ** -7 * np.abs(ref) + 4 * 2 ** -8 * np.sqrt((ref ** 2).mean())
+    assert (np.abs(got - ref) <= limit).all()
+    assert (got == ref).mean() >= share
+
+
 # ------------------------------------------------------------- backwards
 # Tolerances: float32 on both sides; the sums run in other orders (and the
 # reference's dscale/dbias add per-block partials), so agreement is to a
