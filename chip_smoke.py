@@ -6,18 +6,22 @@
    from ``ray_tpu_torch/csrc`` with nvcc for sm_90a, and prints, for each
    bf16 tensor-core kernel, ptxas's registers, shared memory and spill
    bytes and the HMMA instructions in its SASS (``cuobjdump -sass``);
-   fails if one has none.
+   fails if one has none.  The same for each LayerNorm kernel, with its
+   128-bit global loads and stores in place of HMMA; fails if a
+   vector-I/O instantiation has no 128-bit load, spills, or takes more
+   registers than the blocks an SM its grid assumes leave it.
 2. Kernel phase: at the serving path's shapes, holds each kernel against
    its plain PyTorch version on the card (bf16, stated tolerances) and
    times the kernel, the plain version and the closest single PyTorch
    call (a yardstick only: the port never calls it).
-   The backward kernels, and the flash forward once more, are held the
-   same way at the training path's shapes.
+   The backward kernels, and both forward kernels once more, are held the
+   same way at the training path's shapes; the LayerNorm backward's
+   dscale/dbias must also be bitwise equal between two calls.
 3. Engine phase: serves GPT-2 124M (full width, random weights from the
    seed, block matrices scaled x3 so the context decides the logits)
    through ``LLMEngine`` — 16 concurrent greedy requests — checks every
    request, checks that both kernels were launched by that run (and the
-   float32 flash kernel never), and
+   float32 flash kernel and the scalar-I/O LayerNorm never), and
    teacher-forces the engine's output through the full ``forward`` to
    hold the engine's per-step logits to it.  Then plants one fault at a
    time in the decode step's inputs and requires the same check to fail
@@ -29,7 +33,7 @@
    requires two planted backward faults to fail that check, then runs six
    steps on one batch with host syncs made errors, and checks the falling
    loss, the step count and each kernel's launches per step (none of the
-   float32 flash kernels).  Prints the
+   float32 flash kernels or the scalar-I/O LayerNorm ones).  Prints the
    step time, tokens/s, the model-FLOP share and one profiled step.
 5. Prints one JSON line of per-kernel numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
@@ -73,12 +77,16 @@ BF16_RMS_FLOOR = 4 * 2.0 ** -8
 FLASH_BWD_STEPS = 2
 # LayerNorm mu/rstd (f32): summation order only.
 LN_STAT_TOL = 1e-5
-# LayerNorm dscale/dbias (f32 sums over the rows): the kernel and the
-# plain version add the same float32 terms in other orders.  A sum taken
-# through a chain of d roundings is within d * 2^-24 * sum|terms| of the
-# exact sum; the kernel's chain is rows-per-lane + 8 warps + the partial
-# rows, and 64 more cover the plain reduction's tree.
-LN_SUM_DEPTH_PAD = 64
+# LayerNorm dscale/dbias (f32 sums over the rows), held to the exact
+# (float64) sum of the plain version's float32 terms g * xhat and g.  A
+# sum whose every term passes through at most d roundings is within
+# d * 2^-24 * sum|terms| of the exact sum (first order).  The kernel's
+# chain, per column (ln_sum_depth): the rows a warp walks, summed in a
+# register; the block's warps, added into shared memory one at a time;
+# the blocks' partial rows, summed outside in some order (at most nb - 1
+# roundings).  Its products g * xhat enter the register sum by FMA,
+# unrounded, which is LN_SUM_FMA_STEPS more against the rounded terms.
+LN_SUM_FMA_STEPS = 1
 # lse (f32, base 2): exp2/log2 approximations and summation order.
 FLASH_LSE_TOL = 1e-3
 # Engine logits vs teacher-forced full forward, both bf16 through 12
@@ -236,40 +244,109 @@ def tc_report(tag: str) -> dict:
     return out
 
 
+# The LayerNorm kernels by a piece of their mangled names: (name, whether
+# it is a vector-I/O instantiation, threads a block, blocks an SM that the
+# wrapper's grid assumes, or 0 where the grid assumes none).
+def ln_kernels() -> list:
+    from ray_tpu_torch.ops import layer_norm as ln
+    out = []
+    for dt, mangled in ((torch.bfloat16, "I13__nv_bfloat16E"),
+                        (torch.float32, "IfE")):
+        out += [(f"layer_norm_fwd_vec_kernel{mangled}", True,
+                 32 * ln.FWD_WARPS, ln.FWD_BLOCKS_PER_SM),
+                (f"layer_norm_bwd_vec_kernel{mangled}", True,
+                 32 * ln.BWD_WARPS, ln.BWD_BLOCKS_PER_SM[dt]),
+                (f"layer_norm_fwd_scalar_kernel{mangled}", False, 0, 0),
+                (f"layer_norm_bwd_scalar_kernel{mangled}", False, 0, 0)]
+    return out
+
+
+def ln_report(tag: str) -> dict:
+    """For each LayerNorm kernel of the build: ptxas's registers, shared
+    memory and spill bytes, and the 128-bit global loads and stores in
+    its SASS.  Fails if a vector-I/O instantiation has no 128-bit load,
+    spills, or takes more registers than the blocks an SM its grid
+    assumes leave it."""
+    from ray_tpu_torch import _build
+    res = _build.kernel_resources()
+    ldg = _build.sass_counts("LDG.E.128")
+    stg = _build.sass_counts("STG.E.128")
+    out = {}
+    for key, vector, threads, per_sm in ln_kernels():
+        names = [n for n in ldg if key in n]
+        rnames = [n for n in res if key in n]
+        if len(names) != 1 or len(rnames) != 1:
+            fail(f"kernel {key}: {len(names)} SASS functions and "
+                 f"{len(rnames)} ptxas entries")
+        r = out[key] = dict(res[rnames[0]], ldg_128=ldg[names[0]],
+                            stg_128=stg[names[0]])
+        print(f"sass {key} " + " ".join(f"{k} {v}" for k, v in r.items())
+              + f" [{tag}]", flush=True)
+        if not vector:
+            continue
+        if r["ldg_128"] == 0:
+            fail(f"kernel {key} has no 128-bit global load")
+        if r["spill_stores"] or r["spill_loads"]:
+            fail(f"kernel {key} spills")
+        if r["registers"] * threads * per_sm > 65536:
+            fail(f"kernel {key}: {r['registers']} registers leave fewer "
+                 f"than the {per_sm} blocks an SM its grid assumes")
+    return out
+
+
 def check_layer_norm(gen, card, dev) -> list:
     import torch.nn.functional as F
     from ray_tpu_torch.ops import layer_norm as ln
     rows = []
-    for N in (1024, 16):             # longest prefill bucket, decode batch
-        E = 768
+    E = 768
+    # longest prefill bucket, decode batch (both stats-free, as served),
+    # the train step's rows (with the stats, as trained)
+    for N, stats in ((1024, False), (16, False),
+                     (TRAIN_BATCH * TRAIN_SEQ, True)):
         x = torch.randn((N, E), generator=gen, device=dev).to(torch.bfloat16)
         scale = 1 + 0.1 * torch.randn((E,), generator=gen, device=dev)
         bias = 0.1 * torch.randn((E,), generator=gen, device=dev)
+        before = (ln.launches, ln.scalar_launches)
         y, mu, rstd = ln.ln_fwd(x, scale, bias, 1e-5, want_stats=True)
+        if (ln.launches, ln.scalar_launches) != (before[0] + 1, before[1]):
+            fail(f"layer_norm_fwd at ({N}, {E}) bf16 did not take the "
+                 f"vector-I/O kernel")
         yp, mup, rstdp = ln.ln_fwd_plain(x, scale, bias, 1e-5)
         torch.cuda.synchronize()
         err, ratio, floor = bf16_excess(y, yp)
         serr = max((mu - mup).abs().max().item(),
                    ((rstd - rstdp).abs() / rstdp.abs()).max().item())
-        name = f"layer_norm_fwd({N}x{E} bf16)"
+        del y, mu, rstd, yp, mup, rstdp
+        name = f"layer_norm_fwd({N}x{E} bf16{', stats' if stats else ''})"
         print(f"{name} max_abs_err {err:.6g} worst_err/limit {ratio:.4g} "
               f"(limit {BF16_REL:.6g}*|ref| + {floor:.6g}) "
               f"stats_err {serr:.3g} tol {LN_STAT_TOL}", flush=True)
         if not (ratio <= 1.0 and serr <= LN_STAT_TOL):
             fail(f"{name} disagrees with its plain version")
-        kern = lambda: ln.ln_fwd(x, scale, bias, 1e-5)  # noqa: E731
+        kern = lambda: ln.ln_fwd(x, scale, bias, 1e-5,  # noqa: E731
+                                 want_stats=stats)
         k_ms, c_ms = device_ms(kern), call_ms(kern)
-        p_ms = device_ms(lambda: ln.ln_fwd_plain(x, scale, bias, 1e-5))
+        p_ms = device_ms(lambda: ln.ln_fwd_plain(x, scale, bias, 1e-5),
+                         iters=5 if N > 1024 else 20)
         s16 = scale.to(torch.bfloat16)
         b16 = bias.to(torch.bfloat16)
-        l_ms = device_ms(lambda: F.layer_norm(x, (E,), s16, b16, 1e-5))
-        nbytes = 2 * N * E * 2 + 2 * E * 4
+        lib = lambda: F.layer_norm(x, (E,), s16, b16, 1e-5)  # noqa: E731
+        l_ms, lc_ms = device_ms(lib), call_ms(lib)
+        nbytes = 2 * N * E * 2 + 2 * E * 4 + (2 * N * 4 if stats else 0)
         b_ms, b_by = bound_ms(nbytes, 8 * N * E, card)
         rows.append(dict(name=name, shape=(N, E), max_abs_err=err,
                          ms=k_ms, call_ms=c_ms, plain_ms=p_ms,
-                         library_ms=l_ms,
+                         library_ms=l_ms, library_call_ms=lc_ms,
                          bound_ms=b_ms, bound_by=b_by))
     return rows
+
+
+def ln_sum_depth(N: int, nb: int) -> int:
+    """The roundings a column of the backward's dscale/dbias passes
+    through, at most (LN_SUM_FMA_STEPS above)."""
+    from ray_tpu_torch.ops import layer_norm as ln
+    return -(-N // (nb * ln.BWD_WARPS)) + ln.BWD_WARPS + (nb - 1) \
+        + LN_SUM_FMA_STEPS
 
 
 def check_flash(gen, card, dev) -> list:
@@ -328,6 +405,7 @@ def check_flash(gen, card, dev) -> list:
 
 
 def check_layer_norm_bwd(gen, card, dev) -> list:
+    from ray_tpu_torch._device import sm_count
     from ray_tpu_torch.ops import layer_norm as ln
     rows = []
     E = 768
@@ -337,26 +415,43 @@ def check_layer_norm_bwd(gen, card, dev) -> list:
         scale = 1 + 0.1 * torch.randn((E,), generator=gen, device=dev)
         bias = torch.zeros((E,), device=dev)
         _, mu, rstd = ln.ln_fwd_plain(x, scale, bias, 1e-5)
+        before = (ln.bwd_launches, ln.bwd_scalar_launches)
         dx, ds, db = ln.ln_bwd(x, scale, g, mu, rstd)
+        if (ln.bwd_launches, ln.bwd_scalar_launches) != \
+                (before[0] + 1, before[1]):
+            fail(f"layer_norm_bwd at ({N}, {E}) bf16 did not take the "
+                 f"vector-I/O kernel")
+        _, ds2, db2 = ln.ln_bwd(x, scale, g, mu, rstd)
         dxp, dsp, dbp = ln.ln_bwd_plain(x, scale, g, mu, rstd)
         torch.cuda.synchronize()
         err, ratio, floor = bf16_excess(dx, dxp)
-        # the f32 sums: each column within depth * 2^-24 * sum|terms|
+        repro = torch.equal(ds, ds2) and torch.equal(db, db2)
+        # the f32 sums: each column within depth * 2^-24 * sum|terms| of
+        # the exact sum of the plain version's terms
         xhat = (x.float() - mu[:, None]) * rstd[:, None]
-        nb = ln.bwd_blocks(N, dev)
-        depth = -(-N // (nb * ln.BWD_WARPS)) + ln.BWD_WARPS + nb \
-            + LN_SUM_DEPTH_PAD
+        _, nb = ln.launch_plan(N, E, E, 0, x.dtype, sm_count(dev),
+                               backward=True)
+        depth = ln_sum_depth(N, nb)
         sum_ratio = max(
-            ((k - p).abs() / (depth * 2.0 ** -24 * t.abs().sum(0))).max()
-            .item() for k, p, t in ((ds, dsp, g.float() * xhat),
-                                    (db, dbp, g.float())))
+            ((k.double() - t.double().sum(0)).abs()
+             / (depth * 2.0 ** -24 * t.abs().double().sum(0))).max().item()
+            for k, t in ((ds, g.float() * xhat), (db, g.float())))
+        plain_ratio = max(
+            ((p.double() - t.double().sum(0)).abs()
+             / (depth * 2.0 ** -24 * t.abs().double().sum(0))).max().item()
+            for p, t in ((dsp, g.float() * xhat), (dbp, g.float())))
+        del xhat, dxp, dsp, dbp
         name = f"layer_norm_bwd({N}x{E} bf16)"
         print(f"{name} max_abs_err {err:.6g} worst_err/limit {ratio:.4g} "
               f"(limit {BF16_REL:.6g}*|ref| + {floor:.6g}) dscale/dbias "
               f"worst_err/limit {sum_ratio:.4g} (limit {depth}*2^-24*"
-              f"sum|terms|)", flush=True)
+              f"sum|terms| from the exact sum; the plain version's f32 "
+              f"sums {plain_ratio:.4g} of it) bitwise_repeatable {repro}",
+              flush=True)
         if not (ratio <= 1.0 and sum_ratio <= 1.0):
             fail(f"{name} disagrees with its plain version")
+        if not repro:
+            fail(f"{name}: dscale/dbias differ between two calls")
         if N < TRAIN_BATCH * TRAIN_SEQ:
             continue
         kern = lambda: ln.ln_bwd(x, scale, g, mu, rstd)  # noqa: E731
@@ -365,13 +460,15 @@ def check_layer_norm_bwd(gen, card, dev) -> list:
                          iters=5)
         s16 = scale.to(torch.bfloat16)
         mu2, rstd2 = mu[:, None], rstd[:, None]
-        l_ms = device_ms(lambda: torch.ops.aten.native_layer_norm_backward(
-            g, x, [E], mu2, rstd2, s16, s16, [True, True, True]))
+        lib = lambda: torch.ops.aten.native_layer_norm_backward(  # noqa
+            g, x, [E], mu2, rstd2, s16, s16, [True, True, True])
+        l_ms, lc_ms = device_ms(lib), call_ms(lib)
         nbytes = 3 * N * E * 2 + 2 * N * 4 + 3 * E * 4
         b_ms, b_by = bound_ms(nbytes, 10 * N * E, card)
         rows.append(dict(name=name, shape=(N, E), max_abs_err=err,
                          ms=k_ms, call_ms=c_ms, plain_ms=p_ms,
-                         library_ms=l_ms, bound_ms=b_ms, bound_by=b_by))
+                         library_ms=l_ms, library_call_ms=lc_ms,
+                         bound_ms=b_ms, bound_by=b_by))
     return rows
 
 
@@ -587,25 +684,29 @@ def engine_phase(dev, block_scale: float = ENGINE_BLOCK_SCALE) -> dict:
                          SamplingParams(max_tokens=2))
         lens = rng.integers(32, 961, size=16)
         prompts = [rng.integers(0, V, int(n)).tolist() for n in lens]
-        ln.launches = fa.launches = fa.f32_launches = 0
+        ln.launches = ln.scalar_launches = 0
+        fa.launches = fa.f32_launches = 0
         streams, outs, t_sub, wall = serve(prompts,
                                            SamplingParams(max_tokens=32))
         launches = {"layer_norm_fwd": ln.launches,
                     "flash_attention_fwd": fa.launches}
-        f32_launches = fa.f32_launches
+        # instantiations the bf16 path must not take
+        off_path = {"layer_norm_fwd_scalar": ln.scalar_launches,
+                    "flash_attention_fwd_f32": fa.f32_launches}
         stats = eng.stats()
         timing = dict(emit_at=dict(rec["emit_at"]),
                       prefill=list(rec["prefill"]), decode=list(rec["decode"]))
         for p, o in zip(prompts, outs):
             if len(o) != 32 or not all(0 <= t < V for t in o):
                 fail(f"request of {len(p)} tokens returned {o}")
-        print(f"engine launches {launches} float32 flash {f32_launches}",
+        print(f"engine launches {launches} off the bf16 path {off_path}",
               flush=True)
         for k, n in launches.items():
             if n <= 0:
                 fail(f"{k} was not launched on the engine's path")
-        if f32_launches:
-            fail("the float32 flash kernel ran on the engine's bf16 path")
+        for k, n in off_path.items():
+            if n:
+                fail(f"{k} ran {n} times on the engine's bf16 path")
         max_err = logits_err(streams, prompts, outs)
         print(f"engine logits_max_abs_err {max_err:.6g} tol "
               f"{ENGINE_LOGIT_TOL}", flush=True)
@@ -770,10 +871,14 @@ def train_phase(dev, card, tag: str) -> dict:
                 "layer_norm_bwd": 2 * L + 1,
                 "flash_attention_fwd": L + L,
                 "flash_attention_bwd": L,
+                "layer_norm_fwd_scalar": 0,            # aligned bf16 rows
+                "layer_norm_bwd_scalar": 0,
                 "flash_attention_fwd_f32": 0,          # bf16 activations
                 "flash_attention_bwd_f32": 0}
     counters = {"layer_norm_fwd": (ln, "launches"),
                 "layer_norm_bwd": (ln, "bwd_launches"),
+                "layer_norm_fwd_scalar": (ln, "scalar_launches"),
+                "layer_norm_bwd_scalar": (ln, "bwd_scalar_launches"),
                 "flash_attention_fwd": (fa, "launches"),
                 "flash_attention_bwd": (fa, "bwd_launches"),
                 "flash_attention_fwd_f32": (fa, "f32_launches"),
@@ -852,6 +957,7 @@ def main() -> int:
     _build.lib()
     print(f"build_s {time.perf_counter() - t0:.2f}", flush=True)
     tc_report(tag)
+    ln_report(tag)
     disable_tf32()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = {"layer_norm_fwd": check_layer_norm(gen, card, dev),
@@ -859,9 +965,11 @@ def main() -> int:
             "layer_norm_bwd": check_layer_norm_bwd(gen, card, dev),
             "flash_attention_bwd": check_flash_bwd(gen, card, dev)}
     for r in (r for rs in rows.values() for r in rs):
-        for key in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms"):
-            print(f"{r['name']} {'kernel_ms' if key == 'ms' else key} "
-                  f"{r[key]:.6g} [{tag}]", flush=True)
+        for key in ("ms", "call_ms", "plain_ms", "library_ms",
+                    "library_call_ms", "bound_ms"):
+            if key in r:
+                print(f"{r['name']} {'kernel_ms' if key == 'ms' else key} "
+                      f"{r[key]:.6g} [{tag}]", flush=True)
     eng = engine_phase(dev)
     train = train_phase(dev, card, tag)
 

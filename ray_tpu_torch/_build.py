@@ -25,7 +25,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -42,9 +42,10 @@ _F = ctypes.c_float
 # C entry point -> argtypes.  Every pointer and the stream are c_void_p so
 # ctypes never cuts them to 32 bits.  Each returns cudaGetLastError().
 SIGNATURES: Dict[str, List] = {
-    "rtt_layer_norm_fwd": [_P, _I64, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "rtt_layer_norm_fwd": [_P, _I64, _P, _P, _P, _P, _P, _I, _I, _F, _I,
+                           _I, _I, _P],
     "rtt_layer_norm_bwd": [_P, _I64, _P, _P, _I64, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _P],
+                           _I, _I, _I, _I, _I, _P],
     "rtt_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I64, _I64, _I64, _I64, _I64, _I64,
                                 _I64, _I64, _I64, _I64, _I64, _I64,
@@ -146,6 +147,17 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = cdll
         return _lib
+
+
+_entries: Dict[str, Callable[..., int]] = {}
+
+
+def entry(name: str) -> Callable[..., int]:
+    """One C entry point of the bound library, looked up once."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = getattr(lib(), name)
+    return fn
 
 
 def check(rc: int, name: str) -> None:

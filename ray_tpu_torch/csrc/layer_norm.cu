@@ -8,53 +8,97 @@
 // the input type.  The per-row mu and rstd are optional float32 outputs
 // (the backward's residuals).
 //
-// What bounds it on this card: device memory.  A row is read once and
-// written once (N*E*2 bytes each way in bf16); the arithmetic is a few
-// operations per element, far below the card's ~295 operations per byte.
-// At decode (N <= 16 rows) the launch itself dominates.
-//
-// What the design does about it: one warp per row, four rows per block.
-// The row is loaded once into registers (E = 768 is 24 values a lane),
-// both reductions are warp shuffles with no shared memory and no
-// __syncthreads, and the output is written once.  Neighbouring lanes
-// touch neighbouring elements, so every load and store is coalesced.
-// Rows wider than the register tile (E > 768) take a loop that re-reads
-// the row from L1/L2 instead; no width is refused.
-//
 // Backward.
 // Replaces: ray_tpu/ops/layer_norm.py, `_bwd_kernel` (reached through
 // `_ln_bwd`'s pl.pallas_call).  Same arithmetic, all in float32:
 // xhat = (x - mu) * rstd, gs = g * scale,
 // dx = rstd * (gs - mean(gs) - xhat * mean(gs * xhat)) in x's type, and
-// float32 partial sums of dscale = sum_rows g * xhat and dbias = sum_rows g
-// that the caller sums outside (the reference sums its per-block partials
-// outside the kernel too).
+// dscale = sum_rows g * xhat, dbias = sum_rows g as float32 partial rows,
+// one per block, that a second launch sums in a fixed order (the
+// reference sums its per-block partials outside the kernel too).
 //
-// What bounds it on this card: device memory.  x and g are read once and
-// dx written once (3 * N * E * 2 bytes in bf16: ~151 MB, ~45 us at the
-// training shape N = 32768, E = 768); a few operations per element.
+// What bounds both on this card: device memory.  The forward reads and
+// writes each row once (2 * N * E * 2 bytes in bf16: ~101 MB, ~30 us at
+// the training shape N = 32768, E = 768); the backward reads x and g and
+// writes dx (~151 MB, ~45 us).  Both do a few operations per element, far
+// below the card's ~295 operations per byte.  At decode (N = 16) the
+// launch and one memory round trip are all there is.
 //
-// What the design does about it: the forward's layout, one warp per row,
-// lane l owning columns l + 32 j, so a lane sees the same columns in every
-// row and keeps its dscale/dbias columns in registers across all the rows
-// it walks.  About two blocks per SM (the caller picks the grid); each
-// block walks a stripe of rows, then its warps add their register sums
-// into shared memory one warp at a time (a fixed order: the result does
-// not depend on scheduling) and the block writes ONE float32 partial row
-// of each sum.  At the training shape that is ~264 partial rows (~1.6 MB),
-// not one per few rows.  Rows wider than the register tile take a loop
-// whose warps fold each row into shared memory in turn.
+// What the design does about it.
+// - Vector I/O.  Lane l owns whole chunks of 8 columns, chunk j being
+//   columns 8 * (l + 32 j) .. + 7, moved with 16-byte loads and stores
+//   (one uint4 of bf16, two of float32).  At E = 768 a lane holds three
+//   chunks and a warp instruction moves 512 contiguous bytes.
+// - The affine in registers.  Each warp loads its columns' scale (and,
+//   forward, bias) as float4 once, issued beside its first rows' loads,
+//   and keeps them for every row it walks: a row costs one memory round
+//   trip, not two.
+// - Rows in flight.  A warp walks rows with a grid stride over a grid
+//   that the SMs hold in one wave (the caller sizes it).  It keeps a ring
+//   of rows in registers (Io<T>::kFwdStages / kBwdStages) and refills a
+//   row's registers with the row a ring's length ahead as soon as it has
+//   unpacked them, before the row's reductions, so the ring's rows are in
+//   flight while it reduces.  At decode each warp takes one row and
+//   nothing is refilled.
+// - Registers and residency.  4-warp blocks.  The forward keeps to 128
+//   registers, so an SM holds 4 blocks (16 warps) with two bf16 rows a
+//   warp in flight.  The backward holds scale, both column sums and the
+//   row's xhat and g (96 floats a lane) beside a one-row ring: 168
+//   registers in bf16, 3 blocks an SM (12 warps), and 218 in float32, 2
+//   blocks.  On the card more warps beat a deeper ring: at the training
+//   shape 8 warps an SM with two rows each measured slower.
+// - Deterministic dscale/dbias.  A lane sees the same columns in every
+//   row and sums them in registers across the rows it walks; the block's
+//   warps then add their sums into shared memory one warp at a time and
+//   the block writes one partial row.  The fold kernel sums the partial
+//   rows column by column, each of its 32 warps a fixed stride of rows,
+//   then the 32 warp sums in warp order: the result does not depend on
+//   scheduling.
+//
+// Rows the vector layout does not take (E not a multiple of 8 or above
+// 768, a row stride not a multiple of 8 elements, a base not 16-byte
+// aligned) take the scalar-I/O kernels: one warp per row, lane l reading
+// columns l + 32 i one element at a time and re-reading the row from
+// L1/L2 for each pass.  No width is refused by the forward; the
+// backward's scalar kernel keeps its partial rows in 48 KB of shared
+// memory, so E <= 6144.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kRowsPerBlock = 4;
-// The register tile: E <= 768 (GPT-2 124M's width) in registers, 24
-// values a lane.  Wider rows take the generic loop.
-constexpr int kTilePerLane = 24;
+constexpr int kChunk = 8;                          // columns a vector moves
+constexpr int kChunks = 3;                         // chunks a lane holds
+constexpr int kVecMaxE = kChunk * kChunks * kWarp;  // 768
+constexpr int kFwdWarps = 4;                       // rows a block takes at once
+constexpr int kFwdBlocksPerSm = 4;
+constexpr int kBwdWarps = 4;
+constexpr int kFoldGroups = 32;                    // warps of the fold kernel
+
+// Per element type: the 16-byte vectors a chunk takes, the rows a warp
+// keeps in registers, and the backward blocks an SM holds (what fits the
+// register budgets above).
+template <typename T> struct Io;
+template <> struct Io<__nv_bfloat16> {
+  static constexpr int kVecs = 1;
+  static constexpr int kFwdStages = 2;
+  static constexpr int kBwdStages = 1;
+  static constexpr int kBwdBlocksPerSm = 3;
+};
+template <> struct Io<float> {
+  static constexpr int kVecs = 2;
+  static constexpr int kFwdStages = 1;
+  static constexpr int kBwdStages = 1;
+  static constexpr int kBwdBlocksPerSm = 2;
+};
+
+template <typename T> struct Chunk {
+  uint4 v[Io<T>::kVecs];
+};
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -69,6 +113,69 @@ from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
+// A chunk's 8 values in float32 (exact: bf16 is float32's top half).
+__device__ __forceinline__ void unpack(const Chunk<__nv_bfloat16>& c,
+                                       float (&f)[kChunk]) {
+  const unsigned w[4] = {c.v[0].x, c.v[0].y, c.v[0].z, c.v[0].w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void unpack(const Chunk<float>& c,
+                                       float (&f)[kChunk]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    f[4 * i] = __uint_as_float(c.v[i].x);
+    f[4 * i + 1] = __uint_as_float(c.v[i].y);
+    f[4 * i + 2] = __uint_as_float(c.v[i].z);
+    f[4 * i + 3] = __uint_as_float(c.v[i].w);
+  }
+}
+
+// Round to T once (round to nearest even, as PyTorch's cast).
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&h);
+}
+__device__ __forceinline__ void pack(const float (&f)[kChunk],
+                                     Chunk<__nv_bfloat16>& c) {
+  c.v[0] = make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]),
+                      pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
+}
+__device__ __forceinline__ void pack(const float (&f)[kChunk],
+                                     Chunk<float>& c) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    c.v[i] = make_uint4(__float_as_uint(f[4 * i]),
+                        __float_as_uint(f[4 * i + 1]),
+                        __float_as_uint(f[4 * i + 2]),
+                        __float_as_uint(f[4 * i + 3]));
+}
+
+template <typename T>
+__device__ __forceinline__ void load_chunk(const T* p, Chunk<T>& c) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int i = 0; i < Io<T>::kVecs; ++i) c.v[i] = __ldg(q + i);
+}
+template <typename T>
+__device__ __forceinline__ void store_chunk(T* p, const Chunk<T>& c) {
+  uint4* q = reinterpret_cast<uint4*>(p);
+#pragma unroll
+  for (int i = 0; i < Io<T>::kVecs; ++i) q[i] = c.v[i];
+}
+
+// 8 float32 values from a 16-byte-aligned float pointer, as two float4.
+__device__ __forceinline__ void load_f32x8(const float* p,
+                                           float (&f)[kChunk]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = kWarp / 2; off > 0; off >>= 1)
@@ -76,96 +183,273 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// PER_LANE > 0: the row lives in registers, PER_LANE values per lane.
-// PER_LANE == 0: any width; the row is read three times (L1/L2 hits).
-template <typename T, int PER_LANE>
-__global__ void __launch_bounds__(kWarp * kRowsPerBlock)
-layer_norm_fwd_kernel(const T* __restrict__ x, long long x_row_stride,
-                      const float* __restrict__ scale,
-                      const float* __restrict__ bias, T* __restrict__ y,
-                      float* __restrict__ mu_out,
-                      float* __restrict__ rstd_out, int n_rows, int E,
-                      float eps) {
-  const int lane = threadIdx.x % kWarp;
-  const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / kWarp;
-  if (row >= n_rows) return;  // whole warp leaves together
-  const T* xr = x + (long long)row * x_row_stride;
-  T* yr = y + (long long)row * E;
-  const float inv_e = 1.0f / (float)E;
+// The columns a lane owns: chunk j starts at col[j] and exists if own[j].
+struct Lane {
+  int col[kChunks];
+  bool own[kChunks];
+  __device__ __forceinline__ explicit Lane(int lane, int E) {
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      col[j] = kChunk * (lane + j * kWarp);
+      own[j] = col[j] < E;
+    }
+  }
+};
 
-  float mu, rstd;
-  if constexpr (PER_LANE > 0) {
-    float v[PER_LANE];
-    float s = 0.f;
+template <typename T>
+__device__ __forceinline__ void load_row(const T* __restrict__ x,
+                                         long long stride, int r, int n_rows,
+                                         const Lane& ln,
+                                         Chunk<T> (&b)[kChunks]) {
+  if (r >= n_rows) return;
+  const T* xr = x + (long long)r * stride;
 #pragma unroll
-    for (int j = 0; j < PER_LANE; ++j) {
-      const int c = lane + j * kWarp;
-      v[j] = c < E ? to_f32(xr[c]) : 0.f;
-      s += v[j];
-    }
-    mu = warp_sum(s) * inv_e;
-    float ss = 0.f;
+  for (int j = 0; j < kChunks; ++j)
+    if (ln.own[j]) load_chunk(xr + ln.col[j], b[j]);
+}
+
+// ------------------------------------------------------------- forward
+template <typename T>
+__global__ void __launch_bounds__(kWarp * kFwdWarps, kFwdBlocksPerSm)
+layer_norm_fwd_vec_kernel(const T* __restrict__ x, long long x_row_stride,
+                          const float* __restrict__ scale,
+                          const float* __restrict__ bias, T* __restrict__ y,
+                          float* __restrict__ mu_out,
+                          float* __restrict__ rstd_out, int n_rows, int E,
+                          float eps) {
+  constexpr int S = Io<T>::kFwdStages;
+  const int lane = threadIdx.x % kWarp;
+  const int first = blockIdx.x * kFwdWarps + threadIdx.x / kWarp;
+  const int step = gridDim.x * kFwdWarps;
+  const float inv_e = 1.0f / (float)E;
+  const Lane ln(lane, E);
+
+  Chunk<T> buf[S][kChunks];
 #pragma unroll
-    for (int j = 0; j < PER_LANE; ++j) {
-      const int c = lane + j * kWarp;
-      const float d = c < E ? v[j] - mu : 0.f;
-      ss += d * d;
-    }
-    rstd = rsqrtf(warp_sum(ss) * inv_e + eps);
+  for (int s = 0; s < S; ++s)
+    load_row(x, x_row_stride, first + s * step, n_rows, ln, buf[s]);
+  float sc[kChunks][kChunk], bi[kChunks][kChunk];
 #pragma unroll
-    for (int j = 0; j < PER_LANE; ++j) {
-      const int c = lane + j * kWarp;
-      if (c < E)
-        yr[c] = from_f32<T>((v[j] - mu) * rstd * scale[c] + bias[c]);
+  for (int j = 0; j < kChunks; ++j) {
+    if (ln.own[j]) {
+      load_f32x8(scale + ln.col[j], sc[j]);
+      load_f32x8(bias + ln.col[j], bi[j]);
     }
-  } else {
+  }
+
+  for (int row = first; row < n_rows; row += S * step) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int r = row + s * step;
+      if (r >= n_rows) break;           // the whole warp leaves together
+      float v[kChunks][kChunk];
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kChunks; ++j) {
+        if (ln.own[j]) {
+          unpack(buf[s][j], v[j]);
+#pragma unroll
+          for (int k = 0; k < kChunk; ++k) sum += v[j][k];
+        }
+      }
+      // the row's registers are free: the row S strides ahead goes in flight
+      load_row(x, x_row_stride, r + S * step, n_rows, ln, buf[s]);
+      const float mu = warp_sum(sum) * inv_e;
+      float ss = 0.f;
+#pragma unroll
+      for (int j = 0; j < kChunks; ++j) {
+        if (ln.own[j]) {
+#pragma unroll
+          for (int k = 0; k < kChunk; ++k) {
+            const float d = v[j][k] - mu;
+            ss += d * d;
+          }
+        }
+      }
+      const float rstd = rsqrtf(warp_sum(ss) * inv_e + eps);
+      T* yr = y + (long long)r * E;
+#pragma unroll
+      for (int j = 0; j < kChunks; ++j) {
+        if (ln.own[j]) {
+          float o[kChunk];
+#pragma unroll
+          for (int k = 0; k < kChunk; ++k)
+            o[k] = (v[j][k] - mu) * rstd * sc[j][k] + bi[j][k];
+          Chunk<T> c;
+          pack(o, c);
+          store_chunk(yr + ln.col[j], c);
+        }
+      }
+      if (lane == 0) {
+        if (mu_out) mu_out[r] = mu;
+        if (rstd_out) rstd_out[r] = rstd;
+      }
+    }
+  }
+}
+
+// Any width, any alignment: one warp per row of a grid-stride walk, the
+// row re-read from L1/L2 for each pass.
+template <typename T>
+__global__ void __launch_bounds__(kWarp * kFwdWarps)
+layer_norm_fwd_scalar_kernel(const T* __restrict__ x, long long x_row_stride,
+                             const float* __restrict__ scale,
+                             const float* __restrict__ bias,
+                             T* __restrict__ y, float* __restrict__ mu_out,
+                             float* __restrict__ rstd_out, int n_rows, int E,
+                             float eps) {
+  const int lane = threadIdx.x % kWarp;
+  const int step = gridDim.x * kFwdWarps;
+  const float inv_e = 1.0f / (float)E;
+  for (int row = blockIdx.x * kFwdWarps + threadIdx.x / kWarp;
+       row < n_rows; row += step) {
+    const T* xr = x + (long long)row * x_row_stride;
+    T* yr = y + (long long)row * E;
     float s = 0.f;
     for (int c = lane; c < E; c += kWarp) s += to_f32(xr[c]);
-    mu = warp_sum(s) * inv_e;
+    const float mu = warp_sum(s) * inv_e;
     float ss = 0.f;
     for (int c = lane; c < E; c += kWarp) {
       const float d = to_f32(xr[c]) - mu;
       ss += d * d;
     }
-    rstd = rsqrtf(warp_sum(ss) * inv_e + eps);
+    const float rstd = rsqrtf(warp_sum(ss) * inv_e + eps);
     for (int c = lane; c < E; c += kWarp)
       yr[c] = from_f32<T>((to_f32(xr[c]) - mu) * rstd * scale[c] + bias[c]);
-  }
-  if (lane == 0) {
-    if (mu_out) mu_out[row] = mu;
-    if (rstd_out) rstd_out[row] = rstd;
+    if (lane == 0) {
+      if (mu_out) mu_out[row] = mu;
+      if (rstd_out) rstd_out[row] = rstd;
+    }
   }
 }
 
+// ------------------------------------------------------------ backward
+// parts: one row of 2E float32 a block, its dscale sums then its dbias.
 template <typename T>
-void launch(const void* x, long long x_row_stride, const float* scale,
-            const float* bias, void* y, float* mu, float* rstd, int n_rows,
-            int E, float eps, cudaStream_t stream) {
-  const dim3 grid((n_rows + kRowsPerBlock - 1) / kRowsPerBlock);
-  const dim3 block(kWarp * kRowsPerBlock);
-  const T* xp = static_cast<const T*>(x);
-  T* yp = static_cast<T*>(y);
-  const int per_lane = (E + kWarp - 1) / kWarp;
-#define RTT_LN_CASE(P)                                                    \
-  layer_norm_fwd_kernel<T, P><<<grid, block, 0, stream>>>(                \
-      xp, x_row_stride, scale, bias, yp, mu, rstd, n_rows, E, eps)
-  if (per_lane <= kTilePerLane) RTT_LN_CASE(kTilePerLane);
-  else RTT_LN_CASE(0);
-#undef RTT_LN_CASE
+__global__ void __launch_bounds__(kWarp * kBwdWarps, Io<T>::kBwdBlocksPerSm)
+layer_norm_bwd_vec_kernel(const T* __restrict__ x, long long x_row_stride,
+                          const float* __restrict__ scale,
+                          const T* __restrict__ g, long long g_row_stride,
+                          const float* __restrict__ mu,
+                          const float* __restrict__ rstd, T* __restrict__ dx,
+                          float* __restrict__ parts, int n_rows, int E) {
+  constexpr int S = Io<T>::kBwdStages;
+  __shared__ float s_ds[kVecMaxE], s_db[kVecMaxE];
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const int first = blockIdx.x * kBwdWarps + warp;
+  const int step = gridDim.x * kBwdWarps;
+  const float inv_e = 1.0f / (float)E;
+  const Lane ln(lane, E);
+
+  Chunk<T> xb[S][kChunks], gb[S][kChunks];
+  float mb[S], rb[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int r = first + s * step;
+    load_row(x, x_row_stride, r, n_rows, ln, xb[s]);
+    load_row(g, g_row_stride, r, n_rows, ln, gb[s]);
+    if (r < n_rows) {
+      mb[s] = __ldg(mu + r);
+      rb[s] = __ldg(rstd + r);
+    }
+  }
+  float sc[kChunks][kChunk], acc_ds[kChunks][kChunk], acc_db[kChunks][kChunk];
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    if (ln.own[j]) load_f32x8(scale + ln.col[j], sc[j]);
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) acc_ds[j][k] = acc_db[j][k] = 0.f;
+  }
+  for (int c = threadIdx.x; c < kVecMaxE; c += blockDim.x)
+    s_ds[c] = s_db[c] = 0.f;
+
+  for (int row = first; row < n_rows; row += S * step) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int r = row + s * step;
+      if (r >= n_rows) break;           // the whole warp leaves together
+      const float m = mb[s], rs = rb[s];
+      float xh[kChunks][kChunk], gv[kChunks][kChunk];
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int j = 0; j < kChunks; ++j) {
+        if (ln.own[j]) {
+          unpack(xb[s][j], xh[j]);
+          unpack(gb[s][j], gv[j]);
+#pragma unroll
+          for (int k = 0; k < kChunk; ++k) {
+            xh[j][k] = (xh[j][k] - m) * rs;
+            const float gs = gv[j][k] * sc[j][k];
+            s1 += gs;
+            s2 += gs * xh[j][k];
+          }
+        }
+      }
+      // the row's registers are free: the row S strides ahead goes in flight
+      const int nr = r + S * step;
+      load_row(x, x_row_stride, nr, n_rows, ln, xb[s]);
+      load_row(g, g_row_stride, nr, n_rows, ln, gb[s]);
+      if (nr < n_rows) {
+        mb[s] = __ldg(mu + nr);
+        rb[s] = __ldg(rstd + nr);
+      }
+      const float m1 = warp_sum(s1) * inv_e;
+      const float m2 = warp_sum(s2) * inv_e;
+      T* dxr = dx + (long long)r * E;
+#pragma unroll
+      for (int j = 0; j < kChunks; ++j) {
+        if (ln.own[j]) {
+          float o[kChunk];
+#pragma unroll
+          for (int k = 0; k < kChunk; ++k) {
+            const float gs = gv[j][k] * sc[j][k];
+            o[k] = rs * (gs - m1 - xh[j][k] * m2);
+            acc_ds[j][k] += gv[j][k] * xh[j][k];
+            acc_db[j][k] += gv[j][k];
+          }
+          Chunk<T> c;
+          pack(o, c);
+          store_chunk(dxr + ln.col[j], c);
+        }
+      }
+    }
+  }
+  __syncthreads();                      // shared sums zeroed
+  for (int w = 0; w < kBwdWarps; ++w) {   // one warp at a time
+    if (warp == w) {
+#pragma unroll
+      for (int j = 0; j < kChunks; ++j) {
+        if (ln.own[j]) {
+#pragma unroll
+          for (int k = 0; k < kChunk; ++k) {
+            s_ds[ln.col[j] + k] += acc_ds[j][k];
+            s_db[ln.col[j] + k] += acc_db[j][k];
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  float* part = parts + (long long)blockIdx.x * 2 * E;
+  for (int c = threadIdx.x; c < E; c += blockDim.x) {
+    part[c] = s_ds[c];
+    part[E + c] = s_db[c];
+  }
 }
 
-constexpr int kBwdWarps = 8;
-
-// Shared memory holds the block's two partial rows, s_ds[E] and s_db[E].
-template <typename T, int PER_LANE>
+// Any width up to 6144, any alignment.  Shared memory holds the block's
+// two partial rows, s_ds[E] and s_db[E]; each warp takes one row of the
+// round, then the warps fold their rows into shared memory in turn.
+template <typename T>
 __global__ void __launch_bounds__(kWarp * kBwdWarps)
-layer_norm_bwd_kernel(const T* __restrict__ x, long long x_row_stride,
-                      const float* __restrict__ scale,
-                      const T* __restrict__ g, long long g_row_stride,
-                      const float* __restrict__ mu,
-                      const float* __restrict__ rstd, T* __restrict__ dx,
-                      float* __restrict__ dscale_part,
-                      float* __restrict__ dbias_part, int n_rows, int E) {
+layer_norm_bwd_scalar_kernel(const T* __restrict__ x, long long x_row_stride,
+                             const float* __restrict__ scale,
+                             const T* __restrict__ g, long long g_row_stride,
+                             const float* __restrict__ mu,
+                             const float* __restrict__ rstd,
+                             T* __restrict__ dx,
+                             float* __restrict__ parts, int n_rows, int E) {
   extern __shared__ float smem[];
   float* s_ds = smem;
   float* s_db = smem + E;
@@ -174,171 +458,195 @@ layer_norm_bwd_kernel(const T* __restrict__ x, long long x_row_stride,
   for (int c = threadIdx.x; c < 2 * E; c += blockDim.x) smem[c] = 0.f;
   __syncthreads();
   const float inv_e = 1.0f / (float)E;
-  const int first = blockIdx.x * kBwdWarps;
   const int row_step = gridDim.x * kBwdWarps;
-
-  if constexpr (PER_LANE > 0) {
-    float acc_ds[PER_LANE], acc_db[PER_LANE];
-#pragma unroll
-    for (int j = 0; j < PER_LANE; ++j) acc_ds[j] = acc_db[j] = 0.f;
-    for (int row = first + warp; row < n_rows; row += row_step) {
-      const T* xr = x + (long long)row * x_row_stride;
-      const T* gr = g + (long long)row * g_row_stride;
+  for (int base = blockIdx.x * kBwdWarps; base < n_rows; base += row_step) {
+    const int row = base + warp;
+    const bool ok = row < n_rows;
+    const T* xr = x + (long long)row * x_row_stride;
+    const T* gr = g + (long long)row * g_row_stride;
+    float m = 0.f, rs = 0.f;
+    if (ok) {
       T* dxr = dx + (long long)row * E;
-      const float m = mu[row], rs = rstd[row];
-      float xh[PER_LANE], gv[PER_LANE];
+      m = mu[row];
+      rs = rstd[row];
       float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-      for (int j = 0; j < PER_LANE; ++j) {
-        const int c = lane + j * kWarp;
-        xh[j] = c < E ? (to_f32(xr[c]) - m) * rs : 0.f;
-        gv[j] = c < E ? to_f32(gr[c]) : 0.f;
-        const float gs = c < E ? gv[j] * scale[c] : 0.f;
+      for (int c = lane; c < E; c += kWarp) {
+        const float gs = to_f32(gr[c]) * scale[c];
         s1 += gs;
-        s2 += gs * xh[j];
+        s2 += gs * (to_f32(xr[c]) - m) * rs;
       }
       const float m1 = warp_sum(s1) * inv_e;
       const float m2 = warp_sum(s2) * inv_e;
-#pragma unroll
-      for (int j = 0; j < PER_LANE; ++j) {
-        const int c = lane + j * kWarp;
-        if (c < E) {
-          const float gs = gv[j] * scale[c];
-          dxr[c] = from_f32<T>(rs * (gs - m1 - xh[j] * m2));
-          acc_ds[j] += gv[j] * xh[j];
-          acc_db[j] += gv[j];
-        }
+      for (int c = lane; c < E; c += kWarp) {
+        const float xh = (to_f32(xr[c]) - m) * rs;
+        const float gs = to_f32(gr[c]) * scale[c];
+        dxr[c] = from_f32<T>(rs * (gs - m1 - xh * m2));
       }
     }
-    for (int w = 0; w < kBwdWarps; ++w) {   // one warp at a time
-      if (warp == w) {
-#pragma unroll
-        for (int j = 0; j < PER_LANE; ++j) {
-          const int c = lane + j * kWarp;
-          if (c < E) {
-            s_ds[c] += acc_ds[j];
-            s_db[c] += acc_db[j];
-          }
+    for (int w = 0; w < kBwdWarps; ++w) {
+      if (warp == w && ok) {
+        for (int c = lane; c < E; c += kWarp) {
+          const float gv = to_f32(gr[c]);
+          s_ds[c] += gv * ((to_f32(xr[c]) - m) * rs);
+          s_db[c] += gv;
         }
       }
       __syncthreads();
     }
-  } else {
-    // Any width: each warp takes one row of the round, then the warps
-    // fold their rows into shared memory in turn.
-    for (int base = first; base < n_rows; base += row_step) {
-      const int row = base + warp;
-      const bool ok = row < n_rows;
-      const T* xr = x + (long long)row * x_row_stride;
-      const T* gr = g + (long long)row * g_row_stride;
-      float m = 0.f, rs = 0.f;
-      if (ok) {
-        T* dxr = dx + (long long)row * E;
-        m = mu[row];
-        rs = rstd[row];
-        float s1 = 0.f, s2 = 0.f;
-        for (int c = lane; c < E; c += kWarp) {
-          const float gs = to_f32(gr[c]) * scale[c];
-          s1 += gs;
-          s2 += gs * (to_f32(xr[c]) - m) * rs;
-        }
-        const float m1 = warp_sum(s1) * inv_e;
-        const float m2 = warp_sum(s2) * inv_e;
-        for (int c = lane; c < E; c += kWarp) {
-          const float xh = (to_f32(xr[c]) - m) * rs;
-          const float gs = to_f32(gr[c]) * scale[c];
-          dxr[c] = from_f32<T>(rs * (gs - m1 - xh * m2));
-        }
-      }
-      for (int w = 0; w < kBwdWarps; ++w) {
-        if (warp == w && ok) {
-          for (int c = lane; c < E; c += kWarp) {
-            const float gv = to_f32(gr[c]);
-            s_ds[c] += gv * ((to_f32(xr[c]) - m) * rs);
-            s_db[c] += gv;
-          }
-        }
-        __syncthreads();
-      }
-    }
   }
   // every warp's adds are visible after the last turn's barrier
+  float* part = parts + (long long)blockIdx.x * 2 * E;
   for (int c = threadIdx.x; c < E; c += blockDim.x) {
-    dscale_part[(long long)blockIdx.x * E + c] = s_ds[c];
-    dbias_part[(long long)blockIdx.x * E + c] = s_db[c];
+    part[c] = s_ds[c];
+    part[E + c] = s_db[c];
   }
+}
+
+// out[c] = sum over the n_parts rows of parts[:, c], in a fixed order:
+// warp w of a block sums rows w, w + 32, ... of 32 columns (lane =
+// column), then one warp adds the 32 warps' sums in warp order.
+__global__ void __launch_bounds__(kWarp * kFoldGroups)
+layer_norm_fold_kernel(const float* __restrict__ parts, int n_parts,
+                       int width, float* __restrict__ out) {
+  __shared__ float s[kFoldGroups][kWarp];
+  const int lane = threadIdx.x % kWarp;
+  const int grp = threadIdx.x / kWarp;
+  const int c = blockIdx.x * kWarp + lane;
+  float acc = 0.f;
+  if (c < width) {
+#pragma unroll 4
+    for (int r = grp; r < n_parts; r += kFoldGroups)
+      acc += parts[(long long)r * width + c];
+  }
+  s[grp][lane] = acc;
+  __syncthreads();
+  if (grp == 0 && c < width) {
+    float t = s[0][lane];
+    for (int i = 1; i < kFoldGroups; ++i) t += s[i][lane];
+    out[c] = t;
+  }
+}
+
+// What the vector kernels take: E a multiple of 8 up to 768, row strides
+// that are multiples of 8 elements, every pointer 16-byte aligned.
+bool vector_ok(int E, long long stride_or, std::uintptr_t ptr_or) {
+  return E > 0 && E % kChunk == 0 && E <= kVecMaxE && stride_or % kChunk == 0
+         && ptr_or % 16 == 0;
+}
+
+template <typename T>
+int launch_fwd(const void* x, long long x_row_stride, const float* scale,
+               const float* bias, void* y, float* mu, float* rstd,
+               int n_rows, int E, float eps, bool vector, int n_blocks,
+               cudaStream_t stream) {
+  const T* xp = static_cast<const T*>(x);
+  T* yp = static_cast<T*>(y);
+  if (vector) {
+    const std::uintptr_t ptrs = reinterpret_cast<std::uintptr_t>(x)
+        | reinterpret_cast<std::uintptr_t>(scale)
+        | reinterpret_cast<std::uintptr_t>(bias)
+        | reinterpret_cast<std::uintptr_t>(y);
+    if (!vector_ok(E, x_row_stride, ptrs)) return (int)cudaErrorInvalidValue;
+    layer_norm_fwd_vec_kernel<T><<<n_blocks, kWarp * kFwdWarps, 0, stream>>>(
+        xp, x_row_stride, scale, bias, yp, mu, rstd, n_rows, E, eps);
+  } else {
+    layer_norm_fwd_scalar_kernel<T>
+        <<<n_blocks, kWarp * kFwdWarps, 0, stream>>>(
+            xp, x_row_stride, scale, bias, yp, mu, rstd, n_rows, E, eps);
+  }
+  return 0;
 }
 
 template <typename T>
 int launch_bwd(const void* x, long long x_row_stride, const float* scale,
                const void* g, long long g_row_stride, const float* mu,
-               const float* rstd, void* dx, float* dscale_part,
-               float* dbias_part, int n_rows, int E, int n_blocks,
+               const float* rstd, void* dx, float* parts, float* sums,
+               int n_rows, int E, bool vector, int n_blocks,
                cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)E * sizeof(float);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const T* xp = static_cast<const T*>(x);
   const T* gp = static_cast<const T*>(g);
   T* dxp = static_cast<T*>(dx);
-  const int per_lane = (E + kWarp - 1) / kWarp;
-#define RTT_LN_BWD_CASE(P)                                                \
-  layer_norm_bwd_kernel<T, P><<<n_blocks, kWarp * kBwdWarps, smem,         \
-                                stream>>>(xp, x_row_stride, scale, gp,     \
-                                          g_row_stride, mu, rstd, dxp,     \
-                                          dscale_part, dbias_part, n_rows, \
-                                          E)
-  if (per_lane <= kTilePerLane) RTT_LN_BWD_CASE(kTilePerLane);
-  else RTT_LN_BWD_CASE(0);
-#undef RTT_LN_BWD_CASE
+  if (vector) {
+    const std::uintptr_t ptrs = reinterpret_cast<std::uintptr_t>(x)
+        | reinterpret_cast<std::uintptr_t>(scale)
+        | reinterpret_cast<std::uintptr_t>(g)
+        | reinterpret_cast<std::uintptr_t>(dx);
+    if (!vector_ok(E, x_row_stride | g_row_stride, ptrs))
+      return (int)cudaErrorInvalidValue;
+    layer_norm_bwd_vec_kernel<T><<<n_blocks, kWarp * kBwdWarps, 0, stream>>>(
+        xp, x_row_stride, scale, gp, g_row_stride, mu, rstd, dxp, parts,
+        n_rows, E);
+  } else {
+    const size_t smem = 2 * (size_t)E * sizeof(float);
+    if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+    layer_norm_bwd_scalar_kernel<T>
+        <<<n_blocks, kWarp * kBwdWarps, smem, stream>>>(
+            xp, x_row_stride, scale, gp, g_row_stride, mu, rstd, dxp, parts,
+            n_rows, E);
+  }
+  const int width = 2 * E;
+  layer_norm_fold_kernel<<<(width + kWarp - 1) / kWarp, kWarp * kFoldGroups,
+                           0, stream>>>(parts, n_blocks, width, sums);
   return 0;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x and y share it).
-// mu / rstd may be null.  Returns cudaGetLastError() after the launch.
+// x: (n_rows, E) with a row stride and contiguous rows; y: (n_rows, E)
+// contiguous; scale, bias: (E,) float32.  dtype: 0 = float32,
+// 1 = bfloat16 (x and y share it).  mu / rstd may be null.  vector: 1 for
+// the vector-I/O kernel (refused, with nothing launched, when the layout
+// does not allow it), 0 for the scalar-I/O one.  n_blocks: the grid; each
+// warp walks rows n_blocks * 4 apart.  Returns cudaGetLastError() after
+// the launch, or cudaErrorInvalidValue for what it does not take.
 extern "C" int rtt_layer_norm_fwd(const void* x, long long x_row_stride,
                                   const float* scale, const float* bias,
                                   void* y, float* mu, float* rstd,
                                   int n_rows, int E, float eps, int dtype,
-                                  void* stream) {
+                                  int vector, int n_blocks, void* stream) {
   if (n_rows == 0) return (int)cudaGetLastError();
+  if (n_blocks <= 0 || E <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc;
   if (dtype == 0)
-    launch<float>(x, x_row_stride, scale, bias, y, mu, rstd, n_rows, E, eps,
-                  s);
+    rc = launch_fwd<float>(x, x_row_stride, scale, bias, y, mu, rstd, n_rows,
+                           E, eps, vector != 0, n_blocks, s);
   else if (dtype == 1)
-    launch<__nv_bfloat16>(x, x_row_stride, scale, bias, y, mu, rstd, n_rows,
-                          E, eps, s);
+    rc = launch_fwd<__nv_bfloat16>(x, x_row_stride, scale, bias, y, mu, rstd,
+                                   n_rows, E, eps, vector != 0, n_blocks, s);
   else
     return (int)cudaErrorInvalidValue;
+  if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
 
 // x, g: (n_rows, E) with row strides and contiguous rows, dtype as above;
 // mu, rstd: (n_rows,) float32 from the forward; dx: (n_rows, E)
-// contiguous.  dscale_part, dbias_part: (n_blocks, E) float32, one
-// partial row per block, summed by the caller.  E <= 6144 (the partial
-// rows live in 48 KB of shared memory).  Returns cudaGetLastError() after
-// the launch, or cudaErrorInvalidValue for what it does not take.
+// contiguous.  parts: (n_blocks, 2E) float32 scratch, one partial row of
+// dscale then dbias per block; sums: (2, E) float32, dscale then dbias,
+// the partial rows summed in a fixed order by a second launch on the same
+// stream.  vector as above; the scalar kernel takes E <= 6144 (its
+// partial rows live in 48 KB of shared memory).  Returns
+// cudaGetLastError() after the launches, or cudaErrorInvalidValue for
+// what it does not take.
 extern "C" int rtt_layer_norm_bwd(const void* x, long long x_row_stride,
                                   const float* scale, const void* g,
                                   long long g_row_stride, const float* mu,
-                                  const float* rstd, void* dx,
-                                  float* dscale_part, float* dbias_part,
-                                  int n_rows, int E, int n_blocks, int dtype,
+                                  const float* rstd, void* dx, float* parts,
+                                  float* sums, int n_rows, int E,
+                                  int n_blocks, int dtype, int vector,
                                   void* stream) {
   if (n_blocks <= 0 || E <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   if (dtype == 0)
     rc = launch_bwd<float>(x, x_row_stride, scale, g, g_row_stride, mu, rstd,
-                           dx, dscale_part, dbias_part, n_rows, E, n_blocks,
-                           s);
+                           dx, parts, sums, n_rows, E, vector != 0,
+                           n_blocks, s);
   else if (dtype == 1)
     rc = launch_bwd<__nv_bfloat16>(x, x_row_stride, scale, g, g_row_stride,
-                                   mu, rstd, dx, dscale_part, dbias_part,
-                                   n_rows, E, n_blocks, s);
+                                   mu, rstd, dx, parts, sums, n_rows, E,
+                                   vector != 0, n_blocks, s);
   else
     return (int)cudaErrorInvalidValue;
   if (rc != 0) return rc;

@@ -42,6 +42,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from ray_tpu_torch import _build
+from ray_tpu_torch._device import launch_on, sm_count
 from ray_tpu_torch.ops.attention import NEG_INF
 
 LOG2E = math.log2(math.e)
@@ -93,16 +94,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # every SM at least two blocks, else 64 (the prefill at B = 1, T = 1024
 # has 96 blocks of 128 rows for the H100's 132 SMs).
 BLOCK_MS = (64, 128)
-_sm_counts: dict = {}
 
 
 def forward_block_m(B: int, T: int, H: int, device: torch.device) -> int:
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if idx not in _sm_counts:
-        _sm_counts[idx] = \
-            torch.cuda.get_device_properties(idx).multi_processor_count
-    return 128 if -(-T // 128) * B * H >= 2 * _sm_counts[idx] else 64
+    return 128 if -(-T // 128) * B * H >= 2 * sm_count(device) else 64
 
 
 def _check_tc_operands(**tensors) -> None:
@@ -146,18 +141,17 @@ def _flash_kernel(q, k, v, causal: bool, want_lse: bool,
     lse: Optional[torch.Tensor] = None
     if want_lse:
         lse = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
-    fn = _build.lib().rtt_flash_attention_fwd
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr() if lse is not None else None,
-                B, T, H, D,
-                q.stride(0), q.stride(1), q.stride(2),
-                k.stride(0), k.stride(1), k.stride(2),
-                v.stride(0), v.stride(1), v.stride(2),
-                out.stride(0), out.stride(1), out.stride(2),
-                int(causal), LOG2E / math.sqrt(D), _DTYPES[q.dtype],
-                block_m or 0, stream)
+    fn = _build.entry("rtt_flash_attention_fwd")
+    rc = launch_on(q.device, lambda stream: fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if lse is not None else None,
+        B, T, H, D,
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        out.stride(0), out.stride(1), out.stride(2),
+        int(causal), LOG2E / math.sqrt(D), _DTYPES[q.dtype],
+        block_m or 0, stream))
     _build.check(rc, "rtt_flash_attention_fwd")
     if tensor_cores:
         launches += 1
@@ -232,18 +226,17 @@ def _flash_bwd_kernel(q, k, v, lse, delta, do, causal: bool):
     lse, delta = lse.contiguous(), delta.contiguous()
     dq, dk, dv = (torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
                   for _ in range(3))
-    fn = _build.lib().rtt_flash_attention_bwd
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), B, T, H, D,
-                q.stride(0), q.stride(1), q.stride(2),
-                k.stride(0), k.stride(1), k.stride(2),
-                v.stride(0), v.stride(1), v.stride(2),
-                do.stride(0), do.stride(1), do.stride(2),
-                int(causal), LOG2E / math.sqrt(D), 1.0 / math.sqrt(D),
-                _DTYPES[q.dtype], stream)
+    fn = _build.entry("rtt_flash_attention_bwd")
+    rc = launch_on(q.device, lambda stream: fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, T, H, D,
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        do.stride(0), do.stride(1), do.stride(2),
+        int(causal), LOG2E / math.sqrt(D), 1.0 / math.sqrt(D),
+        _DTYPES[q.dtype], stream))
     _build.check(rc, "rtt_flash_attention_bwd")
     if tensor_cores:
         bwd_launches += 1

@@ -13,8 +13,16 @@ it, on every device: the forward saves only the per-row float32
 ``(mu, rstd)``, and the backward is ``ln_bwd``.  Otherwise it takes the
 stats-free forward, so inference writes no mu/rstd.
 
+Each kernel has two instantiations, and ``launch_plan`` picks one from
+the shapes, strides and pointers alone: vector I/O (16-byte loads and
+stores, the affine in registers, rows walked over a grid the SMs hold in
+one wave) for E a multiple of 8 up to 768 with aligned rows, which is
+every LayerNorm of the GPT-2 124M paths; scalar I/O for any other layout.
+Both are kernels, counted apart.
+
 The reference takes its Pallas kernel only when ``E % 128 == 0`` (a TPU
-lane-tiling limit); these kernels serve every E up to 6144.
+lane-tiling limit); the forward serves every E, the backward every E up
+to 6144.
 """
 
 from __future__ import annotations
@@ -24,16 +32,31 @@ from typing import Optional, Tuple
 import torch
 
 from ray_tpu_torch import _build
+from ray_tpu_torch._device import launch_on, sm_count
 
-# Kernel launches since the last reset (chip_smoke.py reads them to show
-# that the main path went through the kernels).
+# Kernel launches since the last reset, one counter per instantiation
+# (chip_smoke.py reads them to show that the main path went through the
+# vector-I/O kernels): ``launches`` / ``bwd_launches`` count the
+# vector-I/O kernels, ``scalar_launches`` / ``bwd_scalar_launches`` the
+# scalar-I/O ones.
 launches = 0
 bwd_launches = 0
+scalar_launches = 0
+bwd_scalar_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# The backward's partial rows live in 48 KB of shared memory per block.
+# The launch geometry of csrc/layer_norm.cu.  The vector kernels hold
+# E <= 768 in registers, 8 columns a vector.  A block takes 4 rows at a
+# time; an SM holds 4 forward blocks (128 registers) and, by dtype, 3 or 2
+# vector backward blocks (168 or 255 registers).  The scalar backward
+# keeps its partial rows in 48 KB of shared memory.
+VEC_CHUNK = 8
+VEC_MAX_E = 768
+FWD_WARPS, FWD_BLOCKS_PER_SM = 4, 4
+BWD_WARPS = 4
+BWD_BLOCKS_PER_SM = {torch.bfloat16: 3, torch.float32: 2}
+BWD_SCALAR_BLOCKS_PER_SM = 2
 MAX_BWD_E = 6144
-BWD_WARPS = 8               # rows a block takes at a time (layer_norm.cu)
 
 
 def ln_fwd_plain(x2: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -50,6 +73,32 @@ def ln_fwd_plain(x2: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y.to(x2.dtype), mu[:, 0], rstd[:, 0]
 
 
+def launch_plan(N: int, E: int, row_stride: int, misalign: int,
+                dtype: torch.dtype, sms: int, backward: bool = False
+                ) -> Tuple[bool, int]:
+    """(vector I/O, blocks) for one kernel call.
+
+    ``row_stride`` is in elements and ``misalign`` in bytes: for several
+    operands, the bitwise OR of their row strides and of their base
+    addresses mod 16, since any one that breaks the rule rules vector I/O
+    out.  Vector I/O needs E a multiple of 8 up to 768, row strides that
+    are multiples of 8 elements and 16-byte aligned bases.  The vector
+    kernels walk rows over a grid the SMs hold in one wave; the scalar
+    forward takes one row per warp, the scalar backward two blocks an SM.
+    """
+    if dtype not in _DTYPES:
+        raise TypeError(f"layer_norm kernel takes float32 or bfloat16, "
+                        f"not {dtype}")
+    vector = (E % VEC_CHUNK == 0 and 0 < E <= VEC_MAX_E
+              and row_stride % VEC_CHUNK == 0 and misalign % 16 == 0)
+    if backward:
+        per_sm = BWD_BLOCKS_PER_SM[dtype] if vector \
+            else BWD_SCALAR_BLOCKS_PER_SM
+        return vector, max(1, min(-(-N // BWD_WARPS), per_sm * sms))
+    blocks = -(-N // FWD_WARPS)
+    return vector, min(blocks, FWD_BLOCKS_PER_SM * sms) if vector else blocks
+
+
 def _check_affine(x2: torch.Tensor, **named: torch.Tensor) -> None:
     E = x2.shape[1]
     for name, t in named.items():
@@ -58,33 +107,42 @@ def _check_affine(x2: torch.Tensor, **named: torch.Tensor) -> None:
                              f"got {tuple(t.shape)} on {t.device}")
 
 
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as contiguous float32, copying only if it is not already."""
+    if t.dtype == torch.float32 and t.is_contiguous():
+        return t
+    return t.to(torch.float32).contiguous()
+
+
 def _ln_fwd_kernel(x2: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                    eps: float, want_stats: bool):
-    global launches
-    if x2.dtype not in _DTYPES:
-        raise TypeError(f"layer_norm kernel takes float32 or bfloat16, "
-                        f"not {x2.dtype}")
+    global launches, scalar_launches
     N, E = x2.shape
     if x2.stride(1) != 1:
         raise ValueError("layer_norm kernel needs a contiguous last dim")
     _check_affine(x2, scale=scale, bias=bias)
-    scale = scale.to(torch.float32).contiguous()
-    bias = bias.to(torch.float32).contiguous()
-    y = torch.empty((N, E), dtype=x2.dtype, device=x2.device)
+    scale, bias = _f32(scale), _f32(bias)
+    dev = x2.device
+    y = torch.empty((N, E), dtype=x2.dtype, device=dev)
     mu = rstd = None
     if want_stats:
-        mu = torch.empty((N,), dtype=torch.float32, device=x2.device)
-        rstd = torch.empty((N,), dtype=torch.float32, device=x2.device)
-    fn = _build.lib().rtt_layer_norm_fwd
-    with torch.cuda.device(x2.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(x2.data_ptr(), x2.stride(0), scale.data_ptr(),
-                bias.data_ptr(), y.data_ptr(),
-                mu.data_ptr() if mu is not None else None,
-                rstd.data_ptr() if rstd is not None else None,
-                N, E, float(eps), _DTYPES[x2.dtype], stream)
+        mu = torch.empty((N,), dtype=torch.float32, device=dev)
+        rstd = torch.empty((N,), dtype=torch.float32, device=dev)
+    vector, blocks = launch_plan(
+        N, E, x2.stride(0),
+        (x2.data_ptr() | scale.data_ptr() | bias.data_ptr()) % 16,
+        x2.dtype, sm_count(dev))
+    fn = _build.entry("rtt_layer_norm_fwd")
+    rc = launch_on(dev, lambda stream: fn(
+        x2.data_ptr(), x2.stride(0), scale.data_ptr(), bias.data_ptr(),
+        y.data_ptr(), mu.data_ptr() if mu is not None else None,
+        rstd.data_ptr() if rstd is not None else None, N, E, float(eps),
+        _DTYPES[x2.dtype], int(vector), blocks, stream))
     _build.check(rc, "rtt_layer_norm_fwd")
-    launches += 1
+    if vector:
+        launches += 1
+    else:
+        scalar_launches += 1
     return y, mu, rstd
 
 
@@ -115,17 +173,8 @@ def ln_bwd_plain(x2: torch.Tensor, scale: torch.Tensor, g2: torch.Tensor,
     return dx.to(x2.dtype), (g * xhat).sum(dim=0), g.sum(dim=0)
 
 
-def bwd_blocks(N: int, device: torch.device) -> int:
-    """About two blocks per SM, and none without rows to walk."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-N // BWD_WARPS), 2 * sms))
-
-
 def _ln_bwd_kernel(x2, scale, g2, mu, rstd):
-    global bwd_launches
-    if x2.dtype not in _DTYPES:
-        raise TypeError(f"layer_norm kernel takes float32 or bfloat16, "
-                        f"not {x2.dtype}")
+    global bwd_launches, bwd_scalar_launches
     N, E = x2.shape
     if E > MAX_BWD_E:
         raise ValueError(f"layer_norm backward kernel takes E <= "
@@ -144,22 +193,28 @@ def _ln_bwd_kernel(x2, scale, g2, mu, rstd):
     g2 = g2.to(x2.dtype)
     if g2.stride(1) != 1:
         g2 = g2.contiguous()
-    scale = scale.to(torch.float32).contiguous()
+    scale = _f32(scale)
     mu, rstd = mu.contiguous(), rstd.contiguous()
-    nb = bwd_blocks(N, x2.device)
-    dx = torch.empty((N, E), dtype=x2.dtype, device=x2.device)
-    parts = torch.empty((2, nb, E), dtype=torch.float32, device=x2.device)
-    fn = _build.lib().rtt_layer_norm_bwd
-    with torch.cuda.device(x2.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(x2.data_ptr(), x2.stride(0), scale.data_ptr(),
-                g2.data_ptr(), g2.stride(0), mu.data_ptr(), rstd.data_ptr(),
-                dx.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(),
-                N, E, nb, _DTYPES[x2.dtype], stream)
+    dev = x2.device
+    vector, nb = launch_plan(
+        N, E, x2.stride(0) | g2.stride(0),
+        (x2.data_ptr() | g2.data_ptr() | scale.data_ptr()) % 16,
+        x2.dtype, sm_count(dev), backward=True)
+    dx = torch.empty((N, E), dtype=x2.dtype, device=dev)
+    parts = torch.empty((nb, 2 * E), dtype=torch.float32, device=dev)
+    sums = torch.empty((2, E), dtype=torch.float32, device=dev)
+    fn = _build.entry("rtt_layer_norm_bwd")
+    rc = launch_on(dev, lambda stream: fn(
+        x2.data_ptr(), x2.stride(0), scale.data_ptr(), g2.data_ptr(),
+        g2.stride(0), mu.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
+        parts.data_ptr(), sums.data_ptr(), N, E, nb, _DTYPES[x2.dtype],
+        int(vector), stream))
     _build.check(rc, "rtt_layer_norm_bwd")
-    bwd_launches += 1
-    dscale, dbias = parts.sum(dim=1)      # the few partial rows, outside
-    return dx, dscale, dbias
+    if vector:
+        bwd_launches += 1
+    else:
+        bwd_scalar_launches += 1
+    return dx, sums[0], sums[1]
 
 
 def ln_bwd(x2: torch.Tensor, scale: torch.Tensor, g2: torch.Tensor,

@@ -24,8 +24,8 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# 768: GPT-2 124M's width, the register-tile path; 1600: GPT-2 XL's,
-# wider than the tile, the generic loop.
+# 768: GPT-2 124M's width, the vector-I/O kernel; 1600: GPT-2 XL's,
+# wider than its register tile, the scalar-I/O loop.
 @pytest.mark.parametrize("N,E", [(1024, 768), (16, 768), (33, 1600)])
 def test_layer_norm_kernel_matches_plain(cuda_device, N, E):
     g = torch.Generator(device=cuda_device).manual_seed(0)
@@ -61,8 +61,8 @@ def _within_bf16_steps(out, ref, steps):
     assert ((out.float() - r).abs() <= limit).all()
 
 
-# (33, 1600): wider than the register tile, the generic loop; 333 rows:
-# a ragged last stripe.
+# (33, 1600): wider than the register tile, the scalar-I/O loop; 333
+# rows: a ragged last stripe.
 @pytest.mark.parametrize("N,E", [(1024, 768), (333, 768), (33, 1600)])
 def test_layer_norm_bwd_kernel_matches_plain(cuda_device, N, E):
     g = torch.Generator(device=cuda_device).manual_seed(1)
@@ -78,6 +78,100 @@ def test_layer_norm_bwd_kernel_matches_plain(cuda_device, N, E):
         # float32 sums of N terms of size ~1 in other orders
         torch.testing.assert_close(ds, dsp, atol=1e-6 * N, rtol=1e-5)
         torch.testing.assert_close(db, dbp, atol=1e-6 * N, rtol=1e-5)
+
+
+def _ln_counts():
+    return (t_ln.launches, t_ln.scalar_launches, t_ln.bwd_launches,
+            t_ln.bwd_scalar_launches)
+
+
+def _scalar_io_input(dev, how, N=64):
+    """A (N, E) float32 x the vector-I/O kernels cannot read: its base one
+    element past a 16-byte boundary (E = 768), or E = 100."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    if how == "offset":
+        buf = torch.randn(1 + N * 768, generator=g, device=dev)
+        return buf[1:].view(N, 768)
+    return torch.randn((N, 100), generator=g, device=dev)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("how", ["offset", "e100"])
+def test_layer_norm_scalar_io_instantiation(cuda_device, how, dt):
+    """A layout the vector kernels do not take goes to the scalar-I/O
+    kernels, forward and backward, counted apart and held to the plain
+    versions; the C entry refuses it for the vector kernel, launching
+    nothing."""
+    x = _scalar_io_input(cuda_device, how)
+    if dt == torch.bfloat16:
+        # cast in place of the view, keeping it one element off alignment
+        x = x.to(dt) if how == "e100" else \
+            torch.empty(1 + x.numel(), device=cuda_device, dtype=dt)[1:] \
+            .view(x.shape).copy_(x)
+    N, E = x.shape
+    assert how == "e100" or x.data_ptr() % 16
+    s = 1 + 0.1 * torch.randn(E, device=cuda_device)
+    b = 0.1 * torch.randn(E, device=cuda_device)
+    gy = torch.randn((N, E), device=cuda_device).to(dt)
+    tol = 1e-5 if dt == torch.float32 else 2 ** -7 * 8
+    before = _ln_counts()
+    y, mu, rstd = t_ln.ln_fwd(x, s, b, 1e-5, want_stats=True)
+    dx, ds, db = t_ln.ln_bwd(x, s, gy, mu, rstd)
+    torch.cuda.synchronize()
+    assert _ln_counts() == (before[0], before[1] + 1, before[2],
+                            before[3] + 1)
+    yp, mup, rstdp = t_ln.ln_fwd_plain(x, s, b, 1e-5)
+    dxp, dsp, dbp = t_ln.ln_bwd_plain(x, s, gy, mu, rstd)
+    torch.testing.assert_close(y.float(), yp.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(mu, mup, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(dx.float(), dxp.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(ds, dsp, atol=1e-6 * N, rtol=1e-5)
+    torch.testing.assert_close(db, dbp, atol=1e-6 * N, rtol=1e-5)
+    out = torch.empty((N, E), device=cuda_device, dtype=dt)
+    rc = _build.entry("rtt_layer_norm_fwd")(
+        x.data_ptr(), x.stride(0), s.data_ptr(), b.data_ptr(),
+        out.data_ptr(), None, None, N, E, 1e-5,
+        0 if dt == torch.float32 else 1, 1, 1,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 1                      # cudaErrorInvalidValue
+
+
+def test_layer_norm_fwd_train_shape_with_stats(cuda_device):
+    """The train step's rows, (32768, 768) bf16 with mu/rstd: the vector
+    kernel walks several rows a warp here, through its register ring."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    x = torch.randn((32768, 768), generator=g, device=cuda_device)
+    x = x.to(torch.bfloat16)
+    s = 1 + 0.1 * torch.randn(768, generator=g, device=cuda_device)
+    b = 0.1 * torch.randn(768, generator=g, device=cuda_device)
+    before = _ln_counts()
+    y, mu, rstd = t_ln.ln_fwd(x, s, b, 1e-5, want_stats=True)
+    torch.cuda.synchronize()
+    assert _ln_counts() == (before[0] + 1,) + before[1:]
+    yp, mup, rstdp = t_ln.ln_fwd_plain(x, s, b, 1e-5)
+    _within_bf16_steps(y, yp, 1)
+    torch.testing.assert_close(mu, mup, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, rstdp, atol=0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("N", [32768, 333])
+def test_layer_norm_bwd_sums_bitwise_repeatable(cuda_device, N):
+    """dscale and dbias are summed in a fixed order: two calls on the
+    same inputs agree to the bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    x = torch.randn((N, 768), generator=g, device=cuda_device)
+    x = x.to(torch.bfloat16)
+    gy = torch.randn((N, 768), generator=g, device=cuda_device)
+    gy = gy.to(torch.bfloat16)
+    s = 1 + 0.1 * torch.randn(768, generator=g, device=cuda_device)
+    _, mu, rstd = t_ln.ln_fwd_plain(x, s, torch.zeros_like(s))
+    before = _ln_counts()
+    dx1, ds1, db1 = t_ln.ln_bwd(x, s, gy, mu, rstd)
+    dx2, ds2, db2 = t_ln.ln_bwd(x, s, gy, mu, rstd)
+    torch.cuda.synchronize()
+    assert _ln_counts() == before[:2] + (before[2] + 2, before[3])
+    assert torch.equal(dx1, dx2)
+    assert torch.equal(ds1, ds2) and torch.equal(db1, db2)
 
 
 @pytest.mark.parametrize("T", [64, 333])

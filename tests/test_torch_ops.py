@@ -87,6 +87,51 @@ def test_layer_norm_cpu_tensor_takes_plain_version():
     assert mu is None and rstd is None
 
 
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+# (N, E, row stride, misaligned bytes, dtype, backward) on 132 SMs ->
+# (vector I/O, blocks)
+@pytest.mark.parametrize("args,want", [
+    # the train step's rows: a grid of 4 blocks an SM walks them
+    ((32768, 768, 768, 0, BF16, False), (True, 4 * 132)),
+    # the longest prefill bucket and the decode batch: a row a warp
+    ((1024, 768, 768, 0, BF16, False), (True, 256)),
+    ((16, 768, 768, 0, BF16, False), (True, 4)),
+    ((1, 768, 768, 0, F32, False), (True, 1)),
+    ((0, 768, 768, 0, BF16, False), (True, 0)),
+    # a view of x with a row stride, still 8-element aligned
+    ((1024, 768, 2304, 0, BF16, False), (True, 256)),
+    # base one bf16 / one f32 element off a 16-byte boundary
+    ((1024, 768, 768, 2, BF16, False), (False, 256)),
+    ((1024, 768, 768, 4, F32, False), (False, 256)),
+    # a row stride that is not a multiple of 8 elements
+    ((1024, 768, 769, 0, BF16, False), (False, 256)),
+    # E not a multiple of 8, and E wider than the register tile
+    ((1024, 100, 100, 0, BF16, False), (False, 256)),
+    ((32768, 1600, 1600, 0, BF16, False), (False, 8192)),
+    # backward: 3 bf16 or 2 float32 blocks an SM, or fewer where rows
+    # run out; the scalar kernel 2 an SM
+    ((32768, 768, 768, 0, BF16, True), (True, 3 * 132)),
+    ((32768, 768, 768, 0, F32, True), (True, 2 * 132)),
+    ((333, 768, 768, 0, BF16, True), (True, 84)),
+    ((0, 768, 768, 0, BF16, True), (True, 1)),
+    ((32768, 768, 768 | 769, 0, BF16, True), (False, 264)),
+    ((32768, 1600, 1600, 0, F32, True), (False, 264)),
+])
+def test_layer_norm_launch_plan(args, want):
+    """The wrapper's choice of instantiation and grid, a pure function of
+    the call's shape, strides, alignment, dtype and SM count."""
+    N, E, stride, misalign, dtype, backward = args
+    assert t_ln.launch_plan(N, E, stride, misalign, dtype, 132,
+                            backward=backward) == want
+
+
+def test_layer_norm_launch_plan_refuses_other_dtypes():
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        t_ln.launch_plan(16, 768, 768, 0, torch.float16, 132)
+
+
 def test_layer_norm_output_keeps_input_dtype():
     x = torch.randn(4, 64, generator=torch.Generator().manual_seed(0))
     y = t_ln.layer_norm(x.to(torch.bfloat16), torch.ones(64), torch.zeros(64))
@@ -333,13 +378,16 @@ def test_backward_cpu_tensors_take_plain_versions():
     x = _t(rng.standard_normal((3, 32)).astype(np.float32)).requires_grad_()
     q = _t(rng.standard_normal((1, 8, 2, 4)).astype(np.float32)) \
         .requires_grad_()
-    before = (t_ln.launches, t_ln.bwd_launches, t_flash.launches,
-              t_flash.bwd_launches)
+    def counts():
+        return (t_ln.launches, t_ln.bwd_launches, t_ln.scalar_launches,
+                t_ln.bwd_scalar_launches, t_flash.launches,
+                t_flash.bwd_launches)
+
+    before = counts()
     t_ln.layer_norm(x, torch.ones(32), torch.zeros(32)).sum().backward()
     t_flash.flash_attention(q, q, q).sum().backward()
     assert x.grad is not None and q.grad is not None
-    assert (t_ln.launches, t_ln.bwd_launches, t_flash.launches,
-            t_flash.bwd_launches) == before
+    assert counts() == before
 
 
 def test_inference_keeps_the_stats_free_forward():
