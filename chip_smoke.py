@@ -5,15 +5,20 @@
 1. Prints the card's name and power limit, then builds the CUDA kernels
    from ``ray_tpu_torch/csrc`` with nvcc for sm_90a, and prints, for each
    bf16 tensor-core kernel, ptxas's registers, shared memory and spill
-   bytes and the HMMA instructions in its SASS (``cuobjdump -sass``);
-   fails if one has none.  The same for each LayerNorm kernel, with its
-   128-bit global loads and stores in place of HMMA; fails if a
+   bytes and the HMMA instructions in its SASS (``cuobjdump -sass``), and
+   for the forward's instantiations their dynamic shared memory and
+   blocks an SM; fails if one has no HMMA or spills.  The same for each
+   LayerNorm kernel, with its 128-bit global loads and stores in place of
+   HMMA; fails if a
    vector-I/O instantiation has no 128-bit load, spills, or takes more
    registers than the blocks an SM its grid assumes leave it.
 2. Kernel phase: at the serving path's shapes, holds each kernel against
    its plain PyTorch version on the card (bf16, stated tolerances) and
    times the kernel, the plain version and the closest single PyTorch
    call (a yardstick only: the port never calls it).
+   The flash forward's head-dim-128 instantiation is held at Llama-3 8B's
+   shapes (32 query heads over 8 KV heads), where a plain version with
+   the KV heads in the wrong (tiled) order must fail the same check.
    The backward kernels, and both forward kernels once more, are held the
    same way at the training path's shapes; the LayerNorm backward's
    dscale/dbias must also be bitwise equal between two calls.
@@ -25,7 +30,10 @@
    teacher-forces the engine's output through the full ``forward`` to
    hold the engine's per-step logits to it.  Then plants one fault at a
    time in the decode step's inputs and requires the same check to fail
-   on each.
+   on each.  Then the same for Llama-3 8B (full width and depth, weights
+   drawn on the card, block matrices x2): 32 head-dim-128 flash launches
+   per prefill step and per full forward, none of another instantiation;
+   the weights and the pool are freed before the next phase.
 4. Train phase: trains GPT-2 124M (full width, random init from the seed,
    batch 32 x seq 1024, remat on) through ``spmd.build_train_program``.
    Holds every parameter's step-0 gradient to an independent reference
@@ -49,6 +57,7 @@ import math
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -75,6 +84,15 @@ BF16_RMS_FLOOR = 4 * 2.0 ** -8
 # test_flash_bwd_plain_within_one_step_of_exact holds the plain version
 # to it), hence within two steps of each other.
 FLASH_BWD_STEPS = 2
+# Flash forward at head dim 128 (Llama) against its plain version: two
+# of those steps, as the backward.  The output sums p·v with p rounded to
+# bf16 (the reference's rounding point, at the same running maxima on
+# both sides); the tensor cores accumulate each score over 128 dims in 8
+# truncating k-steps, cuBLAS's float32 GEMM otherwise, and where the two
+# p's straddle a bf16 rounding boundary one term of the sum moves by a
+# step of p.  Measured at (8, 2048, 32 over 8, 128): 1.253 of one step at
+# its worst element (PERF.md §6); at head dim 64 one step holds.
+FLASH_D128_STEPS = 2
 # LayerNorm mu/rstd (f32): summation order only.
 LN_STAT_TOL = 1e-5
 # LayerNorm dscale/dbias (f32 sums over the rows), held to the exact
@@ -109,6 +127,23 @@ FAULTS = {
         t, p, pool, np.roll(tab, 1, axis=1), n),
 }
 
+# The Llama engine phase: Llama-3 8B at full width and depth, 16 requests
+# of up to 2016 tokens each: the pool holds 2100 blocks of 16 tokens
+# (262 KB a token in float32: 8.8 GB).
+LLAMA_NUM_BLOCKS = 2100
+LLAMA_BLOCK_MATRICES = ("wq", "wk", "wv", "wo", "w_gate", "w_up",
+                        "w_down")
+# Llama's weights are its init with every block matrix scaled x2, and
+# its logits limit is 1.5: set anew from a sweep of the scale on the card
+# (llama_sweep; PERF.md §6).  Healthy error and the smallest planted
+# fault (a dropped key): x1 0.370 / 1.875, x2 0.586 / 3.848, x3 0.688 /
+# 1.742, x5 0.859 / 3.664.  Only x1, x2 and x5 leave room for a limit 2x
+# above the one and 2x below the other; x2 leaves the most (6.6x), and
+# 1.5 sits 2.56x from each.  The healthy error is bf16 rounding through
+# 32 layers of random weights: in float32 (CPU, 4 layers) the engine's
+# logits equal the full forward's to 1.5e-6.
+LLAMA_ENGINE_BLOCK_SCALE = 2.0
+LLAMA_ENGINE_LOGIT_TOL = 1.5
 
 # Train phase: GPT-2 124M at the flagship training shape.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 32, 1024, 6
@@ -215,16 +250,23 @@ def bound_ms(nbytes: float, flops: float, card) -> tuple:
 
 
 # ---------------------------------------------------------------- kernels
-# The bf16 tensor-core kernels, by a piece of their mangled names.
-TC_KERNELS = ("flash_fwd_tc_kernelILi64E", "flash_fwd_tc_kernelILi128E",
-              "flash_bwd_dkdv_tc_kernel", "flash_bwd_dq_tc_kernel")
+# The bf16 tensor-core kernels, by a piece of their mangled names; the
+# forward's instantiations <block_m, head dim> with their (D, block_m).
+TC_FWD = {"flash_fwd_tc_kernelILi64ELi64E": (64, 64),
+          "flash_fwd_tc_kernelILi128ELi64E": (64, 128),
+          "flash_fwd_tc_kernelILi64ELi128E": (128, 64)}
+TC_KERNELS = tuple(TC_FWD) + ("flash_bwd_dkdv_tc_kernel",
+                              "flash_bwd_dq_tc_kernel")
 
 
 def tc_report(tag: str) -> dict:
     """For each bf16 tensor-core kernel of the build: ptxas's registers a
-    thread, shared memory a block and spill bytes, and the HMMA
-    instructions in its SASS.  Fails if one has no HMMA."""
+    thread, static shared memory a block and spill bytes, and the HMMA
+    instructions in its SASS; for the forward's instantiations also their
+    dynamic shared memory and the blocks an SM the occupancy calculator
+    allows.  Fails if one has no HMMA or spills."""
     from ray_tpu_torch import _build
+    from ray_tpu_torch.ops import flash_attention as fa
     res = _build.kernel_resources()
     hmma = _build.sass_counts("HMMA")
     out = {}
@@ -235,12 +277,19 @@ def tc_report(tag: str) -> dict:
             fail(f"kernel {key}: {len(names)} SASS functions and "
                  f"{len(rnames)} ptxas entries")
         out[key] = dict(res[rnames[0]], hmma=hmma[names[0]])
+        if key in TC_FWD:
+            smem, per_sm = fa.forward_occupancy(*TC_FWD[key])
+            out[key].update(dynamic_smem_bytes=smem, blocks_per_sm=per_sm)
         print(f"sass {key} " + " ".join(f"{k} {v}" for k, v in
                                         out[key].items()) + f" [{tag}]",
               flush=True)
         if out[key]["hmma"] == 0:
             fail(f"kernel {key} has no HMMA: it does not use the tensor "
                  f"cores")
+        if out[key]["spill_stores"] or out[key]["spill_loads"]:
+            fail(f"kernel {key} spills")
+        if out[key].get("blocks_per_sm", 1) < 1:
+            fail(f"kernel {key} cannot be resident on an SM")
     return out
 
 
@@ -369,7 +418,7 @@ def check_flash(gen, card, dev) -> list:
         del out, outp, lse, lsep
         name = f"flash_attention_fwd({B}x{T}x{H}x{D} bf16" \
             f"{', causal' if causal else ''})"
-        bm = fa.forward_block_m(B, T, H, dev)
+        bm = fa.forward_block_m(B, T, H, dev, D)
         print(f"{name} block_m {bm} max_abs_err {err:.6g} "
               f"worst_err/limit {ratio:.4g} "
               f"(limit {BF16_REL:.6g}*|ref| + {floor:.6g}) "
@@ -381,7 +430,7 @@ def check_flash(gen, card, dev) -> list:
         kern = lambda: fa.flash_attention(q, k, v, True)  # noqa: E731
         k_ms, c_ms = device_ms(kern), call_ms(kern)
         # the tile height the wrapper did not pick, for the record
-        other = [x for x in fa.BLOCK_MS if x != bm][0]
+        other = [x for x in fa.BLOCK_MS[D] if x != bm][0]
         o_ms = device_ms(lambda: fa._flash_kernel(q, k, v, True, False,
                                                   other))
         print(f"{name} kernel_ms {k_ms:.6g} at block_m {bm}, {o_ms:.6g} "
@@ -400,6 +449,91 @@ def check_flash(gen, card, dev) -> list:
         rows.append(dict(name=name, shape=(B, T, H, D), max_abs_err=err,
                          ms=k_ms, call_ms=c_ms, plain_ms=p_ms,
                          library_ms=l_ms,
+                         bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
+# Llama-3 8B's attention shapes (B, T, causal): prefill buckets at B = 1,
+# a ragged length both ways, and one loaded shape.
+GQA_SHAPES = ((1, 64, True), (1, 333, True), (1, 1024, True),
+              (1, 2048, True), (1, 333, False), (8, 2048, True))
+
+
+def check_flash_gqa(gen, card, dev) -> list:
+    """The head-dim-128 instantiation at Llama-3 8B's attention: 32 query
+    heads over 8 KV heads, q a view of a (B, T, 4096) projection, k and v
+    (B, T, 8, 128) of their own.  Each shape is held to the plain version;
+    a planted control (the plain version's KV heads in tiled order) must
+    fail the same check at every B = 1 shape."""
+    import torch.nn.functional as F
+    from ray_tpu_torch.ops import flash_attention as fa
+    rows = []
+    H, KV, D = 32, 8, 128
+    G = H // KV
+    for B, T, causal in GQA_SHAPES:
+        q = torch.randn((B, T, H * D), generator=gen, device=dev) \
+            .to(torch.bfloat16).view(B, T, H, D)
+        k, v = (torch.randn((B, T, KV, D), generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        before = (fa.launches, fa.d128_launches, fa.f32_launches)
+        out, lse = fa.flash_attention(q, k, v, causal, want_lse=True)
+        if (fa.launches, fa.d128_launches, fa.f32_launches) != \
+                (before[0], before[1] + 1, before[2]):
+            fail(f"flash at ({B}, {T}, {H}/{KV}, {D}) did not take the "
+                 f"head-dim-128 kernel")
+        outp, lsep = fa.flash_attention_plain(q, k, v, causal, want_lse=True)
+        torch.cuda.synchronize()
+        err, ratio, floor = bf16_excess(out, outp, FLASH_D128_STEPS)
+        lerr = (lse - lsep).abs().max().item()
+        del outp, lsep
+        name = f"flash_attention_fwd_gqa_d128({B}x{T}x{H}/{KV}x{D} bf16" \
+            f"{', causal' if causal else ''})"
+        print(f"{name} max_abs_err {err:.6g} worst_err/limit {ratio:.4g} "
+              f"(limit {FLASH_D128_STEPS}*({BF16_REL:.6g}*|ref| + "
+              f"{floor:.6g})) lse_err {lerr:.3g} tol {FLASH_LSE_TOL}",
+              flush=True)
+        if not (ratio <= 1.0 and lerr <= FLASH_LSE_TOL):
+            fail(f"{name} disagrees with its plain version")
+        if B == 1:
+            # control: KV head h % KV (jnp.tile's order) for query head h
+            tiled = [t.repeat(1, 1, G, 1) for t in (k, v)]
+            outc, lsec = fa.flash_attention_plain(q, *tiled, causal,
+                                                  want_lse=True)
+            torch.cuda.synchronize()
+            _, cratio, _ = bf16_excess(out, outc, FLASH_D128_STEPS)
+            clerr = (lse - lsec).abs().max().item()
+            del outc, lsec, tiled
+            print(f"{name} control kv_heads_tiled worst_err/limit "
+                  f"{cratio:.4g} lse_err {clerr:.3g} (must fail)",
+                  flush=True)
+            if cratio <= 1.0 and clerr <= FLASH_LSE_TOL:
+                fail(f"{name}: the tiled-order control passed the check")
+        del out, lse
+        if not causal:
+            continue
+        kern = lambda: fa.flash_attention(q, k, v, True)  # noqa: E731
+        k_ms, c_ms = device_ms(kern), call_ms(kern)
+        p_ms = device_ms(lambda: fa.flash_attention_plain(q, k, v, True),
+                         **(dict(iters=5) if B == 1
+                            else dict(iters=2, reps=2)))
+        # yardstick: SDPA on the same KV heads (enable_gqa), and on K/V
+        # expanded to H heads beforehand
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+        l_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+        ke, ve = (fa.gqa_expand(t, H).transpose(1, 2).contiguous()
+                  for t in (k, v))
+        le_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            qt, ke, ve, is_causal=True))
+        del qt, kt, vt, ke, ve
+        pairs = T * (T + 1) // 2            # causal: what the data needs
+        flops = 4 * D * pairs * B * H
+        nbytes = 2 * B * T * D * (2 * H + 2 * KV)
+        b_ms, b_by = bound_ms(nbytes, flops, card)
+        rows.append(dict(name=name, shape=(B, T, H, KV, D), max_abs_err=err,
+                         ms=k_ms, call_ms=c_ms, plain_ms=p_ms,
+                         library_ms=l_ms, library_expanded_ms=le_ms,
                          bound_ms=b_ms, bound_by=b_by))
     return rows
 
@@ -569,50 +703,108 @@ def profile_once(name: str, fn, tag: str = "") -> dict:
     for k, v in top:
         print(f"profile {name}   {v:.4g} ms  {k[:90]}{tag}", flush=True)
     return res
-def profile_steps(runner, pool, dev) -> dict:
-    """One prefill at the longest bucket and one decode step at batch 16,
-    each under torch.profiler."""
+def profile_steps(runner, pool, dev, prefill_len: int = 1000,
+                  ctx: int = 512, tag: str = "") -> dict:
+    """One prefill of ``prefill_len`` tokens and one decode step at batch
+    16 over ``ctx`` tokens of context each, under torch.profiler."""
+    from ray_tpu_torch.serve.llm.model_runner import _bucket
     rng = np.random.default_rng(SEED + 1)
     V, maxb = runner.vocab, runner.cfg.max_blocks_per_seq
     tables = rng.integers(0, pool.shape[0], (16, maxb)).astype(np.int32)
-    lens = np.full(16, 512, np.int32)
+    lens = np.full(16, ctx, np.int32)
+    bucket = _bucket(prefill_len, runner.cfg.prefill_len_buckets)
     steps = {
-        "prefill_1024": lambda: runner.prefill(
-            rng.integers(0, V, 1000).tolist()),
-        "decode_b16_ctx512": lambda: runner.decode(
+        f"prefill_{bucket}": lambda: runner.prefill(
+            rng.integers(0, V, prefill_len).tolist()),
+        f"decode_b16_ctx{ctx}": lambda: runner.decode(
             rng.integers(0, V, 16).astype(np.int32), lens, pool, tables,
             lens),
     }
     out = {}
     for name, fn in steps.items():
         fn()
-        out[name] = profile_once(name, fn)
+        out[name] = profile_once(name, fn, tag)
     return out
 
 
 # ----------------------------------------------------------------- engine
-def engine_phase(dev, block_scale: float = ENGINE_BLOCK_SCALE) -> dict:
-    from ray_tpu_torch.models import gpt2
+def gpt2_engine(block_scale: float = ENGINE_BLOCK_SCALE) -> dict:
+    """GPT-2 124M behind the engine: what ``engine_phase`` serves."""
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.ops import layer_norm as ln
-    from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine, \
-        SamplingParams
+    from ray_tpu_torch.serve.llm import EngineConfig
+    return dict(
+        label="engine",
+        cfg=EngineConfig(model="gpt2:gpt2-124m", block_size=16,
+                         num_blocks=1100, max_num_seqs=16,
+                         max_model_len=1024, max_prefill_tokens=1024,
+                         prefill_len_buckets=(64, 128, 256, 512, 1024),
+                         decode_batch_buckets=(1, 2, 4, 8, 16),
+                         share_weights=False, seed=SEED),
+        gen_device="cpu", blocks=BLOCK_MATRICES, block_scale=block_scale,
+        tol=ENGINE_LOGIT_TOL, warm=(40, 100, 200, 400, 900),
+        prompt_lens=(32, 961),
+        on_path={"layer_norm_fwd": (ln, "launches"),
+                 "flash_attention_fwd": (fa, "launches")},
+        off_path={"layer_norm_fwd_scalar": (ln, "scalar_launches"),
+                  "flash_attention_fwd_f32": (fa, "f32_launches"),
+                  "flash_attention_fwd_gqa_d128": (fa, "d128_launches")},
+        per_forward=None, profile=(1000, 512))
+
+
+def llama_engine(block_scale: float = LLAMA_ENGINE_BLOCK_SCALE) -> dict:
+    """Llama-3 8B behind the engine, at full width and depth: what
+    ``engine_phase`` serves after GPT-2."""
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.serve.llm import EngineConfig
+    return dict(
+        label="llama_engine",
+        cfg=EngineConfig(model="llama:llama3-8b", block_size=16,
+                         num_blocks=LLAMA_NUM_BLOCKS, max_num_seqs=16,
+                         max_model_len=2048, max_prefill_tokens=2048,
+                         prefill_len_buckets=(64, 128, 256, 512, 1024,
+                                              2048),
+                         decode_batch_buckets=(1, 2, 4, 8, 16),
+                         share_weights=False, seed=SEED),
+        gen_device="cuda", blocks=LLAMA_BLOCK_MATRICES,
+        block_scale=block_scale, tol=LLAMA_ENGINE_LOGIT_TOL,
+        warm=(40, 100, 200, 400, 900, 1900),
+        prompt_lens=(32, 1985),
+        on_path={"flash_attention_fwd_gqa_d128": (fa, "d128_launches")},
+        off_path={"flash_attention_fwd_f32": (fa, "f32_launches"),
+                  "flash_attention_fwd": (fa, "launches")},
+        # one D = 128 flash launch a layer, per prefill step and per
+        # full forward
+        per_forward={"flash_attention_fwd_gqa_d128": "n_layer"},
+        profile=(2000, 1024))
+
+
+def engine_phase(dev, spec: Optional[dict] = None, tag: str = "") -> dict:
+    """Serve ``spec``'s model (default GPT-2 124M) through ``LLMEngine``:
+    16 concurrent greedy requests of 32 tokens, every request checked, the
+    kernels' launches counted, the engine's logits held to the
+    teacher-forced full ``forward``, then each planted fault in ``FAULTS``
+    required to fail that check.  Frees the weights and the pool before it
+    returns."""
+    import gc
+    from ray_tpu_torch.serve.llm import LLMEngine, SamplingParams
     from ray_tpu_torch.serve.llm.config import resolve_model
     from ray_tpu_torch.serve.llm.model_runner import ModelRunner
 
-    cfg = EngineConfig(model="gpt2:gpt2-124m", block_size=16,
-                       num_blocks=1100, max_num_seqs=16, max_model_len=1024,
-                       max_prefill_tokens=1024,
-                       prefill_len_buckets=(64, 128, 256, 512, 1024),
-                       decode_batch_buckets=(1, 2, 4, 8, 16),
-                       share_weights=False, seed=SEED)
+    spec = spec or gpt2_engine()
+    label, cfg, tol = spec["label"], spec["cfg"], spec["tol"]
+    check = spec.get("check", True)       # False only in llama_sweep
+    block_scale = spec["block_scale"]
     t0 = time.perf_counter()
     mod, mcfg = resolve_model(cfg)
-    params = mod.init_params(torch.Generator().manual_seed(SEED), mcfg,
-                             device=dev)
-    for name in BLOCK_MATRICES:
+    per_forward = {k: getattr(mcfg, v) for k, v in
+                   (spec["per_forward"] or {}).items()}
+    gen = torch.Generator(device=spec["gen_device"]).manual_seed(SEED)
+    params = mod.init_params(gen, mcfg, device=dev)
+    for name in spec["blocks"]:
         params["blocks"][name]["kernel"].mul_(block_scale)
     eng = LLMEngine(cfg, params, start=False, device=dev)
+    torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     runner = eng.runner
     rec = dict(logits={}, emit_at={}, prefill=[], decode=[])
@@ -655,22 +847,31 @@ def engine_phase(dev, block_scale: float = ENGINE_BLOCK_SCALE) -> dict:
         outs = [s.tokens() for s in streams]
         return streams, outs, t, time.perf_counter() - t
 
-    def logits_err(streams, prompts, outs) -> float:
+    def logits_err(streams, prompts, outs) -> tuple:
         """Teacher-force each request's output through the full forward:
-        the largest difference from the logits the engine sampled."""
-        max_err = 0.0
+        the largest difference from the logits the engine sampled, over
+        all of them, and over the first (prefill's) and the rest
+        (decode's) apart."""
+        errs = []
         with torch.no_grad():
             for s, p, o in zip(streams, prompts, outs):
                 full = torch.tensor([p + o[:-1]], device=dev)
-                ref = gpt2.forward(runner.params, full,
-                                   runner.mcfg)[0, len(p) - 1:]
+                ref = mod.forward(runner.params, full,
+                                  runner.mcfg)[0, len(p) - 1:]
                 got = np.stack(rec["logits"][s.seq_id])
                 if got.shape != tuple(ref.shape) or \
                         not np.isfinite(got).all():
-                    fail(f"engine logits {got.shape} vs {tuple(ref.shape)}")
-                err = float(np.abs(got - ref.cpu().numpy()).max())
-                max_err = max(max_err, err)
-        return max_err
+                    fail(f"{label} logits {got.shape} vs "
+                         f"{tuple(ref.shape)}")
+                errs.append(np.abs(got - ref.cpu().numpy()).max(axis=1))
+        errs = np.stack(errs)                       # (requests, tokens)
+        return (float(errs.max()), float(errs[:, 0].max()),
+                float(errs[:, 1:].max()) if errs.shape[1] > 1 else 0.0)
+
+    counters = {**spec["on_path"], **spec["off_path"]}
+
+    def counts() -> dict:
+        return {k: getattr(m, a) for k, (m, a) in counters.items()}
 
     runner.sample, eng._emit = sample, record_emit
     runner.prefill, runner.decode = timed_prefill, timed_decode
@@ -679,39 +880,54 @@ def engine_phase(dev, block_scale: float = ENGINE_BLOCK_SCALE) -> dict:
         V = runner.vocab
         rng = np.random.default_rng(SEED)
         # warm-up: one short request per prefill bucket
-        for n in (40, 100, 200, 400, 900):
+        for n in spec["warm"]:
             eng.generate(rng.integers(0, V, n).tolist(),
                          SamplingParams(max_tokens=2))
-        lens = rng.integers(32, 961, size=16)
+        lens = rng.integers(*spec["prompt_lens"], size=16)
         prompts = [rng.integers(0, V, int(n)).tolist() for n in lens]
-        ln.launches = ln.scalar_launches = 0
-        fa.launches = fa.f32_launches = 0
+        for m, a in counters.values():
+            setattr(m, a, 0)
         streams, outs, t_sub, wall = serve(prompts,
                                            SamplingParams(max_tokens=32))
-        launches = {"layer_norm_fwd": ln.launches,
-                    "flash_attention_fwd": fa.launches}
-        # instantiations the bf16 path must not take
-        off_path = {"layer_norm_fwd_scalar": ln.scalar_launches,
-                    "flash_attention_fwd_f32": fa.f32_launches}
+        got = counts()
+        launches = {k: got[k] for k in spec["on_path"]}
+        # instantiations this path must not take
+        off_path = {k: got[k] for k in spec["off_path"]}
         stats = eng.stats()
         timing = dict(emit_at=dict(rec["emit_at"]),
                       prefill=list(rec["prefill"]), decode=list(rec["decode"]))
         for p, o in zip(prompts, outs):
             if len(o) != 32 or not all(0 <= t < V for t in o):
                 fail(f"request of {len(p)} tokens returned {o}")
-        print(f"engine launches {launches} off the bf16 path {off_path}",
+        print(f"{label} launches {launches} off the bf16 path {off_path}",
               flush=True)
         for k, n in launches.items():
             if n <= 0:
-                fail(f"{k} was not launched on the engine's path")
+                fail(f"{k} was not launched on the {label}'s path")
         for k, n in off_path.items():
             if n:
-                fail(f"{k} ran {n} times on the engine's bf16 path")
-        max_err = logits_err(streams, prompts, outs)
-        print(f"engine logits_max_abs_err {max_err:.6g} tol "
-              f"{ENGINE_LOGIT_TOL}", flush=True)
-        if max_err > ENGINE_LOGIT_TOL:
-            fail("engine logits disagree with the full forward")
+                fail(f"{k} ran {n} times on the {label}'s bf16 path")
+        n_prefill = len(timing["prefill"])
+        for k, per in per_forward.items():
+            if launches[k] != per * n_prefill:
+                fail(f"{k}: {launches[k]} launches in {n_prefill} prefill "
+                     f"steps, expected {per} a step")
+        before = counts()
+        max_err, prefill_err, decode_err = logits_err(streams, prompts, outs)
+        forced = {k: v - before[k] for k, v in counts().items()}
+        for k, per in per_forward.items():
+            print(f"{label} {k} {per} a prefill step ({launches[k]} in "
+                  f"{n_prefill}), {forced[k]} in {len(streams)} full "
+                  f"forwards", flush=True)
+            if forced[k] != per * len(streams):
+                fail(f"{k}: {forced[k]} launches in {len(streams)} full "
+                     f"forwards, expected {per} a forward")
+        print(f"{label} logits_max_abs_err {max_err:.6g} tol {tol} "
+              f"(block matrices x{block_scale}; first tokens "
+              f"{prefill_err:.6g}, decoded tokens {decode_err:.6g})",
+              flush=True)
+        if check and max_err > tol:
+            fail(f"{label} logits disagree with the full forward")
         distinct = len({t for o in outs for t in o})
         # Controls: the same check on runs with a planted fault must fail.
         controls = {}
@@ -722,12 +938,11 @@ def engine_phase(dev, block_scale: float = ENGINE_BLOCK_SCALE) -> dict:
                     prompts[:4], SamplingParams(max_tokens=8))
             finally:
                 fault["fn"] = None
-            controls[fname] = logits_err(c_streams, prompts[:4], c_outs)
-            print(f"engine control {fname} logits_max_abs_err "
-                  f"{controls[fname]:.6g} (must exceed {ENGINE_LOGIT_TOL})",
-                  flush=True)
-            if controls[fname] <= ENGINE_LOGIT_TOL:
-                fail(f"planted fault {fname} passed the engine check")
+            controls[fname] = logits_err(c_streams, prompts[:4], c_outs)[0]
+            print(f"{label} control {fname} logits_max_abs_err "
+                  f"{controls[fname]:.6g} (must exceed {tol})", flush=True)
+            if check and controls[fname] <= tol:
+                fail(f"planted fault {fname} passed the {label} check")
         ttft = sorted(timing["emit_at"][s.seq_id][0] - t_sub
                       for s in streams)
         gaps = sorted(np.concatenate(
@@ -736,9 +951,10 @@ def engine_phase(dev, block_scale: float = ENGINE_BLOCK_SCALE) -> dict:
         pf_s = sum(t for _, t in timing["prefill"])
         dc_tok = sum(n for n, _ in timing["decode"])
         dc_s = sum(t for _, t in timing["decode"])
-        res = dict(setup_s=setup_s, block_scale=block_scale, wall_s=wall,
+        res = dict(setup_s=setup_s, block_scale=block_scale,
+                   n_layer=mcfg.n_layer, wall_s=wall,
                    stats=stats, prefill_tok_s=pf_tok / pf_s,
-                   prefill_steps=len(timing["prefill"]),
+                   prefill_steps=n_prefill,
                    decode_tok_s=dc_tok / dc_s,
                    decode_steps=len(timing["decode"]),
                    decode_step_ms=1e3 * dc_s / len(timing["decode"]),
@@ -748,13 +964,42 @@ def engine_phase(dev, block_scale: float = ENGINE_BLOCK_SCALE) -> dict:
                    tpot_max_ms=1e3 * gaps[-1],
                    output_tok_s=16 * 32 / wall, distinct_tokens=distinct,
                    logits_max_abs_err=max_err,
+                   logits_prefill_max_abs_err=prefill_err,
+                   logits_decode_max_abs_err=decode_err, logits_tol=tol,
                    control_logits_max_abs_err=controls, launches=launches)
+        sfx = f" [{tag}]" if tag else ""
         for k, val in res.items():
-            print(f"engine {k} {val}", flush=True)
-        res["profile"] = profile_steps(runner, eng.cache.pool, dev)
+            print(f"{label} {k} {val}{sfx}", flush=True)
+        if spec["profile"]:
+            res["profile"] = profile_steps(runner, eng.cache.pool, dev,
+                                           *spec["profile"], tag)
         return res
     finally:
-        eng.shutdown()
+        eng.shutdown()            # closes the pool
+        runner.params = None
+        del params
+        gc.collect()              # the engine's hooks form a cycle
+        torch.cuda.empty_cache()
+
+
+def llama_sweep(scales, tag: str = "") -> dict:
+    """The Llama engine check at each block-matrix scale, printing the
+    healthy error and the three planted faults without failing on them:
+    the sweep that sets LLAMA_ENGINE_BLOCK_SCALE and
+    LLAMA_ENGINE_LOGIT_TOL.  ``python3 -c 'import chip_smoke as c;
+    c.llama_sweep((1, 2, 3))'`` on the card."""
+    from ray_tpu_torch import _build
+    from ray_tpu_torch._device import disable_tf32, resolve_device
+    _build.lib()
+    disable_tf32()
+    out = {}
+    for s in scales:
+        spec = dict(llama_engine(s), check=False, profile=None)
+        r = engine_phase(resolve_device(None), spec, tag)
+        out[s] = (r["logits_max_abs_err"], r["control_logits_max_abs_err"])
+        print(f"llama_sweep x{s} healthy {out[s][0]:.6g} controls "
+              f"{out[s][1]}", flush=True)
+    return out
 
 
 # ------------------------------------------------------------------ train
@@ -962,15 +1207,20 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = {"layer_norm_fwd": check_layer_norm(gen, card, dev),
             "flash_attention_fwd": check_flash(gen, card, dev),
+            "flash_attention_fwd_gqa_d128": check_flash_gqa(gen, card, dev),
             "layer_norm_bwd": check_layer_norm_bwd(gen, card, dev),
             "flash_attention_bwd": check_flash_bwd(gen, card, dev)}
     for r in (r for rs in rows.values() for r in rs):
         for key in ("ms", "call_ms", "plain_ms", "library_ms",
-                    "library_call_ms", "bound_ms"):
+                    "library_call_ms", "library_expanded_ms", "bound_ms"):
             if key in r:
                 print(f"{r['name']} {'kernel_ms' if key == 'ms' else key} "
                       f"{r[key]:.6g} [{tag}]", flush=True)
-    eng = engine_phase(dev)
+    torch.cuda.empty_cache()
+    eng = engine_phase(dev, gpt2_engine(), tag)
+    llama = engine_phase(dev, llama_engine(), tag)
+    print(f"llama_engine depth {llama['n_layer']} layers (the preset's, "
+          f"uncut) at full width [{tag}]", flush=True)
     train = train_phase(dev, card, tag)
 
     def kernel_row(row, kname, source, replaces, phase):
@@ -982,9 +1232,11 @@ def main() -> int:
                 "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"]}
 
-    # forward kernels: the engine phase's launches; backward kernels: the
-    # train phase's (each phase's counts were zeroed just before it ran).
-    # Both flash rows are timed at the train step's (32, 1024, 12, 64).
+    # forward kernels: the engine phases' launches (GPT-2's for head dim
+    # 64, Llama's for 128); backward kernels: the train phase's (each
+    # phase's counts were zeroed just before it ran).  Both head-dim-64
+    # flash rows are timed at the train step's (32, 1024, 12, 64), the
+    # head-dim-128 row at (8, 2048, 32 over 8, 128).
     kernels = [
         kernel_row(rows["layer_norm_fwd"][0], "layer_norm_fwd",
                    "ray_tpu_torch/csrc/layer_norm.cu",
@@ -1000,6 +1252,11 @@ def main() -> int:
         kernel_row(rows["flash_attention_bwd"][0], "flash_attention_bwd",
                    "ray_tpu_torch/csrc/flash_attention_bwd.cu",
                    "ray_tpu/ops/flash_attention.py:103", train),
+        kernel_row(next(r for r in rows["flash_attention_fwd_gqa_d128"]
+                        if r["shape"][0] == 8),
+                   "flash_attention_fwd_gqa_d128",
+                   "ray_tpu_torch/csrc/flash_attention.cu",
+                   "ray_tpu/ops/flash_attention.py:50", llama),
     ]
     for k in kernels:
         if not all(math.isfinite(k[x]) for x in ("ms", "plain_ms",

@@ -38,6 +38,7 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I = ctypes.c_int
 _F = ctypes.c_float
+_PI = ctypes.POINTER(ctypes.c_int)
 
 # C entry point -> argtypes.  Every pointer and the stream are c_void_p so
 # ctypes never cuts them to 32 bits.  Each returns cudaGetLastError().
@@ -46,10 +47,11 @@ SIGNATURES: Dict[str, List] = {
                            _I, _I, _P],
     "rtt_layer_norm_bwd": [_P, _I64, _P, _P, _I64, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _P],
-    "rtt_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+    "rtt_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I64, _I64, _I64, _I64, _I64, _I64,
                                 _I64, _I64, _I64, _I64, _I64, _I64,
                                 _I, _F, _I, _I, _P],
+    "rtt_flash_attention_fwd_occupancy": [_I, _I, _PI, _PI],
     "rtt_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I,
                                 _I64, _I64, _I64, _I64, _I64, _I64,

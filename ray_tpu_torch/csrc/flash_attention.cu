@@ -25,13 +25,14 @@
 //   longest first (in the causal triangle the last tile sees every key),
 //   so the long tiles of every head start in the first wave.
 // - A block is four warps and owns kBM query rows: 16 rows a warp at
-//   kBM = 64, 32 (two m16 tiles) at kBM = 128.  The wrapper takes 128 when
-//   that still gives the card at least two blocks per SM.
+//   kBM = 64, 32 (two m16 tiles) at kBM = 128.  At D = 64 the wrapper
+//   takes 128 when that still gives the card at least two blocks per SM.
 // - Q is loaded once and kept in registers as mma A fragments.  K and V
 //   tiles of 64 keys go through a three-stage cp.async ring: the copies
-//   of the next two tiles run under this tile's products.  Rows of 64
+//   of the next two tiles run under this tile's products.  Rows of D
 //   bf16 are XOR-swizzled in shared memory (tensor_core.cuh), so ldmatrix
-//   and cp.async are free of bank conflicts.
+//   and cp.async are free of bank conflicts.  The ring is dynamic shared
+//   memory: 48 KB at D = 64, 96 KB at D = 128.
 // - S = Q K^T takes K by ldmatrix; the online softmax runs on the S
 //   accumulators (row max and sum over the four lanes of a row; each p
 //   is one FFMA and one MUFU.EX2); P is
@@ -46,6 +47,20 @@
 //   no copy.  cp.async moves 16 B, so each base pointer must be 16-byte
 //   aligned and each stride a multiple of 8 elements (the wrapper checks,
 //   and so does the entry point).
+// - Grouped-query attention (Llama: 32 query heads over 8 KV heads): K and
+//   V keep their KV heads and query head h reads KV head h / (H / KV), the
+//   order of the reference's jnp.repeat in _gqa_expand.  No expanded copy
+//   of K/V is made: the four query heads of a group read the same K/V
+//   rows.
+//
+// D = 128 (Llama) is its own instantiation, flash_fwd_tc_kernel<64, 128>.
+// At the Llama-3 8B prefill (1, 2048, 32 heads over 8, 128) causal the
+// products are 34.4 GFLOP (35 us at 989 TFLOP/s) against 42 MB of q, k, v
+// and o (12.5 us), so operations bound it.  A thread of a 128-row block
+// would hold Q 64 + O 128 + S 64 floats, past the 255 registers, so D =
+// 128 takes 64-row blocks only (Q 32 + O 64 + S 32: 227 registers, no
+// spills).  Its three-stage ring of 16 KB K and V tiles is 96 KB: two
+// blocks (eight warps) an SM.
 //
 // float32 (not a main-path dtype: tests and callers that ask for it) runs
 // the first, scalar kernel, flash_fwd_kernel<float>: four lanes share a
@@ -84,8 +99,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int H, int T_len, Strides qs,
-                 Strides ks, Strides vs, Strides os, int causal,
+                 float* __restrict__ lse, int H, int group, int T_len,
+                 Strides qs, Strides ks, Strides vs, Strides os, int causal,
                  float s_scale) {
   constexpr int kPer = D / kLanesPerRow;   // head-dim values per lane
   __shared__ float k_s[kBK][D];
@@ -115,8 +130,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int kv_end = causal ? min(T_len, q0 + kBQ) : T_len;
   const int n_tiles = (kv_end + kBK - 1) / kBK;
-  const T* kbase = k + b * ks.b + h * ks.h;
-  const T* vbase = v + b * vs.b + h * vs.h;
+  const T* kbase = k + b * ks.b + (h / group) * ks.h;
+  const T* vbase = v + b * vs.b + (h / group) * vs.h;
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBK;
@@ -180,30 +195,37 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 void launch(const void* q, const void* k, const void* v, void* o, float* lse,
-            int B, int T_len, int H, Strides qs, Strides ks, Strides vs,
-            Strides os, int causal, float s_scale, cudaStream_t stream) {
+            int B, int T_len, int H, int group, Strides qs, Strides ks,
+            Strides vs, Strides os, int causal, float s_scale,
+            cudaStream_t stream) {
   const dim3 grid((T_len + kBQ - 1) / kBQ, B * H);
   flash_fwd_kernel<T, D><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, H, T_len, qs, ks, vs,
-      os, causal, s_scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H, group, T_len, qs,
+      ks, vs, os, causal, s_scale);
 }
 
 // --------------------------------------------------- bf16: tensor cores
 using rtt::bf16;
 constexpr int kTcThreads = 128;          // four warps
 constexpr int kBN = 64;                  // keys per tile
-constexpr int kTile = kBN * rtt::kRow;   // elements of one 64-row tile
 constexpr int kStages = 3;               // K/V tiles in flight or in use
+
+// Dynamic shared memory of one block: kStages ring stages of [K | V]
+// tiles of kBN rows of kD bf16 (48 KB at D = 64, 96 KB at D = 128).
+template <int kD>
+constexpr int tc_smem_bytes() {
+  return kStages * 2 * kBN * kD * (int)sizeof(bf16);
+}
 
 // One K/V tile for one warp: S = Q K^T, the online softmax on its
 // accumulators, O += bf16(P) V.  Two instantiations: kMasked for the
 // diagonal and ragged tiles, and one with no mask code at all (a mask test
 // on a runtime flag is if-converted into every tile, a third of the
-// loop's instructions).
-template <int kMT, bool kMasked>
+// loop's instructions).  kD / 16 k-steps for S, kD / 8 n8 tiles of O.
+template <int kMT, int kD, bool kMasked>
 __device__ __forceinline__ void fwd_tile(
-    const uint32_t (&qf)[kMT][4][4], float (&acc)[kMT][8][4],
+    const uint32_t (&qf)[kMT][kD / 16][4], float (&acc)[kMT][kD / 8][4],
     float (&m)[kMT][2], float (&l)[kMT][2], const bf16* k_s,
     const bf16* v_s, int k0, int wq0, int T_len, int causal, float s_scale,
     int lane) {
@@ -216,11 +238,11 @@ __device__ __forceinline__ void fwd_tile(
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[mt][nt][e] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < kD / 16; ++kk)
 #pragma unroll
     for (int np = 0; np < 4; ++np) {
       uint32_t kf[4];
-      rtt::ldsm_x4(kf, rtt::ld_nk(k_s, 16 * np, 2 * kk, lane));
+      rtt::ldsm_x4(kf, rtt::ld_nk<kD>(k_s, 16 * np, 2 * kk, lane));
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt) {
         rtt::mma(s[mt][2 * np], qf[mt][kk], kf[0], kf[1]);
@@ -266,7 +288,7 @@ __device__ __forceinline__ void fwd_tile(
         }
       l[mt][hr] = l[mt][hr] * corr + sum;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
+      for (int nt = 0; nt < kD / 8; ++nt) {
         acc[mt][nt][2 * hr] *= corr;
         acc[mt][nt][2 * hr + 1] *= corr;
       }
@@ -280,9 +302,9 @@ __device__ __forceinline__ void fwd_tile(
     for (int mt = 0; mt < kMT; ++mt)
       rtt::pack_a(pa[mt], s[mt][2 * kk], s[mt][2 * kk + 1]);
 #pragma unroll
-    for (int dp = 0; dp < 4; ++dp) {     // head dims 16 dp .. 16 dp + 15
+    for (int dp = 0; dp < kD / 16; ++dp) {   // head dims 16 dp .. + 15
       uint32_t vf[4];
-      rtt::ldsm_x4_t(vf, rtt::ld_rows(v_s, 16 * kk, 2 * dp, lane));
+      rtt::ldsm_x4_t(vf, rtt::ld_rows<kD>(v_s, 16 * kk, 2 * dp, lane));
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt) {
         rtt::mma(acc[mt][2 * dp], pa[mt], vf[0], vf[1]);
@@ -292,30 +314,36 @@ __device__ __forceinline__ void fwd_tile(
   }
 }
 
-template <int kBM>
+// kBM query rows a block, head dim kD; query head h reads K/V head
+// h / group (group = H / KV: grouped-query attention reads the KV heads
+// in place, the order of the reference's jnp.repeat).
+template <int kBM, int kD>
 __global__ void __launch_bounds__(kTcThreads)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                    float* __restrict__ lse, int H, int T_len, Strides qs,
-                    Strides ks, Strides vs, Strides os, int causal,
-                    float s_scale) {
+                    float* __restrict__ lse, int H, int group, int T_len,
+                    Strides qs, Strides ks, Strides vs, Strides os,
+                    int causal, float s_scale) {
   constexpr int kMT = kBM / 64;            // m16 tiles per warp
   constexpr int kWarpRows = 16 * kMT;
-  static_assert(kBM * rtt::kRow <= 2 * kTile, "Q is staged in one stage");
-  // kStages ring stages of [K tile | V tile] (48 KB).  Q is staged in the
-  // last stage and moved to registers before a K/V tile goes there.
-  __shared__ __align__(128) bf16 smem[kStages * 2 * kTile];
+  constexpr int kTile = kBN * kD;          // elements of one K or V tile
+  static_assert(kBM * kD <= 2 * kTile, "Q is staged in one stage");
+  // kStages ring stages of [K tile | V tile], dynamic (tc_smem_bytes).  Q
+  // is staged in the last stage and moved to registers before a K/V tile
+  // goes there.
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  bf16* const smem = reinterpret_cast<bf16*>(tc_smem);
   bf16* const q_stage = smem + (kStages - 1) * 2 * kTile;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;   // longest tiles first
-  const int b = bh / H, h = bh % H;
+  const int b = bh / H, h = bh % H, hk = h / group;
   const int q0 = qt * kBM;
   const bf16* qb = q + b * qs.b + h * qs.h;
-  const bf16* kb = k + b * ks.b + h * ks.h;
-  const bf16* vb = v + b * vs.b + h * vs.h;
+  const bf16* kb = k + b * ks.b + hk * ks.h;
+  const bf16* vb = v + b * vs.b + hk * vs.h;
   const int kv_end = causal ? min(T_len, q0 + kBM) : T_len;
   const int n_tiles = (kv_end + kBN - 1) / kBN;
   // One commit group a tile (an empty one past the last tile), so that
@@ -323,34 +351,34 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto load_kv = [&](int j) {
     if (j < n_tiles) {
       bf16* st = smem + (j % kStages) * 2 * kTile;
-      rtt::load_tile<kBN, kTcThreads>(st, kb, ks.t, j * kBN, T_len, tid);
-      rtt::load_tile<kBN, kTcThreads>(st + kTile, vb, vs.t, j * kBN, T_len,
-                                      tid);
+      rtt::load_tile<kBN, kTcThreads, kD>(st, kb, ks.t, j * kBN, T_len, tid);
+      rtt::load_tile<kBN, kTcThreads, kD>(st + kTile, vb, vs.t, j * kBN,
+                                          T_len, tid);
     }
     rtt::cp_async_commit();
   };
 
-  rtt::load_tile<kBM, kTcThreads>(q_stage, qb, qs.t, q0, T_len, tid);
+  rtt::load_tile<kBM, kTcThreads, kD>(q_stage, qb, qs.t, q0, T_len, tid);
 #pragma unroll
   for (int j = 0; j < kStages - 1; ++j) load_kv(j);   // Q rides with tile 0
   rtt::cp_async_wait<kStages - 2>();
   __syncthreads();
 
   const int wr0 = warp * kWarpRows;        // the warp's first row in the block
-  uint32_t qf[kMT][4][4];
+  uint32_t qf[kMT][kD / 16][4];
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < kD / 16; ++kk)
       rtt::ldsm_x4(qf[mt][kk],
-                   rtt::ld_rows(q_stage, wr0 + 16 * mt, 2 * kk, lane));
+                   rtt::ld_rows<kD>(q_stage, wr0 + 16 * mt, 2 * kk, lane));
 
-  float acc[kMT][8][4];
+  float acc[kMT][kD / 8][4];
   float m[kMT][2], l[kMT][2];   // per row g and g + 8 of each m16 tile
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt) {
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < kD / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
     m[mt][0] = m[mt][1] = kNegInf;
@@ -369,11 +397,11 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* k_s = smem + (j % kStages) * 2 * kTile;
     const bf16* v_s = k_s + kTile;
     if ((k0 + kBN > T_len) || (causal && k0 + kBN - 1 > wq0))
-      fwd_tile<kMT, true>(qf, acc, m, l, k_s, v_s, k0, wq0, T_len, causal,
-                          s_scale, lane);
+      fwd_tile<kMT, kD, true>(qf, acc, m, l, k_s, v_s, k0, wq0, T_len,
+                              causal, s_scale, lane);
     else
-      fwd_tile<kMT, false>(qf, acc, m, l, k_s, v_s, k0, wq0, T_len, causal,
-                           s_scale, lane);
+      fwd_tile<kMT, kD, false>(qf, acc, m, l, k_s, v_s, k0, wq0, T_len,
+                               causal, s_scale, lane);
   }
 
   // O = acc / l, rounded once; lse = m + log2(l).
@@ -386,7 +414,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (row >= T_len) continue;
       bf16* op = o + b * os.b + (long long)row * os.t + h * os.h + 2 * t;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+      for (int nt = 0; nt < kD / 8; ++nt)
         rtt::store_bf16x2(op + 8 * nt, acc[mt][nt][2 * hr] / lsum,
                           acc[mt][nt][2 * hr + 1] / lsum);
       if (lse != nullptr && t == 0)
@@ -394,16 +422,51 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 }
 
-template <int kBM>
-void launch_tc(const void* q, const void* k, const void* v, void* o,
-               float* lse, int B, int T_len, int H, Strides qs, Strides ks,
-               Strides vs, Strides os, int causal, float s_scale,
-               cudaStream_t stream) {
+// Opt the instantiation in to its dynamic shared memory (above the 48 KB
+// default at D = 128), once per device.
+template <int kBM, int kD>
+cudaError_t tc_prepare() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || dev >= 64) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(flash_fwd_tc_kernel<kBM, kD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               tc_smem_bytes<kD>());
+    if (err != cudaSuccess) return err;
+    done[dev] = true;
+  }
+  return cudaSuccess;
+}
+
+template <int kBM, int kD>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
+                      float* lse, int B, int T_len, int H, int group,
+                      Strides qs, Strides ks, Strides vs, Strides os,
+                      int causal, float s_scale, cudaStream_t stream) {
+  const cudaError_t err = tc_prepare<kBM, kD>();
+  if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (T_len + kBM - 1) / kBM);
-  flash_fwd_tc_kernel<kBM><<<grid, kTcThreads, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, T_len, qs,
-      ks, vs, os, causal, s_scale);
+  flash_fwd_tc_kernel<kBM, kD>
+      <<<grid, kTcThreads, tc_smem_bytes<kD>(), stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, group,
+          T_len, qs, ks, vs, os, causal, s_scale);
+  return cudaGetLastError();
+}
+
+// Resident blocks an SM for one instantiation, and its dynamic shared
+// memory: what the occupancy calculator gives for its registers and
+// shared memory.
+template <int kBM, int kD>
+cudaError_t tc_occupancy(int* smem_bytes, int* blocks_per_sm) {
+  const cudaError_t err = tc_prepare<kBM, kD>();
+  if (err != cudaSuccess) return err;
+  *smem_bytes = tc_smem_bytes<kD>();
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, flash_fwd_tc_kernel<kBM, kD>, kTcThreads,
+      tc_smem_bytes<kD>());
 }
 
 bool tc_aligned(const void* p, const Strides& s) {
@@ -412,43 +475,62 @@ bool tc_aligned(const void* p, const Strides& s) {
 
 }  // namespace
 
-// q, k, v, o: (B, T, H, D) with the given element strides for B, T and H
-// and a contiguous D.  lse: (B*H, T) float32 or null.  dtype: 0 = float32
-// (the scalar kernel), 1 = bfloat16 (the tensor-core kernel, with
-// block_m = 64 or 128 query rows a block; bf16 operands must be 16-byte
-// aligned with strides that are multiples of 8).  s_scale = softmax scale
-// * log2(e).  D = 64, the head dim of every GPT-2 preset; other head dims
-// are refused.  Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue, with nothing launched, for what it refuses.
+// q, o: (B, T, H, D) and k, v: (B, T, KV, D), with the given element
+// strides for B, T and the head axis and a contiguous D; KV divides H and
+// query head h reads KV head h / (H / KV).  lse: (B*H, T) float32 or null.
+// dtype: 0 = float32 (the scalar kernel, D = 64 only), 1 = bfloat16 (the
+// tensor-core kernel: D = 64 with block_m = 64 or 128 query rows a block,
+// D = 128 with block_m = 64; operands 16-byte aligned with strides that
+// are multiples of 8).  s_scale = softmax scale * log2(e).  D = 64 is
+// every GPT-2 preset's head dim, 128 Llama's.  Returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue, with nothing launched, for
+// what it refuses.
 extern "C" int rtt_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse, int B,
-    int T_len, int H, int D, long long q_sb, long long q_st, long long q_sh,
-    long long k_sb, long long k_st, long long k_sh, long long v_sb,
-    long long v_st, long long v_sh, long long o_sb, long long o_st,
-    long long o_sh, int causal, float s_scale, int dtype, int block_m,
-    void* stream) {
+    int T_len, int H, int KV, int D, long long q_sb, long long q_st,
+    long long q_sh, long long k_sb, long long k_st, long long k_sh,
+    long long v_sb, long long v_st, long long v_sh, long long o_sb,
+    long long o_st, long long o_sh, int causal, float s_scale, int dtype,
+    int block_m, void* stream) {
+  if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || T_len == 0 || H == 0) return (int)cudaGetLastError();
   const Strides qs{q_sb, q_st, q_sh}, ks{k_sb, k_st, k_sh},
       vs{v_sb, v_st, v_sh}, os{o_sb, o_st, o_sh};
+  const int group = H / KV;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D != 64) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
-    launch<float, 64>(q, k, v, o, lse, B, T_len, H, qs, ks, vs, os, causal,
-                      s_scale, s);
-  } else if (dtype == 1) {
-    if (!tc_aligned(q, qs) || !tc_aligned(k, ks) || !tc_aligned(v, vs) ||
-        !tc_aligned(o, os))
-      return (int)cudaErrorInvalidValue;
-    if (block_m == 64)
-      launch_tc<64>(q, k, v, o, lse, B, T_len, H, qs, ks, vs, os, causal,
-                    s_scale, s);
-    else if (block_m == 128)
-      launch_tc<128>(q, k, v, o, lse, B, T_len, H, qs, ks, vs, os, causal,
-                     s_scale, s);
-    else
-      return (int)cudaErrorInvalidValue;
-  } else {
-    return (int)cudaErrorInvalidValue;
+    if (D != 64) return (int)cudaErrorInvalidValue;
+    launch<float, 64>(q, k, v, o, lse, B, T_len, H, group, qs, ks, vs, os,
+                      causal, s_scale, s);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (!tc_aligned(q, qs) || !tc_aligned(k, ks) || !tc_aligned(v, vs) ||
+      !tc_aligned(o, os))
+    return (int)cudaErrorInvalidValue;
+  if (D == 64 && block_m == 64)
+    return (int)launch_tc<64, 64>(q, k, v, o, lse, B, T_len, H, group, qs,
+                                  ks, vs, os, causal, s_scale, s);
+  if (D == 64 && block_m == 128)
+    return (int)launch_tc<128, 64>(q, k, v, o, lse, B, T_len, H, group, qs,
+                                   ks, vs, os, causal, s_scale, s);
+  if (D == 128 && block_m == 64)
+    return (int)launch_tc<64, 128>(q, k, v, o, lse, B, T_len, H, group, qs,
+                                   ks, vs, os, causal, s_scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 tensor-core instantiation for (D, block_m): its dynamic shared
+// memory and the blocks an SM the occupancy calculator allows it.  Returns
+// cudaErrorInvalidValue for an instantiation that does not exist.
+extern "C" int rtt_flash_attention_fwd_occupancy(int D, int block_m,
+                                                 int* smem_bytes,
+                                                 int* blocks_per_sm) {
+  if (D == 64 && block_m == 64)
+    return (int)tc_occupancy<64, 64>(smem_bytes, blocks_per_sm);
+  if (D == 64 && block_m == 128)
+    return (int)tc_occupancy<128, 64>(smem_bytes, blocks_per_sm);
+  if (D == 128 && block_m == 64)
+    return (int)tc_occupancy<64, 128>(smem_bytes, blocks_per_sm);
+  return (int)cudaErrorInvalidValue;
 }

@@ -6,10 +6,12 @@
 //   memory;
 // - cp.async (16 B, cache-global; 4 B for one float) with commit/wait
 //   groups, zero-filling rows past the sequence (src-size 0);
-// - the shared-memory layout of a tile of 64-element bf16 rows (128 B):
-//   chunk c (16 B) of row r lives at chunk c ^ (r & 7), so the eight rows
-//   an ldmatrix phase reads, and the eight chunks of a row that cp.async
-//   writes, fall on eight different bank groups.
+// - the shared-memory layout of a tile of kW-element bf16 rows (kW = 64,
+//   128 B, or 128, 256 B: the head dim): chunk c (16 B) of row r lives at
+//   chunk c ^ (r & 7), so the eight rows an ldmatrix phase reads, and the
+//   eight chunks of a row that cp.async writes, fall on eight different
+//   bank groups.  A 256-byte row spans the 32 banks twice; the XOR of the
+//   low three chunk bits spreads each 128-byte half the same way.
 //
 // Fragment layouts (lane = 4 * g + t, g = lane / 4, t = lane % 4):
 //   A 16x16 (row):  a0 (g, 2t..2t+1)   a1 (g+8, 2t..)   a2 (g, 2t+8..)
@@ -30,11 +32,15 @@ namespace rtt {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kRow = 64;   // elements in a tile row: the head dim
+// Elements in a tile row (the head dim) unless a caller names another
+// width kW; every helper below takes kW as its last template parameter.
+constexpr int kRow = 64;
 
 // Element offset of chunk `chunk` (8 elements) of row `row` in a tile.
+template <int kW = kRow>
 __device__ __forceinline__ int swz(int row, int chunk) {
-  return row * kRow + ((chunk ^ (row & 7)) << 3);
+  static_assert(kW % 64 == 0, "whole 128-byte halves a row");
+  return row * kW + ((chunk ^ (row & 7)) << 3);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -117,21 +123,23 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c0)[4],
 // of a row-major 16x16 block (rows = M, columns = K).  With .trans on a
 // tile stored [K][N], it is the B fragments of the n8 tiles at chunk c0
 // (r[0], r[1]) and c0 + 1 (r[2], r[3]).
+template <int kW = kRow>
 __device__ __forceinline__ uint32_t ld_rows(const bf16* s, int r0, int c0,
                                             int lane) {
-  return smem_u32(s + swz(r0 + (lane & 15), c0 + (lane >> 4)));
+  return smem_u32(s + swz<kW>(r0 + (lane & 15), c0 + (lane >> 4)));
 }
 
 // ld_nk: on a tile stored [N][K] (rows = N), the B fragments of the n8
 // tiles at rows n0 (r[0], r[1]) and n0 + 8 (r[2], r[3]), for the k16 step
 // at chunks c0, c0 + 1.
+template <int kW = kRow>
 __device__ __forceinline__ uint32_t ld_nk(const bf16* s, int n0, int c0,
                                           int lane) {
-  return smem_u32(
-      s + swz(n0 + (lane & 7) + ((lane >> 4) << 3), c0 + ((lane >> 3) & 1)));
+  return smem_u32(s + swz<kW>(n0 + (lane & 7) + ((lane >> 4) << 3),
+                              c0 + ((lane >> 3) & 1)));
 }
 
-// cp.async moves 16 B: every row of a (B, T, H, 64) operand starts
+// cp.async moves 16 B: every row of a (B, T, H, D) operand starts
 // 16-byte aligned when its base is and its element strides for B, T and H
 // are multiples of 8.
 __host__ __device__ inline bool rows_aligned(const void* p, long long sb,
@@ -140,21 +148,25 @@ __host__ __device__ inline bool rows_aligned(const void* p, long long sb,
          st % 8 == 0 && sh % 8 == 0;
 }
 
-// Copy rows [row0, row0 + kRows) of a (T, 64) bf16 operand with row stride
-// `ld` (elements) into the swizzled tile `s`, 16 B per thread per step;
-// rows at or past T are zero-filled.  Every thread of the block calls it.
-template <int kRows, int kThreads>
+// Copy rows [row0, row0 + kRows) of a (T, kW) bf16 operand with row
+// stride `ld` (elements) into the swizzled tile `s`, 16 B per thread per
+// step; rows at or past T are zero-filled.  Every thread of the block
+// calls it.
+template <int kRows, int kThreads, int kW = kRow>
 __device__ __forceinline__ void load_tile(bf16* s, const bf16* g, long long ld,
                                           int row0, int T, int tid) {
-  static_assert(kRows * 8 % kThreads == 0, "whole steps of 16 B a thread");
+  constexpr int kShift = kW == 64 ? 3 : 4;  // log2 of 16-byte chunks a row
+  static_assert(kW == 64 || kW == 128, "rows of 64 or 128 elements");
+  static_assert((kRows << kShift) % kThreads == 0,
+                "whole steps of 16 B a thread");
 #pragma unroll
-  for (int i = 0; i < kRows * 8 / kThreads; ++i) {
+  for (int i = 0; i < (kRows << kShift) / kThreads; ++i) {
     const int c = tid + i * kThreads;
-    const int r = c >> 3, ch = c & 7;
+    const int r = c >> kShift, ch = c & ((1 << kShift) - 1);
     const int pos = row0 + r;
     const bool ok = pos < T;
-    cp_async16(s + swz(r, ch), g + (long long)(ok ? pos : 0) * ld + ch * 8,
-               ok);
+    cp_async16(s + swz<kW>(r, ch),
+               g + (long long)(ok ? pos : 0) * ld + ch * 8, ok);
   }
 }
 

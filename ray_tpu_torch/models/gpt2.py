@@ -30,7 +30,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
+from ray_tpu_torch.models._common import layer_views as _layers
 from ray_tpu_torch.models._common import normal_init as _dense_init
+from ray_tpu_torch.models._common import tree_map as _map
 from ray_tpu_torch.ops.attention import NEG_INF
 from ray_tpu_torch.ops.layer_norm import layer_norm
 
@@ -132,12 +134,6 @@ def init_params(gen: torch.Generator, cfg: GPT2Config,
     return _map(lambda t: t.to(dev), params)
 
 
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 # ------------------------------------------------------------------ forward
 def _layer_norm(x, scale, bias, eps=1e-5):
     # The fused kernel serves every E on CUDA (the reference's E % 128
@@ -210,13 +206,6 @@ def _embed(params: Params, tokens: torch.Tensor, positions: torch.Tensor,
     # gather, then cast: the same values as casting the tables first
     return F.embedding(tokens, params["wte"]).to(cfg.dtype) \
         + F.embedding(positions, params["wpe"]).to(cfg.dtype)
-
-
-def _layers(blocks: Params, n_layer: int):
-    """Every layer's params as views of the stacked leaves, one ``unbind``
-    per leaf (its backward is one stack, not one scatter per layer)."""
-    per_leaf = _map(lambda t: t.unbind(0), blocks)
-    return [_map(lambda u: u[i], per_leaf) for i in range(n_layer)]
 
 
 def _check_remat(cfg: GPT2Config) -> None:

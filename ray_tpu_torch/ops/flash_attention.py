@@ -8,10 +8,19 @@ on CPU tensors they run ``flash_attention_plain`` and
 ``flash_attention_bwd_plain``, the same arithmetic written densely in
 PyTorch.  On the card the dtype picks the kernel, explicitly: bf16 (every
 main path) launches the tensor-core kernels and counts ``launches`` /
-``bwd_launches``; float32 launches the scalar kernels and counts
-``f32_launches`` / ``f32_bwd_launches``.  A bf16 operand the tensor-core
-kernels cannot read (a base pointer not 16-byte aligned, a stride not a
-multiple of 8 elements) raises.
+``bwd_launches`` at head dim 64 and ``d128_launches`` at head dim 128
+(Llama's); float32 launches the scalar kernels (head dim 64 only) and
+counts ``f32_launches`` / ``f32_bwd_launches``.  A bf16 operand the
+tensor-core kernels cannot read (a base pointer not 16-byte aligned, a
+stride not a multiple of 8 elements) raises.
+
+The forward takes grouped-query attention: k and v may have KV heads
+dividing q's H, and query head h reads KV head h // (H / KV), the order of
+the reference's ``_gqa_expand`` (``jnp.repeat``).  The kernel reads the KV
+heads in place; the plain version expands them with ``repeat_interleave``.
+The backward (and so autograd) takes head dim 64 without groups only:
+under grad, grouped K/V or head dim 128 raise ``NotImplementedError``
+until the Llama training slice ports them.
 
 ``flash_attention`` goes through ``FlashAttentionFn`` (the reference's
 ``custom_vjp``) whenever grad is enabled and an input requires it, on
@@ -36,6 +45,7 @@ Differences from the reference, each forced by the card:
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional, Tuple, Union
 
@@ -46,11 +56,14 @@ from ray_tpu_torch._device import launch_on, sm_count
 from ray_tpu_torch.ops.attention import NEG_INF
 
 LOG2E = math.log2(math.e)
-HEAD_DIMS = (64,)                 # every GPT-2 preset
+HEAD_DIMS = (64, 128)             # every GPT-2 preset; Llama's
+BWD_HEAD_DIMS = (64,)             # the backward, and the float32 forward
 
 # Kernel launches since the last reset (one per call of each wrapper):
-# the bf16 tensor-core kernels, and the float32 scalar kernels apart.
+# the bf16 tensor-core kernels at head dim 64 and at 128 apart, and the
+# float32 scalar kernels apart.
 launches = 0
+d128_launches = 0
 bwd_launches = 0
 f32_launches = 0
 f32_bwd_launches = 0
@@ -59,19 +72,26 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 Result = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
+# Keys a tile of the forward kernels (csrc/flash_attention.cu kBN).
+KEY_TILE = 64
+
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True, want_lse: bool = False
-                          ) -> Result:
+                          causal: bool = True, want_lse: bool = False,
+                          key_tile: int = KEY_TILE) -> Result:
     """The kernel's arithmetic, untiled: scores scaled by scale·log2(e),
     masked to ``NEG_INF``, ``p = exp2(s - m)``, ``l`` clamped to 1e-30;
     everything in float32 except that ``p`` is rounded to ``q.dtype``
     before the p·v product (the reference's ``p.astype(v.dtype)``; a
-    no-op in float32), output in ``q.dtype``.  The reference and the
-    kernel round p against the running max of each key tile, this
-    untiled version against the row's final max.  Returns ``out`` or
-    ``(out, lse)`` with ``lse`` ``(B·H, T)`` base 2."""
+    no-op in float32), output in ``q.dtype``.  p is rounded against the
+    running max after each tile of ``key_tile`` keys (the kernel's tile
+    by default; the reference rounds per key block), or against the
+    row's final max with ``key_tile=0`` (``_p_for_pv``).  k and v may
+    have KV heads dividing H, expanded here as the reference's
+    ``jnp.repeat``.  Returns ``out`` or ``(out, lse)`` with ``lse``
+    ``(B·H, T)`` base 2."""
     B, T, H, D = q.shape
+    k, v = gqa_expand(k, H), gqa_expand(v, H)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
         * (LOG2E / math.sqrt(D))
     if causal:
@@ -81,8 +101,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = s.amax(dim=-1)                                  # (B, H, T)
     p = torch.exp2(s - m[..., None])
     l = p.sum(dim=-1).clamp_min(1e-30)
-    out = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).float(),
-                       v.float()) \
+    out = torch.einsum("bhqk,bkhd->bqhd",
+                       _p_for_pv(s, m, p, q.dtype, key_tile), v.float()) \
         / l.transpose(1, 2)[..., None]
     out = out.to(q.dtype)
     if not want_lse:
@@ -90,14 +110,64 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, (m + torch.log2(l)).reshape(B * H, T)
 
 
-# Query rows a block of the bf16 forward owns: 128 while that still gives
-# every SM at least two blocks, else 64 (the prefill at B = 1, T = 1024
-# has 96 blocks of 128 rows for the H100's 132 SMs).
-BLOCK_MS = (64, 128)
+def _p_for_pv(s: torch.Tensor, m: torch.Tensor, p: torch.Tensor,
+              dtype: torch.dtype, tile: int) -> torch.Tensor:
+    """The probabilities the p·v product sees, in float32, given the
+    scaled scores ``s``, their row max ``m`` and ``p = exp2(s - m)``.  In
+    float32, p.  In a narrower dtype, p rounded where the kernel (and the
+    reference, per key block) rounds it: against the running max after
+    each tile of ``tile`` keys, then scaled to the row's final max in
+    float32, as the kernel rescales its accumulator; ``tile=0``: against
+    the final max.  (Against the final max, a row whose max arrives in a
+    later tile rounds its early tiles' p otherwise than the kernel:
+    several bf16 steps on small outputs.)"""
+    if dtype == torch.float32:
+        return p
+    if not tile:
+        return p.to(dtype).float()
+    Tk = s.shape[-1]
+    nt = -(-Tk // tile)
+    tiles = torch.nn.functional.pad(s, (0, nt * tile - Tk), value=NEG_INF)
+    tiles = tiles.unflatten(-1, (nt, tile))
+    m_run = tiles.amax(-1).cummax(-1).values               # (B, H, T, nt)
+    pr = torch.exp2(tiles - m_run[..., None]).to(dtype).float()
+    pr *= torch.exp2(m_run - m[..., None])[..., None]
+    return pr.flatten(-2)[..., :Tk]
 
 
-def forward_block_m(B: int, T: int, H: int, device: torch.device) -> int:
+def gqa_expand(kv: torch.Tensor, n_head: int) -> torch.Tensor:
+    """(B, T, KV, D) → (B, T, n_head, D), each KV head repeated n_head /
+    KV times in place (the reference's ``_gqa_expand``)."""
+    n_kv = kv.shape[2]
+    if n_kv == n_head:
+        return kv
+    return kv.repeat_interleave(n_head // n_kv, dim=2)
+
+
+# Query rows a block of the bf16 forward owns, by head dim.  At 64: 128
+# while that still gives every SM at least two blocks, else 64 (the
+# prefill at B = 1, T = 1024 has 96 blocks of 128 rows for the H100's 132
+# SMs).  At 128: 64 only (a 128-row block would need ~256 registers a
+# thread).
+BLOCK_MS = {64: (64, 128), 128: (64,)}
+
+
+def forward_block_m(B: int, T: int, H: int, device: torch.device,
+                    D: int = 64) -> int:
+    if D == 128:
+        return 64
     return 128 if -(-T // 128) * B * H >= 2 * sm_count(device) else 64
+
+
+def forward_occupancy(D: int, block_m: int) -> Tuple[int, int]:
+    """(dynamic shared memory bytes, resident blocks an SM) of the bf16
+    forward's (D, block_m) instantiation, from the CUDA occupancy
+    calculator on the current device (builds the library)."""
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    rc = _build.entry("rtt_flash_attention_fwd_occupancy")(
+        D, block_m, ctypes.byref(smem), ctypes.byref(blocks))
+    _build.check(rc, "rtt_flash_attention_fwd_occupancy")
+    return smem.value, blocks.value
 
 
 def _check_tc_operands(**tensors) -> None:
@@ -111,20 +181,40 @@ def _check_tc_operands(**tensors) -> None:
                 f"{t.data_ptr():#x} strides {tuple(t.stride())}")
 
 
+def _check_kv_heads(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> int:
+    """q (B, T, H, D), k and v (B, T, KV, D) with KV dividing H; returns
+    KV.  The rule of every device (the kernels also take only
+    ``HEAD_DIMS``)."""
+    B, T, H, D = q.shape
+    if k.shape != v.shape or k.dim() != 4 or k.shape[:2] != (B, T) \
+            or k.shape[3] != D:
+        raise ValueError(f"k and v must be (B, T, KV, D) beside q "
+                         f"{tuple(q.shape)}, got {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    KV = k.shape[2]
+    if KV == 0 or H % KV:
+        raise ValueError(f"KV heads ({KV}) must divide the query heads "
+                         f"({H})")
+    return KV
+
+
 def _flash_kernel(q, k, v, causal: bool, want_lse: bool,
                   block_m: Optional[int] = None):
-    """The kernel for q's dtype; ``block_m`` (bf16 only) overrides
-    ``forward_block_m``."""
-    global launches, f32_launches
+    """The kernel for q's dtype and head dim; ``block_m`` (bf16 only)
+    overrides ``forward_block_m``."""
+    global launches, d128_launches, f32_launches
     B, T, H, D = q.shape
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash kernel takes float32 or bfloat16 q/k/v of "
                         f"one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q, k, v must share a shape, got {tuple(q.shape)}"
-                         f", {tuple(k.shape)}, {tuple(v.shape)}")
+    KV = _check_kv_heads(q, k, v)
     if D not in HEAD_DIMS:
         raise ValueError(f"flash kernel takes head dims {HEAD_DIMS}, not {D}")
+    if q.dtype == torch.float32 and D not in BWD_HEAD_DIMS:
+        raise ValueError(f"the float32 flash kernel takes head dim "
+                         f"{BWD_HEAD_DIMS}, not {D}: head dim {D} runs in "
+                         f"bfloat16 on the tensor cores")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash kernel needs a contiguous head dim")
     if k.device != q.device or v.device != q.device:
@@ -133,10 +223,10 @@ def _flash_kernel(q, k, v, causal: bool, want_lse: bool,
     if tensor_cores:
         _check_tc_operands(q=q, k=k, v=v)
         if block_m is None:
-            block_m = forward_block_m(B, T, H, q.device)
-        if block_m not in BLOCK_MS:
-            raise ValueError(f"block_m must be one of {BLOCK_MS}, not "
-                             f"{block_m}")
+            block_m = forward_block_m(B, T, H, q.device, D)
+        if block_m not in BLOCK_MS[D]:
+            raise ValueError(f"block_m at head dim {D} must be one of "
+                             f"{BLOCK_MS[D]}, not {block_m}")
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse: Optional[torch.Tensor] = None
     if want_lse:
@@ -145,7 +235,7 @@ def _flash_kernel(q, k, v, causal: bool, want_lse: bool,
     rc = launch_on(q.device, lambda stream: fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None,
-        B, T, H, D,
+        B, T, H, KV, D,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
@@ -153,7 +243,9 @@ def _flash_kernel(q, k, v, causal: bool, want_lse: bool,
         int(causal), LOG2E / math.sqrt(D), _DTYPES[q.dtype],
         block_m or 0, stream))
     _build.check(rc, "rtt_flash_attention_fwd")
-    if tensor_cores:
+    if tensor_cores and D == 128:
+        d128_launches += 1
+    elif tensor_cores:
         launches += 1
     else:
         f32_launches += 1
@@ -167,6 +259,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     on a CPU tensor."""
     if q.device.type == "cuda":
         return _flash_kernel(q, k, v, causal, want_lse)
+    _check_kv_heads(q, k, v)
     return flash_attention_plain(q, k, v, causal, want_lse)
 
 
@@ -208,8 +301,9 @@ def _flash_bwd_kernel(q, k, v, lse, delta, do, causal: bool):
                         f"{do.dtype}")
     if any(t.shape != q.shape for t in (k, v, do)):
         raise ValueError("q, k, v, do must share a shape")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head dims {HEAD_DIMS}, not {D}")
+    if D not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash backward takes head dims {BWD_HEAD_DIMS}, "
+                         f"not {D}")
     for name, t in (("lse", lse), ("delta", delta)):
         if t.shape != (B * H, T) or t.dtype != torch.float32:
             raise ValueError(f"{name} must be ({B * H}, {T}) float32, got "
@@ -283,10 +377,17 @@ class FlashAttentionFn(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, want_lse: bool = False) -> Result:
-    """(B, T, H, D)×3 → (B, T, H, D) tiled attention, differentiable;
-    with ``want_lse`` also the base-2 lse, ``(B·H, T)`` float32."""
+    """(B, T, H, D), (B, T, KV, D)×2 → (B, T, H, D) tiled attention,
+    differentiable without KV groups below head dim 128; with ``want_lse`` also
+    the base-2 lse, ``(B·H, T)`` float32."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        if k.shape[2] != q.shape[2] or q.shape[3] == 128:
+            raise NotImplementedError(
+                f"flash attention under autograd takes neither KV groups "
+                f"nor head dim 128; q {tuple(q.shape)} "
+                f"k {tuple(k.shape)} waits for the Llama training slice "
+                f"(the flash backward at head dim 128 with grouped K/V)")
         out, lse = FlashAttentionFn.apply(q, k, v, causal)
         return (out, lse) if want_lse else out
     return flash_attention_fwd(q, k, v, causal, want_lse)
@@ -294,5 +395,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_for_model(q, k, v, cfg=None, **_):
     """Model hook (``attn_impl='flash'``, and what ``'auto'`` resolves
-    to on CUDA): causal flash attention at any sequence length."""
+    to on CUDA): causal flash attention at any sequence length; k and v
+    may carry fewer (KV) heads than q."""
     return flash_attention(q, k, v, True)

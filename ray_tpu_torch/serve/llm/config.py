@@ -28,7 +28,8 @@ class EngineConfig:
     """Engine-level knobs (model, cache geometry, batching limits).
 
     ``model`` is "<family>:<preset>" over the port's model zoo —
-    ``gpt2:tiny``, ``gpt2:gpt2-124m`` … (``models/gpt2.py`` PRESETS).
+    ``gpt2:tiny``, ``gpt2:gpt2-124m`` … (``models/gpt2.py`` PRESETS) and
+    ``llama:tiny``, ``llama:llama3-8b`` … (``models/llama.py`` PRESETS).
     """
 
     model: str = "gpt2:tiny"
@@ -66,11 +67,10 @@ def resolve_model(cfg: EngineConfig):
     if family == "gpt2":
         from ray_tpu_torch.models import gpt2 as mod
     elif family == "llama":
-        raise NotImplementedError(
-            "llama serving comes with a later slice of the port")
+        from ray_tpu_torch.models import llama as mod
     else:
         raise ValueError(f"unknown model family {family!r} "
-                         "(expected gpt2)")
+                         "(expected gpt2|llama)")
     try:
         mcfg = mod.PRESETS[preset]()
     except KeyError:

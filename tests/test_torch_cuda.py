@@ -235,7 +235,7 @@ def _bf16_qkv(dev, B, T, seed):
     return [qkv[:, :, i].unflatten(-1, (12, 64)) for i in range(3)]
 
 
-@pytest.mark.parametrize("block_m", t_flash.BLOCK_MS)
+@pytest.mark.parametrize("block_m", t_flash.BLOCK_MS[64])
 @pytest.mark.parametrize("B", [1, 3])
 @pytest.mark.parametrize("T", TC_LENGTHS)
 def test_flash_tc_forward_matches_plain(cuda_device, T, B, block_m):
@@ -311,7 +311,7 @@ def test_flash_tc_refuses_misaligned_operands(cuda_device, how):
     st = [x for t in (bad, good, good, out) for x in t.stride()[:3]]
     rc = _build.lib().rtt_flash_attention_fwd(
         bad.data_ptr(), good.data_ptr(), good.data_ptr(), out.data_ptr(),
-        None, 1, 64, 12, 64, *st, 1, 0.18, 1, 64,
+        None, 1, 64, 12, 12, 64, *st, 1, 0.18, 1, 64,
         torch.cuda.current_stream().cuda_stream)
     assert rc == 1                      # cudaErrorInvalidValue
 
@@ -330,3 +330,65 @@ def test_flash_f32_goes_to_the_scalar_kernels(cuda_device):
             t_flash.f32_bwd_launches) == \
         (before[0], before[1], before[2] + 1, before[3] + 1)
     assert torch.isfinite(q.grad).all()
+
+
+def _llama_qkv(dev, B, T, seed):
+    """Llama-3 8B's attention operands: q a view of a (B, T, 4096)
+    projection as 32 heads of 128, k and v (B, T, 8, 128) of their own."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, T, 4096), generator=g, device=dev)
+    k, v = (torch.randn((B, T, 8, 128), generator=g, device=dev)
+            for _ in range(2))
+    return (q.to(torch.bfloat16).view(B, T, 32, 128), k.to(torch.bfloat16),
+            v.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("T", [64, 333, 1024])
+def test_flash_gqa_d128_forward_matches_plain(cuda_device, T, B):
+    """The head-dim-128 instantiation reading 8 KV heads under 32 query
+    heads, against the plain version (which expands the groups), within
+    one bf16 step; counted apart from the head-dim-64 kernel."""
+    q, k, v = _llama_qkv(cuda_device, B, T, 11)
+    for causal in (True, False):
+        before = (t_flash.launches, t_flash.d128_launches,
+                  t_flash.f32_launches)
+        out, lse = t_flash.flash_attention(q, k, v, causal, want_lse=True)
+        ref, rlse = t_flash.flash_attention_plain(q, k, v, causal, True)
+        torch.cuda.synchronize()
+        assert (t_flash.launches, t_flash.d128_launches,
+                t_flash.f32_launches) == (before[0], before[1] + 1,
+                                          before[2])
+        assert out.shape == (B, T, 32, 128) and lse.shape == (B * 32, T)
+        _within_bf16_steps(out, ref, 1)
+        torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("how", ["offset", "stride"])
+def test_flash_gqa_d128_refuses_misaligned_operands(cuda_device, how):
+    """At head dim 128 too: the wrapper raises and launches nothing, and
+    the C entry refuses the operand (and H % KV != 0) before any launch."""
+    if how == "offset":
+        buf = torch.zeros(1 + 64 * 1024, device=cuda_device,
+                          dtype=torch.bfloat16)
+        bad = buf[1:].view(1, 64, 8, 128)
+    else:
+        buf = torch.zeros((1, 64, 1025), device=cuda_device,
+                          dtype=torch.bfloat16)
+        bad = buf[..., :1024].unflatten(-1, (8, 128))
+    q = torch.zeros((1, 64, 32, 128), device=cuda_device,
+                    dtype=torch.bfloat16)
+    good = torch.zeros((1, 64, 8, 128), device=cuda_device,
+                       dtype=torch.bfloat16)
+    before = (t_flash.launches, t_flash.d128_launches)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        t_flash.flash_attention(q, bad, good)
+    assert (t_flash.launches, t_flash.d128_launches) == before
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+    for kk, kv in ((bad, 8), (good, 6)):
+        st = [x for t in (q, kk, good, out) for x in t.stride()[:3]]
+        rc = _build.lib().rtt_flash_attention_fwd(
+            q.data_ptr(), kk.data_ptr(), good.data_ptr(), out.data_ptr(),
+            None, 1, 64, 32, kv, 128, *st, 1, 0.13, 1, 64, stream)
+        assert rc == 1                  # cudaErrorInvalidValue

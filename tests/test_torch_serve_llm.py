@@ -3,7 +3,8 @@
 The oracle is the reference's: greedy decode through the paged engine
 must give exactly the tokens of recompute-everything greedy decode with
 the JAX model's full forward pass, on the same weights (carried across
-by ``params_from_numpy``), alone, batched and under preemption.
+by ``params_from_numpy``), alone, batched and under preemption, for
+GPT-2 and for Llama (grouped-query attention, RoPE, untied head).
 """
 
 import dataclasses
@@ -15,8 +16,10 @@ import pytest
 import torch
 
 from ray_tpu.models import gpt2 as jgpt2
+from ray_tpu.models import llama as jllama
 from ray_tpu.serve.llm.model_runner import ModelRunner as JRunner
 from ray_tpu_torch.models import gpt2 as tgpt2
+from ray_tpu_torch.models import llama as tllama
 from ray_tpu_torch.models.convert import params_from_numpy
 from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine, SamplingParams
 from ray_tpu_torch.serve.llm.config import resolve_model
@@ -26,6 +29,8 @@ from ray_tpu_torch.serve.llm.scheduler import IterationScheduler, Sequence
 
 JCFG = dataclasses.replace(jgpt2.tiny(), dtype=jnp.float32)
 TCFG = dataclasses.replace(tgpt2.tiny(), dtype=torch.float32)
+JLCFG = dataclasses.replace(jllama.tiny(), dtype=jnp.float32)
+TLCFG = dataclasses.replace(tllama.tiny(), dtype=torch.float32)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -59,50 +64,72 @@ def jparams():
     return dict(p, blocks=blocks)
 
 
+@pytest.fixture(scope="module")
+def jlparams():
+    """The JAX Llama init with every block matrix scaled ×10, as GPT-2's
+    above: attention sharp enough that the context decides the tokens."""
+    p = jllama.init_params(jax.random.key(0), JLCFG)
+    blocks = dict(p["blocks"])
+    for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        blocks[name] = dict(blocks[name], kernel=blocks[name]["kernel"] * 10)
+    return dict(p, blocks=blocks)
+
+
 def make_engine(jparams, **kw):
     tp = params_from_numpy(jax.tree.map(np.asarray, jparams), TCFG, "cpu")
     return LLMEngine(tiny_cfg(**kw), tp, device="cpu", model_cfg=TCFG)
 
 
+def make_llama_engine(jlparams, **kw):
+    tp = params_from_numpy(jax.tree.map(np.asarray, jlparams), TLCFG, "cpu")
+    return LLMEngine(tiny_cfg(model="llama:tiny", **kw), tp, device="cpu",
+                     model_cfg=TLCFG)
+
+
 _jax_forward = jax.jit(lambda p, t: jgpt2.forward(p, t, JCFG))
+_jax_llama_forward = jax.jit(lambda p, t: jllama.forward(p, t, JLCFG))
 
 
-def jax_greedy(jparams, prompt, n):
+def jax_greedy(jparams, prompt, n, forward=_jax_forward,
+               n_positions=JCFG.n_positions):
     """Reference greedy: the JAX full forward recomputed per token.  The
     tokens are padded to n_positions so one program serves every length:
     the model is causal, so the padding cannot reach the last real
     position's logits."""
     toks, out = list(prompt), []
     for _ in range(n):
-        padded = np.zeros((1, JCFG.n_positions), np.int32)
+        padded = np.zeros((1, n_positions), np.int32)
         padded[0, :len(toks)] = toks
-        logits = np.asarray(_jax_forward(jparams, jnp.asarray(padded)))
+        logits = np.asarray(forward(jparams, jnp.asarray(padded)))
         out.append(int(np.argmax(logits[0, len(toks) - 1])))
         toks.append(out[-1])
     return out
 
 
-def test_engine_solo_matches_jax_oracle(jparams):
-    eng = make_engine(jparams)
+def jax_llama_greedy(jlparams, prompt, n):
+    return jax_greedy(jlparams, prompt, n, _jax_llama_forward,
+                      JLCFG.max_positions)
+
+
+def _solo(eng, greedy, vocab):
     try:
-        prompt = np.random.default_rng(1).integers(1, 100, 7).tolist()
+        prompt = np.random.default_rng(1).integers(1, vocab, 7).tolist()
         got = eng.generate(prompt, SamplingParams(max_tokens=8))
-        assert got == jax_greedy(jparams, prompt, 8)
+        assert got == greedy(prompt, 8)
     finally:
         eng.shutdown()
 
 
-def test_engine_concurrent_matches_jax_oracle(jparams):
-    eng = make_engine(jparams)
+def _concurrent(eng, greedy, vocab):
     try:
         rng = np.random.default_rng(2)
-        prompts = [rng.integers(1, 200, rng.integers(3, 20)).tolist()
+        prompts = [rng.integers(1, vocab, rng.integers(3, 20)).tolist()
                    for _ in range(4)]
         streams = [eng.submit(p, SamplingParams(max_tokens=6))
                    for p in prompts]
         outs = [s.tokens() for s in streams]
         for p, o in zip(prompts, outs):
-            assert o == jax_greedy(jparams, p, 6)
+            assert o == greedy(p, 6)
         assert len({t for o in outs for t in o}) > 8     # not a repeat
         st = eng.stats()
         assert st["decode_steps"] < 4 * 6        # batched, not serial
@@ -111,19 +138,51 @@ def test_engine_concurrent_matches_jax_oracle(jparams):
         eng.shutdown()
 
 
-def test_engine_preemption_matches_jax_oracle(jparams):
-    eng = make_engine(jparams, num_blocks=6, block_size=4, max_model_len=32,
-                      max_prefill_tokens=16, prefill_len_buckets=(16, 32))
+PREEMPT = dict(num_blocks=6, block_size=4, max_model_len=32,
+               max_prefill_tokens=16, prefill_len_buckets=(16, 32))
+
+
+def _preemption(eng, greedy):
     try:
         sp = SamplingParams(max_tokens=12)
         prompts = [[1 + 7 * i, 2, 3] for i in range(3)]
         outs = [s.tokens() for s in [eng.submit(p, sp) for p in prompts]]
         assert eng.stats()["preemptions"] >= 1
         for p, o in zip(prompts, outs):
-            assert o == jax_greedy(jparams, p, 12)
+            assert o == greedy(p, 12)
         assert eng.cache.free_block_count() == 6   # all blocks returned
     finally:
         eng.shutdown()
+
+
+def test_engine_solo_matches_jax_oracle(jparams):
+    _solo(make_engine(jparams), lambda p, n: jax_greedy(jparams, p, n), 100)
+
+
+def test_engine_concurrent_matches_jax_oracle(jparams):
+    _concurrent(make_engine(jparams),
+                lambda p, n: jax_greedy(jparams, p, n), 200)
+
+
+def test_engine_preemption_matches_jax_oracle(jparams):
+    _preemption(make_engine(jparams, **PREEMPT),
+                lambda p, n: jax_greedy(jparams, p, n))
+
+
+def test_llama_engine_solo_matches_jax_oracle(jlparams):
+    _solo(make_llama_engine(jlparams),
+          lambda p, n: jax_llama_greedy(jlparams, p, n), JLCFG.vocab_size)
+
+
+def test_llama_engine_concurrent_matches_jax_oracle(jlparams):
+    _concurrent(make_llama_engine(jlparams),
+                lambda p, n: jax_llama_greedy(jlparams, p, n),
+                JLCFG.vocab_size)
+
+
+def test_llama_engine_preemption_matches_jax_oracle(jlparams):
+    _preemption(make_llama_engine(jlparams, **PREEMPT),
+                lambda p, n: jax_llama_greedy(jlparams, p, n))
 
 
 def test_oversize_prompt_and_cancel(jparams):
@@ -242,9 +301,12 @@ def test_entry_points_raise_without_card_unless_cpu(monkeypatch):
 def test_later_slices_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="later slice"):
         ModelRunner(tiny_cfg(share_weights=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        resolve_model(tiny_cfg(model="llama:tiny"))
     assert EngineConfig().share_weights is True      # reference default
+    # llama serving is ported: the family resolves to the port's module
+    mod, mcfg = resolve_model(tiny_cfg(model="llama:llama3-8b"))
+    assert mod is tllama and mcfg == tllama.llama3_8b()
+    mod, mcfg = resolve_model(tiny_cfg(model="llama:tiny"))
+    assert mod is tllama and mcfg == tllama.tiny()
 
 
 def test_engine_rejects_uncovered_buckets():
