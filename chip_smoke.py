@@ -21,7 +21,9 @@
    the KV heads in the wrong (tiled) order must fail the same check.
    The backward kernels, and both forward kernels once more, are held the
    same way at the training path's shapes; the LayerNorm backward's
-   dscale/dbias must also be bitwise equal between two calls.
+   dscale/dbias must also be bitwise equal between two calls; the
+   head-dim-128 grouped backward at Llama training's (4, 2048, 32 over 8,
+   128), with its own tiled-order control.
 3. Engine phase: serves GPT-2 124M (full width, random weights from the
    seed, block matrices scaled x3 so the context decides the logits)
    through ``LLMEngine`` — 16 concurrent greedy requests — checks every
@@ -34,6 +36,14 @@
    drawn on the card, block matrices x2): 32 head-dim-128 flash launches
    per prefill step and per full forward, none of another instantiation;
    the weights and the pool are freed before the next phase.
+   Between the two, the weights-plane phase: a GPT-2 124M engine with
+   ``share_weights=True`` publishes its params to this run's own
+   directory under ``/dev/shm`` (``RTPU_SHM_DIR``, set for the whole run
+   and removed at exit, so two runs on one machine never meet in the
+   plane), an engine in a child process attaches (its private
+   init is stamped, so only the attach gives the publisher's bytes) and
+   must hold ``wte`` and a block matrix bitwise equal to the publisher's;
+   shutdown unlinks the segment.
 4. Train phase: trains GPT-2 124M (full width, random init from the seed,
    batch 32 x seq 1024, remat on) through ``spmd.build_train_program``.
    Holds every parameter's step-0 gradient to an independent reference
@@ -43,8 +53,12 @@
    loss, the step count and each kernel's launches per step (none of the
    float32 flash kernels or the scalar-I/O LayerNorm ones).  Prints the
    step time, tokens/s, the model-FLOP share and one profiled step.
-5. Prints one JSON line of per-kernel numbers, then, as the last line,
-   ``{"ok": true, "device": {...}}``.
+   Then the same for Llama-3 8B's full width at 4 of its 32 layers
+   (batch 4 x seq 2048): the head-dim-128 grouped flash forward and
+   backward, 8 and 4 launches a step and no other kernel; a planted fault
+   gives a KV head the wrong group of query heads.
+5. Prints each phase's wall seconds, one JSON line of per-kernel numbers,
+   then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 phase fails.  Imports neither JAX nor the ray_tpu package.
@@ -52,10 +66,15 @@ phase fails.  Imports neither JAX nor the ray_tpu package.
 
 from __future__ import annotations
 
+import atexit
+import gc
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from typing import Optional
 
@@ -168,6 +187,65 @@ GRAD_FAULTS = {
 }
 
 
+# Llama train phase: Llama-3 8B's full width (E 4096, 32 query heads over
+# 8 KV heads, head dim 128, SwiGLU 14336, V 128256, theta 500000) at
+# LLAMA_TRAIN_LAYERS of its 32 layers: the preset's f32 params, grads and
+# two AdamW moments come to ~128 GB, past one 80 GB card; 4 layers are
+# 1.92 B params, ~31 GB of that state.
+LLAMA_TRAIN_LAYERS = 4
+LLAMA_TRAIN_BATCH, LLAMA_TRAIN_SEQ = 4, 2048
+# Step-0 gradients against plain autograd through dense GQA attention, the
+# worst leaf's relative L2 error.  Set from the sweep on the card
+# (llama_grad_sweep; PERF.md §6): at the init the healthy error is 0.0388
+# against the bf16 reference and 0.0333 against a float32 one (bf16
+# rounding through 4 layers of 4096), and the planted faults are 942 and
+# 9773; at x2 the healthy error alone reaches 0.19-0.23 and the faults
+# overflow.  So the check runs at the init, and 0.1 sits 2.6x above the
+# healthy error and 9,400x below the smaller fault.
+LLAMA_GRAD_REL_TOL = 0.1
+LLAMA_BLOCK_MATRICES = ("wq", "wk", "wv", "wo", "w_gate", "w_up",
+                        "w_down")
+
+
+def _heads_tiled(t: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """(B, T, H, D) with query head h moved to where the kernel's rule
+    (KV head j // (H / KV) for position j) gives it KV head h % KV: the
+    tiled order, jnp.tile's.  _heads_untiled undoes it."""
+    return t.unflatten(2, (t.shape[2] // n_kv, n_kv)).transpose(2, 3) \
+        .flatten(2, 3)
+
+
+def _heads_untiled(t: torch.Tensor, n_kv: int) -> torch.Tensor:
+    return t.unflatten(2, (n_kv, t.shape[2] // n_kv)).transpose(2, 3) \
+        .flatten(2, 3)
+
+
+def _rows_tiled(r: torch.Tensor, B: int, n_kv: int) -> torch.Tensor:
+    """The same move on (B*H, T) rows of lse or delta."""
+    H = r.shape[0] // B
+    return r.view(B, H // n_kv, n_kv, -1).transpose(1, 2).reshape(r.shape)
+
+
+def _kv_groups_tiled(f):
+    """The backward with q, dO, lse and delta in the tiled head order: each
+    KV head gets the wrong group of query heads; dq is moved back."""
+    def bwd(q, k, v, lse, d, do, c):
+        n_kv, B = k.shape[2], q.shape[0]
+        dq, dk, dv = f(_heads_tiled(q, n_kv), k, v, _rows_tiled(lse, B, n_kv),
+                       _rows_tiled(d, B, n_kv), _heads_tiled(do, n_kv), c)
+        return _heads_untiled(dq, n_kv), dk, dv
+    return bwd
+
+
+# Faults planted in the Llama backward, one run each: each must push some
+# leaf past LLAMA_GRAD_REL_TOL.
+LLAMA_GRAD_FAULTS = {
+    "flash_bwd_kv_groups_tiled": _kv_groups_tiled,
+    "flash_bwd_lse_rolled": lambda f: lambda q, k, v, lse, d, do, c: f(
+        q, k, v, lse.roll(1, 0), d, do, c),
+}
+
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -255,8 +333,11 @@ def bound_ms(nbytes: float, flops: float, card) -> tuple:
 TC_FWD = {"flash_fwd_tc_kernelILi64ELi64E": (64, 64),
           "flash_fwd_tc_kernelILi128ELi64E": (64, 128),
           "flash_fwd_tc_kernelILi64ELi128E": (128, 64)}
+# The backward's head-dim-128 grouped kernels with their pass (dK/dV 0,
+# dQ 1) for backward_occupancy.
+TC_BWD_GQA = {"flash_bwd_dkdv_gqa_kernel": 0, "flash_bwd_dq_gqa_kernel": 1}
 TC_KERNELS = tuple(TC_FWD) + ("flash_bwd_dkdv_tc_kernel",
-                              "flash_bwd_dq_tc_kernel")
+                              "flash_bwd_dq_tc_kernel") + tuple(TC_BWD_GQA)
 
 
 def tc_report(tag: str) -> dict:
@@ -277,8 +358,9 @@ def tc_report(tag: str) -> dict:
             fail(f"kernel {key}: {len(names)} SASS functions and "
                  f"{len(rnames)} ptxas entries")
         out[key] = dict(res[rnames[0]], hmma=hmma[names[0]])
-        if key in TC_FWD:
-            smem, per_sm = fa.forward_occupancy(*TC_FWD[key])
+        if key in TC_FWD or key in TC_BWD_GQA:
+            smem, per_sm = fa.forward_occupancy(*TC_FWD[key]) \
+                if key in TC_FWD else fa.backward_occupancy(TC_BWD_GQA[key])
             out[key].update(dynamic_smem_bytes=smem, blocks_per_sm=per_sm)
         print(f"sass {key} " + " ".join(f"{k} {v}" for k, v in
                                         out[key].items()) + f" [{tag}]",
@@ -439,8 +521,9 @@ def check_flash(gen, card, dev) -> list:
                          **(dict(iters=5) if B == 1
                             else dict(iters=3, reps=2)))
         qt, kt, vt = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
-        l_ms = device_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True))
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True)
+        l_ms, lc_ms = device_ms(lib), call_ms(lib)
         del qt, kt, vt
         pairs = T * (T + 1) // 2            # causal: what the data needs
         flops = 4 * D * pairs * B * H
@@ -448,7 +531,7 @@ def check_flash(gen, card, dev) -> list:
         b_ms, b_by = bound_ms(nbytes, flops, card)
         rows.append(dict(name=name, shape=(B, T, H, D), max_abs_err=err,
                          ms=k_ms, call_ms=c_ms, plain_ms=p_ms,
-                         library_ms=l_ms,
+                         library_ms=l_ms, library_call_ms=lc_ms,
                          bound_ms=b_ms, bound_by=b_by))
     return rows
 
@@ -664,7 +747,118 @@ def check_flash_bwd(gen, card, dev) -> list:
     return rows
 
 
+# Llama-3 8B's attention backward: the train phase's shape and a ragged
+# one both ways.
+GQA_BWD_SHAPES = ((4, 2048, True), (1, 333, True), (1, 333, False))
+
+
+def check_flash_bwd_gqa(gen, card, dev) -> list:
+    """The head-dim-128 grouped backward at Llama-3 8B's attention (32
+    query heads over 8 KV heads): dq, dk and dv held to the plain version
+    within FLASH_BWD_STEPS; a planted control (the plain version with the
+    KV heads in tiled order, jnp.tile's, both ways) must fail the same
+    check at every shape."""
+    import torch.nn.functional as F
+    from ray_tpu_torch.ops import flash_attention as fa
+    rows = []
+    H, KV, D = 32, 8, 128
+    G = H // KV
+    for B, T, causal in GQA_BWD_SHAPES:
+        q = torch.randn((B, T, H * D), generator=gen, device=dev) \
+            .to(torch.bfloat16).view(B, T, H, D)
+        k, v = (torch.randn((B, T, KV, D), generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        do = torch.randn((B, T, H, D), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        out, lse = fa.flash_attention_plain(q, k, v, causal, want_lse=True)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2) \
+            .reshape(B * H, T)
+        del out
+        before = (fa.bwd_launches, fa.d128_bwd_launches, fa.f32_bwd_launches)
+        got = fa.flash_attention_bwd(q, k, v, lse, delta, do, causal)
+        if (fa.bwd_launches, fa.d128_bwd_launches, fa.f32_bwd_launches) != \
+                (before[0], before[1] + 1, before[2]):
+            fail(f"flash backward at ({B}, {T}, {H}/{KV}, {D}) did not take "
+                 f"the head-dim-128 kernel")
+        if got[1].shape != k.shape or got[2].shape != v.shape:
+            fail(f"dk, dv {tuple(got[1].shape)} {tuple(got[2].shape)}, "
+                 f"expected {tuple(k.shape)}")
+        ref = fa.flash_attention_bwd_plain(q, k, v, lse, delta, do, causal)
+        torch.cuda.synchronize()
+        name = f"flash_attention_bwd_gqa_d128({B}x{T}x{H}/{KV}x{D} bf16" \
+            f"{', causal' if causal else ''})"
+        errs = {n: bf16_excess(a, r, FLASH_BWD_STEPS) for n, a, r in
+                zip(("dq", "dk", "dv"), got, ref)}
+        del ref
+        err = max(e[0] for e in errs.values())
+        ratio = max(e[1] for e in errs.values())
+        print(f"{name} max_abs_err {err:.6g} worst_err/limit {ratio:.4g} "
+              f"(limit {FLASH_BWD_STEPS}*({BF16_REL:.6g}*|ref| + floor)) "
+              + " ".join(f"{n}:{e[1]:.3g}(floor {e[2]:.3g})"
+                         for n, e in errs.items()), flush=True)
+        if ratio > 1.0:
+            fail(f"{name} disagrees with its plain version")
+        # control: KV head h % KV (jnp.tile's order) for query head h, the
+        # per-head dk and dv summed in the same order
+        dq_c, dk_c, dv_c = fa.flash_attention_bwd_plain(
+            q, k.repeat(1, 1, G, 1), v.repeat(1, 1, G, 1), lse, delta, do,
+            causal)
+        ctrl = (dq_c, dk_c.unflatten(2, (G, KV)).sum(2),
+                dv_c.unflatten(2, (G, KV)).sum(2))
+        cratio = {n: bf16_excess(a, r, FLASH_BWD_STEPS)[1] for n, a, r in
+                  zip(("dq", "dk", "dv"), got, ctrl)}
+        del got, ctrl, dq_c, dk_c, dv_c
+        print(f"{name} control kv_heads_tiled worst_err/limit "
+              + " ".join(f"{n}:{r:.4g}" for n, r in cratio.items())
+              + " (must fail)", flush=True)
+        if max(cratio.values()) <= 1.0:
+            fail(f"{name}: the tiled-order control passed the check")
+        if not causal:
+            continue
+        kern = lambda: fa.flash_attention_bwd(  # noqa: E731
+            q, k, v, lse, delta, do, True)
+        k_ms, c_ms = device_ms(kern, iters=5), call_ms(kern, iters=10)
+        p_ms = device_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, lse, delta, do, True),
+            **(dict(iters=2, reps=2) if B > 1 else dict(iters=5)))
+        # yardstick: SDPA's backward with enable_gqa on a retained graph,
+        # by CUDA events over back-to-back calls
+        qt = q.transpose(1, 2).contiguous().requires_grad_()
+        kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (k, v))
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+        dot = do.transpose(1, 2).contiguous()
+        l_ms = call_ms(lambda: torch.autograd.grad(
+            o, (qt, kt, vt), dot, retain_graph=True), iters=10)
+        del o, qt, kt, vt, dot
+        pairs = T * (T + 1) // 2            # causal: what the data needs
+        flops = 5 * 2 * D * pairs * B * H
+        nbytes = 2 * B * T * D * (3 * H + 4 * KV) + 2 * B * H * T * 4
+        b_ms, b_by = bound_ms(nbytes, flops, card)
+        rows.append(dict(name=name, shape=(B, T, H, KV, D), max_abs_err=err,
+                         ms=k_ms, call_ms=c_ms, plain_ms=p_ms,
+                         library_ms=l_ms, bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
 # ---------------------------------------------------------------- profile
+def kernel_class(name: str) -> str:
+    """A device kernel's class, by its name: matrix products (cuBLAS's
+    nvjet, CUTLASS and gemv kernels), copies and casts, reductions, the
+    other elementwise passes, or other."""
+    n = name.lower()
+    if any(w in n for w in ("gemm", "nvjet", "gemv", "cutlass")):
+        return "matmul"
+    if "memcpy" in n or "memset" in n or "copy" in n:
+        return "copy"          # dtype casts are copy kernels too
+    if "reduce" in n or "softmax" in n or "norm" in n:
+        return "reduction"
+    if "elementwise" in n:
+        return "elementwise"
+    return "other"
+
+
 def profile_once(name: str, fn, tag: str = "") -> dict:
     """``fn`` once under torch.profiler: wall time, summed device time,
     the device's busy share and the kernels that take the most of it."""
@@ -690,14 +884,22 @@ def profile_once(name: str, fn, tag: str = "") -> dict:
     # the port's hand-written kernels, whatever their rank
     ours = {k: v for k, v in by_kernel.items()
             if "flash_" in k or "layer_norm_" in k}
+    classes = {}
+    for k, v in by_kernel.items():
+        c = kernel_class(k) if k not in ours else "hand-written"
+        classes[c] = classes.get(c, 0.0) + v
     res = dict(wall_ms=wall, device_ms=dev_ms,
                busy=dev_ms / wall if wall else float("nan"),
                top=[(k[:90], v) for k, v in top],
-               hand_written_ms=sum(ours.values()))
+               hand_written_ms=sum(ours.values()), by_class=classes)
     tag = f" [{tag}]" if tag else ""
     print(f"profile {name} wall_ms {wall:.4g} device_ms {dev_ms:.4g} "
           f"busy {res['busy']:.3f} hand-written kernels "
           f"{res['hand_written_ms']:.4g} ms{tag}", flush=True)
+    print(f"profile {name} by class " + ", ".join(
+        f"{c} {v:.4g} ms" for c, v in sorted(classes.items(),
+                                              key=lambda kv: -kv[1]))
+          + tag, flush=True)
     for k, v in sorted(ours.items(), key=lambda kv: -kv[1]):
         print(f"profile {name}   ours {v:.4g} ms  {k[:90]}{tag}", flush=True)
     for k, v in top:
@@ -1018,6 +1220,12 @@ def leaf_grads(params, loss_of) -> tuple:
     return loss.detach(), grads
 
 
+def leaf_tensors(params) -> list:
+    if isinstance(params, dict):
+        return [t for v in params.values() for t in leaf_tensors(v)]
+    return [params]
+
+
 def leaf_names(params, prefix="") -> list:
     if isinstance(params, dict):
         return [n for k, v in params.items()
@@ -1081,10 +1289,78 @@ def grad_check(cfg, params, batch, block_scale: float = 1.0) -> tuple:
     return worst, worst_leaf, controls
 
 
-def train_phase(dev, card, tag: str) -> dict:
-    from ray_tpu_torch.models import gpt2
+def kernel_counters() -> dict:
+    """Every kernel's launch counter, by the name the phases use."""
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.ops import layer_norm as ln
+    return {"layer_norm_fwd": (ln, "launches"),
+            "layer_norm_bwd": (ln, "bwd_launches"),
+            "layer_norm_fwd_scalar": (ln, "scalar_launches"),
+            "layer_norm_bwd_scalar": (ln, "bwd_scalar_launches"),
+            "flash_attention_fwd": (fa, "launches"),
+            "flash_attention_bwd": (fa, "bwd_launches"),
+            "flash_attention_fwd_gqa_d128": (fa, "d128_launches"),
+            "flash_attention_bwd_gqa_d128": (fa, "d128_bwd_launches"),
+            "flash_attention_fwd_f32": (fa, "f32_launches"),
+            "flash_attention_bwd_f32": (fa, "f32_bwd_launches")}
+
+
+def train_steps(label: str, prog, state, batch, per_step: dict,
+                tokens: int) -> tuple:
+    """The main path of a train phase: TRAIN_STEPS steps of ``prog`` on one
+    batch with host syncs made errors.  Every counter is zeroed just
+    before; each step must launch exactly ``per_step`` (the kernels it
+    leaves out, 0 times); the loss must be finite and fall, and the step
+    count match.  Returns (state, the run's numbers)."""
+    counters = kernel_counters()
+
+    def counts() -> dict:
+        return {k: getattr(m, a) for k, (m, a) in counters.items()}
+
+    per_step = {k: per_step.get(k, 0) for k in counters}
+    torch.cuda.reset_peak_memory_stats()
+    for m, a in counters.values():
+        setattr(m, a, 0)
+    metrics, step_s, step_counts = [], [], []
+    for _ in range(TRAIN_STEPS):
+        before = counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, m = prog.step_fn(state, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        metrics.append(m)
+        step_counts.append({k: v - before[k] for k, v in counts().items()})
+    launches = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [m["loss"].item() for m in metrics]
+    gnorms = [m["grad_norm"].item() for m in metrics]
+    print(f"{label} launches {launches} per step {step_counts[-1]} "
+          f"(expected per step {per_step})", flush=True)
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        fail(f"non-finite loss or grad norm in {label}")
+    if not losses[-1] < losses[0]:
+        fail(f"{label}: loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    if int(state.step.item()) != TRAIN_STEPS:
+        fail(f"{label}: state.step is {int(state.step.item())}, not "
+             f"{TRAIN_STEPS}")
+    for c in step_counts:
+        if c != per_step:
+            fail(f"{label}: launches per step {c}, expected {per_step}")
+    step_ms = 1e3 * sum(step_s[1:]) / (len(step_s) - 1)
+    return state, dict(losses=losses, grad_norms=gnorms,
+                       step_ms_each=[1e3 * t for t in step_s],
+                       step_ms=step_ms, tokens_per_s=tokens / step_ms * 1e3,
+                       peak_mem_gb=peak_gb, launches=launches,
+                       launches_per_step=step_counts[-1])
+
+
+def train_phase(dev, card, tag: str) -> dict:
+    from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.parallel import spmd
 
     cfg = gpt2.gpt2_small()                  # remat "full", bf16 activations
@@ -1111,74 +1387,305 @@ def train_phase(dev, card, tag: str) -> dict:
         if err <= GRAD_REL_TOL:
             fail(f"planted fault {fname} passed the gradient check")
 
-    # -- the main path: six steps on one batch, no host sync inside a step
-    per_step = {"layer_norm_fwd": 2 * L + 1 + 2 * L,   # forward + replay
-                "layer_norm_bwd": 2 * L + 1,
-                "flash_attention_fwd": L + L,
-                "flash_attention_bwd": L,
-                "layer_norm_fwd_scalar": 0,            # aligned bf16 rows
-                "layer_norm_bwd_scalar": 0,
-                "flash_attention_fwd_f32": 0,          # bf16 activations
-                "flash_attention_bwd_f32": 0}
-    counters = {"layer_norm_fwd": (ln, "launches"),
-                "layer_norm_bwd": (ln, "bwd_launches"),
-                "layer_norm_fwd_scalar": (ln, "scalar_launches"),
-                "layer_norm_bwd_scalar": (ln, "bwd_scalar_launches"),
-                "flash_attention_fwd": (fa, "launches"),
-                "flash_attention_bwd": (fa, "bwd_launches"),
-                "flash_attention_fwd_f32": (fa, "f32_launches"),
-                "flash_attention_bwd_f32": (fa, "f32_bwd_launches")}
-
-    def counts() -> dict:
-        return {k: getattr(m, a) for k, (m, a) in counters.items()}
-
-    torch.cuda.reset_peak_memory_stats()
-    for m, a in counters.values():
-        setattr(m, a, 0)
-    metrics, step_s, step_counts = [], [], []
-    for _ in range(TRAIN_STEPS):
-        before = counts()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            state, m = prog.step_fn(state, batch)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t)
-        metrics.append(m)
-        step_counts.append({k: v - before[k] for k, v in counts().items()})
-    launches = counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    losses = [m["loss"].item() for m in metrics]
-    gnorms = [m["grad_norm"].item() for m in metrics]
-    print(f"train launches {launches} per step {step_counts[-1]} "
-          f"(expected per step {per_step})", flush=True)
-    if not all(math.isfinite(x) for x in losses + gnorms):
-        fail("non-finite loss or grad norm in training")
-    if not losses[-1] < losses[0]:
-        fail(f"loss did not fall over {TRAIN_STEPS} steps: {losses}")
-    if int(state.step.item()) != TRAIN_STEPS:
-        fail(f"state.step is {int(state.step.item())}, not {TRAIN_STEPS}")
-    for c in step_counts:
-        if c != per_step:
-            fail(f"launches per step {c}, expected {per_step}")
-    steady = step_s[1:]
-    step_ms = 1e3 * sum(steady) / len(steady)
-    tok_s = B * T / (step_ms / 1e3)
-    flop_share = gpt2.flops_per_token(cfg, T) * tok_s / card[1]
+    # -- the main path: six steps on one batch, no host sync inside a
+    # step; the scalar-I/O LayerNorm (aligned bf16 rows), float32 flash
+    # (bf16 activations) and head-dim-128 kernels launch 0 times
+    state, run = train_steps("train", prog, state, batch, {
+        "layer_norm_fwd": 2 * L + 1 + 2 * L,   # forward + replay
+        "layer_norm_bwd": 2 * L + 1,
+        "flash_attention_fwd": L + L,
+        "flash_attention_bwd": L}, B * T)
     res = dict(setup_s=setup_s, grad_rel_err=worst, grad_worst_leaf=worst_leaf,
-               grad_rel_tol=GRAD_REL_TOL, grad_controls=controls,
-               losses=losses, grad_norms=gnorms,
-               step_ms_each=[1e3 * s for s in step_s], step_ms=step_ms,
-               tokens_per_s=tok_s, model_flop_share=flop_share,
-               peak_mem_gb=peak_gb, launches=launches,
-               launches_per_step=step_counts[-1])
+               grad_rel_tol=GRAD_REL_TOL, grad_controls=controls, **run,
+               model_flop_share=gpt2.flops_per_token(cfg, T)
+               * run["tokens_per_s"] / card[1])
     for k, val in res.items():
         print(f"train {k} {val} [{tag}]", flush=True)
     res["profile"] = profile_once(
         "train_step", lambda: prog.step_fn(state, batch), tag)
+    return res
+
+
+def llama_flops_per_token(cfg, seq_len: int) -> float:
+    """Model FLOPs a trained token: 6 x the params that enter matrix
+    products (every block matrix and the LM head; the embedding is a
+    gather) + 12 L E T for attention's two products, forward and
+    backward, as GPT-2's flops_per_token counts them."""
+    E, L, FF = cfg.n_embd, cfg.n_layer, cfg.ffn_dim
+    kv = cfg.n_kv_head * cfg.head_dim
+    n = L * (2 * E * E + 2 * E * kv + 3 * E * FF) + E * cfg.vocab_size
+    return 6 * n + 12 * L * E * seq_len
+
+
+def llama_grad_check(cfg, params, batch, block_scale: float = 1.0,
+                     ref_dtype: Optional[torch.dtype] = None) -> tuple:
+    """Step-0 gradients of every leaf on the kernel path (flash forward
+    and backward at head dim 128 with GQA) against plain autograd through
+    dense attention on K/V expanded as the reference's _gqa_expand, on the
+    same card, at the same params with the block matrices scaled by
+    ``block_scale``, its activations in ``ref_dtype`` (default the
+    config's); then the same with each planted fault.  Returns (worst
+    healthy relative L2 error, its leaf, {fault: worst relative error});
+    fails only on a non-finite loss."""
+    import dataclasses
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import flash_attention as fa
+    names = leaf_names(params)
+    if block_scale != 1.0:
+        params = {**params, "blocks": {
+            k: ({**v, "kernel": v["kernel"] * block_scale}
+                if k in LLAMA_BLOCK_MATRICES else v)
+            for k, v in params["blocks"].items()}}
+    ref_cfg = dataclasses.replace(cfg, attn_impl="dense",
+                                  dtype=ref_dtype or cfg.dtype)
+    ref_loss, ref = leaf_grads(params, lambda: llama.loss_fn(
+        params, batch, ref_cfg))
+    ref_norms = [r.float().norm() for r in ref]
+
+    def errors(label: str) -> tuple:
+        loss, got = leaf_grads(params, lambda: llama.loss_fn(
+            params, batch, cfg))
+        errs = [((g.float() - r.float()).norm() / n).item()
+                for g, r, n in zip(got, ref, ref_norms)]
+        del got
+        order = sorted(range(len(errs)), key=lambda i: -errs[i])
+        print(f"llama_train grads x{block_scale} ref {ref_cfg.dtype} "
+              f"{label}: loss "
+              f"{loss.item():.6f} (reference {ref_loss.item():.6f}) worst "
+              f"leaf {names[order[0]]} rel_err {errs[order[0]]:.4g} (limit "
+              f"{LLAMA_GRAD_REL_TOL}); next "
+              + ", ".join(f"{names[i]} {errs[i]:.3g}" for i in order[1:4]),
+              flush=True)
+        if not math.isfinite(loss.item()):
+            fail(f"non-finite loss in the Llama gradient check ({label})")
+        return errs[order[0]], names[order[0]]
+
+    worst, worst_leaf = errors("healthy")
+    controls = {}
+    orig = fa.flash_attention_bwd
+    for fname, plant in LLAMA_GRAD_FAULTS.items():
+        fa.flash_attention_bwd = plant(orig)
+        try:
+            controls[fname] = errors(f"control {fname}")[0]
+        finally:
+            fa.flash_attention_bwd = orig
+    return worst, worst_leaf, controls
+
+
+def llama_grad_sweep(scales=(1.0, 2.0, 4.0), tag: str = "") -> dict:
+    """The Llama gradient check at each block-matrix scale, against the
+    bf16 reference and against a float32 one, printing the healthy error
+    and the planted faults without failing on them: the sweep behind
+    LLAMA_GRAD_REL_TOL.  ``python3 -c 'import chip_smoke as c;
+    c.llama_grad_sweep()'`` on the card."""
+    import dataclasses
+    from ray_tpu_torch import _build
+    from ray_tpu_torch._device import disable_tf32, resolve_device
+    from ray_tpu_torch.models import llama
+    _build.lib()
+    disable_tf32()
+    dev = resolve_device(None)
+    cfg = dataclasses.replace(llama.llama3_8b(), n_layer=LLAMA_TRAIN_LAYERS)
+    B, T = LLAMA_TRAIN_BATCH, LLAMA_TRAIN_SEQ
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, T + 1))).to(dev)
+    batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+    params = llama.init_params(
+        torch.Generator(device=dev).manual_seed(SEED), cfg, device=dev)
+    out = {}
+    for scale in scales:
+        for ref_dtype in (None, torch.float32):
+            r = llama_grad_check(cfg, params, batch, scale, ref_dtype)
+            out[(scale, str(ref_dtype or cfg.dtype))] = r
+            print(f"llama_grad_sweep x{scale} ref {ref_dtype or cfg.dtype} "
+                  f"healthy {r[0]:.4g} ({r[1]}) controls {r[2]} [{tag}]",
+                  flush=True)
+    return out
+
+
+def llama_train_phase(dev, card, tag: str) -> dict:
+    """Llama-3 8B's width at LLAMA_TRAIN_LAYERS layers through
+    spmd.build_train_program: the step-0 gradient check with its planted
+    faults, then six steps on one batch with host syncs made errors, the
+    exact kernel launches per step, the falling loss, the step time and
+    one profiled step."""
+    import dataclasses
+    import gc
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import spmd
+
+    cfg = dataclasses.replace(llama.llama3_8b(), n_layer=LLAMA_TRAIN_LAYERS)
+    assert cfg.remat and cfg.dtype == torch.bfloat16
+    B, T, L = LLAMA_TRAIN_BATCH, LLAMA_TRAIN_SEQ, cfg.n_layer
+    def count(c) -> int:
+        return sum(t.numel() for t in leaf_tensors(
+            llama.init_params(None, c, device="meta")))
+
+    n_params = count(cfg)
+    state_gb = n_params * 4 * 4 / 1e9        # f32 params, grads, mu, nu
+    logits_gb = B * T * cfg.vocab_size * 4 / 1e9
+    # a replayed block's bf16 activations: ~8 of width E (x, the normed
+    # x, q, rotated q, attention out, its projection, ...) and 4 of width
+    # FF (gate, up, silu, product), and ~4 float32 ones of width E
+    # (RMSNorm and RoPE work in float32)
+    block_gb = B * T * (8 * cfg.n_embd * 2 + 4 * cfg.ffn_dim * 2
+                        + 4 * cfg.n_embd * 4) / 1e9
+    reckoned_gb = state_gb + 3 * logits_gb + block_gb
+    print(f"llama_train depth reduced to {L} of the preset's 32 layers, at "
+          f"full width (E {cfg.n_embd}, {cfg.n_head}/{cfg.n_kv_head} heads "
+          f"of {cfg.head_dim}, SwiGLU {cfg.ffn_dim}, V {cfg.vocab_size}): "
+          f"the preset's f32 params, grads and two AdamW moments are "
+          f"{count(llama.llama3_8b()) * 16 / 1e9:.1f} GB, past one 80 GB "
+          f"card; here {n_params / 1e9:.3f} B params, state "
+          f"{state_gb:.1f} GB; each f32 ({B * T} x {cfg.vocab_size}) logits "
+          f"tensor, its log-softmax and their gradients {logits_gb:.2f} GB; "
+          f"a replayed block ~{block_gb:.2f} GB; peak reckoned at state + "
+          f"3 logits-sized tensors + a block: {reckoned_gb:.1f} GB "
+          f"[{tag}]", flush=True)
+    t0 = time.perf_counter()
+    toks = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, T + 1)).astype(np.int32)
+    host_batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+
+    prog = spmd.build_train_program(
+        loss_fn=lambda p, b: llama.loss_fn(p, b, cfg),
+        init_params_fn=lambda g: llama.init_params(g, cfg, device=dev),
+        optimizer=spmd.default_optimizer(lr=TRAIN_LR, warmup=1,
+                                         total_steps=1000), device=dev)
+    state = prog.init_fn(torch.Generator(device=dev).manual_seed(SEED))
+    batch = spmd.shard_batch(prog, host_batch)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # -- step-0 gradients of the program's own params against an
+    # independent reference, beside the optimizer state
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    worst, worst_leaf, controls = llama_grad_check(cfg, state.params, batch)
+    check_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    if worst > LLAMA_GRAD_REL_TOL:
+        fail("Llama step-0 gradients disagree with the independent "
+             "reference")
+    for fname, err in controls.items():
+        if err <= LLAMA_GRAD_REL_TOL:
+            fail(f"planted fault {fname} passed the Llama gradient check")
+    check_s = time.perf_counter() - t0
+
+    # -- the main path: six steps on one batch, no host sync inside a
+    # step; the head-dim-128 flash kernels only
+    state, run = train_steps("llama_train", prog, state, batch, {
+        "flash_attention_fwd_gqa_d128": L + L,   # forward + replay
+        "flash_attention_bwd_gqa_d128": L}, B * T)
+    res = dict(n_layer=L, n_params=n_params, state_gb=state_gb,
+               reckoned_peak_gb=reckoned_gb, setup_s=setup_s,
+               grad_check_batch=B, grad_check_s=check_s,
+               grad_check_peak_mem_gb=check_peak_gb,
+               grad_rel_err=worst, grad_worst_leaf=worst_leaf,
+               grad_rel_tol=LLAMA_GRAD_REL_TOL, grad_controls=controls,
+               **run, flops_per_token=llama_flops_per_token(cfg, T),
+               model_flop_share=llama_flops_per_token(cfg, T)
+               * run["tokens_per_s"] / card[1])
+    for k, val in res.items():
+        print(f"llama_train {k} {val} [{tag}]", flush=True)
+    res["profile"] = profile_once(
+        "llama_train_step", lambda: prog.step_fn(state, batch), tag)
+    del state, prog, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# The weights-plane phase: a child process attaches to what an engine in
+# this one published.  Its private init is stamped (+1 on every leaf), so
+# only an attach can give it the publisher's bytes.
+WEIGHTS_CHILD = """
+import hashlib, sys, torch
+from ray_tpu_torch.models import gpt2
+from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
+
+from ray_tpu_torch.models._common import tree_map
+
+init = gpt2.init_params
+def stamped(gen, cfg, device):
+    p = init(gen, cfg, device=device)
+    if device.type == "meta":
+        return p
+    print("private init taken", file=sys.stderr, flush=True)
+    return tree_map(lambda t: t + 1, p)
+gpt2.init_params = stamped
+cfg = eval(sys.argv[1], {"EngineConfig": EngineConfig})
+eng = LLMEngine(cfg, start=False)
+p = eng.runner.params
+for name, t in (("wte", p["wte"]),
+                ("blocks.mlp_in.kernel", p["blocks"]["mlp_in"]["kernel"])):
+    print(name, t.device.type, hashlib.sha256(
+        t.cpu().numpy().tobytes()).hexdigest(), flush=True)
+eng.shutdown()
+"""
+
+
+def weights_phase(dev, tag: str) -> dict:
+    """GPT-2 124M's params (0.5 GB of f32) through the shm weights plane:
+    an LLMEngine with share_weights=True publishes; an engine in a child
+    process attaches and must hold wte and a block matrix bitwise equal to
+    the publisher's (its private init is stamped, so only the attach can
+    give them); shutdown releases the segment."""
+    import gc
+    import hashlib
+    from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine, weights
+    shm = weights._shm_dir()
+    if str(shm) != os.environ.get("RTPU_SHM_DIR"):
+        fail("the weights plane is not in this run's own RTPU_SHM_DIR")
+    st = os.statvfs(shm)
+    print(f"weights shm_dir {shm} free_gb {st.f_bavail * st.f_frsize / 1e9:.2f}"
+          f" [{tag}]", flush=True)
+    cfg = EngineConfig(model="gpt2:gpt2-124m", num_blocks=64,
+                       max_num_seqs=16, max_model_len=1024,
+                       max_prefill_tokens=1024,
+                       prefill_len_buckets=(64, 128, 256, 512, 1024),
+                       share_weights=True, seed=SEED)
+    t0 = time.perf_counter()
+    eng = LLMEngine(cfg, start=False, device=dev)
+    try:
+        key = eng.runner.weights_key
+        seg = weights._seg_path(key, os.getpid())
+        if not os.path.exists(seg + ".ready"):
+            fail(f"the engine did not publish {seg}")
+        publish_s = time.perf_counter() - t0
+        p = eng.runner.params
+        want = {name: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+                for name, t in (("wte", p["wte"]), ("blocks.mlp_in.kernel",
+                                p["blocks"]["mlp_in"]["kernel"]))}
+        t1 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", WEIGHTS_CHILD, repr(cfg)],
+            capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=os.path.dirname(
+                os.path.abspath(__file__))))
+        attach_s = time.perf_counter() - t1
+        print(child.stdout.strip(), flush=True)
+        if child.returncode != 0 or "private init" in child.stderr:
+            fail(f"the child engine did not attach: {child.stderr[-2000:]}")
+        got = dict(line.split()[::2] for line in
+                   child.stdout.strip().splitlines())
+        devs = {line.split()[0]: line.split()[1] for line in
+                child.stdout.strip().splitlines()}
+        if got != want or set(devs.values()) != {"cuda"}:
+            fail(f"the child's weights {got} on {devs} are not the "
+                 f"publisher's {want}")
+    finally:
+        eng.shutdown()
+    if os.listdir(shm):
+        fail(f"release left {os.listdir(shm)} in {shm}")
+    res = dict(key=key, publish_s=publish_s, child_attach_s=attach_s,
+               bitwise_equal=sorted(want))
+    for k, val in res.items():
+        print(f"weights {k} {val} [{tag}]", flush=True)
+    del eng, p
+    gc.collect()
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1190,6 +1697,13 @@ def main() -> int:
     from ray_tpu_torch import _build
     from ray_tpu_torch._device import disable_tf32, resolve_device
 
+    # The shm weights plane (its segments, locks and the engines' boot-time
+    # reaping) works in a directory of this run's own, on tmpfs where there
+    # is one, removed at exit.
+    shm_dir = tempfile.mkdtemp(prefix="rtpu_smoke_", dir="/dev/shm"
+                               if os.path.isdir("/dev/shm") else None)
+    atexit.register(shutil.rmtree, shm_dir, ignore_errors=True)
+    os.environ["RTPU_SHM_DIR"] = shm_dir
     tag = gpu_line()
     print(tag, flush=True)
     dev = resolve_device(None)
@@ -1197,19 +1711,31 @@ def main() -> int:
     card_key, card = peaks(name)
     print(f"peaks ({card_key} data sheet): {card[0] / 1e12} TB/s, "
           f"{card[1] / 1e12} bf16 TFLOP/s", flush=True)
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
+    phase_s = {}
+
+    def phase_done(name: str) -> None:
+        nonlocal t0
+        phase_s[name] = time.perf_counter() - t0
+        print(f"phase {name} wall_s {phase_s[name]:.1f} (run so far "
+              f"{time.perf_counter() - t_start:.1f}) [{tag}]", flush=True)
+        t0 = time.perf_counter()
+
     _build.build()
     _build.lib()
     print(f"build_s {time.perf_counter() - t0:.2f}", flush=True)
     tc_report(tag)
     ln_report(tag)
+    phase_done("build")
     disable_tf32()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = {"layer_norm_fwd": check_layer_norm(gen, card, dev),
             "flash_attention_fwd": check_flash(gen, card, dev),
             "flash_attention_fwd_gqa_d128": check_flash_gqa(gen, card, dev),
             "layer_norm_bwd": check_layer_norm_bwd(gen, card, dev),
-            "flash_attention_bwd": check_flash_bwd(gen, card, dev)}
+            "flash_attention_bwd": check_flash_bwd(gen, card, dev),
+            "flash_attention_bwd_gqa_d128": check_flash_bwd_gqa(gen, card,
+                                                                dev)}
     for r in (r for rs in rows.values() for r in rs):
         for key in ("ms", "call_ms", "plain_ms", "library_ms",
                     "library_call_ms", "library_expanded_ms", "bound_ms"):
@@ -1217,11 +1743,21 @@ def main() -> int:
                 print(f"{r['name']} {'kernel_ms' if key == 'ms' else key} "
                       f"{r[key]:.6g} [{tag}]", flush=True)
     torch.cuda.empty_cache()
+    phase_done("kernels")
     eng = engine_phase(dev, gpt2_engine(), tag)
+    phase_done("engine")
+    weights_phase(dev, tag)
+    phase_done("weights")
     llama = engine_phase(dev, llama_engine(), tag)
     print(f"llama_engine depth {llama['n_layer']} layers (the preset's, "
           f"uncut) at full width [{tag}]", flush=True)
+    phase_done("llama_engine")
     train = train_phase(dev, card, tag)
+    gc.collect()                  # GPT-2's train state
+    torch.cuda.empty_cache()
+    phase_done("train")
+    llama_train = llama_train_phase(dev, card, tag)
+    phase_done("llama_train")
 
     def kernel_row(row, kname, source, replaces, phase):
         return {"name": kname, "route": "cuda", "source": source,
@@ -1257,11 +1793,18 @@ def main() -> int:
                    "flash_attention_fwd_gqa_d128",
                    "ray_tpu_torch/csrc/flash_attention.cu",
                    "ray_tpu/ops/flash_attention.py:50", llama),
+        kernel_row(next(r for r in rows["flash_attention_bwd_gqa_d128"]
+                        if r["shape"][0] == LLAMA_TRAIN_BATCH),
+                   "flash_attention_bwd_gqa_d128",
+                   "ray_tpu_torch/csrc/flash_attention_bwd.cu",
+                   "ray_tpu/ops/flash_attention.py:103", llama_train),
     ]
     for k in kernels:
         if not all(math.isfinite(k[x]) for x in ("ms", "plain_ms",
                                                   "bound_ms")):
             fail(f"non-finite timing for {k['name']}")
+    print(f"phases wall_s {json.dumps(phase_s)} total "
+          f"{time.perf_counter() - t_start:.1f} [{tag}]", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

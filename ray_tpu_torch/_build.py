@@ -53,10 +53,11 @@ SIGNATURES: Dict[str, List] = {
                                 _I, _F, _I, _I, _P],
     "rtt_flash_attention_fwd_occupancy": [_I, _I, _PI, _PI],
     "rtt_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I,
+                                _I, _I, _I, _I, _I,
                                 _I64, _I64, _I64, _I64, _I64, _I64,
                                 _I64, _I64, _I64, _I64, _I64, _I64,
                                 _I, _F, _F, _I, _P],
+    "rtt_flash_attention_bwd_occupancy": [_I, _PI, _PI],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -102,31 +102,39 @@ def init_params(gen: torch.Generator, cfg: GPT2Config,
                 device: DeviceLike = None) -> Params:
     """Random params drawn from ``gen`` (on its own device), placed on
     ``device`` (default ``cuda``).  Same shapes and scales as the
-    reference: N(0, 0.02), residual projections 0.02/√(2L), wpe 0.01."""
+    reference: N(0, 0.02), residual projections 0.02/√(2L), wpe 0.01.
+    On the ``meta`` device nothing is drawn: every leaf is an empty
+    tensor of its shape (what the shm weights plane's attach reads)."""
     dev = resolve_device(device)
+    meta = dev.type == "meta"
     pd = cfg.param_dtype
     E, L = cfg.n_embd, cfg.n_layer
     res = 0.02 / math.sqrt(2 * L)
 
+    def dense(shape, scale=0.02):
+        if meta:
+            return torch.empty(shape, dtype=pd, device=dev)
+        return _dense_init(gen, shape, pd, scale)
+
     def zeros(*shape):
-        return torch.zeros(shape, dtype=pd)
+        return torch.zeros(shape, dtype=pd, device=dev if meta else None)
 
     def ones(*shape):
-        return torch.ones(shape, dtype=pd)
+        return torch.ones(shape, dtype=pd, device=dev if meta else None)
 
     params = {
-        "wte": _dense_init(gen, (cfg.vocab_size, E), pd),
-        "wpe": _dense_init(gen, (cfg.n_positions, E), pd, 0.01),
+        "wte": dense((cfg.vocab_size, E)),
+        "wpe": dense((cfg.n_positions, E), 0.01),
         "blocks": {
             "ln_1": {"scale": ones(L, E), "bias": zeros(L, E)},
-            "attn_qkv": {"kernel": _dense_init(gen, (L, E, 3, E), pd),
+            "attn_qkv": {"kernel": dense((L, E, 3, E)),
                          "bias": zeros(L, 3, E)},
-            "attn_out": {"kernel": _dense_init(gen, (L, E, E), pd, res),
+            "attn_out": {"kernel": dense((L, E, E), res),
                          "bias": zeros(L, E)},
             "ln_2": {"scale": ones(L, E), "bias": zeros(L, E)},
-            "mlp_in": {"kernel": _dense_init(gen, (L, E, 4 * E), pd),
+            "mlp_in": {"kernel": dense((L, E, 4 * E)),
                        "bias": zeros(L, 4 * E)},
-            "mlp_out": {"kernel": _dense_init(gen, (L, 4 * E, E), pd, res),
+            "mlp_out": {"kernel": dense((L, 4 * E, E), res),
                         "bias": zeros(L, E)},
         },
         "ln_f": {"scale": ones(E), "bias": zeros(E)},

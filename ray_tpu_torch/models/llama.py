@@ -1,4 +1,5 @@
-"""Llama family (port of ``ray_tpu/models/llama.py``): the serving half.
+"""Llama family (port of ``ray_tpu/models/llama.py``): serving and
+training on one device.
 
 Pre-RMSNorm, rotary position embeddings, grouped-query attention, SwiGLU
 MLP, untied LM head.  Params are a nested dict of tensors with the
@@ -13,9 +14,17 @@ which reads the KV heads in place: query head h reads KV head
 h // (H / KV)) and to dense attention elsewhere.  The reference's Llama
 defaults to ``"dense"``, and its ``"flash"`` is the same function as
 GPT-2's.  ``"dense"`` is ``gpt2.dense_causal_attention`` on K/V expanded
-as the reference's ``_gqa_expand`` (``jnp.repeat``).  The context-parallel
-impls (``ring``, ``ulysses``) and the training half (``loss_fn``, remat,
-the sharding rules ``LLAMA_RULES``) wait for the Llama training slice.
+as the reference's ``_gqa_expand`` (``jnp.repeat``).  Under autograd the
+flash kernel's backward (``flash_attention_bwd``) returns dk and dv with
+the KV heads, each summed over its group of query heads.
+
+Training: ``loss_fn`` (the reference's full float32 log-softmax) and
+whole-block remat with ``torch.utils.checkpoint`` (``cfg.remat``).
+RMSNorm, RoPE and SwiGLU are plain PyTorch, differentiated by autograd,
+as the reference leaves them to XLA.  ``LLAMA_RULES`` is the reference's
+sharding table as data; the multi-GPU slice applies it.  The
+context-parallel impls (``ring``, ``ulysses``, with ``context_axis``)
+raise ``NotImplementedError`` until that slice.
 """
 
 from __future__ import annotations
@@ -23,10 +32,11 @@ from __future__ import annotations
 import functools
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.models._common import layer_views, normal_init, tree_map
@@ -52,9 +62,14 @@ class LlamaConfig:
     rms_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16          # activation dtype
     param_dtype: torch.dtype = torch.float32
+    # recompute each block in the backward (torch.utils.checkpoint) when
+    # grad is enabled
+    remat: bool = True
     # "auto" resolves per device: the flash kernel on CUDA, dense
     # attention elsewhere.
-    attn_impl: str = "auto"      # auto | dense | flash
+    attn_impl: str = "auto"      # auto | dense | flash | ring | ulysses
+    # the mesh axis of ring / ulysses attention (the multi-GPU slice)
+    context_axis: Optional[str] = None
 
     @property
     def head_dim(self) -> int:
@@ -231,12 +246,53 @@ def _head(params: Params, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
 
 def forward(params: Params, tokens: torch.Tensor,
             cfg: LlamaConfig) -> torch.Tensor:
-    """tokens (B, T) int → logits (B, T, vocab) in float32."""
+    """tokens (B, T) int → logits (B, T, vocab) in float32.
+
+    With ``cfg.remat`` each block runs under ``torch.utils.checkpoint``
+    whenever grad is enabled: the backward replays the block's forward
+    (the reference's ``jax.checkpoint`` around the block)."""
     attn = _resolve_attn(cfg, tokens.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     x = _embed(params, tokens, cfg)
     for lp in layer_views(params["blocks"], cfg.n_layer):
-        x = _block(x, lp, cfg, attn)
+        if remat:
+            # no dropout anywhere: no RNG state to save and restore
+            x = checkpoint(_block, x, lp, cfg, attn, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = _block(x, lp, cfg, attn)
     return _head(params, x, cfg)
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
+            cfg: LlamaConfig) -> torch.Tensor:
+    """Mean next-token cross entropy.  batch: {"tokens": (B, T+1)} or an
+    {"inputs", "targets"} pair of (B, T) integer tensors.  The full
+    float32 log-softmax over the vocabulary, as the reference computes
+    it."""
+    if "inputs" in batch:
+        inp, tgt = batch["inputs"], batch["targets"]
+    else:
+        inp, tgt = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
+    logp = torch.log_softmax(forward(params, inp, cfg), dim=-1)
+    return -logp.gather(-1, tgt.long()[..., None])[..., 0].mean()
+
+
+# Sharding: attention/MLP matrices split fsdp×tensor; RoPE/norms
+# replicated.  (param-path regex, mesh axis per dim), the reference's
+# PartitionSpecs as tuples; the multi-GPU slice applies them.
+LLAMA_RULES: List[Tuple[str, Tuple[Optional[str], ...]]] = [
+    (r".*wte$", ("tensor", "fsdp")),
+    (r".*blocks/w[qku].*kernel$", ("pipeline", "fsdp", "tensor")),
+    (r".*blocks/wv/kernel$", ("pipeline", "fsdp", "tensor")),
+    (r".*blocks/wo/kernel$", ("pipeline", "tensor", "fsdp")),
+    (r".*blocks/w_gate/kernel$", ("pipeline", "fsdp", "tensor")),
+    (r".*blocks/w_up/kernel$", ("pipeline", "fsdp", "tensor")),
+    (r".*blocks/w_down/kernel$", ("pipeline", "tensor", "fsdp")),
+    (r".*norm.*scale$", (None,)),
+    (r".*lm_head/kernel$", ("fsdp", "tensor")),
+    (r".*", (None,)),
+]
 
 
 # -------------------------------------------------- inference (KV cache)

@@ -8,19 +8,22 @@ on CPU tensors they run ``flash_attention_plain`` and
 ``flash_attention_bwd_plain``, the same arithmetic written densely in
 PyTorch.  On the card the dtype picks the kernel, explicitly: bf16 (every
 main path) launches the tensor-core kernels and counts ``launches`` /
-``bwd_launches`` at head dim 64 and ``d128_launches`` at head dim 128
-(Llama's); float32 launches the scalar kernels (head dim 64 only) and
-counts ``f32_launches`` / ``f32_bwd_launches``.  A bf16 operand the
-tensor-core kernels cannot read (a base pointer not 16-byte aligned, a
-stride not a multiple of 8 elements) raises.
+``bwd_launches`` at head dim 64 and ``d128_launches`` /
+``d128_bwd_launches`` at head dim 128 (Llama's); float32 launches the
+scalar kernels (head dim 64 without KV groups only) and counts
+``f32_launches`` / ``f32_bwd_launches``.  A bf16 operand the tensor-core
+kernels cannot read (a base pointer not 16-byte aligned, a stride not a
+multiple of 8 elements) raises.
 
-The forward takes grouped-query attention: k and v may have KV heads
-dividing q's H, and query head h reads KV head h // (H / KV), the order of
-the reference's ``_gqa_expand`` (``jnp.repeat``).  The kernel reads the KV
-heads in place; the plain version expands them with ``repeat_interleave``.
-The backward (and so autograd) takes head dim 64 without groups only:
-under grad, grouped K/V or head dim 128 raise ``NotImplementedError``
-until the Llama training slice ports them.
+Grouped-query attention: k and v may have KV heads dividing q's H, and
+query head h reads KV head h // (H / KV), the order of the reference's
+``_gqa_expand`` (``jnp.repeat``).  The kernels read the KV heads in place;
+the plain versions expand them with ``repeat_interleave``.  The backward
+returns dk and dv with the KV heads, ``(B, T, KV, D)``: each is summed
+over its group of query heads in float32 and rounded once (the reference
+rounds per query head, then sums through ``jnp.repeat``'s transpose).
+On the card the bf16 backward takes head dim 64 without groups and head
+dim 128 with any KV dividing H.
 
 ``flash_attention`` goes through ``FlashAttentionFn`` (the reference's
 ``custom_vjp``) whenever grad is enabled and an input requires it, on
@@ -57,7 +60,7 @@ from ray_tpu_torch.ops.attention import NEG_INF
 
 LOG2E = math.log2(math.e)
 HEAD_DIMS = (64, 128)             # every GPT-2 preset; Llama's
-BWD_HEAD_DIMS = (64,)             # the backward, and the float32 forward
+F32_HEAD_DIMS = (64,)             # the float32 kernels, forward and backward
 
 # Kernel launches since the last reset (one per call of each wrapper):
 # the bf16 tensor-core kernels at head dim 64 and at 128 apart, and the
@@ -65,6 +68,7 @@ BWD_HEAD_DIMS = (64,)             # the backward, and the float32 forward
 launches = 0
 d128_launches = 0
 bwd_launches = 0
+d128_bwd_launches = 0
 f32_launches = 0
 f32_bwd_launches = 0
 
@@ -211,9 +215,9 @@ def _flash_kernel(q, k, v, causal: bool, want_lse: bool,
     KV = _check_kv_heads(q, k, v)
     if D not in HEAD_DIMS:
         raise ValueError(f"flash kernel takes head dims {HEAD_DIMS}, not {D}")
-    if q.dtype == torch.float32 and D not in BWD_HEAD_DIMS:
+    if q.dtype == torch.float32 and D not in F32_HEAD_DIMS:
         raise ValueError(f"the float32 flash kernel takes head dim "
-                         f"{BWD_HEAD_DIMS}, not {D}: head dim {D} runs in "
+                         f"{F32_HEAD_DIMS}, not {D}: head dim {D} runs in "
                          f"bfloat16 on the tensor cores")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash kernel needs a contiguous head dim")
@@ -263,6 +267,41 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_attention_plain(q, k, v, causal, want_lse)
 
 
+def group_sum(x: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """(B, T, H, D) → (B, T, KV, D): the sum over each KV head's group of
+    query heads (the transpose of ``gqa_expand``), in x's dtype."""
+    H = x.shape[2]
+    if n_kv == H:
+        return x
+    return x.unflatten(2, (n_kv, H // n_kv)).sum(3)
+
+
+def _bwd_sums(q, k, v, lse, delta, do, causal: bool):
+    """The backward's float32 sums per query head, before the outputs are
+    scaled or rounded: (dq, dk / scale, dv), each (B, T, H, D), with ``p``
+    and ``ds`` rounded to the storage type before their products and
+    ``k·scale`` rounded for the dq product (the reference's points)."""
+    B, T, H, D = q.shape
+    dt = q.dtype
+    scale = 1.0 / math.sqrt(D)
+    qf, dof = q.float(), do.float()
+    kf, vf = gqa_expand(k.float(), H), gqa_expand(v.float(), H)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * (scale * LOG2E)
+    if causal:
+        pos = torch.arange(T, device=q.device)
+        s = s.masked_fill(~(pos[:, None] >= pos[None, :]), NEG_INF)
+    p = torch.exp2(s - lse.reshape(B, H, T, 1))
+    del s
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    dsl = (p * (dp - delta.reshape(B, H, T, 1))).to(dt).float()
+    del p, dp
+    dk = torch.einsum("bhqk,bqhd->bkhd", dsl, qf)
+    ks = (kf * scale).to(dt).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", dsl, ks)
+    return dq, dk, dv
+
+
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, lse: torch.Tensor,
                               delta: torch.Tensor, do: torch.Tensor,
@@ -272,38 +311,37 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     """The backward kernel's arithmetic, untiled, with the reference's
     rounding points: ``p`` and ``ds`` rounded to the storage type before
     their products, ``k·scale`` rounded for the dq product, ``dk``
-    scaled after the sum.  lse, delta: ``(B·H, T)`` float32; do in q's
-    dtype.  Returns (dq, dk, dv) in q's dtype."""
-    B, T, H, D = q.shape
+    scaled after the sum.  k and v may have KV heads dividing H: dk and dv
+    are summed over each group in float32 and rounded once, the kernel's
+    point.  lse, delta: ``(B·H, T)`` float32; do in q's dtype.  Returns
+    (dq, dk, dv) in q's dtype, dk and dv ``(B, T, KV, D)``."""
     dt = q.dtype
-    scale = 1.0 / math.sqrt(D)
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * (scale * LOG2E)
-    if causal:
-        pos = torch.arange(T, device=q.device)
-        s = s.masked_fill(~(pos[:, None] >= pos[None, :]), NEG_INF)
-    p = torch.exp2(s - lse.reshape(B, H, T, 1))
-    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), dof)
-    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
-    dsl = (p * (dp - delta.reshape(B, H, T, 1))).to(dt).float()
-    dk = torch.einsum("bhqk,bqhd->bkhd", dsl, qf) * scale
-    ks = (kf * scale).to(dt).float()
-    dq = torch.einsum("bhqk,bkhd->bqhd", dsl, ks)
-    return dq.to(dt), dk.to(dt), dv.to(dt)
+    n_kv = k.shape[2]
+    dq, dk, dv = _bwd_sums(q, k, v, lse, delta, do, causal)
+    dk = group_sum(dk, n_kv) * (1.0 / math.sqrt(q.shape[3]))
+    return dq.to(dt), dk.to(dt), group_sum(dv, n_kv).to(dt)
 
 
 def _flash_bwd_kernel(q, k, v, lse, delta, do, causal: bool):
-    global bwd_launches, f32_bwd_launches
+    global bwd_launches, d128_bwd_launches, f32_bwd_launches
     B, T, H, D = q.shape
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in (k, v, do)):
         raise TypeError(f"flash backward takes float32 or bfloat16 q/k/v/do "
                         f"of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}/"
                         f"{do.dtype}")
-    if any(t.shape != q.shape for t in (k, v, do)):
-        raise ValueError("q, k, v, do must share a shape")
-    if D not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash backward takes head dims {BWD_HEAD_DIMS}, "
-                         f"not {D}")
+    KV = _check_kv_heads(q, k, v)
+    if do.shape != q.shape:
+        raise ValueError(f"do {tuple(do.shape)} must be q's shape "
+                         f"{tuple(q.shape)}")
+    tensor_cores = q.dtype == torch.bfloat16
+    if tensor_cores and not (D == 128 or (D == 64 and KV == H)):
+        raise ValueError(f"the bf16 flash backward takes head dim 64 "
+                         f"without KV groups or head dim 128, not head dim "
+                         f"{D} with {H} query heads over {KV}")
+    if not tensor_cores and (D not in F32_HEAD_DIMS or KV != H):
+        raise ValueError(f"the float32 flash backward takes head dim "
+                         f"{F32_HEAD_DIMS} without KV groups, not head dim "
+                         f"{D} with {H} query heads over {KV}")
     for name, t in (("lse", lse), ("delta", delta)):
         if t.shape != (B * H, T) or t.dtype != torch.float32:
             raise ValueError(f"{name} must be ({B * H}, {T}) float32, got "
@@ -314,17 +352,17 @@ def _flash_bwd_kernel(q, k, v, lse, delta, do, causal: bool):
         do = do.contiguous()
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash kernel needs a contiguous head dim")
-    tensor_cores = q.dtype == torch.bfloat16
     if tensor_cores:
         _check_tc_operands(q=q, k=k, v=v, do=do)
     lse, delta = lse.contiguous(), delta.contiguous()
-    dq, dk, dv = (torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
-                  for _ in range(3))
+    dq = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+    dk, dv = (torch.empty((B, T, KV, D), dtype=q.dtype, device=q.device)
+              for _ in range(2))
     fn = _build.entry("rtt_flash_attention_bwd")
     rc = launch_on(q.device, lambda stream: fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, T, H, D,
+        dk.data_ptr(), dv.data_ptr(), B, T, H, KV, D,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
@@ -332,11 +370,24 @@ def _flash_bwd_kernel(q, k, v, lse, delta, do, causal: bool):
         int(causal), LOG2E / math.sqrt(D), 1.0 / math.sqrt(D),
         _DTYPES[q.dtype], stream))
     _build.check(rc, "rtt_flash_attention_bwd")
-    if tensor_cores:
+    if tensor_cores and D == 128:
+        d128_bwd_launches += 1
+    elif tensor_cores:
         bwd_launches += 1
     else:
         f32_bwd_launches += 1
     return dq, dk, dv
+
+
+def backward_occupancy(pass_: int) -> Tuple[int, int]:
+    """(dynamic shared memory bytes, resident blocks an SM) of the bf16
+    head-dim-128 backward's dK/dV (0) or dQ (1) kernel, from the CUDA
+    occupancy calculator on the current device (builds the library)."""
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    rc = _build.entry("rtt_flash_attention_bwd_occupancy")(
+        pass_, ctypes.byref(smem), ctypes.byref(blocks))
+    _build.check(rc, "rtt_flash_attention_bwd_occupancy")
+    return smem.value, blocks.value
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -344,9 +395,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         do: torch.Tensor, causal: bool = True
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) from the forward's base-2 lse and ``delta``: the
-    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    kernel on a CUDA tensor, the plain version on a CPU tensor.  k and v,
+    and so dk and dv, are (B, T, KV, D)."""
     if q.device.type == "cuda":
         return _flash_bwd_kernel(q, k, v, lse, delta, do, causal)
+    _check_kv_heads(q, k, v)
     return flash_attention_bwd_plain(q, k, v, lse, delta, do, causal)
 
 
@@ -378,16 +431,10 @@ class FlashAttentionFn(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, want_lse: bool = False) -> Result:
     """(B, T, H, D), (B, T, KV, D)×2 → (B, T, H, D) tiled attention,
-    differentiable without KV groups below head dim 128; with ``want_lse`` also
-    the base-2 lse, ``(B·H, T)`` float32."""
+    differentiable; with ``want_lse`` also the base-2 lse, ``(B·H, T)``
+    float32."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if k.shape[2] != q.shape[2] or q.shape[3] == 128:
-            raise NotImplementedError(
-                f"flash attention under autograd takes neither KV groups "
-                f"nor head dim 128; q {tuple(q.shape)} "
-                f"k {tuple(k.shape)} waits for the Llama training slice "
-                f"(the flash backward at head dim 128 with grouped K/V)")
         out, lse = FlashAttentionFn.apply(q, k, v, causal)
         return (out, lse) if want_lse else out
     return flash_attention_fwd(q, k, v, causal, want_lse)

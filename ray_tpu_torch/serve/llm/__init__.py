@@ -9,12 +9,13 @@
 - **paged KV cache** per PagedAttention (Kwon et al., SOSP '23): the KV
   cache is fixed-size blocks in one device pool with a block table per
   sequence (``ops/paged_attention.py``).
+- **shared weights**: engines on one node share one copy of the params
+  in shared memory (``weights.py``), published by the first to arrive.
 
 Entry point::
 
     from ray_tpu_torch.serve import llm
-    eng = llm.LLMEngine(llm.EngineConfig(model="gpt2:tiny",
-                                         share_weights=False))
+    eng = llm.LLMEngine(llm.EngineConfig(model="gpt2:tiny"))
     for tok in eng.submit([1, 2, 3], llm.SamplingParams(max_tokens=16)):
         ...
 """

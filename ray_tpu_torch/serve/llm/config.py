@@ -47,8 +47,7 @@ class EngineConfig:
     decode_batch_buckets: Tuple[int, ...] = (1, 2, 4, 8, 16)
     prefill_len_buckets: Tuple[int, ...] = (16, 32, 64, 128, 256, 512)
     # -- weights plane ----------------------------------------------------
-    # True (publish/attach params through shared memory) is a later slice
-    # of the port; the engine raises NotImplementedError for it.
+    # publish/attach params through the node's shared memory (weights.py)
     share_weights: bool = True
 
     @property

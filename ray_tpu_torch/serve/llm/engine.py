@@ -8,10 +8,16 @@ thread runs ``step()`` forever: drain new requests, plan the iteration
 (``model_runner.py``), write the new K/V into the device block pool
 (``kv_cache.py``), push sampled tokens to the per-request streams.
 
+With ``EngineConfig.share_weights`` (the reference's default) the params
+come through the shared-memory weights plane (``weights.py``): the first
+engine on the node publishes them and later ones attach; every engine
+reaps dead publishers' segments at boot and releases its own at
+shutdown.
+
 Not in this slice: metrics, tracing spans and the flight recorder (they
-ride the ray_tpu runtime), the shared-memory weights plane, and
-disaggregated prefill/decode over the data plane.  ``stats()`` keeps its
-plain counters.
+ride the ray_tpu runtime) and disaggregated prefill/decode over the data
+plane (with its KV-segment reaping).  ``stats()`` keeps its plain
+counters.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from ray_tpu_torch.serve.llm.kv_cache import NoFreeBlocks, PagedKVCache
 from ray_tpu_torch.serve.llm.model_runner import ModelRunner
 from ray_tpu_torch.serve.llm.scheduler import (FAILED, FINISHED,
                                                IterationScheduler, Sequence)
+from ray_tpu_torch.serve.llm import weights
 
 logger = logging.getLogger("ray_tpu_torch.serve.llm.engine")
 
@@ -85,6 +92,7 @@ class LLMEngine:
                 f"largest decode batch bucket "
                 f"{cfg.decode_batch_buckets[-1]} < max_num_seqs "
                 f"{cfg.max_num_seqs}: a full batch would have no bucket")
+        weights.reap_orphans()
         self.cfg = cfg
         self.runner = ModelRunner(cfg, params, device=device,
                                   model_cfg=model_cfg)
@@ -130,6 +138,8 @@ class LLMEngine:
             self._streams.clear()
         for q in streams:           # unblock any readers
             q.put((_ERR, "engine shut down"))
+        if self.runner.weights_key:
+            weights.release(self.runner.weights_key)
         self.cache.close()
 
     # ------------------------------------------------------------ submission

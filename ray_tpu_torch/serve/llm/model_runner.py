@@ -47,6 +47,7 @@ class ModelRunner:
         self.mod, self.mcfg = resolve_model(cfg)
         if model_cfg is not None:
             self.mcfg = model_cfg
+        self.weights_key: str = ""      # set when the shm plane is used
         if params is None:
             params = self._load_params()
         self.params = params
@@ -58,14 +59,18 @@ class ModelRunner:
         self._shapes_seen: set = set()
 
     def _load_params(self):
+        def init(device):
+            # CPU generator: the same seed gives the same weights on every
+            # device
+            gen = torch.Generator().manual_seed(self.cfg.seed)
+            return self.mod.init_params(gen, self.mcfg, device=device)
+
         if self.cfg.share_weights:
-            raise NotImplementedError(
-                "share_weights=True (the shared-memory weights plane) comes "
-                "with a later slice of the port; pass share_weights=False")
-        # CPU generator: the same seed gives the same weights on every
-        # device
-        gen = torch.Generator().manual_seed(self.cfg.seed)
-        return self.mod.init_params(gen, self.mcfg, device=self.device)
+            from ray_tpu_torch.serve.llm import weights
+            self.weights_key = f"{self.cfg.model_key()}_s{self.cfg.seed}"
+            return weights.publish_or_attach(self.weights_key, init,
+                                             self.device)
+        return init(self.device)
 
     # ---------------------------------------------------------------- prefill
     @torch.no_grad()

@@ -392,3 +392,103 @@ def test_flash_gqa_d128_refuses_misaligned_operands(cuda_device, how):
             q.data_ptr(), kk.data_ptr(), good.data_ptr(), out.data_ptr(),
             None, 1, 64, 32, kv, 128, *st, 1, 0.13, 1, 64, stream)
         assert rc == 1                  # cudaErrorInvalidValue
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("T", [64, 333, 2048])
+def test_flash_gqa_d128_backward_matches_plain(cuda_device, T, B):
+    """The head-dim-128 grouped backward (32 query heads over 8 KV heads)
+    against the plain version, which sums dk and dv over each group in
+    float32 at the kernel's point, within two bf16 steps (the head-dim-64
+    backward's limit); dk and dv keep the KV heads; counted apart from
+    the head-dim-64 kernel."""
+    q, k, v = _llama_qkv(cuda_device, B, T, 12)
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    do = torch.randn((B, T, 32, 128), generator=g, device=cuda_device)
+    do = do.to(torch.bfloat16)
+    for causal in (True, False):
+        out, lse = t_flash.flash_attention_plain(q, k, v, causal, True)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2) \
+            .reshape(B * 32, T)
+        before = (t_flash.bwd_launches, t_flash.d128_bwd_launches,
+                  t_flash.f32_bwd_launches)
+        got = t_flash.flash_attention_bwd(q, k, v, lse, delta, do, causal)
+        ref = t_flash.flash_attention_bwd_plain(q, k, v, lse, delta, do,
+                                                causal)
+        torch.cuda.synchronize()
+        assert (t_flash.bwd_launches, t_flash.d128_bwd_launches,
+                t_flash.f32_bwd_launches) == (before[0], before[1] + 1,
+                                              before[2])
+        assert got[0].shape == q.shape
+        assert got[1].shape == k.shape and got[2].shape == v.shape
+        for a, r in zip(got, ref):
+            assert a.dtype == torch.bfloat16 and a.is_contiguous()
+            _within_bf16_steps(a, r, 2)
+
+
+def test_flash_gqa_d128_autograd_launches_both_kernels(cuda_device):
+    """Under autograd the grouped head-dim-128 attention runs the forward
+    kernel with the lse and the backward kernel, and the grads of k and v
+    come back with the KV heads."""
+    q, k, v = (t.detach().requires_grad_()
+               for t in _llama_qkv(cuda_device, 2, 128, 14))
+    before = (t_flash.d128_launches, t_flash.d128_bwd_launches,
+              t_flash.launches, t_flash.bwd_launches)
+    t_flash.flash_attention(q, k, v, True).float().sum().backward()
+    torch.cuda.synchronize()
+    assert (t_flash.d128_launches, t_flash.d128_bwd_launches,
+            t_flash.launches, t_flash.bwd_launches) == \
+        (before[0] + 1, before[1] + 1, before[2], before[3])
+    assert k.grad.shape == (2, 128, 8, 128) and v.grad.shape == k.grad.shape
+    for t in (q, k, v):
+        assert torch.isfinite(t.grad.float()).all() and t.grad.abs().sum() > 0
+
+
+@pytest.mark.parametrize("how", ["offset", "stride", "kv_heads"])
+def test_flash_gqa_d128_backward_refuses(cuda_device, how):
+    """The wrapper raises and launches nothing, and the C entry refuses
+    before any launch: a misaligned operand, H % KV != 0; and head dim
+    64 with KV groups (the head-dim-64 backward takes KV = H only)."""
+    q = torch.zeros((1, 64, 32, 128), device=cuda_device,
+                    dtype=torch.bfloat16)
+    good = torch.zeros((1, 64, 8, 128), device=cuda_device,
+                       dtype=torch.bfloat16)
+    kv = 8
+    if how == "offset":
+        buf = torch.zeros(1 + 64 * 1024, device=cuda_device,
+                          dtype=torch.bfloat16)
+        bad = buf[1:].view(1, 64, 8, 128)
+    elif how == "stride":
+        buf = torch.zeros((1, 64, 1025), device=cuda_device,
+                          dtype=torch.bfloat16)
+        bad = buf[..., :1024].unflatten(-1, (8, 128))
+    else:
+        bad, kv = good, 6
+    lse = torch.zeros((32, 64), device=cuda_device)
+    before = (t_flash.bwd_launches, t_flash.d128_bwd_launches)
+    if how != "kv_heads":
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            t_flash.flash_attention_bwd(q, bad, good, lse, lse, q)
+    q64 = torch.zeros((1, 64, 4, 64), device=cuda_device,
+                      dtype=torch.bfloat16)
+    kv64 = torch.zeros((1, 64, 2, 64), device=cuda_device,
+                       dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16 flash backward"):
+        t_flash.flash_attention_bwd(q64, kv64, kv64, lse[:4], lse[:4], q64)
+    assert (t_flash.bwd_launches, t_flash.d128_bwd_launches) == before
+    out = torch.empty_like(q)
+    dkv = torch.empty_like(good)
+    st = [x for t in (q, bad, good, q) for x in t.stride()[:3]]
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = _build.lib().rtt_flash_attention_bwd(
+        q.data_ptr(), bad.data_ptr(), good.data_ptr(), q.data_ptr(),
+        lse.data_ptr(), lse.data_ptr(), out.data_ptr(), dkv.data_ptr(),
+        dkv.data_ptr(), 1, 64, 32, kv, 128, *st, 1, 0.13, 0.088, 1, stream)
+    assert rc == 1                      # cudaErrorInvalidValue
+    st64 = [x for t in (q64, kv64, kv64, q64) for x in t.stride()[:3]]
+    rc = _build.lib().rtt_flash_attention_bwd(
+        q64.data_ptr(), kv64.data_ptr(), kv64.data_ptr(), q64.data_ptr(),
+        lse.data_ptr(), lse.data_ptr(), out.data_ptr(), dkv.data_ptr(),
+        dkv.data_ptr(), 1, 64, 4, 2, 64, *st64, 1, 0.18, 0.125, 1, stream)
+    assert rc == 1
+    torch.cuda.synchronize()

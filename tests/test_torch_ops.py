@@ -272,18 +272,115 @@ def test_flash_wrapper_rules():
                                 for _ in range(3)), True, False, 128)
     assert t_flash.HEAD_DIMS == (64, 128)
     assert t_flash.BLOCK_MS == {64: (64, 128), 128: (64,)}
+    # the backward kernels: bf16 at head dim 64 without KV groups or at
+    # 128; float32 at 64 without KV groups
+    q, kv = (z(1, 8, n, 64, dtype=torch.bfloat16) for n in (4, 2))
+    with pytest.raises(ValueError, match="bf16 flash backward"):
+        t_flash._flash_bwd_kernel(q, kv, kv, z(4, 8), z(4, 8), q, True)
+    with pytest.raises(ValueError, match="float32 flash backward"):
+        t_flash._flash_bwd_kernel(z(1, 8, 4, 128), z(1, 8, 4, 128),
+                                  z(1, 8, 4, 128), z(4, 8), z(4, 8),
+                                  z(1, 8, 4, 128), True)
+    with pytest.raises(ValueError, match="must divide"):
+        t_flash.flash_attention_bwd(z(1, 8, 6, 128), z(1, 8, 4, 128),
+                                    z(1, 8, 4, 128), z(6, 8), z(6, 8),
+                                    z(1, 8, 6, 128))
 
 
 @pytest.mark.parametrize("kv,d", [(2, 128), (2, 64), (4, 128)])
 def test_flash_gqa_or_d128_under_grad_raises(kv, d):
-    """No quiet dense path: the backward takes neither KV groups nor head
-    dim 128 until the Llama training slice."""
-    q = torch.zeros(1, 8, 4, d, requires_grad=True)
-    k = torch.zeros(1, 8, kv, d)
-    with pytest.raises(NotImplementedError, match="Llama training slice"):
-        t_flash.flash_attention(q, k, k)
-    with torch.no_grad():                      # inference takes them
-        assert t_flash.flash_attention(q, k, k).shape == (1, 8, 4, d)
+    """Grouped K/V and head dim 128 under autograd (they raised until the
+    Llama training slice ported the backward): the gradients of q, k and
+    v, with k and v keeping their KV heads, against jax.grad of the
+    reference's flash attention (interpret mode, block 16) over K/V
+    expanded by _gqa_expand; the forward without grad is unchanged."""
+    import jax
+    rng = np.random.default_rng(24)
+    q, k, v = _gqa_qkv(rng, 1, 32, 4, kv, d)
+    w = _cotangent(32)
+    ref = jax.grad(lambda q_, k_, v_: (j_flash.flash_attention(
+        q_, j_llama._gqa_expand(k_, 4), j_llama._gqa_expand(v_, 4), True,
+        16) * w).sum(), argnums=(0, 1, 2))(*(jnp.asarray(a)
+                                            for a in (q, k, v)))
+    out, got = _torch_grads(t_flash.flash_attention, (q, k, v), w)
+    assert isinstance(out.grad_fn, t_flash.FlashAttentionFn._backward_cls)
+    for a, r in zip(got, ref):
+        assert a.shape == r.shape
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=1e-4,
+                                   rtol=1e-4)
+    with torch.no_grad():                      # inference as before
+        assert t_flash.flash_attention(_t(q), _t(k), _t(v)).shape == \
+            (1, 32, 4, d)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("G", [2, 4])
+def test_flash_bwd_plain_gqa_d128_matches_jax(G, causal):
+    """The plain backward at head dim 128 with G query heads a KV head,
+    given the KV heads, against jax.vjp of the reference's flash attention
+    over K/V expanded by jnp.repeat (_gqa_expand): the reference's dk and
+    dv come per query head and are summed through the repeat's transpose,
+    the plain version sums in float32 and rounds once; in float32 the two
+    points agree.  Block 16 gives the reference four key blocks."""
+    import jax
+    rng = np.random.default_rng(25)
+    B, T, H, D = 1, 64, 4, 128
+    q, k, v = _gqa_qkv(rng, B, T, H, H // G, D)
+    do = rng.standard_normal((B, T, H, D)).astype(np.float32)
+    _, vjp = jax.vjp(lambda q_, k_, v_: j_flash.flash_attention(
+        q_, j_llama._gqa_expand(k_, H), j_llama._gqa_expand(v_, H), causal,
+        16), *(jnp.asarray(a) for a in (q, k, v)))
+    ref = vjp(jnp.asarray(do))
+    out, lse = t_flash.flash_attention_plain(_t(q), _t(k), _t(v), causal,
+                                             want_lse=True)
+    delta = (_t(do) * out).sum(-1).transpose(1, 2).reshape(B * H, T)
+    got = t_flash.flash_attention_bwd_plain(_t(q), _t(k), _t(v), lse, delta,
+                                            _t(do), causal)
+    for a, r in zip(got, ref):
+        assert a.shape == r.shape
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=1e-4,
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("G", [2, 4])
+def test_flash_bwd_gqa_group_sum_points_within_derived_bound(G):
+    """bf16: the kernel's point (dk, dv summed over the group in float32,
+    rounded once) against the reference's (each query head's dk, dv
+    rounded to bf16, then summed by the transpose of jnp.repeat, in JAX,
+    in bf16), from the same float32 per-head sums a_h.  With u = 2^-8
+    (bf16's unit roundoff) and S = sum_h a_h, the kernel's value is
+    within u|S| of S; the reference's per-head roundings move the sum by
+    at most u·sum|a_h|, and its G - 1 additions, if each is rounded to
+    bf16, by at most (G - 1)·u·(1 + u)·sum|a_h|.  So
+        |kernel - reference| <= u|S| + G·u·(1 + u)·sum|a_h|,
+    plus float32 noise; and the two points do differ somewhere."""
+    import jax
+    import math
+    rng = np.random.default_rng(26)
+    B, T, H, D = 1, 128, 8, 128
+    bf = torch.bfloat16
+    q, k, v = (_t(a).to(bf) for a in _gqa_qkv(rng, B, T, H, H // G, D))
+    do = _t(rng.standard_normal((B, T, H, D)).astype(np.float32)).to(bf)
+    out, lse = t_flash.flash_attention_plain(q, k, v, True, want_lse=True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2) \
+        .reshape(B * H, T)
+    _, dk_h, dv_h = t_flash._bwd_sums(q, k, v, lse, delta, do, True)
+    _, dk, dv = t_flash.flash_attention_bwd_plain(q, k, v, lse, delta, do,
+                                                  True)
+    u = 2.0 ** -8
+    _, transpose = jax.vjp(lambda x: j_llama._gqa_expand(x, H),
+                           jnp.zeros((B, T, H // G, D), jnp.bfloat16))
+    differ = 0
+    for got, per_head in ((dk, dk_h / math.sqrt(D)), (dv, dv_h)):
+        rounded = jnp.asarray(per_head.to(bf).float().numpy(), jnp.bfloat16)
+        ref = np.asarray(transpose(rounded)[0], np.float32)
+        S = t_flash.group_sum(per_head, H // G).double()
+        A = t_flash.group_sum(per_head.abs(), H // G).double()
+        bound = u * S.abs() + G * u * (1 + u) * A + 1e-6 * A
+        err = (got.double() - torch.from_numpy(ref).double()).abs()
+        assert (err <= bound).all(), (err / bound).max()
+        differ += int((err > 0).sum())
+    assert differ > 0
 
 
 # (causal, reference block, bitwise-equal share at least): measured with
@@ -545,7 +642,7 @@ def _port_sources():
     # _build/ holds build outputs, never sources of the package
     return sorted(p for p in (REPO / "ray_tpu_torch").rglob("*.py")
                   if "_build" not in p.relative_to(REPO).parts) + \
-        [REPO / "chip_smoke.py"]
+        [REPO / "chip_smoke.py", REPO / "c1_kgroups.py"]
 
 
 def test_port_imports_no_jax_and_no_ray_tpu():
@@ -564,6 +661,8 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                     for n in names if n.split(".")[0] in banned]
     assert len(_port_sources()) > 10
     assert REPO / "ray_tpu_torch" / "models" / "llama.py" in _port_sources()
+    assert REPO / "ray_tpu_torch" / "serve" / "llm" / "weights.py" in \
+        _port_sources()
     assert not bad, bad
 
 

@@ -8,6 +8,10 @@ GPT-2 and for Llama (grouped-query attention, RoPE, untied head).
 """
 
 import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -20,8 +24,10 @@ from ray_tpu.models import llama as jllama
 from ray_tpu.serve.llm.model_runner import ModelRunner as JRunner
 from ray_tpu_torch.models import gpt2 as tgpt2
 from ray_tpu_torch.models import llama as tllama
+from ray_tpu_torch.models._common import tree_map
 from ray_tpu_torch.models.convert import params_from_numpy
 from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine, SamplingParams
+from ray_tpu_torch.serve.llm import weights as wmod
 from ray_tpu_torch.serve.llm.config import resolve_model
 from ray_tpu_torch.serve.llm.kv_cache import NoFreeBlocks, PagedKVCache
 from ray_tpu_torch.serve.llm.model_runner import ModelRunner
@@ -298,10 +304,26 @@ def test_entry_points_raise_without_card_unless_cpu(monkeypatch):
     eng.shutdown()
 
 
-def test_later_slices_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ModelRunner(tiny_cfg(share_weights=True), device="cpu")
+def test_later_slices_raise_not_implemented(shm_dir):
+    """share_weights=True, the reference default, raised until the shm
+    weights plane was ported: now the first runner publishes its init
+    under the reference's key and a second one attaches to the same
+    bytes."""
     assert EngineConfig().share_weights is True      # reference default
+    cfg = tiny_cfg(share_weights=True)
+    first = ModelRunner(cfg, device="cpu")
+    try:
+        assert first.weights_key == "gpt2_tiny_s0"
+        assert os.path.exists(wmod._seg_path(first.weights_key,
+                                             os.getpid()) + ".ready")
+        second = ModelRunner(cfg, device="cpu")
+        for (path, a), (_, b) in zip(wmod._flatten(first.params),
+                                     wmod._flatten(second.params)):
+            assert torch.equal(a, b), path
+            assert a.data_ptr() != b.data_ptr()
+    finally:
+        wmod.release(first.weights_key)
+    assert not list(shm_dir.iterdir())
     # llama serving is ported: the family resolves to the port's module
     mod, mcfg = resolve_model(tiny_cfg(model="llama:llama3-8b"))
     assert mod is tllama and mcfg == tllama.llama3_8b()
@@ -314,3 +336,172 @@ def test_engine_rejects_uncovered_buckets():
         LLMEngine(tiny_cfg(prefill_len_buckets=(16, 32)), device="cpu")
     with pytest.raises(ValueError, match="max_num_seqs"):
         LLMEngine(tiny_cfg(decode_batch_buckets=(1, 2)), device="cpu")
+
+
+# ------------------------------------------------------- weights plane
+@pytest.fixture
+def shm_dir(monkeypatch, tmp_path):
+    """The weights plane's directory, private to the test."""
+    monkeypatch.setenv("RTPU_SHM_DIR", str(tmp_path))
+    return tmp_path
+
+
+def _stamped_init(calls, stamp_offset=0.0):
+    """GPT-2 tiny's init plus the call's ordinal: an attach returns the
+    PUBLISHED bytes (stamp 1) while a silent re-init carries a later
+    stamp.  (The attach calls it on ``meta`` for the tree's shapes, so a
+    call counter alone cannot tell the paths apart.)"""
+    def init_fn(device):
+        calls[0] += 1
+        p = tgpt2.init_params(torch.Generator().manual_seed(0), TCFG,
+                              device=device)
+        stamp = float(calls[0]) + stamp_offset
+        return tree_map(lambda x: x + stamp, p)
+    return init_fn
+
+
+def test_weights_shared_through_shm_plane(shm_dir):
+    """Port of the reference's stamped-init test
+    (tests/test_serve_llm.py::test_weights_shared_through_shm_plane)."""
+    key = f"testshare_{os.getpid()}"
+    calls = [0]
+    init_fn = _stamped_init(calls)
+    cpu = torch.device("cpu")
+    try:
+        a = wmod.publish_or_attach(key, init_fn, cpu)
+        b = wmod.publish_or_attach(key, init_fn, cpu)
+        base = wmod._seg_path(key, os.getpid())
+        assert os.path.exists(base)             # segment published
+        assert calls[0] == 2                    # publish, then meta shapes
+        for (path, x), (_, y) in zip(wmod._flatten(a), wmod._flatten(b)):
+            assert torch.equal(x, y), path
+            assert y.device == cpu and y.dtype == torch.float32
+        # release() is the graceful-shutdown path; the pid-embedded name
+        # makes a SIGKILLed publisher's segment reapable instead
+        wmod.release(key)
+        assert not os.path.exists(base)
+        assert wmod._live_segment(key) is None
+    finally:
+        wmod.release(key)
+
+
+_CHILD = """
+import sys, torch
+from ray_tpu_torch.models import gpt2
+from ray_tpu_torch.serve.llm import weights
+import dataclasses
+cfg = dataclasses.replace(gpt2.tiny(), dtype=torch.float32)
+
+def init_fn(device):
+    if device.type != "meta":
+        raise RuntimeError("private init: the attach was not taken")
+    return gpt2.init_params(torch.Generator(), cfg, device=device)
+
+p = weights.publish_or_attach(sys.argv[1], init_fn, torch.device("cpu"))
+torch.save({"wte": p["wte"], "mlp_in": p["blocks"]["mlp_in"]["kernel"]},
+           sys.argv[2])
+"""
+
+
+def test_weights_attach_from_a_second_process(shm_dir):
+    """A second process attaches to what this one published: its init
+    refuses any device but meta, so only the attach can succeed, and it
+    holds wte and a block matrix bitwise equal to the publisher's."""
+    key = f"testproc_{os.getpid()}"
+    calls = [0]
+    try:
+        pub = wmod.publish_or_attach(key, _stamped_init(calls),
+                                     torch.device("cpu"))
+        out = shm_dir / "child.pt"
+        env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve()
+                                              .parent.parent))
+        res = subprocess.run([sys.executable, "-c", _CHILD, key, str(out)],
+                             env=env, capture_output=True, text=True,
+                             timeout=120)
+        assert res.returncode == 0, res.stderr
+        got = torch.load(out)
+        assert torch.equal(got["wte"], pub["wte"])
+        assert torch.equal(got["mlp_in"], pub["blocks"]["mlp_in"]["kernel"])
+    finally:
+        wmod.release(key)
+
+
+def test_reap_orphans_and_stale_lock(shm_dir):
+    """A dead publisher's segment and .ready go at the next engine boot's
+    sweep; a live one's stay; a lock left by a dead pid is broken by the
+    next publisher, which then publishes."""
+    dead = subprocess.Popen([sys.executable, "-c", "pass"])
+    dead.wait()
+    live = os.getppid()
+    for pid in (dead.pid, live):
+        for sfx in ("", ".ready"):
+            (shm_dir / f"rtpu_llmw_k.{pid}{sfx}").write_bytes(b"x")
+    assert wmod.reap_orphans() == 2
+    assert sorted(x.name for x in shm_dir.iterdir()) == \
+        [f"rtpu_llmw_k.{live}", f"rtpu_llmw_k.{live}.ready"]
+    for x in shm_dir.iterdir():
+        x.unlink()
+    key = "stale"
+    Path(wmod._lock_path(key)).write_text(str(dead.pid))
+    calls = [0]
+    try:
+        wmod.publish_or_attach(key, _stamped_init(calls),
+                               torch.device("cpu"), timeout_s=5.0)
+        assert calls[0] == 1
+        assert os.path.exists(wmod._seg_path(key, os.getpid()) + ".ready")
+        assert not os.path.exists(wmod._lock_path(key))
+    finally:
+        wmod.release(key)
+
+
+def test_attach_of_other_shapes_falls_back_with_a_warning(shm_dir, caplog):
+    """A segment whose leaves do not match the model's shapes is not
+    attached: the caller loads privately and says so."""
+    key = f"testmismatch_{os.getpid()}"
+    calls = [0]
+    try:
+        wmod.publish_or_attach(key, _stamped_init(calls),
+                               torch.device("cpu"))
+        other = dataclasses.replace(TCFG, n_embd=32)
+        with caplog.at_level("WARNING", logger=wmod.logger.name):
+            p = wmod.publish_or_attach(
+                key, lambda d: tgpt2.init_params(torch.Generator(), other,
+                                                 device=d),
+                torch.device("cpu"))
+        assert p["wte"].shape == (other.vocab_size, 32)
+        assert "loading privately" in caplog.text
+    finally:
+        wmod.release(key)
+
+
+@pytest.mark.parametrize("family", ["gpt2", "llama"])
+@pytest.mark.parametrize("case", ["solo", "concurrent", "preemption"])
+def test_engine_oracles_with_shared_weights(jparams, jlparams, shm_dir,
+                                            family, case):
+    """The engine oracles with share_weights=True: the JAX weights are
+    published under the engine's key, and the engine, given no params,
+    attaches to them (a private init would draw other weights and fail
+    the oracle)."""
+    jp, mcfg, model = ((jparams, TCFG, "gpt2:tiny") if family == "gpt2"
+                       else (jlparams, TLCFG, "llama:tiny"))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), mcfg, "cpu")
+    kw = dict(PREEMPT) if case == "preemption" else {}
+    cfg = tiny_cfg(model=model, share_weights=True, **kw)
+    key = f"{cfg.model_key()}_s{cfg.seed}"
+    wmod.publish_or_attach(key, lambda d: tp, torch.device("cpu"))
+    eng = LLMEngine(cfg, device="cpu", model_cfg=mcfg)
+    assert eng.runner.weights_key == key
+    for (path, a), (_, b) in zip(wmod._flatten(eng.runner.params),
+                                 wmod._flatten(tp)):
+        assert torch.equal(a, b) and a.data_ptr() != b.data_ptr(), path
+    greedy = (lambda p, n: jax_greedy(jparams, p, n)) if family == "gpt2" \
+        else (lambda p, n: jax_llama_greedy(jlparams, p, n))
+    vocab = 100 if family == "gpt2" else JLCFG.vocab_size
+    if case == "solo":
+        _solo(eng, greedy, vocab)
+    elif case == "concurrent":
+        _concurrent(eng, greedy, 200 if family == "gpt2" else vocab)
+    else:
+        _preemption(eng, greedy)
+    # shutdown released the engine's segment: this process published it
+    assert wmod._live_segment(key) is None
