@@ -57,6 +57,18 @@
    (batch 4 x seq 2048): the head-dim-128 grouped flash forward and
    backward, 8 and 4 launches a step and no other kernel; a planted fault
    gives a KV head the wrong group of query heads.
+   Then bench.py's GPT-2-1.5B recipe (BASELINE #5): GPT-2 xl at full width
+   and depth, remat "attn", bf16 params and Adam moments, batch 8 x seq
+   1024.  Step-0 gradients under the four remat policies must be bitwise
+   equal, and "attn" must not replay the flash forward; a gradient check
+   at 2 layers against dense attention, with two planted faults; six
+   steps with every LayerNorm on the wide-row kernels (E 1600) and the
+   flash forward once a layer.  Last, moe-small (the top-2 MoE
+   transformer, 0.52 B params) at full size, held to its plain path
+   (plain LayerNorm, the reference's einsum dispatch) with the routing
+   held equal, then six steps on the LayerNorm kernels.
+   The kernel phase also holds the wide-row LayerNorm kernels at E 1024,
+   1280 and 1600 to their plain versions.
 5. Prints each phase's wall seconds, one JSON line of per-kernel numbers,
    then, as the last line, ``{"ok": true, "device": {...}}``.
 
@@ -387,6 +399,10 @@ def ln_kernels() -> list:
                  32 * ln.FWD_WARPS, ln.FWD_BLOCKS_PER_SM),
                 (f"layer_norm_bwd_vec_kernel{mangled}", True,
                  32 * ln.BWD_WARPS, ln.BWD_BLOCKS_PER_SM[dt]),
+                (f"layer_norm_fwd_wide_kernel{mangled}", True,
+                 32 * ln.FWD_WARPS, ln.WIDE_FWD_BLOCKS_PER_SM),
+                (f"layer_norm_bwd_wide_kernel{mangled}", True,
+                 32 * ln.BWD_WARPS, ln.WIDE_BWD_BLOCKS_PER_SM),
                 (f"layer_norm_fwd_scalar_kernel{mangled}", False, 0, 0),
                 (f"layer_norm_bwd_scalar_kernel{mangled}", False, 0, 0)]
     return out
@@ -399,6 +415,7 @@ def ln_report(tag: str) -> dict:
     spills, or takes more registers than the blocks an SM its grid
     assumes leave it."""
     from ray_tpu_torch import _build
+    from ray_tpu_torch.ops import layer_norm as ln
     res = _build.kernel_resources()
     ldg = _build.sass_counts("LDG.E.128")
     stg = _build.sass_counts("STG.E.128")
@@ -411,6 +428,8 @@ def ln_report(tag: str) -> dict:
                  f"{len(rnames)} ptxas entries")
         r = out[key] = dict(res[rnames[0]], ldg_128=ldg[names[0]],
                             stg_128=stg[names[0]])
+        if "bwd_wide" in key:        # its shared memory is dynamic
+            r["dynamic_smem_bytes_at_e1600"] = ln.wide_bwd_smem_bytes(1600)
         print(f"sass {key} " + " ".join(f"{k} {v}" for k, v in r.items())
               + f" [{tag}]", flush=True)
         if not vector:
@@ -425,35 +444,66 @@ def ln_report(tag: str) -> dict:
     return out
 
 
-def check_layer_norm(gen, card, dev) -> list:
+# The LayerNorm forward's shapes, (N, E, with stats, timed): the vector
+# kernel at the longest prefill bucket and the decode batch (stats-free,
+# as served) and the GPT-2 train step's rows (with the stats, as
+# trained); the wide-row kernel at GPT-2 medium, large and xl's widths
+# over the xl train step's rows (b8 x s1024), and a ragged 333 rows.
+LN_SHAPES = ((1024, 768, False, True), (16, 768, False, True),
+             (TRAIN_BATCH * TRAIN_SEQ, 768, True, True))
+XL_TRAIN_BATCH, XL_TRAIN_SEQ = 8, 1024
+LN_WIDE_SHAPES = ((XL_TRAIN_BATCH * XL_TRAIN_SEQ, 1024, True, False),
+                  (XL_TRAIN_BATCH * XL_TRAIN_SEQ, 1280, True, False),
+                  (XL_TRAIN_BATCH * XL_TRAIN_SEQ, 1600, True, True),
+                  (333, 1600, True, False))
+# launch counters of each LayerNorm route, forward and backward
+LN_FWD_COUNTERS = {"vector": "launches", "wide": "wide_launches",
+                   "scalar": "scalar_launches"}
+LN_BWD_COUNTERS = {"vector": "bwd_launches", "wide": "bwd_wide_launches",
+                   "scalar": "bwd_scalar_launches"}
+
+
+def _ln_took(counters: dict, before: dict, route: str) -> bool:
+    """Whether exactly one launch went to ``route`` since ``before``."""
+    from ray_tpu_torch.ops import layer_norm as ln
+    return all(getattr(ln, a) - before[r] == (r == route)
+               for r, a in counters.items())
+
+
+def _ln_counts(counters: dict) -> dict:
+    from ray_tpu_torch.ops import layer_norm as ln
+    return {r: getattr(ln, a) for r, a in counters.items()}
+
+
+def check_layer_norm(gen, card, dev, shapes=LN_SHAPES,
+                     route: str = "vector") -> list:
     import torch.nn.functional as F
     from ray_tpu_torch.ops import layer_norm as ln
     rows = []
-    E = 768
-    # longest prefill bucket, decode batch (both stats-free, as served),
-    # the train step's rows (with the stats, as trained)
-    for N, stats in ((1024, False), (16, False),
-                     (TRAIN_BATCH * TRAIN_SEQ, True)):
+    for N, E, stats, timed in shapes:
         x = torch.randn((N, E), generator=gen, device=dev).to(torch.bfloat16)
         scale = 1 + 0.1 * torch.randn((E,), generator=gen, device=dev)
         bias = 0.1 * torch.randn((E,), generator=gen, device=dev)
-        before = (ln.launches, ln.scalar_launches)
+        before = _ln_counts(LN_FWD_COUNTERS)
         y, mu, rstd = ln.ln_fwd(x, scale, bias, 1e-5, want_stats=True)
-        if (ln.launches, ln.scalar_launches) != (before[0] + 1, before[1]):
+        if not _ln_took(LN_FWD_COUNTERS, before, route):
             fail(f"layer_norm_fwd at ({N}, {E}) bf16 did not take the "
-                 f"vector-I/O kernel")
+                 f"{route} kernel")
         yp, mup, rstdp = ln.ln_fwd_plain(x, scale, bias, 1e-5)
         torch.cuda.synchronize()
         err, ratio, floor = bf16_excess(y, yp)
         serr = max((mu - mup).abs().max().item(),
                    ((rstd - rstdp).abs() / rstdp.abs()).max().item())
         del y, mu, rstd, yp, mup, rstdp
-        name = f"layer_norm_fwd({N}x{E} bf16{', stats' if stats else ''})"
+        name = f"layer_norm_fwd{'_wide' if route == 'wide' else ''}" \
+            f"({N}x{E} bf16{', stats' if stats else ''})"
         print(f"{name} max_abs_err {err:.6g} worst_err/limit {ratio:.4g} "
               f"(limit {BF16_REL:.6g}*|ref| + {floor:.6g}) "
               f"stats_err {serr:.3g} tol {LN_STAT_TOL}", flush=True)
         if not (ratio <= 1.0 and serr <= LN_STAT_TOL):
             fail(f"{name} disagrees with its plain version")
+        if not timed:
+            continue
         kern = lambda: ln.ln_fwd(x, scale, bias, 1e-5,  # noqa: E731
                                  want_stats=stats)
         k_ms, c_ms = device_ms(kern), call_ms(kern)
@@ -621,23 +671,29 @@ def check_flash_gqa(gen, card, dev) -> list:
     return rows
 
 
-def check_layer_norm_bwd(gen, card, dev) -> list:
+# The LayerNorm backward's shapes, (N, E, timed): the GPT-2 train step's
+# rows and a ragged 333; the wide-row kernel's as the forward's.
+LN_BWD_SHAPES = ((TRAIN_BATCH * TRAIN_SEQ, 768, True), (333, 768, False))
+LN_BWD_WIDE_SHAPES = tuple((N, E, timed)
+                           for N, E, _, timed in LN_WIDE_SHAPES)
+
+
+def check_layer_norm_bwd(gen, card, dev, shapes=LN_BWD_SHAPES,
+                         route: str = "vector") -> list:
     from ray_tpu_torch._device import sm_count
     from ray_tpu_torch.ops import layer_norm as ln
     rows = []
-    E = 768
-    for N in (TRAIN_BATCH * TRAIN_SEQ, 333):     # the train shape, ragged
+    for N, E, timed in shapes:
         x = torch.randn((N, E), generator=gen, device=dev).to(torch.bfloat16)
         g = torch.randn((N, E), generator=gen, device=dev).to(torch.bfloat16)
         scale = 1 + 0.1 * torch.randn((E,), generator=gen, device=dev)
         bias = torch.zeros((E,), device=dev)
         _, mu, rstd = ln.ln_fwd_plain(x, scale, bias, 1e-5)
-        before = (ln.bwd_launches, ln.bwd_scalar_launches)
+        before = _ln_counts(LN_BWD_COUNTERS)
         dx, ds, db = ln.ln_bwd(x, scale, g, mu, rstd)
-        if (ln.bwd_launches, ln.bwd_scalar_launches) != \
-                (before[0] + 1, before[1]):
+        if not _ln_took(LN_BWD_COUNTERS, before, route):
             fail(f"layer_norm_bwd at ({N}, {E}) bf16 did not take the "
-                 f"vector-I/O kernel")
+                 f"{route} kernel")
         _, ds2, db2 = ln.ln_bwd(x, scale, g, mu, rstd)
         dxp, dsp, dbp = ln.ln_bwd_plain(x, scale, g, mu, rstd)
         torch.cuda.synchronize()
@@ -658,7 +714,8 @@ def check_layer_norm_bwd(gen, card, dev) -> list:
              / (depth * 2.0 ** -24 * t.abs().double().sum(0))).max().item()
             for p, t in ((dsp, g.float() * xhat), (dbp, g.float())))
         del xhat, dxp, dsp, dbp
-        name = f"layer_norm_bwd({N}x{E} bf16)"
+        name = f"layer_norm_bwd{'_wide' if route == 'wide' else ''}" \
+            f"({N}x{E} bf16)"
         print(f"{name} max_abs_err {err:.6g} worst_err/limit {ratio:.4g} "
               f"(limit {BF16_REL:.6g}*|ref| + {floor:.6g}) dscale/dbias "
               f"worst_err/limit {sum_ratio:.4g} (limit {depth}*2^-24*"
@@ -669,7 +726,7 @@ def check_layer_norm_bwd(gen, card, dev) -> list:
             fail(f"{name} disagrees with its plain version")
         if not repro:
             fail(f"{name}: dscale/dbias differ between two calls")
-        if N < TRAIN_BATCH * TRAIN_SEQ:
+        if not timed:
             continue
         kern = lambda: ln.ln_bwd(x, scale, g, mu, rstd)  # noqa: E731
         k_ms, c_ms = device_ms(kern), call_ms(kern)
@@ -1233,7 +1290,8 @@ def leaf_names(params, prefix="") -> list:
     return [prefix[:-1]]
 
 
-def grad_check(cfg, params, batch, block_scale: float = 1.0) -> tuple:
+def grad_check(cfg, params, batch, block_scale: float = 1.0,
+               tol: float = GRAD_REL_TOL, label: str = "train") -> tuple:
     """Step-0 gradients of every leaf on the kernel path against an
     independent reference: plain autograd through dense attention and the
     plain LayerNorm, on the same card, at the same params with the block
@@ -1255,10 +1313,12 @@ def grad_check(cfg, params, batch, block_scale: float = 1.0) -> tuple:
     gpt2._layer_norm = ln.layer_norm_plain
     try:
         ref_loss, ref = leaf_grads(params, lambda: gpt2.loss_fn(
-            params, batch, dataclasses.replace(cfg, attn_impl="dense")))
+            params, batch, dataclasses.replace(cfg, attn_impl="dense",
+                                               remat_policy="full")))
     finally:
         gpt2._layer_norm = kernel_ln
     ref_norms = [r.float().norm() for r in ref]
+    prefix = label
 
     def errors(label: str) -> tuple:
         loss, got = leaf_grads(params, lambda: gpt2.loss_fn(
@@ -1266,10 +1326,10 @@ def grad_check(cfg, params, batch, block_scale: float = 1.0) -> tuple:
         errs = [((g.float() - r.float()).norm() / n).item()
                 for g, r, n in zip(got, ref, ref_norms)]
         order = sorted(range(len(errs)), key=lambda i: -errs[i])
-        print(f"train grads x{block_scale} {label}: loss {loss.item():.6f} "
-              f"(reference {ref_loss.item():.6f}) worst leaf "
-              f"{names[order[0]]} rel_err {errs[order[0]]:.4g} (limit "
-              f"{GRAD_REL_TOL}); next "
+        print(f"{prefix} grads x{block_scale} {label}: loss "
+              f"{loss.item():.6f} (reference {ref_loss.item():.6f}) worst "
+              f"leaf {names[order[0]]} rel_err {errs[order[0]]:.4g} (limit "
+              f"{tol}); next "
               + ", ".join(f"{names[i]} {errs[i]:.3g}" for i in order[1:4]),
               flush=True)
         if not math.isfinite(loss.item()):
@@ -1295,6 +1355,8 @@ def kernel_counters() -> dict:
     from ray_tpu_torch.ops import layer_norm as ln
     return {"layer_norm_fwd": (ln, "launches"),
             "layer_norm_bwd": (ln, "bwd_launches"),
+            "layer_norm_fwd_wide": (ln, "wide_launches"),
+            "layer_norm_bwd_wide": (ln, "bwd_wide_launches"),
             "layer_norm_fwd_scalar": (ln, "scalar_launches"),
             "layer_norm_bwd_scalar": (ln, "bwd_scalar_launches"),
             "flash_attention_fwd": (fa, "launches"),
@@ -1597,6 +1659,400 @@ def llama_train_phase(dev, card, tag: str) -> dict:
     return res
 
 
+# The xl train phase: bench.py's BASELINE #5 recipe (_run_xl): GPT-2 xl
+# at full width and depth (E 1600, 48 layers, 25 heads of 64), remat
+# "attn", bf16 params and bf16 Adam moments, batch 8 x seq 1024.  The
+# schedule is the other train phases' (lr 3e-4 from the second step):
+# bench.py's default warmup of 100 steps moves a bf16 param by less than
+# half its step in 6 steps, so the loss could not fall.
+XL_POLICIES = ("full", "dots", "attn", "attn_qkv")
+# The gradient check at xl's full width and XL_GRAD_LAYERS of its 48
+# layers, against plain autograd through dense attention and the plain
+# LayerNorm (grad_check), the worst leaf's relative L2 error.
+XL_GRAD_LAYERS = 2
+XL_GRAD_REL_TOL = 0.05
+
+
+def xl_config():
+    import dataclasses
+    from ray_tpu_torch.models import gpt2
+    return dataclasses.replace(gpt2.gpt2_xl(), remat_policy="attn",
+                               param_dtype=torch.bfloat16)
+
+
+def xl_batch(dev, vocab: int) -> dict:
+    """One batch of b8 x s1024 tokens from the full vocabulary, seed 0, as
+    int64 tensors on ``dev`` (what spmd.shard_batch gives)."""
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, vocab, (XL_TRAIN_BATCH, XL_TRAIN_SEQ + 1))).to(dev)
+    return {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+def xl_grad_params(dev, cfg):
+    """xl's width at XL_GRAD_LAYERS layers: (config, params) for the
+    gradient check."""
+    import dataclasses
+    from ray_tpu_torch.models import gpt2
+    cfg = dataclasses.replace(cfg, n_layer=XL_GRAD_LAYERS)
+    return cfg, gpt2.init_params(
+        torch.Generator(device=dev).manual_seed(SEED), cfg, device=dev)
+
+
+def xl_grad_sweep(scales=(1.0, 2.0, 4.0), tag: str = "") -> dict:
+    """The xl gradient check at each block-matrix scale, printing the
+    healthy error and the planted faults without failing on them: the
+    sweep behind XL_GRAD_REL_TOL.  ``python3 -c 'import chip_smoke as c;
+    c.xl_grad_sweep()'`` on the card."""
+    from ray_tpu_torch import _build
+    from ray_tpu_torch._device import disable_tf32, resolve_device
+    _build.lib()
+    disable_tf32()
+    dev = resolve_device(None)
+    cfg, params = xl_grad_params(dev, xl_config())
+    batch = xl_batch(dev, cfg.vocab_size)
+    out = {}
+    for scale in scales:
+        out[scale] = grad_check(cfg, params, batch, scale, XL_GRAD_REL_TOL,
+                                "xl_sweep")
+        print(f"xl_grad_sweep x{scale} healthy {out[scale][0]:.4g} "
+              f"({out[scale][1]}) controls {out[scale][2]} [{tag}]",
+              flush=True)
+    return out
+
+
+def xl_policy_check(cfg, params, batch, tag: str) -> dict:
+    """Step-0 gradients of ``params`` under each remat policy: every leaf
+    must equal full remat's bitwise (the kernels are deterministic and a
+    replay repeats the same arithmetic, so the limit is 0).  Each
+    policy's flash forward launches show what its backward replays: 2L
+    under full and dots, L (none replayed) under attn and attn_qkv.
+    Prints each policy's wall ms (host clock, synchronized; the second of
+    two runs, so that the allocator holds the policy's memory) and peak
+    memory."""
+    import dataclasses
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.ops import flash_attention as fa
+    L = cfg.n_layer
+    names = leaf_names(params)
+    ref, out = None, {}
+    for pol in XL_POLICIES:
+        c = dataclasses.replace(cfg, remat_policy=pol)
+        gc.collect()
+        torch.cuda.empty_cache()
+        leaf_grads(params, lambda: gpt2.loss_fn(params, batch, c))
+        torch.cuda.reset_peak_memory_stats()
+        before = fa.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, grads = leaf_grads(params, lambda: gpt2.loss_fn(params, batch,
+                                                              c))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        fwd = fa.launches - before
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if ref is None:
+            ref, ref_loss = grads, loss
+        equal = [torch.equal(a, b) for a, b in zip(grads, ref)]
+        errs = [((a.float() - b.float()).norm()
+                 / b.float().norm().clamp_min(1e-30)).item()
+                for a, b in zip(grads, ref)]
+        worst = max(range(len(errs)), key=lambda i: errs[i])
+        want_fwd = L if pol in ("attn", "attn_qkv") else 2 * L
+        out[pol] = dict(ms=ms, peak_mem_gb=peak, flash_fwd_launches=fwd,
+                        bitwise_equal_to_full=all(equal),
+                        loss_equal_to_full=torch.equal(loss, ref_loss),
+                        worst_rel_err=errs[worst], worst_leaf=names[worst])
+        print(f"xl_policy {pol} grads_ms {ms:.1f} peak_mem_gb {peak:.2f} "
+              f"flash_fwd_launches {fwd} (expected {want_fwd}: the replay "
+              f"{'skips' if fwd == L else 'reruns'} the flash forward) "
+              f"bitwise_equal_to_full {all(equal)} ({sum(equal)} of "
+              f"{len(equal)} leaves; worst {names[worst]} rel_err "
+              f"{errs[worst]:.3g}, limit 0) loss {loss.item():.6f} "
+              f"[{tag}]", flush=True)
+        del grads
+        if pol in ("full", "attn"):
+            # the device's busy share: what a policy costs on the host
+            out[pol]["busy"] = profile_once(
+                f"xl_grads_{pol}", lambda: leaf_grads(
+                    params, lambda: gpt2.loss_fn(params, batch, c)),
+                tag)["busy"]
+        if fwd != want_fwd:
+            fail(f"xl remat_policy={pol!r}: {fwd} flash forward launches, "
+                 f"expected {want_fwd}")
+    del ref
+    bad = [p for p, r in out.items()
+           if not (r["bitwise_equal_to_full"] and r["loss_equal_to_full"])]
+    if bad:
+        fail(f"xl step-0 gradients under {bad} differ from full remat's")
+    return out
+
+
+def xl_train_phase(dev, card, tag: str) -> dict:
+    """bench.py's GPT-2-1.5B recipe through spmd.build_train_program at
+    full width and depth: the remat-policy check and the gradient check at
+    XL_GRAD_LAYERS layers, then six steps on one batch with host syncs
+    made errors, the exact kernel launches per step (the wide-row
+    LayerNorm, the head-dim-64 flash kernels, nothing else), the falling
+    loss, the step time and one profiled step."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.parallel import spmd
+
+    cfg = xl_config()
+    B, T, L = XL_TRAIN_BATCH, XL_TRAIN_SEQ, cfg.n_layer
+    n_params = gpt2.param_count_analytic(cfg)
+    state_gb = n_params * 2 * 4 / 1e9   # bf16 params, grads, mu, nu
+    fpt = gpt2.flops_per_token(cfg, T)
+    print(f"xl_train config E {cfg.n_embd} L {L} H {cfg.n_head}x"
+          f"{cfg.head_dim} V {cfg.vocab_size} (gpt2_xl, full width and "
+          f"depth) remat {cfg.remat_policy} params {cfg.param_dtype} "
+          f"moments bf16 batch {B}x{T}: {n_params / 1e9:.4f} B params, "
+          f"state {state_gb:.2f} GB; {fpt / 1e9:.2f} GFLOP a token, "
+          f"{fpt * B * T / 1e12:.1f} TFLOP a step, "
+          f"{fpt * B * T / card[1] * 1e3:.1f} ms at the peak [{tag}]",
+          flush=True)
+    t0 = time.perf_counter()
+    prog = spmd.build_train_program(
+        loss_fn=lambda p, b: gpt2.loss_fn(p, b, cfg),
+        init_params_fn=lambda g: gpt2.init_params(g, cfg, device=dev),
+        optimizer=spmd.default_optimizer(lr=TRAIN_LR, warmup=1,
+                                         total_steps=1000,
+                                         moments_dtype=torch.bfloat16),
+        device=dev)
+    state = prog.init_fn(torch.Generator(device=dev).manual_seed(SEED))
+    batch = xl_batch(dev, cfg.vocab_size)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # -- every policy's step-0 gradients, bitwise those of full remat
+    policies = xl_policy_check(cfg, state.params, batch, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- step-0 gradients at reduced depth against an independent
+    # reference, with two planted faults
+    t0 = time.perf_counter()
+    gcfg, gparams = xl_grad_params(dev, cfg)
+    worst, worst_leaf, controls = grad_check(gcfg, gparams, batch, 1.0,
+                                             XL_GRAD_REL_TOL, "xl_train")
+    del gparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    if worst > XL_GRAD_REL_TOL:
+        fail("xl step-0 gradients disagree with the independent reference")
+    for fname, err in controls.items():
+        if err <= XL_GRAD_REL_TOL:
+            fail(f"planted fault {fname} passed the xl gradient check")
+    check_s = time.perf_counter() - t0
+
+    # -- the main path: six steps on one batch, no host sync inside a
+    # step; every LayerNorm on the wide-row kernels (forward and the
+    # replay's), the flash forward once a layer (the replay takes the
+    # saved out and lse), the flash backward once a layer
+    state, run = train_steps("xl_train", prog, state, batch, {
+        "layer_norm_fwd_wide": 2 * L + 1 + 2 * L,
+        "layer_norm_bwd_wide": 2 * L + 1,
+        "flash_attention_fwd": L,
+        "flash_attention_bwd": L}, B * T)
+    res = dict(n_params=n_params, state_gb=state_gb, setup_s=setup_s,
+               policies=policies, grad_layers=XL_GRAD_LAYERS,
+               grad_check_s=check_s, grad_rel_err=worst,
+               grad_worst_leaf=worst_leaf, grad_rel_tol=XL_GRAD_REL_TOL,
+               grad_controls=controls, **run, flops_per_token=fpt,
+               model_flop_share=fpt * run["tokens_per_s"] / card[1])
+    for k, val in res.items():
+        print(f"xl_train {k} {val} [{tag}]", flush=True)
+    res["profile"] = profile_once(
+        "xl_train_step", lambda: prog.step_fn(state, batch), tag)
+    del state, prog, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# The MoE train phase: moe-small at full width and depth (E 768, 12
+# layers, 8 experts, top-2, ff 3072; 0.52 B params, f32 with f32 AdamW
+# moments), remat on, batch 8 x seq 1024, the GPT-2 train phase's
+# optimizer.  The kernel path (the LayerNorm kernels, the index-form
+# dispatch) is held to the plain path (the plain LayerNorm, the
+# reference's einsum dispatch) on the same card: the top-k routing of
+# every layer is compared first, then the loss, dropped fraction and
+# gradients with the plain path's routing held to the kernel path's (a
+# one-ulp LayerNorm difference may flip a near-tie, which would move a
+# token to another expert).  Limit: the worst leaf's relative L2 error,
+# bf16 activations through 12 layers as GPT-2's check (its healthy
+# error 0.0137 under the same 0.05).
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 8, 1024
+MOE_GRAD_REL_TOL = 0.05
+
+
+def moe_flops_per_token(cfg, seq_len: int) -> float:
+    """Model FLOPs a trained token: 6 x the params a token's products use
+    (the attention projections, the router, its top-k experts, the LM
+    head) + 12 L E T for attention, as GPT-2's flops_per_token counts."""
+    E, L = cfg.n_embd, cfg.n_layer
+    per_layer = 4 * E * E + E * cfg.num_experts \
+        + cfg.top_k * 2 * E * cfg.expert_ff
+    return 6 * (L * per_layer + E * cfg.vocab_size) + 12 * L * E * seq_len
+
+
+def moe_plain_check(cfg, params, batch, tag: str) -> dict:
+    """The kernel path's step-0 loss, gradients, routing and dropped
+    fraction against the plain path's (see MOE_GRAD_REL_TOL)."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.models import moe_transformer as mt
+    from ray_tpu_torch.ops import layer_norm as ln
+    from ray_tpu_torch.ops import moe
+    names = leaf_names(params)
+    router, ffn, kernel_ln = moe.topk_router, moe.moe_ffn, gpt2._layer_norm
+    routes = []
+
+    def recording(x, w, k):
+        out = router(x, w, k)
+        routes.append(out[2])
+        return out
+
+    def run(plain: bool, held=None) -> tuple:
+        """(loss, grads, dropped fraction, top-k indices by call)."""
+        routes.clear()
+        calls = iter(held or ())
+
+        def held_router(x, w, k):
+            logits = x.float() @ w.float()
+            probs = torch.softmax(logits, dim=-1)
+            idx = next(calls)
+            gates = torch.zeros_like(probs).scatter(-1, idx,
+                                                    probs.gather(-1, idx))
+            gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+            routes.append(idx)
+            return gates, logits, idx
+
+        moe.topk_router = held_router if held is not None else recording
+        if plain:
+            gpt2._layer_norm = ln.layer_norm_plain
+            moe.moe_ffn = moe.moe_ffn_plain
+        try:
+            with torch.no_grad():
+                _, m = mt.forward(params, batch["inputs"], cfg)
+            fwd_routes = list(routes)
+            routes.clear()
+            calls = iter(held or ())
+            loss, grads = leaf_grads(params, lambda: mt.loss_fn(params,
+                                                                batch, cfg))
+        finally:
+            moe.topk_router, moe.moe_ffn = router, ffn
+            gpt2._layer_norm = kernel_ln
+        return loss, grads, m["moe_fraction_dropped"].item(), \
+            fwd_routes, list(routes)
+
+    k_loss, k_grads, k_drop, k_fwd, k_routes = run(False)
+    _, _, p_drop, p_fwd, _ = run(True)
+    differ = sum(int((a != b).sum().item()) for a, b in zip(k_fwd, p_fwd))
+    total = sum(a.numel() for a in k_fwd)
+    h_loss, h_grads, h_drop, _, _ = run(True, held=k_routes)
+    ref_norms = [r.float().norm().clamp_min(1e-30) for r in h_grads]
+    errs = [((g.float() - r.float()).norm() / n).item()
+            for g, r, n in zip(k_grads, h_grads, ref_norms)]
+    order = sorted(range(len(errs)), key=lambda i: -errs[i])
+    loss_err = abs(k_loss.item() - h_loss.item()) / abs(h_loss.item())
+    # control: the kernel path with its LayerNorm backward fed rolled rstd
+    # rows (GRAD_FAULTS' fault; its routing is the kernel path's own)
+    bwd = ln.ln_bwd
+    ln.ln_bwd = lambda x, s, g, mu, rstd: bwd(x, s, g, mu, rstd.roll(1, 0))
+    try:
+        _, c_grads, _, _, _ = run(False)
+    finally:
+        ln.ln_bwd = bwd
+    control = max(((g.float() - r.float()).norm() / n).item()
+                  for g, r, n in zip(c_grads, h_grads, ref_norms))
+    del c_grads
+    res = dict(routing_choices_differing=differ, routing_choices=total,
+               dropped_fraction=k_drop, plain_dropped_fraction=p_drop,
+               held_dropped_fraction=h_drop, loss=k_loss.item(),
+               plain_loss=h_loss.item(), loss_rel_err=loss_err,
+               grad_rel_err=errs[order[0]], grad_worst_leaf=names[order[0]],
+               grad_rel_tol=MOE_GRAD_REL_TOL,
+               grad_control_ln_bwd_rstd_rolled=control)
+    print(f"moe_train plain check: top-k choices differing {differ} of "
+          f"{total} (plain path's own routing); dropped fraction "
+          f"{k_drop:.6g} (plain {p_drop:.6g}, routing held "
+          f"{h_drop:.6g}); routing held: loss {k_loss.item():.6f} vs "
+          f"{h_loss.item():.6f} (rel {loss_err:.3g}), worst leaf "
+          f"{names[order[0]]} rel_err {errs[order[0]]:.4g} (limit "
+          f"{MOE_GRAD_REL_TOL}); next "
+          + ", ".join(f"{names[i]} {errs[i]:.3g}" for i in order[1:4])
+          + f"; control ln_bwd_rstd_rolled {control:.4g} (must fail) "
+          f"[{tag}]", flush=True)
+    if control <= MOE_GRAD_REL_TOL:
+        fail("the planted LayerNorm backward fault passed the MoE check")
+    if not math.isfinite(k_loss.item()):
+        fail("non-finite loss in the MoE check")
+    if h_drop != k_drop:
+        fail("the MoE dropped fraction differs from the plain path's with "
+             "the routing held")
+    if errs[order[0]] > MOE_GRAD_REL_TOL or loss_err > MOE_GRAD_REL_TOL:
+        fail("MoE step-0 gradients disagree with the plain path")
+    return res
+
+
+def moe_train_phase(dev, card, tag: str) -> dict:
+    """moe-small through spmd.build_train_program: the plain-path check,
+    then six steps on one batch with host syncs made errors, the exact
+    LayerNorm launches per step and no flash launch, the falling loss,
+    the step time and one profiled step."""
+    from ray_tpu_torch.models import moe_transformer as mt
+    from ray_tpu_torch.ops import moe
+    from ray_tpu_torch.parallel import spmd
+
+    cfg = mt.moe_small()
+    B, T, L = MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, cfg.n_layer
+    n_params = sum(t.numel() for t in leaf_tensors(
+        mt.init_params(None, cfg, device="meta")))
+    fpt = moe_flops_per_token(cfg, T)
+    cap = moe.expert_capacity(B * T, cfg.num_experts, cfg.top_k,
+                              cfg.capacity_factor)
+    print(f"moe_train config moe-small E {cfg.n_embd} L {L} experts "
+          f"{cfg.num_experts} top-{cfg.top_k} ff {cfg.expert_ff} (full "
+          f"width and depth) batch {B}x{T}: {n_params / 1e9:.4f} B params, "
+          f"f32 state {n_params * 16 / 1e9:.2f} GB; capacity {cap} slots "
+          f"an expert; {fpt / 1e9:.3f} GFLOP a token (top-{cfg.top_k} "
+          f"experts) [{tag}]", flush=True)
+    t0 = time.perf_counter()
+    prog = spmd.build_train_program(
+        loss_fn=lambda p, b: mt.loss_fn(p, b, cfg),
+        init_params_fn=lambda g: mt.init_params(g, cfg, device=dev),
+        optimizer=spmd.default_optimizer(lr=TRAIN_LR, warmup=1,
+                                         total_steps=1000), device=dev)
+    state = prog.init_fn(torch.Generator(device=dev).manual_seed(SEED))
+    toks = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, T + 1)).astype(np.int32)
+    batch = spmd.shard_batch(prog, {"inputs": toks[:, :-1],
+                                    "targets": toks[:, 1:]})
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    check = moe_plain_check(cfg, state.params, batch, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_s = time.perf_counter() - t0
+    # -- the main path: the vector LayerNorm kernels (forward, the
+    # replay's and backward), no flash kernel (dense attention, as the
+    # reference)
+    state, run = train_steps("moe_train", prog, state, batch, {
+        "layer_norm_fwd": 2 * L + 1 + 2 * L,
+        "layer_norm_bwd": 2 * L + 1}, B * T)
+    res = dict(n_params=n_params, setup_s=setup_s, check_s=check_s,
+               **check, **run, flops_per_token=fpt,
+               model_flop_share=fpt * run["tokens_per_s"] / card[1])
+    for k, val in res.items():
+        print(f"moe_train {k} {val} [{tag}]", flush=True)
+    res["profile"] = profile_once(
+        "moe_train_step", lambda: prog.step_fn(state, batch), tag)
+    del state, prog, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 # The weights-plane phase: a child process attaches to what an engine in
 # this one published.  Its private init is stamped (+1 on every leaf), so
 # only an attach can give it the publisher's bytes.
@@ -1730,9 +2186,13 @@ def main() -> int:
     disable_tf32()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = {"layer_norm_fwd": check_layer_norm(gen, card, dev),
+            "layer_norm_fwd_wide": check_layer_norm(
+                gen, card, dev, LN_WIDE_SHAPES, "wide"),
             "flash_attention_fwd": check_flash(gen, card, dev),
             "flash_attention_fwd_gqa_d128": check_flash_gqa(gen, card, dev),
             "layer_norm_bwd": check_layer_norm_bwd(gen, card, dev),
+            "layer_norm_bwd_wide": check_layer_norm_bwd(
+                gen, card, dev, LN_BWD_WIDE_SHAPES, "wide"),
             "flash_attention_bwd": check_flash_bwd(gen, card, dev),
             "flash_attention_bwd_gqa_d128": check_flash_bwd_gqa(gen, card,
                                                                 dev)}
@@ -1758,6 +2218,10 @@ def main() -> int:
     phase_done("train")
     llama_train = llama_train_phase(dev, card, tag)
     phase_done("llama_train")
+    xl_train = xl_train_phase(dev, card, tag)
+    phase_done("xl_train")
+    moe_train_phase(dev, card, tag)
+    phase_done("moe_train")
 
     def kernel_row(row, kname, source, replaces, phase):
         return {"name": kname, "route": "cuda", "source": source,
@@ -1770,9 +2234,11 @@ def main() -> int:
 
     # forward kernels: the engine phases' launches (GPT-2's for head dim
     # 64, Llama's for 128); backward kernels: the train phase's (each
-    # phase's counts were zeroed just before it ran).  Both head-dim-64
-    # flash rows are timed at the train step's (32, 1024, 12, 64), the
-    # head-dim-128 row at (8, 2048, 32 over 8, 128).
+    # phase's counts were zeroed just before it ran); the wide-row
+    # LayerNorm kernels: the xl train phase's.  Both head-dim-64 flash
+    # rows are timed at the train step's (32, 1024, 12, 64), the
+    # head-dim-128 row at (8, 2048, 32 over 8, 128), the wide-row
+    # LayerNorm rows at the xl step's (8192, 1600).
     kernels = [
         kernel_row(rows["layer_norm_fwd"][0], "layer_norm_fwd",
                    "ray_tpu_torch/csrc/layer_norm.cu",
@@ -1798,6 +2264,12 @@ def main() -> int:
                    "flash_attention_bwd_gqa_d128",
                    "ray_tpu_torch/csrc/flash_attention_bwd.cu",
                    "ray_tpu/ops/flash_attention.py:103", llama_train),
+        kernel_row(rows["layer_norm_fwd_wide"][0], "layer_norm_fwd_wide",
+                   "ray_tpu_torch/csrc/layer_norm.cu",
+                   "ray_tpu/ops/layer_norm.py:33", xl_train),
+        kernel_row(rows["layer_norm_bwd_wide"][0], "layer_norm_bwd_wide",
+                   "ray_tpu_torch/csrc/layer_norm.cu",
+                   "ray_tpu/ops/layer_norm.py:47", xl_train),
     ]
     for k in kernels:
         if not all(math.isfinite(k[x]) for x in ("ms", "plain_ms",

@@ -55,13 +55,22 @@
 //   then the 32 warp sums in warp order: the result does not depend on
 //   scheduling.
 //
-// Rows the vector layout does not take (E not a multiple of 8 or above
-// 768, a row stride not a multiple of 8 elements, a base not 16-byte
-// aligned) take the scalar-I/O kernels: one warp per row, lane l reading
-// columns l + 32 i one element at a time and re-reading the row from
-// L1/L2 for each pass.  No width is refused by the forward; the
-// backward's scalar kernel keeps its partial rows in 48 KB of shared
-// memory, so E <= 6144.
+// Wider rows, up to E = 2048 (GPT-2 medium, large and xl), take the
+// wide-row kernels below: the same vector I/O with 8 chunks a lane, the
+// affine (and, backward, the dscale/dbias sums) in shared memory.
+//
+// Rows neither layout takes (E not a multiple of 8 or above 2048, a row
+// stride not a multiple of 8 elements, a base not 16-byte aligned) take
+// the scalar-I/O kernels: one warp per row, lane l reading columns
+// l + 32 i one element at a time and re-reading the row from L1/L2 for
+// each pass.  No width is refused by the forward; the backward's scalar
+// kernel keeps its partial rows in 48 KB of shared memory, so E <= 6144.
+//
+// The reference takes its Pallas kernel only when E % 128 == 0
+// (ray_tpu/models/gpt2.py:159-171, a TPU lane-tiling limit), so at
+// E = 1600 it computes the plain branch; the port computes the same
+// function with these kernels at every E (ray_tpu_torch/models/gpt2.py,
+// _layer_norm).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -78,6 +87,13 @@ constexpr int kFwdWarps = 4;                       // rows a block takes at once
 constexpr int kFwdBlocksPerSm = 4;
 constexpr int kBwdWarps = 4;
 constexpr int kFoldGroups = 32;                    // warps of the fold kernel
+// The wide-row kernels: a lane holds up to 8 chunks, the affine lives in
+// shared memory; the forward runs 3 blocks an SM (168 registers a
+// thread), the backward 2 (255).
+constexpr int kWideChunks = 8;
+constexpr int kWideMaxE = kChunk * kWideChunks * kWarp;  // 2048
+constexpr int kWideFwdBlocksPerSm = 3;
+constexpr int kWideBwdBlocksPerSm = 2;
 
 // Per element type: the 16-byte vectors a chunk takes, the rows a warp
 // keeps in registers, and the backward blocks an SM holds (what fits the
@@ -88,12 +104,14 @@ template <> struct Io<__nv_bfloat16> {
   static constexpr int kFwdStages = 2;
   static constexpr int kBwdStages = 1;
   static constexpr int kBwdBlocksPerSm = 3;
+  static constexpr int kWideFwdStages = 2;
 };
 template <> struct Io<float> {
   static constexpr int kVecs = 2;
   static constexpr int kFwdStages = 1;
   static constexpr int kBwdStages = 1;
   static constexpr int kBwdBlocksPerSm = 2;
+  static constexpr int kWideFwdStages = 1;
 };
 
 template <typename T> struct Chunk {
@@ -176,6 +194,20 @@ __device__ __forceinline__ void load_f32x8(const float* p,
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
+// The same from shared memory (16-byte aligned).
+__device__ __forceinline__ void lds_f32x8(const float* p,
+                                          float (&f)[kChunk]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+__device__ __forceinline__ void sts_f32x8(float* p,
+                                          const float (&f)[kChunk]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(f[0], f[1], f[2], f[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = kWarp / 2; off > 0; off >>= 1)
@@ -183,28 +215,30 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The columns a lane owns: chunk j starts at col[j] and exists if own[j].
-struct Lane {
-  int col[kChunks];
-  bool own[kChunks];
-  __device__ __forceinline__ explicit Lane(int lane, int E) {
+// The columns a lane owns, kC chunks at most: chunk j starts at col[j]
+// and exists if own[j].
+template <int kC> struct LaneOf {
+  int col[kC];
+  bool own[kC];
+  __device__ __forceinline__ explicit LaneOf(int lane, int E) {
 #pragma unroll
-    for (int j = 0; j < kChunks; ++j) {
+    for (int j = 0; j < kC; ++j) {
       col[j] = kChunk * (lane + j * kWarp);
       own[j] = col[j] < E;
     }
   }
 };
+using Lane = LaneOf<kChunks>;
 
-template <typename T>
+template <typename T, int kC>
 __device__ __forceinline__ void load_row(const T* __restrict__ x,
                                          long long stride, int r, int n_rows,
-                                         const Lane& ln,
-                                         Chunk<T> (&b)[kChunks]) {
+                                         const LaneOf<kC>& ln,
+                                         Chunk<T> (&b)[kC]) {
   if (r >= n_rows) return;
   const T* xr = x + (long long)r * stride;
 #pragma unroll
-  for (int j = 0; j < kChunks; ++j)
+  for (int j = 0; j < kC; ++j)
     if (ln.own[j]) load_chunk(xr + ln.col[j], b[j]);
 }
 
@@ -527,32 +561,275 @@ layer_norm_fold_kernel(const float* __restrict__ parts, int n_parts,
   }
 }
 
-// What the vector kernels take: E a multiple of 8 up to 768, row strides
-// that are multiples of 8 elements, every pointer 16-byte aligned.
-bool vector_ok(int E, long long stride_or, std::uintptr_t ptr_or) {
-  return E > 0 && E % kChunk == 0 && E <= kVecMaxE && stride_or % kChunk == 0
+// --------------------------------------------------------- wide rows
+// E up to 2048 (GPT-2 medium, large and xl: 1024, 1280, 1600).  The
+// vector layout as above with 8 chunks a lane, 7 at E = 1600 (200 chunks
+// over 32 lanes), which leaves no room for the affine in registers:
+// 7 x 8 x 2 floats of scale and bias would pass 255 beside the row.  So
+// the block copies scale (and bias) to shared memory once, with 16-byte
+// loads, and each lane reads its columns' 8 floats there as two 16-byte
+// shared loads where it uses them (12.8 KB at E = 1600).  At GPT-2 xl's
+// training rows, (8192, 1600) bf16, the forward must move 52.5 MB (15.7
+// us at 3.35 TB/s) and the backward 78.7 MB (23.5 us): bytes-bound, as
+// the vector kernels.
+//
+// Forward: a warp holds the row it reduces in float32 (64 registers)
+// and Io<T>::kWideFwdStages rows in flight as packed 16-byte vectors (2
+// in bf16, 1 in float32: 64 registers either way), a row's refilled as
+// soon as it is unpacked, as in the vector kernel; 3 blocks an SM (168
+// registers).
+template <typename T>
+__global__ void __launch_bounds__(kWarp * kFwdWarps, kWideFwdBlocksPerSm)
+layer_norm_fwd_wide_kernel(const T* __restrict__ x, long long x_row_stride,
+                           const float* __restrict__ scale,
+                           const float* __restrict__ bias,
+                           T* __restrict__ y, float* __restrict__ mu_out,
+                           float* __restrict__ rstd_out, int n_rows, int E,
+                           float eps) {
+  constexpr int S = Io<T>::kWideFwdStages;
+  constexpr int C = kWideChunks;
+  __shared__ __align__(16) float s_sc[kWideMaxE];
+  __shared__ __align__(16) float s_bi[kWideMaxE];
+  const int lane = threadIdx.x % kWarp;
+  const int first = blockIdx.x * kFwdWarps + threadIdx.x / kWarp;
+  const int step = gridDim.x * kFwdWarps;
+  const float inv_e = 1.0f / (float)E;
+  const LaneOf<C> ln(lane, E);
+
+  Chunk<T> buf[S][C];
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+    load_row(x, x_row_stride, first + s * step, n_rows, ln, buf[s]);
+  for (int c = 4 * threadIdx.x; c < E; c += 4 * blockDim.x) {
+    *reinterpret_cast<float4*>(s_sc + c) =
+        __ldg(reinterpret_cast<const float4*>(scale + c));
+    *reinterpret_cast<float4*>(s_bi + c) =
+        __ldg(reinterpret_cast<const float4*>(bias + c));
+  }
+  __syncthreads();
+
+  for (int row = first; row < n_rows; row += S * step) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int r = row + s * step;
+      if (r >= n_rows) break;           // the whole warp leaves together
+      float v[C][kChunk];
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        if (ln.own[j]) {
+          unpack(buf[s][j], v[j]);
+#pragma unroll
+          for (int k = 0; k < kChunk; ++k) sum += v[j][k];
+        }
+      }
+      // the row's registers are free: the row S strides ahead goes in flight
+      load_row(x, x_row_stride, r + S * step, n_rows, ln, buf[s]);
+      const float mu = warp_sum(sum) * inv_e;
+      float ss = 0.f;
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        if (ln.own[j]) {
+#pragma unroll
+          for (int k = 0; k < kChunk; ++k) {
+            const float d = v[j][k] - mu;
+            ss += d * d;
+          }
+        }
+      }
+      const float rstd = rsqrtf(warp_sum(ss) * inv_e + eps);
+      T* yr = y + (long long)r * E;
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        if (ln.own[j]) {
+          float sc[kChunk], bi[kChunk], o[kChunk];
+          lds_f32x8(s_sc + ln.col[j], sc);
+          lds_f32x8(s_bi + ln.col[j], bi);
+#pragma unroll
+          for (int k = 0; k < kChunk; ++k)
+            o[k] = (v[j][k] - mu) * rstd * sc[k] + bi[k];
+          Chunk<T> c;
+          pack(o, c);
+          store_chunk(yr + ln.col[j], c);
+        }
+      }
+      if (lane == 0) {
+        if (mu_out) mu_out[r] = mu;
+        if (rstd_out) rstd_out[r] = rstd;
+      }
+    }
+  }
+}
+
+// Backward: a warp loads a row of x and g as 16-byte vectors, unpacks
+// them to xhat and g in float32 (128 registers; the packed copies die as
+// they unpack, so no row is prefetched) and reads scale from shared
+// memory.  With the shared-memory sums' temporaries that passes the 168
+// registers of 3 blocks an SM (ptxas spilled 356 bytes there on the
+// card), so the backward runs 2 blocks an SM, 255 registers.  dscale/dbias cannot stay in registers either (another 128
+// floats a lane): each warp sums its rows into a slice of its own in
+// shared memory, 2E floats, where each lane reads and writes only its
+// own columns (no races, no barrier in the row loop).  At the end the
+// block adds its 4 slices in warp order into its partial row; the fold
+// kernel sums the partial rows as for the vector kernel.  Dynamic shared
+// memory: (1 + 2 x 4) E floats, 57.6 KB at E = 1600, 72 KB at 2048.
+template <typename T>
+__global__ void __launch_bounds__(kWarp * kBwdWarps, kWideBwdBlocksPerSm)
+layer_norm_bwd_wide_kernel(const T* __restrict__ x, long long x_row_stride,
+                           const float* __restrict__ scale,
+                           const T* __restrict__ g, long long g_row_stride,
+                           const float* __restrict__ mu,
+                           const float* __restrict__ rstd,
+                           T* __restrict__ dx, float* __restrict__ parts,
+                           int n_rows, int E) {
+  constexpr int C = kWideChunks;
+  extern __shared__ float4 wide_smem[];
+  float* const smem = reinterpret_cast<float*>(wide_smem);
+  float* s_sc = smem;                             // E
+  float* s_acc = smem + E;                        // kBwdWarps x 2E
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const int first = blockIdx.x * kBwdWarps + warp;
+  const int step = gridDim.x * kBwdWarps;
+  const float inv_e = 1.0f / (float)E;
+  const LaneOf<C> ln(lane, E);
+  float* my_ds = s_acc + warp * 2 * E;
+  float* my_db = my_ds + E;
+
+  for (int c = 4 * threadIdx.x; c < E; c += 4 * blockDim.x)
+    *reinterpret_cast<float4*>(s_sc + c) =
+        __ldg(reinterpret_cast<const float4*>(scale + c));
+  for (int c = 4 * threadIdx.x; c < kBwdWarps * 2 * E; c += 4 * blockDim.x)
+    *reinterpret_cast<float4*>(s_acc + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+
+  for (int r = first; r < n_rows; r += step) {
+    float xh[C][kChunk], gv[C][kChunk];
+    {
+      Chunk<T> xb[C], gb[C];
+      load_row(x, x_row_stride, r, n_rows, ln, xb);
+      load_row(g, g_row_stride, r, n_rows, ln, gb);
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        if (ln.own[j]) {
+          unpack(xb[j], xh[j]);
+          unpack(gb[j], gv[j]);
+        }
+      }
+    }
+    const float m = __ldg(mu + r), rs = __ldg(rstd + r);
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      if (ln.own[j]) {
+        float sc[kChunk];
+        lds_f32x8(s_sc + ln.col[j], sc);
+#pragma unroll
+        for (int k = 0; k < kChunk; ++k) {
+          xh[j][k] = (xh[j][k] - m) * rs;
+          const float gs = gv[j][k] * sc[k];
+          s1 += gs;
+          s2 += gs * xh[j][k];
+        }
+      }
+    }
+    const float m1 = warp_sum(s1) * inv_e;
+    const float m2 = warp_sum(s2) * inv_e;
+    T* dxr = dx + (long long)r * E;
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      if (ln.own[j]) {
+        float sc[kChunk], ads[kChunk], adb[kChunk], o[kChunk];
+        lds_f32x8(s_sc + ln.col[j], sc);
+        lds_f32x8(my_ds + ln.col[j], ads);
+        lds_f32x8(my_db + ln.col[j], adb);
+#pragma unroll
+        for (int k = 0; k < kChunk; ++k) {
+          const float gs = gv[j][k] * sc[k];
+          o[k] = rs * (gs - m1 - xh[j][k] * m2);
+          ads[k] += gv[j][k] * xh[j][k];
+          adb[k] += gv[j][k];
+        }
+        sts_f32x8(my_ds + ln.col[j], ads);
+        sts_f32x8(my_db + ln.col[j], adb);
+        Chunk<T> c;
+        pack(o, c);
+        store_chunk(dxr + ln.col[j], c);
+      }
+    }
+  }
+  __syncthreads();                      // every warp's slice is complete
+  float* part = parts + (long long)blockIdx.x * 2 * E;
+  for (int c = threadIdx.x; c < 2 * E; c += blockDim.x) {
+    float t = s_acc[c];
+#pragma unroll
+    for (int w = 1; w < kBwdWarps; ++w) t += s_acc[w * 2 * E + c];
+    part[c] = t;
+  }
+}
+
+size_t wide_bwd_smem_bytes(int E) {
+  return (size_t)(1 + 2 * kBwdWarps) * E * sizeof(float);
+}
+
+// The wide backward's dynamic shared memory above the default 48 KB, at
+// its widest, opted in once per device.
+template <typename T>
+cudaError_t wide_bwd_prepare() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || dev >= 64) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(layer_norm_bwd_wide_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)wide_bwd_smem_bytes(kWideMaxE));
+    if (err != cudaSuccess) return err;
+    done[dev] = true;
+  }
+  return cudaSuccess;
+}
+
+// Routes: which instantiation a call takes (ops/layer_norm.py ROUTES).
+enum Route { kScalar = 0, kVector = 1, kWide = 2 };
+
+// What the vector kernels take: E a multiple of 8 up to 768 (vector) or
+// 2048 (wide), row strides that are multiples of 8 elements, every
+// pointer 16-byte aligned.
+bool vector_ok(int route, int E, long long stride_or, std::uintptr_t ptr_or) {
+  const int max_e = route == kWide ? kWideMaxE : kVecMaxE;
+  return E > 0 && E % kChunk == 0 && E <= max_e && stride_or % kChunk == 0
          && ptr_or % 16 == 0;
 }
 
 template <typename T>
 int launch_fwd(const void* x, long long x_row_stride, const float* scale,
                const float* bias, void* y, float* mu, float* rstd,
-               int n_rows, int E, float eps, bool vector, int n_blocks,
+               int n_rows, int E, float eps, int route, int n_blocks,
                cudaStream_t stream) {
   const T* xp = static_cast<const T*>(x);
   T* yp = static_cast<T*>(y);
-  if (vector) {
+  if (route == kVector || route == kWide) {
     const std::uintptr_t ptrs = reinterpret_cast<std::uintptr_t>(x)
         | reinterpret_cast<std::uintptr_t>(scale)
         | reinterpret_cast<std::uintptr_t>(bias)
         | reinterpret_cast<std::uintptr_t>(y);
-    if (!vector_ok(E, x_row_stride, ptrs)) return (int)cudaErrorInvalidValue;
-    layer_norm_fwd_vec_kernel<T><<<n_blocks, kWarp * kFwdWarps, 0, stream>>>(
-        xp, x_row_stride, scale, bias, yp, mu, rstd, n_rows, E, eps);
-  } else {
+    if (!vector_ok(route, E, x_row_stride, ptrs))
+      return (int)cudaErrorInvalidValue;
+    if (route == kVector)
+      layer_norm_fwd_vec_kernel<T>
+          <<<n_blocks, kWarp * kFwdWarps, 0, stream>>>(
+              xp, x_row_stride, scale, bias, yp, mu, rstd, n_rows, E, eps);
+    else
+      layer_norm_fwd_wide_kernel<T>
+          <<<n_blocks, kWarp * kFwdWarps, 0, stream>>>(
+              xp, x_row_stride, scale, bias, yp, mu, rstd, n_rows, E, eps);
+  } else if (route == kScalar) {
     layer_norm_fwd_scalar_kernel<T>
         <<<n_blocks, kWarp * kFwdWarps, 0, stream>>>(
             xp, x_row_stride, scale, bias, yp, mu, rstd, n_rows, E, eps);
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
   return 0;
 }
@@ -561,28 +838,40 @@ template <typename T>
 int launch_bwd(const void* x, long long x_row_stride, const float* scale,
                const void* g, long long g_row_stride, const float* mu,
                const float* rstd, void* dx, float* parts, float* sums,
-               int n_rows, int E, bool vector, int n_blocks,
+               int n_rows, int E, int route, int n_blocks,
                cudaStream_t stream) {
   const T* xp = static_cast<const T*>(x);
   const T* gp = static_cast<const T*>(g);
   T* dxp = static_cast<T*>(dx);
-  if (vector) {
+  if (route == kVector || route == kWide) {
     const std::uintptr_t ptrs = reinterpret_cast<std::uintptr_t>(x)
         | reinterpret_cast<std::uintptr_t>(scale)
         | reinterpret_cast<std::uintptr_t>(g)
         | reinterpret_cast<std::uintptr_t>(dx);
-    if (!vector_ok(E, x_row_stride | g_row_stride, ptrs))
+    if (!vector_ok(route, E, x_row_stride | g_row_stride, ptrs))
       return (int)cudaErrorInvalidValue;
-    layer_norm_bwd_vec_kernel<T><<<n_blocks, kWarp * kBwdWarps, 0, stream>>>(
-        xp, x_row_stride, scale, gp, g_row_stride, mu, rstd, dxp, parts,
-        n_rows, E);
-  } else {
+    if (route == kVector) {
+      layer_norm_bwd_vec_kernel<T>
+          <<<n_blocks, kWarp * kBwdWarps, 0, stream>>>(
+              xp, x_row_stride, scale, gp, g_row_stride, mu, rstd, dxp,
+              parts, n_rows, E);
+    } else {
+      const cudaError_t err = wide_bwd_prepare<T>();
+      if (err != cudaSuccess) return (int)err;
+      layer_norm_bwd_wide_kernel<T>
+          <<<n_blocks, kWarp * kBwdWarps, wide_bwd_smem_bytes(E), stream>>>(
+              xp, x_row_stride, scale, gp, g_row_stride, mu, rstd, dxp,
+              parts, n_rows, E);
+    }
+  } else if (route == kScalar) {
     const size_t smem = 2 * (size_t)E * sizeof(float);
     if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
     layer_norm_bwd_scalar_kernel<T>
         <<<n_blocks, kWarp * kBwdWarps, smem, stream>>>(
             xp, x_row_stride, scale, gp, g_row_stride, mu, rstd, dxp, parts,
             n_rows, E);
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
   const int width = 2 * E;
   layer_norm_fold_kernel<<<(width + kWarp - 1) / kWarp, kWarp * kFoldGroups,
@@ -594,26 +883,27 @@ int launch_bwd(const void* x, long long x_row_stride, const float* scale,
 
 // x: (n_rows, E) with a row stride and contiguous rows; y: (n_rows, E)
 // contiguous; scale, bias: (E,) float32.  dtype: 0 = float32,
-// 1 = bfloat16 (x and y share it).  mu / rstd may be null.  vector: 1 for
-// the vector-I/O kernel (refused, with nothing launched, when the layout
-// does not allow it), 0 for the scalar-I/O one.  n_blocks: the grid; each
-// warp walks rows n_blocks * 4 apart.  Returns cudaGetLastError() after
+// 1 = bfloat16 (x and y share it).  mu / rstd may be null.  route: 1 for
+// the vector-I/O kernel, 2 for the wide-row one (each refused, with
+// nothing launched, when the layout does not allow it), 0 for the
+// scalar-I/O one.  n_blocks: the grid; each warp walks rows n_blocks * 4
+// apart.  Returns cudaGetLastError() after
 // the launch, or cudaErrorInvalidValue for what it does not take.
 extern "C" int rtt_layer_norm_fwd(const void* x, long long x_row_stride,
                                   const float* scale, const float* bias,
                                   void* y, float* mu, float* rstd,
                                   int n_rows, int E, float eps, int dtype,
-                                  int vector, int n_blocks, void* stream) {
+                                  int route, int n_blocks, void* stream) {
   if (n_rows == 0) return (int)cudaGetLastError();
   if (n_blocks <= 0 || E <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   if (dtype == 0)
     rc = launch_fwd<float>(x, x_row_stride, scale, bias, y, mu, rstd, n_rows,
-                           E, eps, vector != 0, n_blocks, s);
+                           E, eps, route, n_blocks, s);
   else if (dtype == 1)
     rc = launch_fwd<__nv_bfloat16>(x, x_row_stride, scale, bias, y, mu, rstd,
-                                   n_rows, E, eps, vector != 0, n_blocks, s);
+                                   n_rows, E, eps, route, n_blocks, s);
   else
     return (int)cudaErrorInvalidValue;
   if (rc != 0) return rc;
@@ -625,7 +915,7 @@ extern "C" int rtt_layer_norm_fwd(const void* x, long long x_row_stride,
 // contiguous.  parts: (n_blocks, 2E) float32 scratch, one partial row of
 // dscale then dbias per block; sums: (2, E) float32, dscale then dbias,
 // the partial rows summed in a fixed order by a second launch on the same
-// stream.  vector as above; the scalar kernel takes E <= 6144 (its
+// stream.  route as above; the scalar kernel takes E <= 6144 (its
 // partial rows live in 48 KB of shared memory).  Returns
 // cudaGetLastError() after the launches, or cudaErrorInvalidValue for
 // what it does not take.
@@ -634,19 +924,18 @@ extern "C" int rtt_layer_norm_bwd(const void* x, long long x_row_stride,
                                   long long g_row_stride, const float* mu,
                                   const float* rstd, void* dx, float* parts,
                                   float* sums, int n_rows, int E,
-                                  int n_blocks, int dtype, int vector,
+                                  int n_blocks, int dtype, int route,
                                   void* stream) {
   if (n_blocks <= 0 || E <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   if (dtype == 0)
     rc = launch_bwd<float>(x, x_row_stride, scale, g, g_row_stride, mu, rstd,
-                           dx, parts, sums, n_rows, E, vector != 0,
-                           n_blocks, s);
+                           dx, parts, sums, n_rows, E, route, n_blocks, s);
   else if (dtype == 1)
     rc = launch_bwd<__nv_bfloat16>(x, x_row_stride, scale, g, g_row_stride,
                                    mu, rstd, dx, parts, sums, n_rows, E,
-                                   vector != 0, n_blocks, s);
+                                   route, n_blocks, s);
   else
     return (int)cudaErrorInvalidValue;
   if (rc != 0) return rc;

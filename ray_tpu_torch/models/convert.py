@@ -2,7 +2,9 @@
 
 The reference keeps params as a nested dict of arrays with per-layer
 leaves stacked on a leading ``n_layer`` axis; the port keeps the same
-keys, shapes and stacking with tensors.  On the JAX side a tree becomes
+keys, shapes and stacking with tensors, for every family it has (GPT-2,
+Llama, the MoE transformer, whose ``blocks/moe`` router and expert banks
+carry the L axis before the expert axis).  On the JAX side a tree becomes
 numpy with ``jax.tree.map(np.asarray, params)``; this module never
 imports JAX.
 """

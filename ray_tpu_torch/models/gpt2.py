@@ -3,37 +3,47 @@ single-device training half.
 
 Params are a nested dict of tensors with the reference's keys and shapes:
 per-layer leaves are stacked on a leading ``n_layer`` axis, and the qkv
-kernel is ``(E, 3, E)``.  Params are float32 and cast to ``cfg.dtype`` at
-each use; LayerNorm statistics are float32 with the output in the
+kernel is ``(E, 3, E)``.  Params are ``cfg.param_dtype`` (float32 by
+default; bf16 in bench.py's GPT-2-1.5B recipe) and cast to ``cfg.dtype``
+at each use; LayerNorm statistics are float32 with the output in the
 activation dtype; GELU is the tanh form; the LM head is tied to ``wte``;
 logits come back in float32.
 
 On CUDA, ``attn_impl="auto"`` resolves to the flash kernel
 (``ops/flash_attention.py``) and every LayerNorm is the fused kernel
-(``ops/layer_norm.py``); under autograd both go through their
-``torch.autograd.Function``s, whose backwards are kernels too.  Training:
+(``ops/layer_norm.py``, the wide-row kernels above E 768); under
+autograd they go through the ``flash_fwd`` op and ``LayerNormFn``,
+whose backwards are kernels too.  Training:
 ``loss_fn`` (logsumexp cross entropy, optionally chunked over the
 sequence or the vocabulary) and per-block remat with
-``torch.utils.checkpoint`` (``remat_policy="full"``).  The selective remat
-policies, meshes, the overlap-scheduled block and pipelines belong to
-later slices.
+``torch.utils.checkpoint``, under the reference's four policies:
+``full`` replays the whole block; ``dots``, ``attn`` and ``attn_qkv``
+are selective (``create_selective_checkpoint_contexts``) and save what
+the reference's ``jax.checkpoint`` policies save: the 2-D projections'
+products, the flash op's ``(out, lse)``, and those plus the qkv
+projection (the op ``ray_tpu_torch::attn_qkv``, the reference's
+``checkpoint_name(qkv, "attn_qkv")``).  Meshes, the overlap-scheduled
+block and pipelines belong to later slices.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.models._common import layer_views as _layers
 from ray_tpu_torch.models._common import normal_init as _dense_init
 from ray_tpu_torch.models._common import tree_map as _map
 from ray_tpu_torch.ops.attention import NEG_INF
+from ray_tpu_torch.ops.flash_attention import flash_attention_for_model
 from ray_tpu_torch.ops.layer_norm import layer_norm
 
 Params = Dict[str, Any]
@@ -51,9 +61,12 @@ class GPT2Config:
     param_dtype: torch.dtype = torch.float32
     remat: bool = True
     # full: recompute each block in the backward (torch.utils.checkpoint
-    # around the block).  The reference's selective policies (dots, attn,
-    # attn_qkv) raise NotImplementedError here until a later slice ports
-    # them; none may quietly act as full remat.  Ignored when remat=False.
+    # around the block).  dots: save the 2-D projections' products and
+    # recompute LayerNorm, GELU and attention.  attn: save only the flash
+    # op's (out, lse), so the replay never runs the flash forward; needs
+    # attn_impl to resolve to "flash".  attn_qkv: attn plus the qkv
+    # projection.  An unknown policy raises; none quietly acts as full
+    # remat.  Ignored when remat=False.
     remat_policy: str = "full"  # full | dots | attn | attn_qkv
     # "auto" resolves per device: the flash kernel on CUDA, dense
     # attention elsewhere.
@@ -176,10 +189,50 @@ def _resolve_attn(cfg: GPT2Config, device: torch.device) -> AttnImpl:
     if impl == "dense":
         return dense_causal_attention
     if impl == "flash":
-        from ray_tpu_torch.ops.flash_attention import flash_attention_for_model
         return flash_attention_for_model
     raise ValueError(f"unknown attn_impl {impl!r} (expected auto, dense or "
                      f"flash)")
+
+
+def _qkv_projection(h: torch.Tensor, kernel: torch.Tensor,
+                    bias: torch.Tensor) -> torch.Tensor:
+    """h (B, T, E), kernel (E, 3, E), bias (3, E) → (B, T, 3, E):
+    "bte,eck->btck" as one (B·T, E) × (E, 3E) product, then the bias."""
+    B, T, E = h.shape
+    return (h.reshape(B * T, E) @ kernel.reshape(E, 3 * E)) \
+        .view(B, T, 3, E) + bias
+
+
+@torch.library.custom_op("ray_tpu_torch::attn_qkv", mutates_args=())
+def attn_qkv_op(h: torch.Tensor, kernel: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
+    """The qkv projection as one op, so that a selective remat policy can
+    single out its product (``remat_policy="attn_qkv"``)."""
+    return _qkv_projection(h, kernel, bias)
+
+
+@attn_qkv_op.register_fake
+def _attn_qkv_fake(h, kernel, bias):
+    B, T, E = h.shape
+    return h.new_empty((B, T, 3, E))
+
+
+def _attn_qkv_setup(ctx, inputs, output):
+    h, kernel, _ = inputs
+    ctx.save_for_backward(h, kernel)
+
+
+def _attn_qkv_backward(ctx, g):
+    h, kernel = ctx.saved_tensors
+    B, T, E = h.shape
+    g2 = g.reshape(B * T, 3 * E)
+    dh = (g2 @ kernel.reshape(E, 3 * E).t()).view(B, T, E)
+    dk = (h.reshape(B * T, E).t() @ g2).view(E, 3, E)
+    return dh, dk, g.sum((0, 1))
+
+
+attn_qkv_op.register_autograd(_attn_qkv_backward,
+                              setup_context=_attn_qkv_setup)
 
 
 def _block(x: torch.Tensor, lp: Params, cfg: GPT2Config, attn: AttnImpl,
@@ -190,9 +243,11 @@ def _block(x: torch.Tensor, lp: Params, cfg: GPT2Config, attn: AttnImpl,
     H, D = cfg.n_head, cfg.head_dim
     dt = cfg.dtype
     h = _layer_norm(x, lp["ln_1"]["scale"], lp["ln_1"]["bias"])
-    # "bte,eck->btck" as one (B·T, E) × (E, 3E) product
-    qkv = (h @ lp["attn_qkv"]["kernel"].to(dt).reshape(E, 3 * E)) \
-        .view(B, T, 3, E) + lp["attn_qkv"]["bias"].to(dt)
+    w, b = lp["attn_qkv"]["kernel"].to(dt), lp["attn_qkv"]["bias"].to(dt)
+    # the op under autograd (what remat policies see); serving calls the
+    # same arithmetic directly, with no op dispatch
+    qkv = attn_qkv_op(h, w, b) if torch.is_grad_enabled() \
+        else _qkv_projection(h, w, b)
     # strided views (head dim contiguous): the flash kernel reads them
     # through their strides, with no copy into a (B·H, T, D) layout
     q, k, v = [qkv[:, :, i].unflatten(-1, (H, D)) for i in range(3)]
@@ -216,15 +271,47 @@ def _embed(params: Params, tokens: torch.Tensor, positions: torch.Tensor,
         + F.embedding(positions, params["wpe"]).to(cfg.dtype)
 
 
-def _check_remat(cfg: GPT2Config) -> None:
-    if cfg.remat_policy in ("dots", "attn", "attn_qkv"):
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} is not ported yet (a later "
-            f"slice: ROADMAP queue A, selective remat policies); use "
-            f"remat_policy='full' or remat=False")
-    if cfg.remat_policy != "full":
-        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} "
-                         f"(expected 'full', 'dots', 'attn' or 'attn_qkv')")
+# What each selective policy saves, by op (everything else is
+# recomputed): the counterparts of the reference's
+# dots_with_no_batch_dims_saveable and save_only_these_names.  dots: the
+# block's projections are 2-D products after the view (aten.mm; addmm
+# where a bias fuses in) and the qkv op; products with batch dims (the
+# dense attention's einsums, bmm) are recomputed, as the reference's.
+_SAVED_OPS = {
+    "dots": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+             torch.ops.ray_tpu_torch.attn_qkv.default),
+    "attn": (torch.ops.ray_tpu_torch.flash_fwd.default,),
+    "attn_qkv": (torch.ops.ray_tpu_torch.flash_fwd.default,
+                 torch.ops.ray_tpu_torch.attn_qkv.default),
+}
+REMAT_POLICIES = ("full",) + tuple(_SAVED_OPS)
+
+
+def _save_policy(saved, ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in saved \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context(cfg: GPT2Config, device: torch.device):
+    """The ``context_fn`` for ``torch.utils.checkpoint`` under
+    ``cfg.remat_policy`` (None for ``full``).  Raises for an unknown
+    policy, and for ``attn``/``attn_qkv`` where flash does not run: their
+    saved op exists only in the flash path, so they would quietly act as
+    full remat."""
+    policy = cfg.remat_policy
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r} (expected one "
+                         f"of {REMAT_POLICIES})")
+    if policy in ("attn", "attn_qkv") \
+            and resolved_attn_impl(cfg, device) != "flash":
+        raise ValueError(
+            f"remat_policy={policy!r} requires attention that resolves to "
+            f"'flash' (attn_impl={cfg.attn_impl!r} on {device.type}): the "
+            f"saved (out, lse) exist only in the flash op")
+    if policy == "full":
+        return None
+    return partial(create_selective_checkpoint_contexts,
+                   partial(_save_policy, _SAVED_OPS[policy]))
 
 
 def forward_hidden(params: Params, tokens: torch.Tensor,
@@ -232,18 +319,19 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
     """tokens (B, T) int → final-LN hidden states (B, T, E) in cfg.dtype.
 
     With ``cfg.remat`` each block runs under ``torch.utils.checkpoint``
-    whenever grad is enabled: the backward replays the block's forward."""
+    whenever grad is enabled: the backward replays the block's forward,
+    less what ``cfg.remat_policy`` saves."""
     B, T = tokens.shape
     attn = _resolve_attn(cfg, tokens.device)
-    if cfg.remat:
-        _check_remat(cfg)
+    context = _remat_context(cfg, tokens.device) if cfg.remat else None
     remat = cfg.remat and torch.is_grad_enabled()
     x = _embed(params, tokens, torch.arange(T, device=tokens.device), cfg)
     for lp in _layers(params["blocks"], cfg.n_layer):
         if remat:
             # no dropout anywhere: no RNG state to save and restore
             x = checkpoint(_block, x, lp, cfg, attn, use_reentrant=False,
-                           preserve_rng_state=False)
+                           preserve_rng_state=False,
+                           **({"context_fn": context} if context else {}))
         else:
             x = _block(x, lp, cfg, attn)
     return _layer_norm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])

@@ -25,12 +25,18 @@ rounds per query head, then sums through ``jnp.repeat``'s transpose).
 On the card the bf16 backward takes head dim 64 without groups and head
 dim 128 with any KV dividing H.
 
-``flash_attention`` goes through ``FlashAttentionFn`` (the reference's
+``flash_attention`` goes through the op ``ray_tpu_torch::flash_fwd``
+(``flash_fwd_op``, a ``torch.library.custom_op``: the reference's
 ``custom_vjp``) whenever grad is enabled and an input requires it, on
-every device: its forward also writes the base-2 lse, and its backward
-computes ``delta = sum_D do * o`` in float32 outside the kernel, casts the
-cotangent to q's dtype and calls ``flash_attention_bwd``.  Inference keeps
-the lse-free forward.
+every device: it returns the output and the base-2 lse, and its
+registered backward computes ``delta = sum_D do * o`` in float32 outside
+the kernel, casts the cotangent to q's dtype and calls
+``flash_attention_bwd``.  As one op at the dispatcher, the forward is
+what ``torch.utils.checkpoint``'s selective policies see and can save
+(the reference's ``checkpoint_name(out, "flash_attn_out")`` and
+``"flash_attn_lse"``): a replay under such a policy takes the saved
+``(out, lse)`` and launches nothing.  Inference keeps the lse-free
+forward as a direct call, with no op dispatch.
 
 Differences from the reference, each forced by the card:
 - The kernel reads q, k and v through their strides (head dim
@@ -403,29 +409,45 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_attention_bwd_plain(q, k, v, lse, delta, do, causal)
 
 
-class FlashAttentionFn(torch.autograd.Function):
-    """Flash attention with the fused backward; saves q, k, v, the output
-    and the compact base-2 lse.  Returns (out, lse); lse carries no
-    gradient."""
+@torch.library.custom_op("ray_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward with its lse, as one op: ``(out (B, T, H, D), lse
+    (B·H, T) float32)``, both contiguous (the kernel's layout; the plain
+    version's einsum may leave another)."""
+    out, lse = flash_attention_fwd(q, k, v, causal, want_lse=True)
+    return out.contiguous(), lse.contiguous()
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal):
-        out, lse = flash_attention_fwd(q, k, v, causal, want_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal = causal
-        ctx.mark_non_differentiable(lse)
-        return out, lse
 
-    @staticmethod
-    def backward(ctx, g, _g_lse):
-        q, k, v, out, lse = ctx.saved_tensors
-        B, T, H, _ = q.shape
-        # delta = sum_D do * o in float32, in the residual layout
-        delta = (g.float() * out.float()).sum(dim=-1)          # (B, T, H)
-        delta = delta.transpose(1, 2).reshape(B * H, T)
-        dq, dk, dv = flash_attention_bwd(q, k, v, lse, delta,
-                                         g.to(q.dtype), ctx.causal)
-        return dq, dk, dv, None
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, causal):
+    B, T, H, D = q.shape
+    return (q.new_empty((B, T, H, D)),
+            q.new_empty((B * H, T), dtype=torch.float32))
+
+
+def _flash_fwd_setup(ctx, inputs, output):
+    q, k, v, causal = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.mark_non_differentiable(lse)
+    ctx.causal = causal
+
+
+def _flash_fwd_backward(ctx, g, _g_lse):
+    # lse carries no gradient: its cotangent is ignored
+    q, k, v, out, lse = ctx.saved_tensors
+    B, T, H, _ = q.shape
+    # delta = sum_D do * o in float32, in the residual layout
+    delta = (g.float() * out.float()).sum(dim=-1)              # (B, T, H)
+    delta = delta.transpose(1, 2).reshape(B * H, T)
+    dq, dk, dv = flash_attention_bwd(q, k, v, lse, delta, g.to(q.dtype),
+                                     ctx.causal)
+    return dq, dk, dv, None
+
+
+flash_fwd_op.register_autograd(_flash_fwd_backward,
+                               setup_context=_flash_fwd_setup)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -435,7 +457,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     float32."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        out, lse = FlashAttentionFn.apply(q, k, v, causal)
+        out, lse = flash_fwd_op(q, k, v, causal)
         return (out, lse) if want_lse else out
     return flash_attention_fwd(q, k, v, causal, want_lse)
 

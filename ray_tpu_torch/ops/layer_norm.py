@@ -13,16 +13,20 @@ it, on every device: the forward saves only the per-row float32
 ``(mu, rstd)``, and the backward is ``ln_bwd``.  Otherwise it takes the
 stats-free forward, so inference writes no mu/rstd.
 
-Each kernel has two instantiations, and ``launch_plan`` picks one from
+Each kernel has three instantiations, and ``launch_plan`` picks one from
 the shapes, strides and pointers alone: vector I/O (16-byte loads and
 stores, the affine in registers, rows walked over a grid the SMs hold in
 one wave) for E a multiple of 8 up to 768 with aligned rows, which is
-every LayerNorm of the GPT-2 124M paths; scalar I/O for any other layout.
-Both are kernels, counted apart.
+every LayerNorm of the GPT-2 124M and MoE paths; wide-row vector I/O (the
+affine, and the backward's column sums, in shared memory) for E a
+multiple of 8 from 776 to 2048 with aligned rows, GPT-2 medium, large and
+xl (1024, 1280, 1600); scalar I/O for any other layout.  All are
+kernels, counted apart.
 
 The reference takes its Pallas kernel only when ``E % 128 == 0`` (a TPU
-lane-tiling limit); the forward serves every E, the backward every E up
-to 6144.
+lane-tiling limit), so at E 1600 it computes its plain branch; the port
+computes the same function with a kernel at every E: the forward at any
+E, the backward up to 6144.
 """
 
 from __future__ import annotations
@@ -37,26 +41,42 @@ from ray_tpu_torch._device import launch_on, sm_count
 # Kernel launches since the last reset, one counter per instantiation
 # (chip_smoke.py reads them to show that the main path went through the
 # vector-I/O kernels): ``launches`` / ``bwd_launches`` count the
-# vector-I/O kernels, ``scalar_launches`` / ``bwd_scalar_launches`` the
+# vector-I/O kernels, ``wide_launches`` / ``bwd_wide_launches`` the
+# wide-row ones, ``scalar_launches`` / ``bwd_scalar_launches`` the
 # scalar-I/O ones.
 launches = 0
 bwd_launches = 0
+wide_launches = 0
+bwd_wide_launches = 0
 scalar_launches = 0
 bwd_scalar_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The instantiations, by the C entries' route argument.
+ROUTES = {"scalar": 0, "vector": 1, "wide": 2}
 # The launch geometry of csrc/layer_norm.cu.  The vector kernels hold
-# E <= 768 in registers, 8 columns a vector.  A block takes 4 rows at a
-# time; an SM holds 4 forward blocks (128 registers) and, by dtype, 3 or 2
-# vector backward blocks (168 or 255 registers).  The scalar backward
-# keeps its partial rows in 48 KB of shared memory.
+# E <= 768 in registers, 8 columns a vector; the wide-row kernels E <=
+# 2048, 3 forward blocks an SM (168 registers) and 2 backward (255).  A
+# block takes 4 rows at a time; an SM holds 4 vector forward blocks (128
+# registers) and, by dtype, 3 or 2 vector backward blocks (168 or 255
+# registers).  The scalar backward keeps its partial rows in 48 KB of
+# shared memory.
 VEC_CHUNK = 8
 VEC_MAX_E = 768
+WIDE_MAX_E = 2048
+WIDE_FWD_BLOCKS_PER_SM = 3
+WIDE_BWD_BLOCKS_PER_SM = 2
 FWD_WARPS, FWD_BLOCKS_PER_SM = 4, 4
 BWD_WARPS = 4
 BWD_BLOCKS_PER_SM = {torch.bfloat16: 3, torch.float32: 2}
 BWD_SCALAR_BLOCKS_PER_SM = 2
 MAX_BWD_E = 6144
+
+
+def wide_bwd_smem_bytes(E: int) -> int:
+    """The wide-row backward's dynamic shared memory at width E: scale
+    and each of its 4 warps' dscale and dbias sums, float32."""
+    return (1 + 2 * BWD_WARPS) * E * 4
 
 
 def ln_fwd_plain(x2: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -75,28 +95,38 @@ def ln_fwd_plain(x2: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 def launch_plan(N: int, E: int, row_stride: int, misalign: int,
                 dtype: torch.dtype, sms: int, backward: bool = False
-                ) -> Tuple[bool, int]:
-    """(vector I/O, blocks) for one kernel call.
+                ) -> Tuple[str, int]:
+    """(route, blocks) for one kernel call: route ``"vector"``,
+    ``"wide"`` or ``"scalar"`` (``ROUTES``).
 
     ``row_stride`` is in elements and ``misalign`` in bytes: for several
     operands, the bitwise OR of their row strides and of their base
     addresses mod 16, since any one that breaks the rule rules vector I/O
-    out.  Vector I/O needs E a multiple of 8 up to 768, row strides that
-    are multiples of 8 elements and 16-byte aligned bases.  The vector
-    kernels walk rows over a grid the SMs hold in one wave; the scalar
-    forward takes one row per warp, the scalar backward two blocks an SM.
+    out.  Vector I/O needs E a multiple of 8, row strides that are
+    multiples of 8 elements and 16-byte aligned bases; E up to 768 takes
+    the vector kernels, up to 2048 the wide-row ones.  Both walk rows over
+    a grid the SMs hold in one wave; the scalar forward takes one row per
+    warp, the scalar backward two blocks an SM.
     """
     if dtype not in _DTYPES:
         raise TypeError(f"layer_norm kernel takes float32 or bfloat16, "
                         f"not {dtype}")
-    vector = (E % VEC_CHUNK == 0 and 0 < E <= VEC_MAX_E
-              and row_stride % VEC_CHUNK == 0 and misalign % 16 == 0)
+    aligned = (E > 0 and E % VEC_CHUNK == 0 and row_stride % VEC_CHUNK == 0
+               and misalign % 16 == 0)
+    route = "scalar"
+    if aligned and E <= VEC_MAX_E:
+        route = "vector"
+    elif aligned and E <= WIDE_MAX_E:
+        route = "wide"
     if backward:
-        per_sm = BWD_BLOCKS_PER_SM[dtype] if vector \
-            else BWD_SCALAR_BLOCKS_PER_SM
-        return vector, max(1, min(-(-N // BWD_WARPS), per_sm * sms))
+        per_sm = {"vector": BWD_BLOCKS_PER_SM[dtype],
+                  "wide": WIDE_BWD_BLOCKS_PER_SM,
+                  "scalar": BWD_SCALAR_BLOCKS_PER_SM}[route]
+        return route, max(1, min(-(-N // BWD_WARPS), per_sm * sms))
     blocks = -(-N // FWD_WARPS)
-    return vector, min(blocks, FWD_BLOCKS_PER_SM * sms) if vector else blocks
+    per_sm = {"vector": FWD_BLOCKS_PER_SM, "wide": WIDE_FWD_BLOCKS_PER_SM,
+              "scalar": None}[route]
+    return route, min(blocks, per_sm * sms) if per_sm else blocks
 
 
 def _check_affine(x2: torch.Tensor, **named: torch.Tensor) -> None:
@@ -116,7 +146,7 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 
 def _ln_fwd_kernel(x2: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                    eps: float, want_stats: bool):
-    global launches, scalar_launches
+    global launches, wide_launches, scalar_launches
     N, E = x2.shape
     if x2.stride(1) != 1:
         raise ValueError("layer_norm kernel needs a contiguous last dim")
@@ -128,7 +158,7 @@ def _ln_fwd_kernel(x2: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if want_stats:
         mu = torch.empty((N,), dtype=torch.float32, device=dev)
         rstd = torch.empty((N,), dtype=torch.float32, device=dev)
-    vector, blocks = launch_plan(
+    route, blocks = launch_plan(
         N, E, x2.stride(0),
         (x2.data_ptr() | scale.data_ptr() | bias.data_ptr()) % 16,
         x2.dtype, sm_count(dev))
@@ -137,10 +167,12 @@ def _ln_fwd_kernel(x2: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         x2.data_ptr(), x2.stride(0), scale.data_ptr(), bias.data_ptr(),
         y.data_ptr(), mu.data_ptr() if mu is not None else None,
         rstd.data_ptr() if rstd is not None else None, N, E, float(eps),
-        _DTYPES[x2.dtype], int(vector), blocks, stream))
+        _DTYPES[x2.dtype], ROUTES[route], blocks, stream))
     _build.check(rc, "rtt_layer_norm_fwd")
-    if vector:
+    if route == "vector":
         launches += 1
+    elif route == "wide":
+        wide_launches += 1
     else:
         scalar_launches += 1
     return y, mu, rstd
@@ -174,7 +206,7 @@ def ln_bwd_plain(x2: torch.Tensor, scale: torch.Tensor, g2: torch.Tensor,
 
 
 def _ln_bwd_kernel(x2, scale, g2, mu, rstd):
-    global bwd_launches, bwd_scalar_launches
+    global bwd_launches, bwd_wide_launches, bwd_scalar_launches
     N, E = x2.shape
     if E > MAX_BWD_E:
         raise ValueError(f"layer_norm backward kernel takes E <= "
@@ -196,7 +228,7 @@ def _ln_bwd_kernel(x2, scale, g2, mu, rstd):
     scale = _f32(scale)
     mu, rstd = mu.contiguous(), rstd.contiguous()
     dev = x2.device
-    vector, nb = launch_plan(
+    route, nb = launch_plan(
         N, E, x2.stride(0) | g2.stride(0),
         (x2.data_ptr() | g2.data_ptr() | scale.data_ptr()) % 16,
         x2.dtype, sm_count(dev), backward=True)
@@ -208,10 +240,12 @@ def _ln_bwd_kernel(x2, scale, g2, mu, rstd):
         x2.data_ptr(), x2.stride(0), scale.data_ptr(), g2.data_ptr(),
         g2.stride(0), mu.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
         parts.data_ptr(), sums.data_ptr(), N, E, nb, _DTYPES[x2.dtype],
-        int(vector), stream))
+        ROUTES[route], stream))
     _build.check(rc, "rtt_layer_norm_bwd")
-    if vector:
+    if route == "vector":
         bwd_launches += 1
+    elif route == "wide":
+        bwd_wide_launches += 1
     else:
         bwd_scalar_launches += 1
     return dx, sums[0], sums[1]

@@ -25,7 +25,7 @@ def cuda_device():
 
 
 # 768: GPT-2 124M's width, the vector-I/O kernel; 1600: GPT-2 XL's,
-# wider than its register tile, the scalar-I/O loop.
+# wider than its register tile, the wide-row kernel.
 @pytest.mark.parametrize("N,E", [(1024, 768), (16, 768), (33, 1600)])
 def test_layer_norm_kernel_matches_plain(cuda_device, N, E):
     g = torch.Generator(device=cuda_device).manual_seed(0)
@@ -61,7 +61,7 @@ def _within_bf16_steps(out, ref, steps):
     assert ((out.float() - r).abs() <= limit).all()
 
 
-# (33, 1600): wider than the register tile, the scalar-I/O loop; 333
+# (33, 1600): wider than the register tile, the wide-row kernel; 333
 # rows: a ragged last stripe.
 @pytest.mark.parametrize("N,E", [(1024, 768), (333, 768), (33, 1600)])
 def test_layer_norm_bwd_kernel_matches_plain(cuda_device, N, E):
@@ -78,6 +78,84 @@ def test_layer_norm_bwd_kernel_matches_plain(cuda_device, N, E):
         # float32 sums of N terms of size ~1 in other orders
         torch.testing.assert_close(ds, dsp, atol=1e-6 * N, rtol=1e-5)
         torch.testing.assert_close(db, dbp, atol=1e-6 * N, rtol=1e-5)
+
+
+def _ln_wide_counts():
+    return (t_ln.wide_launches, t_ln.bwd_wide_launches)
+
+
+@pytest.mark.parametrize("E", [1024, 1280, 1600])
+@pytest.mark.parametrize("N", [8192, 333, 1])
+def test_layer_norm_wide_rows_match_plain(cuda_device, N, E):
+    """GPT-2 medium, large and xl's rows (E 1024, 1280, 1600) in bf16 and
+    float32: the wide-row kernels, forward (with stats) and backward,
+    counted apart from the other instantiations, against the plain
+    versions (bf16 within one step of each element, float32 1e-5;
+    dscale/dbias as test_layer_norm_bwd_kernel_matches_plain), the sums
+    bitwise equal across two calls."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    x = torch.randn((N, E), generator=g, device=cuda_device) * 2 + 0.5
+    gy = torch.randn((N, E), generator=g, device=cuda_device)
+    s = 1 + 0.1 * torch.randn(E, generator=g, device=cuda_device)
+    b = 0.1 * torch.randn(E, generator=g, device=cuda_device)
+    for dt in (torch.bfloat16, torch.float32):
+        xd, gd = x.to(dt), gy.to(dt)
+        before, wide = _ln_counts(), _ln_wide_counts()
+        y, mu, rstd = t_ln.ln_fwd(xd, s, b, 1e-5, want_stats=True)
+        dx, ds, db = t_ln.ln_bwd(xd, s, gd, mu, rstd)
+        _, ds2, db2 = t_ln.ln_bwd(xd, s, gd, mu, rstd)
+        torch.cuda.synchronize()
+        assert _ln_counts() == before
+        assert _ln_wide_counts() == (wide[0] + 1, wide[1] + 2)
+        yp, mup, rstdp = t_ln.ln_fwd_plain(xd, s, b, 1e-5)
+        dxp, dsp, dbp = t_ln.ln_bwd_plain(xd, s, gd, mu, rstd)
+        if dt == torch.bfloat16:
+            _within_bf16_steps(y, yp, 1)
+            _within_bf16_steps(dx, dxp, 1)
+        else:
+            torch.testing.assert_close(y, yp, atol=1e-5, rtol=1e-5)
+            torch.testing.assert_close(dx, dxp, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(mu, mup, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(rstd, rstdp, atol=0, rtol=1e-5)
+        torch.testing.assert_close(ds, dsp, atol=1e-6 * N, rtol=1e-5)
+        torch.testing.assert_close(db, dbp, atol=1e-6 * N, rtol=1e-5)
+        assert torch.equal(ds, ds2) and torch.equal(db, db2)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_layer_norm_wide_misaligned_rows_take_the_scalar_route(cuda_device,
+                                                               dt):
+    """E 1600 with a base one element off a 16-byte boundary: by
+    launch_plan's rule the scalar-I/O kernels, counted as such, held to
+    the plain versions; the C entry refuses the wide route for it,
+    launching nothing."""
+    N, E = 64, 1600
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    x = torch.empty(1 + N * E, device=cuda_device, dtype=dt)[1:].view(N, E)
+    x.copy_(torch.randn((N, E), generator=g, device=cuda_device))
+    assert x.data_ptr() % 16
+    gy = torch.randn((N, E), generator=g, device=cuda_device).to(dt)
+    s = 1 + 0.1 * torch.randn(E, generator=g, device=cuda_device)
+    b = 0.1 * torch.randn(E, generator=g, device=cuda_device)
+    before, wide = _ln_counts(), _ln_wide_counts()
+    y, mu, rstd = t_ln.ln_fwd(x, s, b, 1e-5, want_stats=True)
+    dx, _, _ = t_ln.ln_bwd(x, s, gy, mu, rstd)
+    torch.cuda.synchronize()
+    assert _ln_wide_counts() == wide
+    assert _ln_counts() == (before[0], before[1] + 1, before[2],
+                            before[3] + 1)
+    yp, _, _ = t_ln.ln_fwd_plain(x, s, b, 1e-5)
+    dxp, _, _ = t_ln.ln_bwd_plain(x, s, gy, mu, rstd)
+    tol = 1e-5 if dt == torch.float32 else 2 ** -7 * 8
+    torch.testing.assert_close(y.float(), yp.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(dx.float(), dxp.float(), atol=tol, rtol=0)
+    out = torch.empty((N, E), device=cuda_device, dtype=dt)
+    rc = _build.entry("rtt_layer_norm_fwd")(
+        x.data_ptr(), x.stride(0), s.data_ptr(), b.data_ptr(),
+        out.data_ptr(), None, None, N, E, 1e-5,
+        0 if dt == torch.float32 else 1, t_ln.ROUTES["wide"], 1,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 1                      # cudaErrorInvalidValue
 
 
 def _ln_counts():
@@ -212,7 +290,7 @@ def test_cuda_outputs_carry_grad_fn_and_backward_launches(cuda_device):
     assert isinstance(y.grad_fn, t_ln.LayerNormFn._backward_cls)
     q = y.view(4, 64, 12, 64)
     o = t_flash.flash_attention(q, q, q, True)
-    assert isinstance(o.grad_fn, t_flash.FlashAttentionFn._backward_cls)
+    assert "ray_tpu_torch_flash_fwd" in o.grad_fn.name()
     o.float().sum().backward()
     torch.cuda.synchronize()
     assert (t_ln.bwd_launches, t_flash.bwd_launches) == \

@@ -8,7 +8,7 @@ attention, and the same widened to E = 256 with 2 query heads over 1 KV
 head, Llama-3 8B's head dim 128, with ``attn_impl="flash"``: the JAX side
 runs both Pallas kernels, forward and backward, in interpret mode on K/V
 expanded by ``_gqa_expand``, and the port's side the plain versions of
-its flash kernels through ``FlashAttentionFn``, which take the KV heads
+its flash kernels through the ``flash_fwd`` op, which take the KV heads
 as they are and sum dk and dv over each group.
 
 Tolerances, each with its reason (the limits of tests/test_torch_train.py

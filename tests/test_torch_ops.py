@@ -91,33 +91,44 @@ BF16, F32 = torch.bfloat16, torch.float32
 
 
 # (N, E, row stride, misaligned bytes, dtype, backward) on 132 SMs ->
-# (vector I/O, blocks)
+# (route, blocks)
 @pytest.mark.parametrize("args,want", [
     # the train step's rows: a grid of 4 blocks an SM walks them
-    ((32768, 768, 768, 0, BF16, False), (True, 4 * 132)),
+    ((32768, 768, 768, 0, BF16, False), ("vector", 4 * 132)),
     # the longest prefill bucket and the decode batch: a row a warp
-    ((1024, 768, 768, 0, BF16, False), (True, 256)),
-    ((16, 768, 768, 0, BF16, False), (True, 4)),
-    ((1, 768, 768, 0, F32, False), (True, 1)),
-    ((0, 768, 768, 0, BF16, False), (True, 0)),
+    ((1024, 768, 768, 0, BF16, False), ("vector", 256)),
+    ((16, 768, 768, 0, BF16, False), ("vector", 4)),
+    ((1, 768, 768, 0, F32, False), ("vector", 1)),
+    ((0, 768, 768, 0, BF16, False), ("vector", 0)),
     # a view of x with a row stride, still 8-element aligned
-    ((1024, 768, 2304, 0, BF16, False), (True, 256)),
+    ((1024, 768, 2304, 0, BF16, False), ("vector", 256)),
     # base one bf16 / one f32 element off a 16-byte boundary
-    ((1024, 768, 768, 2, BF16, False), (False, 256)),
-    ((1024, 768, 768, 4, F32, False), (False, 256)),
+    ((1024, 768, 768, 2, BF16, False), ("scalar", 256)),
+    ((1024, 768, 768, 4, F32, False), ("scalar", 256)),
     # a row stride that is not a multiple of 8 elements
-    ((1024, 768, 769, 0, BF16, False), (False, 256)),
-    # E not a multiple of 8, and E wider than the register tile
-    ((1024, 100, 100, 0, BF16, False), (False, 256)),
-    ((32768, 1600, 1600, 0, BF16, False), (False, 8192)),
+    ((1024, 768, 769, 0, BF16, False), ("scalar", 256)),
+    # E not a multiple of 8
+    ((1024, 100, 100, 0, BF16, False), ("scalar", 256)),
+    # GPT-2 medium, large and xl's rows: the wide-row kernels, 3 forward
+    # blocks an SM, up to E 2048; wider rows take the scalar kernel
+    ((8192, 1024, 1024, 0, BF16, False), ("wide", 3 * 132)),
+    ((8192, 1280, 1280, 0, BF16, False), ("wide", 3 * 132)),
+    ((32768, 1600, 1600, 0, BF16, False), ("wide", 3 * 132)),
+    ((333, 1600, 1600, 0, BF16, False), ("wide", 84)),
+    ((8192, 2048, 2048, 0, F32, False), ("wide", 3 * 132)),
+    ((8192, 2056, 2056, 0, BF16, False), ("scalar", 2048)),
+    ((8192, 1600, 1600, 2, BF16, False), ("scalar", 2048)),
     # backward: 3 bf16 or 2 float32 blocks an SM, or fewer where rows
-    # run out; the scalar kernel 2 an SM
-    ((32768, 768, 768, 0, BF16, True), (True, 3 * 132)),
-    ((32768, 768, 768, 0, F32, True), (True, 2 * 132)),
-    ((333, 768, 768, 0, BF16, True), (True, 84)),
-    ((0, 768, 768, 0, BF16, True), (True, 1)),
-    ((32768, 768, 768 | 769, 0, BF16, True), (False, 264)),
-    ((32768, 1600, 1600, 0, F32, True), (False, 264)),
+    # run out; the wide-row kernel 2; the scalar kernel 2 an SM
+    ((32768, 768, 768, 0, BF16, True), ("vector", 3 * 132)),
+    ((32768, 768, 768, 0, F32, True), ("vector", 2 * 132)),
+    ((333, 768, 768, 0, BF16, True), ("vector", 84)),
+    ((0, 768, 768, 0, BF16, True), ("vector", 1)),
+    ((32768, 768, 768 | 769, 0, BF16, True), ("scalar", 264)),
+    ((32768, 1600, 1600, 0, F32, True), ("wide", 2 * 132)),
+    ((8192, 1600, 1600, 0, BF16, True), ("wide", 2 * 132)),
+    ((333, 1280, 1280, 0, BF16, True), ("wide", 84)),
+    ((32768, 1600, 1600 | 1601, 0, BF16, True), ("scalar", 264)),
 ])
 def test_layer_norm_launch_plan(args, want):
     """The wrapper's choice of instantiation and grid, a pure function of
@@ -130,6 +141,41 @@ def test_layer_norm_launch_plan(args, want):
 def test_layer_norm_launch_plan_refuses_other_dtypes():
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         t_ln.launch_plan(16, 768, 768, 0, torch.float16, 132)
+
+
+@pytest.mark.parametrize("E", [1024, 1280, 1600])
+def test_layer_norm_wide_rows_match_jax(E):
+    """GPT-2 medium, large and xl's rows (the wide-row kernels' widths):
+    the port's LayerNorm on the CPU (the plain forward and backward
+    through its autograd Function) against the reference's Pallas kernels
+    in interpret mode at E 1024 and 1280, and at E 1600, which the
+    reference's gpt2._layer_norm sends to its plain branch (E % 128 !=
+    0), against that branch: the output and jax.grad of x, scale and bias
+    to 1e-4 (float32 sums over 1600 columns and 24 rows in other
+    orders).  launch_plan gives these aligned rows the wide-row kernels,
+    forward and backward."""
+    import jax
+    from ray_tpu.models import gpt2 as j_gpt2
+    rng = np.random.default_rng(25)
+    x = rng.standard_normal((2, 12, E)).astype(np.float32) * 2 + 0.5
+    s = (1 + 0.1 * rng.standard_normal(E)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(E)).astype(np.float32)
+    w = rng.standard_normal((2, 12, E)).astype(np.float32)
+    ref_fn = j_ln.layer_norm if E % 128 == 0 else j_gpt2._layer_norm
+    args = [jnp.asarray(a) for a in (x, s, b)]
+    ref_y = np.asarray(ref_fn(*args))
+    ref = jax.grad(lambda *a: (ref_fn(*a) * w).sum(), argnums=(0, 1, 2))(
+        *args)
+    out, got = _torch_grads(t_ln.layer_norm, (x, s, b), w)
+    np.testing.assert_allclose(out.detach().numpy(), ref_y, atol=1e-5,
+                               rtol=1e-5)
+    for a, r in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=1e-4,
+                                   rtol=1e-4)
+    for dt in (BF16, F32):
+        for backward in (False, True):
+            assert t_ln.launch_plan(8192, E, E, 0, dt, 132,
+                                    backward=backward)[0] == "wide"
 
 
 def test_layer_norm_output_keeps_input_dtype():
@@ -303,7 +349,7 @@ def test_flash_gqa_or_d128_under_grad_raises(kv, d):
         16) * w).sum(), argnums=(0, 1, 2))(*(jnp.asarray(a)
                                             for a in (q, k, v)))
     out, got = _torch_grads(t_flash.flash_attention, (q, k, v), w)
-    assert isinstance(out.grad_fn, t_flash.FlashAttentionFn._backward_cls)
+    assert "ray_tpu_torch_flash_fwd" in out.grad_fn.name()
     for a, r in zip(got, ref):
         assert a.shape == r.shape
         np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=1e-4,
@@ -546,7 +592,7 @@ def test_flash_grads_match_jax(causal):
         argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
     out, got = _torch_grads(
         lambda *a: t_flash.flash_attention(*a, causal), (q, k, v), w)
-    assert isinstance(out.grad_fn, t_flash.FlashAttentionFn._backward_cls)
+    assert "ray_tpu_torch_flash_fwd" in out.grad_fn.name()
     for a, r in zip(got, ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=1e-4,
                                    rtol=1e-4)
@@ -566,6 +612,51 @@ def test_flash_grads_ragged_length_match_dense():
     for a, r in zip(got, ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=1e-4,
                                    rtol=1e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_op_fake_and_real_agree(causal):
+    """The flash forward as the op ray_tpu_torch::flash_fwd, fed the
+    strided q/k/v views the model makes: torch.library.opcheck (schema,
+    autograd registration, the fake impl's shapes and strides against the
+    real one's) passes; on the meta device the outputs are the kernel's
+    contiguous (B, T, H, D) and (B·H, T) float32; the gradients through
+    the op are those of the plain version under autograd."""
+    rng = np.random.default_rng(26)
+    qkv = _t(rng.standard_normal((2, 16, 3, 32)).astype(np.float32))
+    q, k, v = [qkv[:, :, i].unflatten(-1, (4, 8)).requires_grad_()
+               for i in range(3)]
+    assert not q.is_contiguous()
+    torch.library.opcheck(t_flash.flash_fwd_op, (q, k, v, causal))
+    out, lse = t_flash.flash_fwd_op(*(t.to("meta") for t in (q, k, v)),
+                                    causal)
+    assert out.shape == (2, 16, 4, 8) and out.is_contiguous()
+    assert lse.shape == (8, 16) and lse.dtype == torch.float32
+    w = _t(rng.standard_normal((2, 16, 4, 8)).astype(np.float32))
+    got = torch.autograd.grad((t_flash.flash_fwd_op(q, k, v, causal)[0]
+                               * w).sum(), (q, k, v))
+    ref = torch.autograd.grad((t_flash.flash_attention_plain(q, k, v, causal)
+                               * w).sum(), (q, k, v))
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, atol=1e-5, rtol=1e-5)
+
+
+def test_attn_qkv_op_matches_the_projection():
+    """The qkv projection as the op ray_tpu_torch::attn_qkv: opcheck
+    passes, and its value and registered backward equal autograd through
+    the same product and bias add."""
+    from ray_tpu_torch.models import gpt2 as t_gpt2
+    rng = np.random.default_rng(27)
+    h, w, b = (_t(rng.standard_normal(s).astype(np.float32))
+               .requires_grad_() for s in ((2, 5, 16), (16, 3, 16), (3, 16)))
+    torch.library.opcheck(t_gpt2.attn_qkv_op, (h, w, b))
+    cot = _t(rng.standard_normal((2, 5, 3, 16)).astype(np.float32))
+    got = t_gpt2.attn_qkv_op(h, w, b)
+    ref = t_gpt2._qkv_projection(h, w, b)
+    torch.testing.assert_close(got, ref, atol=0, rtol=0)
+    for a, r in zip(torch.autograd.grad((got * cot).sum(), (h, w, b)),
+                    torch.autograd.grad((ref * cot).sum(), (h, w, b))):
+        torch.testing.assert_close(a, r, atol=1e-5, rtol=1e-5)
 
 
 def test_backward_cpu_tensors_take_plain_versions():
@@ -662,6 +753,9 @@ def test_port_imports_no_jax_and_no_ray_tpu():
     assert len(_port_sources()) > 10
     assert REPO / "ray_tpu_torch" / "models" / "llama.py" in _port_sources()
     assert REPO / "ray_tpu_torch" / "serve" / "llm" / "weights.py" in \
+        _port_sources()
+    assert REPO / "ray_tpu_torch" / "ops" / "moe.py" in _port_sources()
+    assert REPO / "ray_tpu_torch" / "models" / "moe_transformer.py" in \
         _port_sources()
     assert not bad, bad
 
