@@ -68,8 +68,24 @@
    (plain LayerNorm, the reference's einsum dispatch) with the routing
    held equal, then six steps on the LayerNorm kernels.
    The kernel phase also holds the wide-row LayerNorm kernels at E 1024,
-   1280 and 1600 to their plain versions.
-5. Prints each phase's wall seconds, one JSON line of per-kernel numbers,
+   1280 and 1600 to their plain versions, and the vector ones at BERT's
+   eps 1e-12, ViT's eps 1e-6 and on ViT's strided CLS rows.
+5. Encoder and vision phases.  The four tiny models (ResNet, BERT, ViT,
+   T5) in float32 against the JAX package's outputs committed in
+   tests/data/tiny_reference.json, with ResNet's symmetric padding and
+   BERT's ignored mask planted, each of which must fail that check.
+   ResNet-50 (BASELINE #2) at resnet_bench.py's batch 128 x 224²: step-0
+   gradients against float32, six steps, the step-0 loss ln 1000, no
+   hand-written kernel.  BERT-base classify (BASELINE #4) at batches 1,
+   2, 4, 8 x 128: each padded row against the row alone (a planted
+   ignored mask must fail), the kernel path against the plain
+   LayerNorm, 25 vector LayerNorm launches a call, latency and device
+   time.  ViT-B/16 at batch 128: step-0 gradients against the plain
+   LayerNorm path (a rolled rstd must fail), 25 + 25 LayerNorm launches
+   a step.  T5-base at batch 32 x 512 / 114: the card's bucket tables
+   against the CPU's, step-0 gradients against float32 (bidirectional
+   decoder buckets must fail), six steps.
+6. Prints each phase's wall seconds, one JSON line of per-kernel numbers,
    then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
@@ -449,8 +465,18 @@ def ln_report(tag: str) -> dict:
 # as served) and the GPT-2 train step's rows (with the stats, as
 # trained); the wide-row kernel at GPT-2 medium, large and xl's widths
 # over the xl train step's rows (b8 x s1024), and a ragged 333 rows.
+# Then (N, E, stats, timed, eps, row stride): BERT-base serving's rows at
+# its largest batch (8 x 128, eps 1e-12, stats-free), ViT-B/16 training's
+# (128 x 197 rows, eps 1e-6, with stats) and its ln_f on the CLS rows
+# x[:, 0], 128 rows 197 x 768 elements apart.  An entry without the last
+# two has eps 1e-5 and dense rows.
+BERT_SEQ, BERT_BATCHES = 128, (1, 2, 4, 8)
+VIT_TRAIN_BATCH, VIT_TOKENS = 128, 197
 LN_SHAPES = ((1024, 768, False, True), (16, 768, False, True),
-             (TRAIN_BATCH * TRAIN_SEQ, 768, True, True))
+             (TRAIN_BATCH * TRAIN_SEQ, 768, True, True),
+             (BERT_BATCHES[-1] * BERT_SEQ, 768, False, True, 1e-12, 768),
+             (VIT_TRAIN_BATCH * VIT_TOKENS, 768, True, True, 1e-6, 768),
+             (VIT_TRAIN_BATCH, 768, True, False, 1e-6, VIT_TOKENS * 768))
 XL_TRAIN_BATCH, XL_TRAIN_SEQ = 8, 1024
 LN_WIDE_SHAPES = ((XL_TRAIN_BATCH * XL_TRAIN_SEQ, 1024, True, False),
                   (XL_TRAIN_BATCH * XL_TRAIN_SEQ, 1280, True, False),
@@ -480,23 +506,27 @@ def check_layer_norm(gen, card, dev, shapes=LN_SHAPES,
     import torch.nn.functional as F
     from ray_tpu_torch.ops import layer_norm as ln
     rows = []
-    for N, E, stats, timed in shapes:
-        x = torch.randn((N, E), generator=gen, device=dev).to(torch.bfloat16)
+    for shape in shapes:
+        N, E, stats, timed, eps, stride = (*shape, 1e-5, shape[1])[:6]
+        x = torch.randn((N, stride), generator=gen, device=dev).to(
+            torch.bfloat16)[:, :E]
         scale = 1 + 0.1 * torch.randn((E,), generator=gen, device=dev)
         bias = 0.1 * torch.randn((E,), generator=gen, device=dev)
         before = _ln_counts(LN_FWD_COUNTERS)
-        y, mu, rstd = ln.ln_fwd(x, scale, bias, 1e-5, want_stats=True)
+        y, mu, rstd = ln.ln_fwd(x, scale, bias, eps, want_stats=True)
         if not _ln_took(LN_FWD_COUNTERS, before, route):
             fail(f"layer_norm_fwd at ({N}, {E}) bf16 did not take the "
                  f"{route} kernel")
-        yp, mup, rstdp = ln.ln_fwd_plain(x, scale, bias, 1e-5)
+        yp, mup, rstdp = ln.ln_fwd_plain(x, scale, bias, eps)
         torch.cuda.synchronize()
         err, ratio, floor = bf16_excess(y, yp)
         serr = max((mu - mup).abs().max().item(),
                    ((rstd - rstdp).abs() / rstdp.abs()).max().item())
         del y, mu, rstd, yp, mup, rstdp
         name = f"layer_norm_fwd{'_wide' if route == 'wide' else ''}" \
-            f"({N}x{E} bf16{', stats' if stats else ''})"
+            f"({N}x{E} bf16{', stats' if stats else ''}" \
+            f"{f', eps {eps:g}' if eps != 1e-5 else ''}" \
+            f"{f', rows {stride} apart' if stride != E else ''})"
         print(f"{name} max_abs_err {err:.6g} worst_err/limit {ratio:.4g} "
               f"(limit {BF16_REL:.6g}*|ref| + {floor:.6g}) "
               f"stats_err {serr:.3g} tol {LN_STAT_TOL}", flush=True)
@@ -504,14 +534,14 @@ def check_layer_norm(gen, card, dev, shapes=LN_SHAPES,
             fail(f"{name} disagrees with its plain version")
         if not timed:
             continue
-        kern = lambda: ln.ln_fwd(x, scale, bias, 1e-5,  # noqa: E731
+        kern = lambda: ln.ln_fwd(x, scale, bias, eps,  # noqa: E731
                                  want_stats=stats)
         k_ms, c_ms = device_ms(kern), call_ms(kern)
-        p_ms = device_ms(lambda: ln.ln_fwd_plain(x, scale, bias, 1e-5),
+        p_ms = device_ms(lambda: ln.ln_fwd_plain(x, scale, bias, eps),
                          iters=5 if N > 1024 else 20)
         s16 = scale.to(torch.bfloat16)
         b16 = bias.to(torch.bfloat16)
-        lib = lambda: F.layer_norm(x, (E,), s16, b16, 1e-5)  # noqa: E731
+        lib = lambda: F.layer_norm(x, (E,), s16, b16, eps)  # noqa: E731
         l_ms, lc_ms = device_ms(lib), call_ms(lib)
         nbytes = 2 * N * E * 2 + 2 * E * 4 + (2 * N * 4 if stats else 0)
         b_ms, b_by = bound_ms(nbytes, 8 * N * E, card)
@@ -671,9 +701,13 @@ def check_flash_gqa(gen, card, dev) -> list:
     return rows
 
 
-# The LayerNorm backward's shapes, (N, E, timed): the GPT-2 train step's
-# rows and a ragged 333; the wide-row kernel's as the forward's.
-LN_BWD_SHAPES = ((TRAIN_BATCH * TRAIN_SEQ, 768, True), (333, 768, False))
+# The LayerNorm backward's shapes, (N, E, timed, x's row stride): the
+# GPT-2 train step's rows and a ragged 333; ViT-B/16 training's rows and
+# its CLS rows (the cotangent dense); the wide-row kernel's as the
+# forward's.  An entry without the last has dense rows.
+LN_BWD_SHAPES = ((TRAIN_BATCH * TRAIN_SEQ, 768, True), (333, 768, False),
+                 (VIT_TRAIN_BATCH * VIT_TOKENS, 768, True, 768),
+                 (VIT_TRAIN_BATCH, 768, False, VIT_TOKENS * 768))
 LN_BWD_WIDE_SHAPES = tuple((N, E, timed)
                            for N, E, _, timed in LN_WIDE_SHAPES)
 
@@ -683,8 +717,10 @@ def check_layer_norm_bwd(gen, card, dev, shapes=LN_BWD_SHAPES,
     from ray_tpu_torch._device import sm_count
     from ray_tpu_torch.ops import layer_norm as ln
     rows = []
-    for N, E, timed in shapes:
-        x = torch.randn((N, E), generator=gen, device=dev).to(torch.bfloat16)
+    for shape in shapes:
+        N, E, timed, stride = (*shape, shape[1])[:4]
+        x = torch.randn((N, stride), generator=gen, device=dev).to(
+            torch.bfloat16)[:, :E]
         g = torch.randn((N, E), generator=gen, device=dev).to(torch.bfloat16)
         scale = 1 + 0.1 * torch.randn((E,), generator=gen, device=dev)
         bias = torch.zeros((E,), device=dev)
@@ -715,7 +751,7 @@ def check_layer_norm_bwd(gen, card, dev, shapes=LN_BWD_SHAPES,
             for p, t in ((dsp, g.float() * xhat), (dbp, g.float())))
         del xhat, dxp, dsp, dbp
         name = f"layer_norm_bwd{'_wide' if route == 'wide' else ''}" \
-            f"({N}x{E} bf16)"
+            f"({N}x{E} bf16{f', rows {stride} apart' if stride != E else ''})"
         print(f"{name} max_abs_err {err:.6g} worst_err/limit {ratio:.4g} "
               f"(limit {BF16_REL:.6g}*|ref| + {floor:.6g}) dscale/dbias "
               f"worst_err/limit {sum_ratio:.4g} (limit {depth}*2^-24*"
@@ -1270,7 +1306,8 @@ def leaf_grads(params, loss_of) -> tuple:
         p.requires_grad_(True)
     try:
         loss = loss_of()
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
     finally:
         for p in leaves:
             p.requires_grad_(False)
@@ -1278,16 +1315,14 @@ def leaf_grads(params, loss_of) -> tuple:
 
 
 def leaf_tensors(params) -> list:
-    if isinstance(params, dict):
-        return [t for v in params.values() for t in leaf_tensors(v)]
-    return [params]
+    from ray_tpu_torch.parallel.transforms import tree_leaves
+    return tree_leaves(params)
 
 
-def leaf_names(params, prefix="") -> list:
-    if isinstance(params, dict):
-        return [n for k, v in params.items()
-                for n in leaf_names(v, f"{prefix}{k}.")]
-    return [prefix[:-1]]
+def leaf_names(params) -> list:
+    """Each leaf's path, in the order of ``leaf_tensors``."""
+    from ray_tpu_torch.parallel.transforms import tree_leaves_with_path
+    return [path for path, _ in tree_leaves_with_path(params)]
 
 
 def grad_check(cfg, params, batch, block_scale: float = 1.0,
@@ -2053,6 +2088,790 @@ def moe_train_phase(dev, card, tag: str) -> dict:
     return res
 
 
+# ----------------------------------------------------- encoder and vision
+# The check against the JAX package itself: tests/tiny_reference.py ran
+# each family's tiny preset through ray_tpu on the CPU in float32, with
+# weights and inputs drawn by tiny_draw and tiny_inputs in the order of
+# the reference's pytree, and wrote its outputs to TINY_REFERENCE.
+# tiny_outputs draws the same numbers in the port's tree order and runs
+# the port, float32 with TF32 off.
+TINY_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tests", "data", "tiny_reference.json")
+TINY_FAMILIES = ("resnet", "bert", "vit", "t5")
+TINY_SEED = 0
+TINY_T5_VOCAB_SLICE = 16
+TINY_GRAD_LEAVES = {
+    "resnet": ("head/bias", "stem/gn/scale", "stage1/0/gn_proj/bias"),
+    "bert": ("cls/bias", "ln_emb/scale", "pooler/bias"),
+    "vit": ("head/bias", "ln_f/scale", "cls_token"),
+    "t5": ("enc_rel_bias", "dec_rel_bias", "enc_ln_f/scale"),
+}
+# Limits, each array's largest error over its largest magnitude: float32
+# on both sides, sums in other orders.  The CPU tests hold these models'
+# outputs to 1e-5 and gradients to 1e-4 (tests/test_torch_*.py); on the
+# card cuDNN and cuBLAS pick other float32 algorithms (cuDNN's Winograd
+# and FFT convolutions round differently from a direct sum), so 10x that.
+TINY_OUT_TOL = 1e-4
+TINY_GRAD_TOL = 1e-3
+# Faults that must fail the check: ResNet with PyTorch's symmetric k//2
+# padding, BERT with the padding mask ignored.
+TINY_FAULTS = {
+    "resnet_symmetric_padding": ("resnet", "_same_pads",
+                                 lambda f: lambda n, k, s: (k // 2, k // 2)),
+    "bert_mask_ignored": ("bert", "_attention",
+                          lambda f: lambda q, k, v, mask: f(
+                              q, k, v, torch.ones_like(mask))),
+}
+
+
+def tiny_draw(rng, name: str, shape) -> np.ndarray:
+    """One leaf named ``name``: 1 + 0.1 N(0, 1) for a ``scale``, else
+    0.1 N(0, 1), float32."""
+    x = (0.1 * rng.standard_normal(shape)).astype(np.float32)
+    return x + np.float32(1.0) if name == "scale" else x
+
+
+def tiny_inputs(family: str, rng) -> dict:
+    """The batch each family runs, drawn after the weights (BERT's row 1
+    padded after 9 tokens)."""
+    if family in ("resnet", "vit"):
+        return {"images": rng.standard_normal((2, 32, 32, 3)).astype(
+                    np.float32),
+                "labels": rng.integers(0, 10, 2).astype(np.int32)}
+    if family == "bert":
+        mask = np.ones((2, 16), np.int32)
+        mask[1, 9:] = 0
+        return {"tokens": rng.integers(0, 128, (2, 16)).astype(np.int32),
+                "attention_mask": mask,
+                "labels": rng.integers(0, 2, 2).astype(np.int32),
+                "targets": rng.integers(0, 128, (2, 16)).astype(np.int32),
+                "loss_mask": rng.integers(0, 2, (2, 16)).astype(np.int32)}
+    return {"inputs": rng.integers(0, 256, (2, 12)).astype(np.int32),
+            "decoder_inputs": rng.integers(0, 256, (2, 8)).astype(np.int32),
+            "targets": rng.integers(0, 256, (2, 8)).astype(np.int32)}
+
+
+def tiny_outputs(family: str, dev) -> dict:
+    """The port's float32 outputs for one family's tiny preset, as
+    tests/tiny_reference.py records the reference's (numpy arrays)."""
+    import dataclasses
+    from ray_tpu_torch import models
+    from ray_tpu_torch.parallel import transforms as tx
+    mod = models.get_model(family)
+    cfg = dataclasses.replace(mod.tiny(), dtype=torch.float32)
+    rng = np.random.default_rng((TINY_SEED, TINY_FAMILIES.index(family)))
+    template = mod.init_params(None, cfg, device="meta")
+    paths = [p for p, _ in tx.tree_leaves_with_path(template)]
+    drawn = iter([tiny_draw(rng, p.rsplit("/", 1)[-1], tuple(t.shape))
+                  for p, t in tx.tree_leaves_with_path(template)])
+    params = tx.tree_map(lambda _: torch.from_numpy(next(drawn)).to(dev),
+                         template)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in tiny_inputs(family, rng).items()}
+    res = {}
+    with torch.no_grad():
+        if family in ("resnet", "vit"):
+            res["logits"] = mod.forward(params, batch["images"], cfg)
+        elif family == "bert":
+            toks, mask = batch["tokens"], batch["attention_mask"]
+            res["logits"] = mod.classify(params, toks, cfg, mask)
+            res["pooled"] = mod.pooled(params, toks, cfg, mask)
+            res["mlm_loss"] = mod.mlm_loss(params, batch, cfg)
+        else:
+            res["logits"] = mod.forward(
+                params, batch["inputs"], batch["decoder_inputs"],
+                cfg)[..., :TINY_T5_VOCAB_SLICE]
+    if family == "resnet":
+        loss, grads = leaf_grads(params, lambda: mod.loss_fn(
+            params, batch, cfg, label_smoothing=0.1))
+    elif family == "bert":
+        loss, grads = leaf_grads(params, lambda: mod.classification_loss(
+            params, batch, cfg))
+    else:
+        loss, grads = leaf_grads(params, lambda: mod.loss_fn(params, batch,
+                                                             cfg))
+    res["loss"] = loss
+    res["grad_norm"] = torch.sqrt(sum(g.double().pow(2).sum()
+                                      for g in grads))
+    by_path = dict(zip(paths, grads))
+    for name in TINY_GRAD_LEAVES[family]:
+        res[f"grad/{name}"] = by_path[name]
+    return {k: v.detach().to("cpu", torch.float32).numpy()
+            for k, v in res.items()}
+
+
+def tiny_errors(family: str, ref: dict, dev) -> tuple:
+    """(worst error over its limit, that entry, each entry's error): each
+    entry's largest error over the reference's largest magnitude."""
+    got = tiny_outputs(family, dev)
+    errs = {}
+    for key, entry in ref.items():
+        r = np.asarray(entry["values"], np.float32).reshape(entry["shape"])
+        if got[key].shape != r.shape:
+            fail(f"tiny {family} {key}: shape {got[key].shape}, reference "
+                 f"{r.shape}")
+        errs[key] = float(np.abs(got[key] - r).max()
+                          / max(np.abs(r).max(), 1e-30))
+    ratio = {k: e / (TINY_GRAD_TOL if k.startswith("grad/")
+                     else TINY_OUT_TOL) for k, e in errs.items()}
+    worst = max(ratio, key=ratio.get)
+    return ratio[worst], worst, errs
+
+
+def tiny_reference_check(dev, tag: str = "") -> dict:
+    """The four tiny models on ``dev`` in float32 against the JAX
+    package's outputs (TINY_REFERENCE), then each planted fault, which
+    must fail the same check.  Returns {family or fault: (worst error
+    over its limit, entry)}."""
+    from ray_tpu_torch import models
+    with open(TINY_REFERENCE) as f:
+        ref = json.load(f)["families"]
+    out = {}
+    for family in TINY_FAMILIES:
+        ratio, worst, errs = tiny_errors(family, ref[family], dev)
+        out[family] = (ratio, worst)
+        print(f"tiny_reference {family}: worst {worst} at {ratio:.4g} of "
+              f"its limit (out {TINY_OUT_TOL}, grads {TINY_GRAD_TOL}); "
+              + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+              + f" [{tag}]", flush=True)
+        if not ratio <= 1.0:
+            fail(f"tiny {family} disagrees with the JAX reference")
+    for fault, (family, attr, plant) in TINY_FAULTS.items():
+        mod = models.get_model(family)
+        orig = getattr(mod, attr)
+        setattr(mod, attr, plant(orig))
+        try:
+            ratio, worst, _ = tiny_errors(family, ref[family], dev)
+        finally:
+            setattr(mod, attr, orig)
+        out[fault] = (ratio, worst)
+        print(f"tiny_reference control {fault}: worst {worst} at "
+              f"{ratio:.4g} of its limit (must exceed 1) [{tag}]",
+              flush=True)
+        if ratio <= 1.0:
+            fail(f"planted fault {fault} passed the tiny reference check")
+    return out
+
+
+def rel_l2_errors(got, ref) -> list:
+    """Each leaf's ||g - r|| / ||r|| in float32."""
+    return [((g.float() - r.float()).norm()
+             / r.float().norm().clamp_min(1e-30)).item()
+            for g, r in zip(got, ref)]
+
+
+def grad_report(label: str, names, errs, tol, tag: str) -> tuple:
+    """Prints the worst leaves; returns (worst error, its leaf)."""
+    order = sorted(range(len(errs)), key=lambda i: -errs[i])
+    print(f"{label}: worst leaf {names[order[0]]} rel_err "
+          f"{errs[order[0]]:.4g} (limit {tol}); next "
+          + ", ".join(f"{names[i]} {errs[i]:.3g}" for i in order[1:4])
+          + f" [{tag}]", flush=True)
+    return errs[order[0]], names[order[0]]
+
+
+def with_head(params, key: str, gen, std: float):
+    """``params`` with ``params[key]["kernel"]`` drawn N(0, std²) (the
+    zero-initialised heads leave every other gradient exactly zero)."""
+    from ray_tpu_torch.models._common import normal_init
+    k = params[key]["kernel"]
+    return {**params, key: {**params[key], "kernel": normal_init(
+        gen, tuple(k.shape), k.dtype, std)}}
+
+
+# ResNet-50 (BASELINE #2) at benchmarks/resnet_bench.py's shape (:37,
+# 41-44): 224 x 224 x 3 images, batch 128, float32 params, bf16
+# activations, remat off.
+RESNET_BATCH, RESNET_IMAGE = 128, 224
+RESNET_HEAD_STD = 0.01
+# Step-0 gradients, bf16 activations against the same program in
+# float32 (TF32 off): the worst leaf's relative L2 error.  At the
+# reference's init GN+WS ResNet-50 is chaotic: a bf16 rounding grows
+# about 1.25x a block (0.3 % after the stem, 50 % after the last block,
+# against float64; the JAX package's own bf16 logits are 20 % from its
+# float32 ones at 96², its gradients up to 166 % per leaf), so no limit
+# separates a planted fault from bf16 at the init.  The check scales
+# every block's residual branch (its last GroupNorm scale, gn3) by
+# RESNET_BRANCH_SCALE, as the GPT-2 checks scale their block matrices.
+# resnet_grad_sweep() on the card (PERF.md §6), healthy / planted
+# symmetric padding: x1 1.521 / 1.707, x0.5 1.239 / 1.844, x0.25 0.579 /
+# 1.61, x0.1 0.281 / 1.439 (the phase's own draw: 0.336 / 1.519).  At
+# x0.1, 0.6 sits 1.8x above the healthy error and 2.4x below the fault.
+RESNET_BRANCH_SCALE = 0.1
+RESNET_GRAD_REL_TOL = 0.6
+
+
+def resnet_flops_per_image(cfg, hw: int) -> float:
+    """Model FLOPs a trained image: 3 x 2 x the multiply-adds of every
+    conv and the head, counted from the shapes (forward, and the
+    backward's two products)."""
+    h = -(-hw // 2)
+    macs = h * h * 49 * 3 * cfg.width                      # stem 7x7/2
+    h = -(-h // 2)                                         # max-pool
+    cin = cfg.width
+    for si, n_blocks in enumerate(cfg.stage_sizes):
+        cmid = cfg.width * 2 ** si
+        for bi in range(n_blocks):
+            s = 2 if (si > 0 and bi == 0) else 1
+            ho = -(-h // s)
+            macs += h * h * cin * cmid + ho * ho * 9 * cmid * cmid \
+                + ho * ho * cmid * 4 * cmid
+            if s != 1 or cin != 4 * cmid:
+                macs += ho * ho * cin * 4 * cmid           # projection
+            cin, h = 4 * cmid, ho
+    return 3 * 2 * (macs + cin * cfg.num_classes)
+
+
+def resnet_grad_check(cfg, params, batch, gen,
+                      branch_scale: float = RESNET_BRANCH_SCALE,
+                      tag: str = "") -> tuple:
+    """Step-0 gradients of every leaf at bf16 activations against the
+    same loss in float32, the head drawn N(0, RESNET_HEAD_STD²) and every
+    block's gn3 scale times ``branch_scale``; then with PyTorch's
+    symmetric padding planted in the bf16 run.  Returns (worst error, its
+    leaf, the fault's worst)."""
+    import dataclasses
+    from ray_tpu_torch.models import resnet
+    p = with_head(params, "head", gen, RESNET_HEAD_STD)
+    for si in range(len(cfg.stage_sizes)):
+        p[f"stage{si}"] = [{**bp, "gn3": {**bp["gn3"], "scale": bp["gn3"][
+            "scale"] * branch_scale}} for bp in p[f"stage{si}"]]
+    names = leaf_names(p)
+    ref_loss, ref = leaf_grads(p, lambda: resnet.loss_fn(
+        p, batch, dataclasses.replace(cfg, dtype=torch.float32)))
+    loss, got = leaf_grads(p, lambda: resnet.loss_fn(p, batch, cfg))
+    lab = f"resnet50_train grads branch x{branch_scale}"
+    print(f"{lab}: loss {loss.item():.6f} (float32 {ref_loss.item():.6f}) "
+          f"[{tag}]", flush=True)
+    worst, leaf = grad_report(f"{lab} healthy", names,
+                              rel_l2_errors(got, ref), RESNET_GRAD_REL_TOL,
+                              tag)
+    del got
+    pads = resnet._same_pads
+    resnet._same_pads = lambda n, k, s: (k // 2, k // 2)
+    try:
+        _, bad = leaf_grads(p, lambda: resnet.loss_fn(p, batch, cfg))
+    finally:
+        resnet._same_pads = pads
+    control, _ = grad_report(
+        f"{lab} control symmetric_padding (must fail)", names,
+        rel_l2_errors(bad, ref), RESNET_GRAD_REL_TOL, tag)
+    if not math.isfinite(loss.item()):
+        fail("non-finite loss in the ResNet gradient check")
+    return worst, leaf, control
+
+
+def resnet_setup(dev):
+    """ResNet-50's train program, state and batch (images and labels as
+    resnet_bench.py makes them, from the seed)."""
+    from ray_tpu_torch.models import resnet
+    from ray_tpu_torch.parallel import spmd
+    cfg = resnet.resnet50()
+    prog = spmd.build_train_program(
+        loss_fn=lambda p, b: resnet.loss_fn(p, b, cfg),
+        init_params_fn=lambda g: resnet.init_params(g, cfg, device=dev),
+        optimizer=spmd.default_optimizer(lr=TRAIN_LR, warmup=1,
+                                         total_steps=1000), device=dev)
+    state = prog.init_fn(torch.Generator(device=dev).manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    B, hw = RESNET_BATCH, RESNET_IMAGE
+    batch = spmd.shard_batch(prog, {
+        "images": rng.standard_normal((B, hw, hw, 3)).astype(np.float32),
+        "labels": (np.arange(B) % cfg.num_classes).astype(np.int32)})
+    return cfg, prog, state, batch
+
+
+def resnet_grad_sweep(scales=(1.0, 0.5, 0.25, 0.1), tag: str = "") -> dict:
+    """The ResNet gradient check at several residual-branch scales,
+    without failing on the limit (the sweep behind RESNET_BRANCH_SCALE
+    and RESNET_GRAD_REL_TOL)."""
+    from ray_tpu_torch._device import disable_tf32, resolve_device
+    disable_tf32()
+    dev = resolve_device(None)
+    cfg, _, state, batch = resnet_setup(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    return {s: resnet_grad_check(cfg, state.params, batch, gen, s, tag=tag)
+            for s in scales}
+
+
+def resnet50_train_phase(dev, card, tag: str) -> dict:
+    """ResNet-50 through spmd.build_train_program: the step-0 gradient
+    check against float32, then six steps on one batch with host syncs
+    made errors, no hand-written kernel (convolution, GroupNorm and
+    max-pool are PyTorch's), the step-0 loss ln 1000 (the zero head), a
+    falling loss, the step time, images/s, the model-FLOP share and one
+    profiled step."""
+    from ray_tpu_torch.models import resnet
+    t0 = time.perf_counter()
+    cfg, prog, state, batch = resnet_setup(dev)
+    n_params = resnet.param_count(state.params)
+    fpi = resnet_flops_per_image(cfg, RESNET_IMAGE)
+    print(f"resnet50_train config resnet50 stages {cfg.stage_sizes} width "
+          f"{cfg.width} GN {cfg.gn_groups} (full size) batch {RESNET_BATCH} "
+          f"x {RESNET_IMAGE}^2: {n_params / 1e6:.4f} M params; "
+          f"{fpi / 1e9:.4f} GFLOP a trained image [{tag}]", flush=True)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    worst, leaf, control = resnet_grad_check(cfg, state.params, batch, gen,
+                                             tag=tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_s = time.perf_counter() - t0
+    if worst > RESNET_GRAD_REL_TOL:
+        fail("ResNet step-0 gradients disagree with float32")
+    if control <= RESNET_GRAD_REL_TOL:
+        fail("the planted symmetric padding passed the ResNet check")
+    # -- the main path: no hand-written kernel runs
+    state, run = train_steps("resnet50_train", prog, state, batch, {},
+                             RESNET_BATCH)
+    loss0_err = abs(run["losses"][0] - math.log(cfg.num_classes))
+    if not loss0_err <= 1e-3:
+        fail(f"ResNet step-0 loss {run['losses'][0]} is not ln "
+             f"{cfg.num_classes}")
+    images_per_s = run.pop("tokens_per_s")
+    res = dict(n_params=n_params, setup_s=setup_s, check_s=check_s,
+               grad_rel_err=worst, grad_worst_leaf=leaf,
+               grad_rel_tol=RESNET_GRAD_REL_TOL,
+               grad_control_symmetric_padding=control,
+               step0_loss_minus_ln1000=run["losses"][0]
+               - math.log(cfg.num_classes), **run,
+               images_per_s=images_per_s, flops_per_image=fpi,
+               model_flop_share=fpi * images_per_s / card[1])
+    for k, val in res.items():
+        print(f"resnet50_train {k} {val} [{tag}]", flush=True)
+    res["profile"] = profile_once(
+        "resnet50_train_step", lambda: prog.step_fn(state, batch), tag)
+    del state, prog, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# BERT-base serving (BASELINE #4) at benchmarks/serve_bench.py's shapes
+# (:56, 85): classify at batches 1, 2, 4, 8 x 128 tokens.  Padded rows of
+# true lengths 1 to 128 (BERT_LENGTHS, in batch order), the cls head drawn
+# N(0, BERT_CLS_STD²).
+BERT_LENGTHS = tuple(int(round(x)) for x in np.linspace(128, 1, 15))
+BERT_CLS_STD = 0.02
+BERT_CALLS = 20
+# Padding invariance: a padded row's pooled output and logits against the
+# same row run alone, unpadded (other GEMM shapes, other roundings in
+# bf16): the worst row's largest error over that row's largest magnitude.
+# On the card (PERF.md §6) 0.0285, the mask ignored 1.105; on the CPU in
+# bf16 0.018-0.023 at block matrices x1-x3.  0.05 sits 1.8x above the
+# one and 22x below the other.
+BERT_PAD_TOL = 0.05
+# The kernel path against the plain-LayerNorm path, the same measure over
+# every row of every batch (on the card 0.0223: a LayerNorm output one
+# bf16 step apart, carried through 12 post-LN layers).
+BERT_PLAIN_TOL = 0.05
+
+
+def bert_batches(cfg) -> list:
+    """(tokens, mask, lengths) on the host for each batch of BERT_BATCHES,
+    from the seed."""
+    rng = np.random.default_rng(SEED)
+    out, i = [], 0
+    for B in BERT_BATCHES:
+        lengths = BERT_LENGTHS[i:i + B]
+        i += B
+        toks = rng.integers(0, cfg.vocab_size, (B, BERT_SEQ)).astype(
+            np.int64)
+        mask = (np.arange(BERT_SEQ)[None] < np.array(lengths)[:, None]) \
+            .astype(np.int64)
+        out.append((toks, mask, lengths))
+    return out
+
+
+def _row_errors(got: torch.Tensor, ref: torch.Tensor) -> list:
+    return [((g.float() - r.float()).abs().max()
+             / r.float().abs().max().clamp_min(1e-30)).item()
+            for g, r in zip(got, ref)]
+
+
+def bert_serve_phase(dev, card, tag: str) -> dict:
+    """bert-base's classify, the function a Serve replica calls: padding
+    invariance (with a planted mask fault), the kernel path against the
+    plain-LayerNorm path, then the main path: BERT_CALLS timed calls a
+    batch, each exactly 25 vector LayerNorm-forward launches (eps 1e-12)
+    and no other kernel; p50 / max latency and device time a call."""
+    from ray_tpu_torch.models import bert
+    from ray_tpu_torch.ops import layer_norm as ln
+    cfg = bert.bert_base()
+    L = cfg.n_layer
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = with_head(bert.init_params(gen, cfg, device=dev), "cls", gen,
+                       BERT_CLS_STD)
+    batches = [(torch.from_numpy(t).to(dev), torch.from_numpy(m).to(dev),
+                lens) for t, m, lens in bert_batches(cfg)]
+    print(f"bert_serve config bert-base E {cfg.n_embd} L {L} H "
+          f"{cfg.n_head} (full size), batches {BERT_BATCHES} x {BERT_SEQ}, "
+          f"true lengths {BERT_LENGTHS} [{tag}]", flush=True)
+
+    def run_all():
+        with torch.no_grad():
+            return [(bert.pooled(params, t, cfg, m),
+                     bert.classify(params, t, cfg, m))
+                    for t, m, _ in batches]
+
+    # -- padding invariance: each row alone, unpadded, no mask
+    with torch.no_grad():
+        alone = [[(bert.pooled(params, t[i:i + 1, :n], cfg),
+                   bert.classify(params, t[i:i + 1, :n], cfg))
+                  for i, n in enumerate(lens)] for t, _, lens in batches]
+
+    def pad_error(outs) -> float:
+        errs = []
+        for (p, lg), rows in zip(outs, alone):
+            errs += _row_errors(p, torch.cat([a for a, _ in rows]))
+            errs += _row_errors(lg, torch.cat([b for _, b in rows]))
+        return max(errs)
+
+    kernel_outs = run_all()
+    pad_err = pad_error(kernel_outs)
+    attention = bert._attention
+    bert._attention = lambda q, k, v, mask: attention(
+        q, k, v, torch.ones_like(mask))
+    try:
+        pad_control = pad_error(run_all())
+    finally:
+        bert._attention = attention
+    # -- the kernel path against the plain LayerNorm
+    kernel_ln = bert.layer_norm
+    bert.layer_norm = ln.layer_norm_plain
+    try:
+        plain_outs = run_all()
+    finally:
+        bert.layer_norm = kernel_ln
+    plain_err = max(max(_row_errors(p, pp) + _row_errors(lg, lp))
+                    for (p, lg), (pp, lp) in zip(kernel_outs, plain_outs))
+    print(f"bert_serve padding invariance: worst row rel_err {pad_err:.4g} "
+          f"(limit {BERT_PAD_TOL}); control mask_ignored {pad_control:.4g} "
+          f"(must fail); against the plain LayerNorm {plain_err:.4g} (limit "
+          f"{BERT_PLAIN_TOL}) [{tag}]", flush=True)
+    if not pad_err <= BERT_PAD_TOL:
+        fail("BERT padded rows disagree with the rows run alone")
+    if pad_control <= BERT_PAD_TOL:
+        fail("the planted mask fault passed the BERT padding check")
+    if not plain_err <= BERT_PLAIN_TOL:
+        fail("BERT's kernel path disagrees with the plain LayerNorm path")
+    for p, lg in kernel_outs:
+        if not (torch.isfinite(p).all() and torch.isfinite(lg).all()):
+            fail("non-finite BERT outputs")
+    del kernel_outs, plain_outs, alone
+    # -- the main path: classify, BERT_CALLS timed calls a batch
+    counters = kernel_counters()
+    for m, a in counters.values():
+        setattr(m, a, 0)
+    per_call = {k: 0 for k in counters}
+    per_call["layer_norm_fwd"] = 1 + 2 * L
+    lat, calls = {}, 0
+    with torch.no_grad():
+        for t, m, _ in batches:
+            times = []
+            for i in range(BERT_CALLS + 3):          # 3 warm-up calls
+                before = {k: getattr(mm, a)
+                          for k, (mm, a) in counters.items()}
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                bert.classify(params, t, cfg, m)
+                torch.cuda.synchronize()
+                if i >= 3:
+                    times.append((time.perf_counter() - t1) * 1e3)
+                calls += 1
+                got = {k: getattr(mm, a) - before[k]
+                       for k, (mm, a) in counters.items()}
+                if got != per_call:
+                    fail(f"bert_serve: launches in a call {got}, expected "
+                         f"{per_call}")
+            lat[t.shape[0]] = (float(np.median(times)), max(times))
+    launches = {k: getattr(m, a) for k, (m, a) in counters.items()}
+    if launches["layer_norm_fwd"] != calls * per_call["layer_norm_fwd"]:
+        fail(f"bert_serve: {launches['layer_norm_fwd']} LayerNorm launches "
+             f"over {calls} calls")
+    dev_ms = {}
+    with torch.no_grad():
+        for t, m, _ in batches:
+            r = profile_once(f"bert_classify_b{t.shape[0]}",
+                             lambda: bert.classify(params, t, cfg, m), tag)
+            dev_ms[t.shape[0]] = (r["device_ms"], r["busy"])
+    for B in BERT_BATCHES:
+        print(f"bert_serve b{B}x{BERT_SEQ}: p50 {lat[B][0]:.4g} ms max "
+              f"{lat[B][1]:.4g} ms over {BERT_CALLS} calls (host clock); "
+              f"device {dev_ms[B][0]:.4g} ms a call, busy {dev_ms[B][1]:.3f}"
+              f" [{tag}]", flush=True)
+    print(f"bert_serve launches {launches} over {calls} calls, per call "
+          f"{per_call} [{tag}]", flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(pad_rel_err=pad_err, pad_control=pad_control,
+                plain_rel_err=plain_err, latency_ms=lat, device_ms=dev_ms,
+                calls=calls, launches=launches)
+
+
+# ViT-B/16 training: 224² images, batch 128, remat off (the preset's).
+VIT_HEAD_STD = 0.02
+# Step-0 gradients, kernel path against the plain-LayerNorm path (both
+# bf16): the worst leaf's relative L2 error.  On the card (PERF.md §6)
+# healthy 0.0139, the rolled rstd 774; GPT-2's check (the same kernels,
+# 12 layers of 768) holds 0.05 over its healthy 0.0137.
+VIT_GRAD_REL_TOL = 0.05
+
+
+def vit_flops_per_image(cfg) -> float:
+    """Model FLOPs a trained image: 3 x the forward's matrix products,
+    counted from the shapes (patch embedding, qkv, scores, p·v, output,
+    MLP, head)."""
+    E, L, T = cfg.n_embd, cfg.n_layer, cfg.num_patches + 1
+    M = cfg.mlp_ratio * E
+    per_layer = 2 * T * E * 3 * E + 2 * 2 * T * T * E + 2 * T * E * E \
+        + 2 * 2 * T * E * M
+    embed = 2 * cfg.num_patches * cfg.patch_size ** 2 * 3 * E
+    return 3 * (embed + L * per_layer + 2 * E * cfg.num_classes)
+
+
+def vit_grad_check(cfg, params, batch, gen, tag: str = "") -> tuple:
+    """Step-0 gradients on the kernel path against the plain-LayerNorm
+    path, the head drawn N(0, VIT_HEAD_STD²); then with the LayerNorm
+    backward fed rolled rstd rows.  Returns (worst, its leaf, the
+    fault's worst)."""
+    from ray_tpu_torch.models import vit
+    from ray_tpu_torch.ops import layer_norm as ln
+    p = with_head(params, "head", gen, VIT_HEAD_STD)
+    names = leaf_names(p)
+    kernel_ln = vit.layer_norm
+    vit.layer_norm = ln.layer_norm_plain
+    try:
+        ref_loss, ref = leaf_grads(p, lambda: vit.loss_fn(p, batch, cfg))
+    finally:
+        vit.layer_norm = kernel_ln
+    loss, got = leaf_grads(p, lambda: vit.loss_fn(p, batch, cfg))
+    print(f"vit_train grads: loss {loss.item():.6f} (plain LayerNorm "
+          f"{ref_loss.item():.6f}) [{tag}]", flush=True)
+    worst, leaf = grad_report("vit_train grads healthy", names,
+                              rel_l2_errors(got, ref), VIT_GRAD_REL_TOL, tag)
+    del got
+    bwd = ln.ln_bwd
+    ln.ln_bwd = lambda x, s, g, mu, rstd: bwd(x, s, g, mu, rstd.roll(1, 0))
+    try:
+        _, bad = leaf_grads(p, lambda: vit.loss_fn(p, batch, cfg))
+    finally:
+        ln.ln_bwd = bwd
+    control, _ = grad_report("vit_train grads control ln_bwd_rstd_rolled "
+                             "(must fail)", names, rel_l2_errors(bad, ref),
+                             VIT_GRAD_REL_TOL, tag)
+    if not math.isfinite(loss.item()):
+        fail("non-finite loss in the ViT gradient check")
+    return worst, leaf, control
+
+
+def vit_train_phase(dev, card, tag: str) -> dict:
+    """vit-b16 through spmd.build_train_program: the gradient check, then
+    six steps on one batch with host syncs made errors, exactly 25 vector
+    LayerNorm forwards and 25 backwards a step (eps 1e-6; ln_f on the
+    strided CLS rows) and no flash launch, a falling loss, the step time,
+    images/s, the model-FLOP share and one profiled step."""
+    from ray_tpu_torch.models import vit
+    from ray_tpu_torch.parallel import spmd
+    cfg = vit.vit_b16()
+    B, L = VIT_TRAIN_BATCH, cfg.n_layer
+    fpi = vit_flops_per_image(cfg)
+    t0 = time.perf_counter()
+    prog = spmd.build_train_program(
+        loss_fn=lambda p, b: vit.loss_fn(p, b, cfg),
+        init_params_fn=lambda g: vit.init_params(g, cfg, device=dev),
+        optimizer=spmd.default_optimizer(lr=TRAIN_LR, warmup=1,
+                                         total_steps=1000), device=dev)
+    state = prog.init_fn(torch.Generator(device=dev).manual_seed(SEED))
+    n_params = sum(t.numel() for t in leaf_tensors(state.params))
+    rng = np.random.default_rng(SEED)
+    hw = cfg.image_size
+    batch = spmd.shard_batch(prog, {
+        "images": rng.standard_normal((B, hw, hw, 3)).astype(np.float32),
+        "labels": rng.integers(0, cfg.num_classes, B).astype(np.int32)})
+    print(f"vit_train config vit-b16 E {cfg.n_embd} L {L} H {cfg.n_head} "
+          f"patch {cfg.patch_size} (full size) batch {B} x {hw}^2, "
+          f"{VIT_TOKENS} tokens: {n_params / 1e6:.4f} M params; "
+          f"{fpi / 1e9:.4f} GFLOP a trained image [{tag}]", flush=True)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    worst, leaf, control = vit_grad_check(cfg, state.params, batch, gen, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_s = time.perf_counter() - t0
+    if worst > VIT_GRAD_REL_TOL:
+        fail("ViT step-0 gradients disagree with the plain LayerNorm path")
+    if control <= VIT_GRAD_REL_TOL:
+        fail("the planted LayerNorm backward fault passed the ViT check")
+    # -- the main path: the vector LayerNorm kernels only
+    state, run = train_steps("vit_train", prog, state, batch, {
+        "layer_norm_fwd": 2 * L + 1, "layer_norm_bwd": 2 * L + 1}, B)
+    images_per_s = run.pop("tokens_per_s")
+    res = dict(n_params=n_params, setup_s=setup_s, check_s=check_s,
+               grad_rel_err=worst, grad_worst_leaf=leaf,
+               grad_rel_tol=VIT_GRAD_REL_TOL,
+               grad_control_ln_bwd_rstd_rolled=control, **run,
+               images_per_s=images_per_s, flops_per_image=fpi,
+               model_flop_share=fpi * images_per_s / card[1])
+    for k, val in res.items():
+        print(f"vit_train {k} {val} [{tag}]", flush=True)
+    res["profile"] = profile_once(
+        "vit_train_step", lambda: prog.step_fn(state, batch), tag)
+    del state, prog, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# T5 1.1-base training at the T5 paper's span-corruption lengths: batch
+# 32 x 512 input tokens x 114 target tokens, from the full vocabulary.
+T5_TRAIN_BATCH, T5_INPUT_LEN, T5_TARGET_LEN = 32, 512, 114
+# Step-0 gradients, bf16 activations against the same program in float32
+# (TF32 off): the worst leaf's relative L2 error.  On the card (PERF.md
+# §6) healthy 0.0358, bidirectional decoder buckets 0.945; on the CPU at
+# b2 x 128 / 32, 0.038 and 0.74.  0.1 sits 2.8x above the one and 9x
+# below the other.
+T5_GRAD_REL_TOL = 0.1
+
+
+def t5_flops_per_step(cfg, B: int, S: int, T: int) -> float:
+    """Model FLOPs a train step: 3 x the forward's matrix products,
+    counted from the shapes (projections, scores and p·v of the encoder's
+    self-attention and the decoder's self- and cross-attention, the
+    gated FFNs, the LM head)."""
+    E, HD, F_ = cfg.n_embd, cfg.n_head * cfg.head_dim, cfg.d_ff
+    enc = 2 * S * E * HD * 4 + 2 * 2 * S * S * HD + 2 * S * E * F_ * 3
+    dec = 2 * T * E * HD * 4 + 2 * 2 * T * T * HD \
+        + 2 * T * E * HD * 2 + 2 * S * E * HD * 2 + 2 * 2 * T * S * HD \
+        + 2 * T * E * F_ * 3
+    return 3 * B * (cfg.n_layer * (enc + dec) + 2 * T * E * cfg.vocab_size)
+
+
+def t5_bucket_check(dev, cfg, tag: str) -> None:
+    """The relative-bucket tables computed on the card against the CPU's,
+    exactly: the encoder's (S x S, bidirectional) and the decoder's (T x
+    T, causal), and every relative position in [-4096, 4096] both ways."""
+    from ray_tpu_torch.models import t5
+    cases = []
+    for q, k, bidir in ((T5_INPUT_LEN, T5_INPUT_LEN, True),
+                        (T5_TARGET_LEN, T5_TARGET_LEN, False)):
+        rel = [torch.arange(k, dtype=torch.int32, device=d)[None, :]
+               - torch.arange(q, dtype=torch.int32, device=d)[:, None]
+               for d in (dev, torch.device("cpu"))]
+        cases.append((f"{q}x{k} {'bidirectional' if bidir else 'causal'}",
+                      rel, bidir))
+    for bidir in (True, False):
+        rel = [torch.arange(-4096, 4097, dtype=torch.int32, device=d)
+               for d in (dev, torch.device("cpu"))]
+        way = "bidirectional" if bidir else "one-way"
+        cases.append((f"[-4096, 4096] {way}", rel, bidir))
+    for name, (rd, rc), bidir in cases:
+        args = (cfg.rel_buckets, cfg.rel_max_distance, bidir)
+        got = t5._relative_buckets(rd, *args).cpu()
+        ref = t5._relative_buckets(rc, *args)
+        differ = int((got != ref).sum())
+        print(f"t5_train buckets {name}: {differ} of {ref.numel()} differ "
+              f"from the CPU's [{tag}]", flush=True)
+        if differ:
+            fail(f"T5 bucket table {name} differs between card and CPU")
+
+
+def t5_grad_check(cfg, params, batch, tag: str = "") -> tuple:
+    """Step-0 gradients of every leaf at bf16 activations against the
+    same loss in float32; then with bidirectional buckets planted in the
+    decoder.  Returns (worst, its leaf, the fault's worst)."""
+    import dataclasses
+    from ray_tpu_torch.models import t5
+    names = leaf_names(params)
+    ref_loss, ref = leaf_grads(params, lambda: t5.loss_fn(
+        params, batch, dataclasses.replace(cfg, dtype=torch.float32)))
+    loss, got = leaf_grads(params, lambda: t5.loss_fn(params, batch, cfg))
+    print(f"t5_train grads: loss {loss.item():.6f} (float32 "
+          f"{ref_loss.item():.6f}) [{tag}]", flush=True)
+    worst, leaf = grad_report("t5_train grads healthy", names,
+                              rel_l2_errors(got, ref), T5_GRAD_REL_TOL, tag)
+    del got
+    rel_bias = t5._rel_bias
+    t5._rel_bias = lambda table, q, k, c, bidirectional: rel_bias(
+        table, q, k, c, True)
+    try:
+        _, bad = leaf_grads(params, lambda: t5.loss_fn(params, batch, cfg))
+    finally:
+        t5._rel_bias = rel_bias
+    control, _ = grad_report("t5_train grads control decoder_bidirectional "
+                             "(must fail)", names, rel_l2_errors(bad, ref),
+                             T5_GRAD_REL_TOL, tag)
+    if not math.isfinite(loss.item()):
+        fail("non-finite loss in the T5 gradient check")
+    return worst, leaf, control
+
+
+def t5_train_phase(dev, card, tag: str) -> dict:
+    """t5-base through spmd.build_train_program: the bucket tables, the
+    gradient check against float32, then six steps on one batch with host
+    syncs made errors and a falling loss.  No hand-written kernel runs on
+    this path: RMSNorm is plain PyTorch (inline in the reference) and
+    attention dense; every launch counter must stay 0.  Prints the step
+    time, tokens/s (input and target tokens), the model-FLOP share, peak
+    memory and one profiled step."""
+    from ray_tpu_torch.models import t5
+    from ray_tpu_torch.parallel import spmd
+    cfg = t5.t5_base()
+    B, S, T = T5_TRAIN_BATCH, T5_INPUT_LEN, T5_TARGET_LEN
+    t5_bucket_check(dev, cfg, tag)
+    flops = t5_flops_per_step(cfg, B, S, T)
+    t0 = time.perf_counter()
+    prog = spmd.build_train_program(
+        loss_fn=lambda p, b: t5.loss_fn(p, b, cfg),
+        init_params_fn=lambda g: t5.init_params(g, cfg, device=dev),
+        optimizer=spmd.default_optimizer(lr=TRAIN_LR, warmup=1,
+                                         total_steps=1000), device=dev)
+    state = prog.init_fn(torch.Generator(device=dev).manual_seed(SEED))
+    n_params = sum(t.numel() for t in leaf_tensors(state.params))
+    rng = np.random.default_rng(SEED)
+    V = cfg.vocab_size
+    batch = spmd.shard_batch(prog, {
+        "inputs": rng.integers(0, V, (B, S)).astype(np.int32),
+        "decoder_inputs": rng.integers(0, V, (B, T)).astype(np.int32),
+        "targets": rng.integers(0, V, (B, T)).astype(np.int32)})
+    print(f"t5_train config t5-base E {cfg.n_embd} L {cfg.n_layer} a stack "
+          f"H {cfg.n_head} ff {cfg.d_ff} V {V} (full size) batch {B} x "
+          f"{S} inputs / {T} targets: {n_params / 1e6:.4f} M params; "
+          f"{flops / 1e12:.4f} TFLOP a step [{tag}]", flush=True)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    worst, leaf, control = t5_grad_check(cfg, state.params, batch, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_s = time.perf_counter() - t0
+    if worst > T5_GRAD_REL_TOL:
+        fail("T5 step-0 gradients disagree with float32")
+    if control <= T5_GRAD_REL_TOL:
+        fail("the planted decoder bucket fault passed the T5 check")
+    state, run = train_steps("t5_train", prog, state, batch, {},
+                             B * (S + T))
+    res = dict(n_params=n_params, setup_s=setup_s, check_s=check_s,
+               grad_rel_err=worst, grad_worst_leaf=leaf,
+               grad_rel_tol=T5_GRAD_REL_TOL,
+               grad_control_decoder_bidirectional=control, **run,
+               flops_per_step=flops,
+               model_flop_share=flops / (run["step_ms"] / 1e3) / card[1])
+    for k, val in res.items():
+        print(f"t5_train {k} {val} [{tag}]", flush=True)
+    res["profile"] = profile_once(
+        "t5_train_step", lambda: prog.step_fn(state, batch), tag)
+    del state, prog, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 # The weights-plane phase: a child process attaches to what an engine in
 # this one published.  Its private init is stamped (+1 on every leaf), so
 # only an attach can give it the publisher's bytes.
@@ -2220,13 +3039,33 @@ def main() -> int:
     phase_done("llama_train")
     xl_train = xl_train_phase(dev, card, tag)
     phase_done("xl_train")
-    moe_train_phase(dev, card, tag)
+    moe_train = moe_train_phase(dev, card, tag)
     phase_done("moe_train")
+    tiny_reference_check(dev, tag)
+    phase_done("tiny_reference")
+    resnet_train = resnet50_train_phase(dev, card, tag)
+    phase_done("resnet50_train")
+    bert_serve = bert_serve_phase(dev, card, tag)
+    phase_done("bert_serve")
+    vit_train = vit_train_phase(dev, card, tag)
+    phase_done("vit_train")
+    t5_train = t5_train_phase(dev, card, tag)
+    phase_done("t5_train")
+    # every main path's launches of the kernels it counts, each counted
+    # from 0 over its own run
+    paths = {"engine": eng, "llama_engine": llama, "train": train,
+             "llama_train": llama_train, "xl_train": xl_train,
+             "moe_train": moe_train, "resnet50_train": resnet_train,
+             "bert_serve": bert_serve, "vit_train": vit_train,
+             "t5_train": t5_train}
 
     def kernel_row(row, kname, source, replaces, phase):
         return {"name": kname, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": phase["launches"][kname],
+                "launches_by_path": {p: ph["launches"][kname]
+                                     for p, ph in paths.items()
+                                     if kname in ph["launches"]},
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],

@@ -16,10 +16,19 @@ def normal_init(gen: torch.Generator, shape, dtype,
 
 
 def tree_map(fn: Callable, tree):
-    """``fn`` on every leaf of a nested dict."""
+    """``fn`` on every leaf of a nest of dicts and lists."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
+
+
+def param_count(params: Any) -> int:
+    """Elements over every leaf of a param tree."""
+    counts: List[int] = []
+    tree_map(lambda t: counts.append(t.numel()), params)
+    return sum(counts)
 
 
 def layer_views(blocks: Dict[str, Any], n_layer: int) -> List[Dict[str, Any]]:

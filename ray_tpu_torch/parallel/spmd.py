@@ -148,7 +148,10 @@ def build_train_program(
             p.requires_grad_(True)
         try:
             loss = loss_fn(params, batch)
-            grads = torch.autograd.grad(loss, leaves)
+            # a leaf the loss does not use (BERT's MLM loss leaves the
+            # pooler and the cls head out) gets zeros, as jax.grad gives
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
         finally:
             for p in leaves:
                 p.requires_grad_(False)

@@ -1,5 +1,5 @@
 """The subset of optax that the reference's train step calls, on nested
-dicts of tensors.
+dicts and lists of tensors.
 
 Written from optax's semantics (optax itself is JAX and is not imported):
 a ``GradientTransformation`` is an ``(init, update)`` pair,
@@ -23,7 +23,7 @@ tensors.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, List, NamedTuple, Union
+from typing import Any, Callable, List, NamedTuple, Tuple, Union
 
 import torch
 
@@ -38,18 +38,35 @@ class GradientTransformation(NamedTuple):
 
 
 # ------------------------------------------------------------------ trees
+# A tree is a nest of dicts and lists (ResNet keeps a list of block dicts
+# per stage) with tensors at the leaves, walked in the reference's pytree
+# order: a dict's keys sorted, a list's items in order.
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
-    """``fn`` over the leaves of nested dicts (every tree shaped alike)."""
+    """``fn`` over the leaves of the trees (every tree shaped alike)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
     return fn(tree, *rest)
 
 
-def tree_leaves(tree: Tree) -> List[torch.Tensor]:
+def tree_leaves_with_path(tree: Tree, prefix: str = ""
+                          ) -> List[Tuple[str, torch.Tensor]]:
+    """(path, leaf) pairs in the reference's order; a path joins the dict
+    keys and list indices on the way with "/" (``stage0/1/conv2``)."""
     if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
-    return [tree]
+        return [kv for k in sorted(tree)
+                for kv in tree_leaves_with_path(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, list):
+        return [kv for i, v in enumerate(tree)
+                for kv in tree_leaves_with_path(v, f"{prefix}{i}/")]
+    return [(prefix[:-1], tree)]
+
+
+def tree_leaves(tree: Tree) -> List[torch.Tensor]:
+    return [leaf for _, leaf in tree_leaves_with_path(tree)]
 
 
 def zero_count(params: Tree) -> torch.Tensor:

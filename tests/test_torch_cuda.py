@@ -570,3 +570,73 @@ def test_flash_gqa_d128_backward_refuses(cuda_device, how):
         dkv.data_ptr(), 1, 64, 4, 2, 64, *st64, 1, 0.18, 0.125, 1, stream)
     assert rc == 1
     torch.cuda.synchronize()
+
+
+# The encoder and vision paths: BERT-base serving's rows (eps 1e-12,
+# batch 8 x 128) and ViT-B/16 training's (eps 1e-6, 128 x 197 rows).
+@pytest.mark.parametrize("N", [1024, 25216])
+@pytest.mark.parametrize("eps", [1e-12, 1e-6])
+def test_layer_norm_kernels_at_the_encoder_eps(cuda_device, N, eps):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn((N, 768), generator=g, device=cuda_device).bfloat16()
+    gy = torch.randn((N, 768), generator=g, device=cuda_device).bfloat16()
+    s = 1 + 0.1 * torch.randn(768, generator=g, device=cuda_device)
+    b = 0.1 * torch.randn(768, generator=g, device=cuda_device)
+    before = (t_ln.launches, t_ln.bwd_launches)
+    y, mu, rstd = t_ln.ln_fwd(x, s, b, eps, want_stats=True)
+    yp, mup, rstdp = t_ln.ln_fwd_plain(x, s, b, eps)
+    _within_bf16_steps(y, yp, 1)
+    torch.testing.assert_close(mu, mup, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, rstdp, atol=0, rtol=1e-5)
+    dx, ds, db = t_ln.ln_bwd(x, s, gy, mu, rstd)
+    dxp, dsp, dbp = t_ln.ln_bwd_plain(x, s, gy, mup, rstdp)
+    _within_bf16_steps(dx, dxp, 1)
+    torch.testing.assert_close(ds, dsp, atol=1e-6 * N, rtol=1e-5)
+    torch.testing.assert_close(db, dbp, atol=1e-6 * N, rtol=1e-5)
+    assert (t_ln.launches, t_ln.bwd_launches) == \
+        (before[0] + 1, before[1] + 1)              # the vector route
+
+
+def test_layer_norm_reads_vit_cls_rows_in_place(cuda_device):
+    """ViT's ln_f runs on x[:, 0] of (128, 197, 768): 128 rows 197 x 768
+    elements apart, read in place on the vector route, forward and
+    backward through the autograd Function."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    h = torch.randn((128, 197, 768), generator=g,
+                    device=cuda_device).bfloat16().requires_grad_(True)
+    s = (1 + 0.1 * torch.randn(768, generator=g, device=cuda_device)) \
+        .requires_grad_(True)
+    b = torch.zeros(768, device=cuda_device, requires_grad=True)
+    cls = h[:, 0]
+    assert cls.stride() == (197 * 768, 1)
+    before = {a: getattr(t_ln, a) for a in (
+        "launches", "bwd_launches", "scalar_launches",
+        "bwd_scalar_launches")}
+    y = t_ln.layer_norm(cls, s, b, 1e-6)
+    gy = torch.randn(y.shape, generator=g, device=cuda_device).bfloat16()
+    got = torch.autograd.grad(y, (h, s, b), gy)
+    yp = t_ln.layer_norm_plain(cls, s, b, 1e-6)
+    ref = torch.autograd.grad(yp, (h, s, b), gy)
+    _within_bf16_steps(y, yp, 1)
+    _within_bf16_steps(got[0][:, 0], ref[0][:, 0], 1)
+    assert not got[0][:, 1:].any()
+    torch.testing.assert_close(got[1], ref[1], atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got[2], ref[2], atol=1e-4, rtol=1e-4)
+    assert {a: getattr(t_ln, a) - n for a, n in before.items()} == {
+        "launches": 1, "bwd_launches": 1, "scalar_launches": 0,
+        "bwd_scalar_launches": 0}
+
+
+@pytest.mark.parametrize("buckets,max_dist", [(32, 128), (8, 32)])
+def test_t5_bucket_tables_on_cuda_equal_the_cpus(cuda_device, buckets,
+                                                 max_dist):
+    """T5's buckets come from a float32 log truncated to int32: the
+    card's table equals the CPU's at every relative position in [-4096,
+    4096], both directions."""
+    from ray_tpu_torch.models import t5
+    rel = torch.arange(-4096, 4097, dtype=torch.int32)
+    for bidirectional in (True, False):
+        ref = t5._relative_buckets(rel, buckets, max_dist, bidirectional)
+        got = t5._relative_buckets(rel.to(cuda_device), buckets, max_dist,
+                                   bidirectional)
+        assert torch.equal(got.cpu(), ref)

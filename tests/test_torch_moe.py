@@ -396,9 +396,12 @@ def test_get_model_raises_as_reference(name):
 
 @pytest.mark.parametrize("name", ["bert", "vit", "t5", "resnet",
                                   "bert-base", "vit/vit-b16", "resnet50"])
-def test_get_model_not_ported_families_raise(name):
-    """The reference's families the port does not have yet: the reference
-    finds them, the port raises NotImplementedError naming the queue."""
-    assert jmodels.get_model(name) is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        tmodels.get_model(name)
+def test_get_model_resolves_the_encoder_and_vision_families(name):
+    """The encoder and vision families, by family, "family/preset" and
+    bare preset: the port returns its module of the family the reference
+    returns, with the same presets."""
+    ref = jmodels.get_model(name)
+    got = tmodels.get_model(name)
+    assert got.__name__.rsplit(".", 1)[1] == ref.__name__.rsplit(".", 1)[1]
+    assert set(got.PRESETS) == set(ref.PRESETS)
+    assert got is tmodels.REGISTRY[got.__name__.rsplit(".", 1)[1]]

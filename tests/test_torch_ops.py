@@ -757,6 +757,9 @@ def test_port_imports_no_jax_and_no_ray_tpu():
     assert REPO / "ray_tpu_torch" / "ops" / "moe.py" in _port_sources()
     assert REPO / "ray_tpu_torch" / "models" / "moe_transformer.py" in \
         _port_sources()
+    for family in ("resnet", "bert", "vit", "t5"):
+        assert REPO / "ray_tpu_torch" / "models" / f"{family}.py" in \
+            _port_sources()
     assert not bad, bad
 
 
