@@ -85,7 +85,21 @@
    a step.  T5-base at batch 32 x 512 / 114: the card's bucket tables
    against the CPU's, step-0 gradients against float32 (bidirectional
    decoder buckets must fail), six steps.
-6. Prints each phase's wall seconds, one JSON line of per-kernel numbers,
+6. RLlib phases (no hand-written kernel on this path; every kernel
+   counter must stay 0).  The learners of PPO, IMPALA, APPO and DQN
+   (double_q on and off) and V-trace, at an MLP and a conv size, in
+   float32 against the JAX package's outputs committed in
+   tests/data/rllib_reference.json, with the conv torso flattened in
+   (C, H, W) order, RMSProp's eps outside the root and PPO's unbiased
+   advantage std planted, each of which must fail that check.  IMPALA
+   with BASELINE #3's learner recipe (Nature CNN, 84×84×4 frames, 512
+   an update, local sampling): the step-0 update against the CPU's (a
+   planted flatten order must fail), then train() for a fixed wall
+   budget (update ms, compute_actions ms, env frames/s, busy share,
+   peak memory).  PPO with BASELINE #1's learner settings on
+   PixelSquareEnv must beat the random policy's reward within a cap of
+   iterations.  DQN: finite TD errors, the target synced on schedule.
+7. Prints each phase's wall seconds, one JSON line of per-kernel numbers,
    then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
@@ -2872,6 +2886,666 @@ def t5_train_phase(dev, card, tag: str) -> dict:
     return res
 
 
+# ------------------------------------------------------------------ rllib
+# RLlib's learners against the JAX package's outputs committed in
+# RL_REFERENCE (tests/rllib_reference.py wrote them, JAX on the CPU in
+# float32).  Each run draws, from numpy.random.default_rng((RL_SEED, i)),
+# i the run's place in RL_RUNS: the params in the reference's layout and
+# leaf order (rl_draw), DQN's target params the same way, then the batch
+# (rl_inputs).  Both sides build the algorithm from rl_config(run), load
+# the same draws, take the gradient's global norm at the drawn params and
+# run ONE learner update on the batch.
+RL_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "data", "rllib_reference.json")
+RL_SEED = 0
+# The catalog's two networks at a small size: the tanh MLP (obs 4,
+# hiddens (16, 16), 2 actions) and a conv torso (36×36×2 uint8 frames,
+# VALID convs (16, 8, 4), (32, 4, 2) → 3×3×32, dense 64, 4 actions).
+RL_SIZES = {
+    "mlp": {"env": "RandomEnv", "env_config": {"obs_dim": 4,
+                                               "num_actions": 2},
+            "fcnet_hiddens": (16, 16)},
+    "conv": {"env": "RandomPixelEnv",
+             "env_config": {"size": 36, "frames": 2, "num_actions": 4},
+             "conv_filters": ((16, 8, 4), (32, 4, 2)), "conv_dense": 64},
+}
+# Rows a PPO or DQN update takes; (T, B) of an IMPALA/APPO update.
+RL_ROWS = {"mlp": 64, "conv": 32}
+RL_TB = {"mlp": (8, 4), "conv": (8, 2)}
+# Each algorithm's config beside its defaults: PPO at two epochs of one
+# minibatch holding the whole batch (so the permutation cannot matter),
+# lr 1e-3 so one update moves the params visibly, the value clip and the
+# entropy bonus switched on.
+RL_ALGO_CONFIG = {
+    "ppo": {"lr": 1e-3, "num_sgd_iter": 2, "entropy_coeff": 0.01,
+            "vf_clip_param": 0.5},
+    "impala": {}, "appo": {},
+    "dqn_double": {"double_q": True}, "dqn_single": {"double_q": False},
+}
+RL_RUNS = tuple(f"{a}_{s}" for a in RL_ALGO_CONFIG for s in RL_SIZES) \
+    + ("vtrace",)
+RL_VTRACE_TB = (7, 5)
+RL_VTRACE_CLIPS = {"clip_rho": 1.0, "clip_c": 1.0, "clip_pg_rho": 0.9}
+# The leaves recorded after the update (the file stays small).
+RL_LEAVES = {
+    ("ac", "mlp"): ("pi_0/b", "pi_1/w", "pi_out/w", "vf_0/b", "vf_out/w"),
+    ("ac", "conv"): ("torso/conv_0/b", "torso/conv_1/b", "torso/dense/b",
+                     "pi_out/w", "vf_out/b"),
+    ("q", "mlp"): ("q_0/b", "q_1/w", "q_2/w"),
+    ("q", "conv"): ("torso/conv_0/b", "torso/conv_1/b", "torso/dense/b",
+                    "q_out/w"),
+}
+# Limits, each entry's largest error over its largest magnitude (float32
+# on both sides, sums in other orders).  Params after the update: 1e-5,
+# the target for one update.  Everything else (stats, the gradient's
+# global norm, the update's global norm, V-trace's outputs): RL_OUT_TOL.
+# The sweep (PERF.md §6): rllib_reference_check prints every entry's
+# error.  Healthy, on the CPU and on the card: at most 9.7e-7 of the
+# largest magnitude (params 6.2e-8); the planted faults: 149x (the
+# unbiased std, 1.5e-2 on PPO's policy loss) to 21,130x the limits.
+RL_PARAM_TOL = 1e-5
+RL_OUT_TOL = 1e-4
+
+
+def _rl_flatten_nchw(f):
+    """The conv torso flattened in PyTorch's (C, H, W) order, not the
+    reference's (H, W, C)."""
+    return lambda x: x.reshape(x.shape[0], -1)
+
+
+def _rl_rms_eps_outside_root(f):
+    """RMSProp as ``torch.optim.RMSprop`` places eps: g / (sqrt(nu) +
+    eps), not optax's g / sqrt(nu + eps)."""
+    def scale_by_rms(decay=0.9, eps=1e-8, initial_scale=0.0):
+        from ray_tpu_torch.parallel import transforms as tx
+
+        def init(params):
+            return {"nu": tx.tree_map(
+                lambda p: torch.full_like(p, initial_scale), params)}
+
+        def update(updates, state, params=None):
+            def leaf(g, v):
+                v.mul_(decay).add_((1 - decay) * (g * g))
+                return g / (torch.sqrt(v) + eps)
+            return tx.tree_map(leaf, updates, state["nu"]), state
+
+        return tx.GradientTransformation(init, update)
+    return scale_by_rms
+
+
+def _rl_unbiased_std(f):
+    """PPO's advantages normalised by ``torch.std``'s default, the
+    unbiased std (the reference's ``jnp.std`` has ddof 0)."""
+    return lambda adv: (adv - adv.mean()) / (adv.std() + 1e-8)
+
+
+# Faults that must fail the check: (module of ray_tpu_torch, attribute,
+# plant).
+RL_FAULTS = {
+    "conv_flatten_nchw": ("rllib.models", "_flatten_hwc", _rl_flatten_nchw),
+    "rmsprop_eps_outside_root": ("parallel.transforms", "scale_by_rms",
+                                 _rl_rms_eps_outside_root),
+    "ppo_unbiased_std": ("rllib.algorithms.ppo", "normalize_advantages",
+                         _rl_unbiased_std),
+}
+
+
+def rl_config(run: str) -> dict:
+    """The algorithm config of one learner run (both sides)."""
+    algo, size = run.rsplit("_", 1)
+    cfg = {k: v for k, v in RL_SIZES[size].items()}
+    cfg.update(num_workers=0, num_envs_per_worker=1, seed=RL_SEED,
+               rollout_fragment_length=RL_TB[size][0])
+    cfg.update(RL_ALGO_CONFIG[algo])
+    if algo == "ppo":
+        cfg.update(train_batch_size=RL_ROWS[size],
+                   sgd_minibatch_size=RL_ROWS[size])
+    return cfg
+
+
+def rl_draw(rng, path: str, shape) -> np.ndarray:
+    """One leaf at ``path``: a weight (``w``, dense (in, out) or conv
+    HWIO) N(0, 1 / fan_in), anything else 0.1 N(0, 1); float32."""
+    if path.endswith("/w"):
+        fan_in = int(np.prod(shape[:-1]))
+        return (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(
+            np.float32)
+    return (0.1 * rng.standard_normal(shape)).astype(np.float32)
+
+
+def rl_draw_tree(rng, leaves) -> dict:
+    """``leaves``: (path, shape) in the reference's leaf order → the nested
+    dict of drawn leaves."""
+    out: dict = {}
+    for path, shape in leaves:
+        *outer, name = path.split("/")
+        node = out
+        for k in outer:
+            node = node.setdefault(k, {})
+        node[name] = rl_draw(rng, path, tuple(shape))
+    return out
+
+
+def _rl_behavior(rng, lead, n_actions):
+    """Behavior-policy logits, sampled actions and their log-probs."""
+    logits = rng.standard_normal(lead + (n_actions,)).astype(np.float32)
+    actions = rng.integers(0, n_actions, lead).astype(np.int32)
+    lse = np.log(np.exp(logits.astype(np.float64)).sum(-1))
+    logp = np.take_along_axis(logits, actions[..., None], -1)[..., 0] - lse
+    return logits, actions, logp.astype(np.float32)
+
+
+def rl_inputs(run: str, rng) -> dict:
+    """The batch one run learns on, drawn after the params.  PPO and DQN:
+    rows; IMPALA/APPO: time-major [T, B] with ``last_obs`` and ``dones``,
+    as ``_to_time_major`` gives them; vtrace: its arguments."""
+    if run == "vtrace":
+        T, B = RL_VTRACE_TB
+        beh = (0.5 * rng.standard_normal((T, B)) - 1.0).astype(np.float32)
+        tgt = (0.5 * rng.standard_normal((T, B)) - 1.0).astype(np.float32)
+        return {"behavior_logp": beh, "target_logp": tgt,
+                "rewards": rng.standard_normal((T, B)).astype(np.float32),
+                "discounts": (0.99 * (rng.uniform(size=(T, B)) > 0.2))
+                .astype(np.float32),
+                "values": rng.standard_normal((T, B)).astype(np.float32),
+                "bootstrap_value": rng.standard_normal(B).astype(
+                    np.float32)}
+    algo, size = run.rsplit("_", 1)
+    A = RL_SIZES[size]["env_config"]["num_actions"]
+    lead = RL_TB[size] if algo in ("impala", "appo") else (RL_ROWS[size],)
+
+    def obs(shape):
+        if size == "mlp":
+            return rng.standard_normal(shape + (4,)).astype(np.float32)
+        return rng.integers(0, 256, shape + (36, 36, 2), dtype=np.uint8)
+
+    if algo == "ppo":
+        n = lead[0]
+        logits, actions, logp = _rl_behavior(rng, lead, A)
+        vf = rng.standard_normal(n).astype(np.float32)
+        return {"obs": obs(lead), "actions": actions, "action_logp": logp,
+                "action_dist_inputs": logits,
+                "advantages": (2.0 * rng.standard_normal(n) + 0.5).astype(
+                    np.float32),
+                "value_targets": (vf + rng.standard_normal(n)).astype(
+                    np.float32),
+                "vf_preds": vf}
+    if algo in ("impala", "appo"):
+        _, actions, logp = _rl_behavior(rng, lead, A)
+        return {"obs": obs(lead), "actions": actions, "action_logp": logp,
+                "rewards": rng.standard_normal(lead).astype(np.float32),
+                "dones": (rng.uniform(size=lead) < 0.2).astype(np.float32),
+                "last_obs": obs((lead[1],))}
+    n = lead[0]
+    return {"obs": obs(lead),
+            "actions": rng.integers(0, A, n).astype(np.int64),
+            "rewards": rng.standard_normal(n).astype(np.float32),
+            "new_obs": obs(lead),
+            "dones": (rng.uniform(size=n) < 0.2).astype(np.float32)}
+
+
+def rl_tree_paths(tree, prefix: str = "") -> list:
+    """(path, leaf) of a nested dict in the reference's leaf order (keys
+    sorted at every level)."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out += rl_tree_paths(v, f"{prefix}{k}/")
+        else:
+            out.append((f"{prefix}{k}", v))
+    return out
+
+
+def rl_update_norm(before: dict, after: dict) -> float:
+    """The global L2 norm of after − before, over every leaf, in float64."""
+    b, a = dict(rl_tree_paths(before)), dict(rl_tree_paths(after))
+    return float(np.sqrt(sum(
+        np.sum((np.asarray(a[k], np.float64) - b[k]) ** 2) for k in b)))
+
+
+def rl_outputs(run: str, dev) -> dict:
+    """The port's outputs for one run on ``dev`` (numpy arrays), as
+    tests/rllib_reference.py records the reference's."""
+    from ray_tpu_torch.parallel import transforms as tx
+    from ray_tpu_torch.rllib import algorithms, vtrace
+    from ray_tpu_torch.rllib import models as rl_models
+    from ray_tpu_torch.rllib.algorithms.algorithm import grads_with_aux
+    rng = np.random.default_rng((RL_SEED, RL_RUNS.index(run)))
+    if run == "vtrace":
+        args = {k: torch.from_numpy(v).to(dev)
+                for k, v in rl_inputs(run, rng).items()}
+        vs, pg_adv = vtrace(**args, **RL_VTRACE_CLIPS)
+        return {"vs": vs.cpu().numpy(), "pg_adv": pg_adv.cpu().numpy()}
+    algo_name, size = run.rsplit("_", 1)
+    cls = {"ppo": algorithms.PPOConfig, "impala": algorithms.IMPALAConfig,
+           "appo": algorithms.APPOConfig, "dqn": algorithms.DQNConfig}[
+        algo_name.split("_")[0]]
+    algo = cls().update(dict(rl_config(run), device=str(dev))).build()
+    policy = algo.workers.local_worker.policy
+    q_net = algo_name.startswith("dqn")
+    shapes = [(p, v.shape) for p, v in rl_tree_paths(
+        policy.get_weights()["params"] if q_net else policy.get_weights())]
+    before = rl_draw_tree(rng, shapes)
+    target = rl_draw_tree(rng, shapes) if q_net else None
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in rl_inputs(run, rng).items()}
+    policy.set_weights({"params": before} if q_net else before)
+    if algo_name == "ppo":
+        learner = algo._learners["default_policy"]
+        grads, _ = grads_with_aux(learner["loss_fn"], policy.params, batch,
+                                  learner["kl_coeff"])
+        stats = learner["update"](policy.params, learner["opt_state"],
+                                  batch, learner["kl_coeff"], algo._gen)
+        names = ("kl", "entropy", "vf_loss", "policy_loss")
+    elif q_net:
+        algo.target_params = rl_models.params_from_numpy(
+            target, policy.model_config, dev)
+        grads, _ = grads_with_aux(algo._loss_fn, policy.params,
+                                  algo.target_params, batch)
+        stats = algo._update(policy.params, algo.target_params,
+                             algo._opt_state, batch)[None]
+        names = ("mean_td_error",)
+    else:
+        grads, _ = grads_with_aux(algo._loss_fn, policy.params, batch)
+        stats = algo._update(policy.params, algo._opt_state, batch)
+        names = ("policy_loss", "vf_loss", "entropy")
+    after = rl_models.params_to_numpy(policy.params)
+    res = {f"stat/{n}": v for n, v in zip(names, stats.cpu().numpy())}
+    res["grad_norm"] = tx.global_norm(grads).cpu().numpy()
+    res["update_norm"] = np.float32(rl_update_norm(before, after))
+    by_path = dict(rl_tree_paths(after))
+    for p in RL_LEAVES[("q" if q_net else "ac", size)]:
+        res[f"param/{p}"] = by_path[p]
+    return {k: np.asarray(v, np.float32) for k, v in res.items()}
+
+
+def rl_errors(run: str, ref: dict, dev) -> tuple:
+    """(worst error over its limit, that entry, each entry's error): each
+    entry's largest error over the reference's largest magnitude."""
+    got = rl_outputs(run, dev)
+    errs = {}
+    for key, entry in ref.items():
+        r = np.asarray(entry["values"], np.float32).reshape(entry["shape"])
+        if got[key].shape != r.shape:
+            fail(f"rllib {run} {key}: shape {got[key].shape}, reference "
+                 f"{r.shape}")
+        errs[key] = float(np.abs(got[key] - r).max()
+                          / max(np.abs(r).max(), 1e-30))
+    ratio = {k: e / (RL_PARAM_TOL if k.startswith("param/")
+                     else RL_OUT_TOL) for k, e in errs.items()}
+    worst = max(ratio, key=ratio.get)
+    return ratio[worst], worst, errs
+
+
+def rllib_reference_check(dev, tag: str = "") -> dict:
+    """Every run of RL_RUNS on ``dev`` in float32 against the JAX
+    package's outputs (RL_REFERENCE), then each planted fault, which must
+    fail the same check.  Returns {run or fault: (worst error over its
+    limit, entry)}."""
+    import importlib
+    with open(RL_REFERENCE) as f:
+        ref = json.load(f)["runs"]
+    out = {}
+    for run in RL_RUNS:
+        ratio, worst, errs = rl_errors(run, ref[run], dev)
+        out[run] = (ratio, worst)
+        print(f"rllib_reference {run}: worst {worst} at {ratio:.4g} of its "
+              f"limit (params {RL_PARAM_TOL}, other {RL_OUT_TOL}); "
+              + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+              + f" [{tag}]", flush=True)
+        if not ratio <= 1.0:
+            fail(f"rllib {run} disagrees with the JAX reference")
+    for fault, (module, attr, plant) in RL_FAULTS.items():
+        mod = importlib.import_module(f"ray_tpu_torch.{module}")
+        orig = getattr(mod, attr)
+        setattr(mod, attr, plant(orig))
+        try:
+            worst = max(((rl_errors(run, ref[run], dev)[:2], run)
+                         for run in RL_RUNS), key=lambda x: x[0][0])
+        finally:
+            setattr(mod, attr, orig)
+        (ratio, entry), run = worst
+        out[fault] = (ratio, f"{run} {entry}")
+        print(f"rllib_reference control {fault}: worst {run} {entry} at "
+              f"{ratio:.4g} of its limit (must exceed 1) [{tag}]",
+              flush=True)
+        if ratio <= 1.0:
+            fail(f"planted fault {fault} passed the rllib reference check")
+    return out
+
+
+# The RLlib phases: BASELINE #3's and #1's learner recipes at full size,
+# and DQN, sampling locally (num_workers=0: remote rollout actors wait for
+# the runtime).  No hand-written kernel is on this path: the networks are
+# cuDNN convolutions and cuBLAS products, as the reference computes them
+# outside Pallas; every kernel counter must stay at 0.
+#
+# IMPALA (BASELINE #3), benchmarks/rllib_bench.py:70-98: RandomPixelEnv
+# 84×84×4 uint8, 6 actions, the Nature CNN (conv_dense 512), lr 3e-4,
+# num_batches_per_iteration 4; 16 envs × 32 steps = the 512 frames an
+# update that the bench assembles from 4 fragments × 4 envs × 32.
+IMPALA_PIXEL = {"env": "RandomPixelEnv",
+                "env_config": {"size": 84, "frames": 4, "num_actions": 6},
+                "num_workers": 0, "num_envs_per_worker": 16,
+                "rollout_fragment_length": 32,
+                "num_batches_per_iteration": 4, "lr": 3e-4, "seed": SEED}
+IMPALA_WALL_S = 10.0
+# Step-0 update on the card against the same update on the CPU (same
+# weights, same batch): each leaf's optax update (before it is applied),
+# relative L2.  float32 on both sides, TF32 off; cuDNN's algorithms sum
+# in other orders than the CPU's.  impala_step0_sweep over three sampled
+# batches (PERF.md §6): healthy 1.8e-6, 4.6e-5, 2.2e-4 (conv_1/w, a
+# gradient summed over 512 frames with cancellation); the flatten-order
+# fault 1.69-1.71.
+IMPALA_STEP0_TOL = 1e-3
+# PPO (BASELINE #1's learner), rllib_bench.py:24-30: train_batch_size
+# 2048, num_sgd_iter 8, sgd_minibatch_size 256, lr 3e-4, 8 envs × 256
+# steps; on PixelSquareEnv 84×84×4 with the Nature CNN (the card's
+# machine has no gymnasium, so no CartPole).  A random policy earns 8 of
+# an episode's 16.  PPO must reach PPO_TARGET_REWARD within PPO_ITER_CAP
+# iterations: on the card it passed 13 at iteration 6 (7.88, 9.29,
+# 10.83, 11.77, 12.74, 13.14), the CPU's run of the recipe at iteration
+# 6 too (PERF.md §6); the cap leaves room for another random stream.
+PPO_PIXEL = {"env": "PixelSquareEnv",
+             "env_config": {"size": 84, "frames": 4},
+             "num_workers": 0, "num_envs_per_worker": 8,
+             "rollout_fragment_length": 256, "train_batch_size": 2048,
+             "num_sgd_iter": 8, "sgd_minibatch_size": 256, "lr": 3e-4,
+             "seed": SEED}
+PPO_RANDOM_REWARD = 8.0
+PPO_TARGET_REWARD = 13.0
+PPO_ITER_CAP = 12
+# DQN on PixelSquareEnv with the Nature CNN: DQN_UPDATES updates of 32
+# frames, the target synced every DQN_TARGET_FREQ.
+DQN_PIXEL = {"env": "PixelSquareEnv",
+             "env_config": {"size": 84, "frames": 4},
+             "num_workers": 0, "num_envs_per_worker": 4,
+             "buffer_size": 4096, "learning_starts": 256,
+             "train_batch_size": 32, "target_network_update_freq": 10,
+             "epsilon_timesteps": 2000, "seed": SEED}
+DQN_UPDATES = 40
+
+
+def zero_kernel_counts() -> None:
+    for m, a in kernel_counters().values():
+        setattr(m, a, 0)
+
+
+def rl_kernel_check(label: str) -> None:
+    """The RL path launches none of the hand-written kernels: every
+    counter is still 0 (zeroed just before the path ran)."""
+    moved = {k: getattr(m, a) for k, (m, a) in kernel_counters().items()
+             if getattr(m, a)}
+    print(f"{label} hand-written kernel launches {moved or 0} (none on "
+          f"this path)", flush=True)
+    if moved:
+        fail(f"{label} launched hand-written kernels: {moved}")
+
+
+def rl_step0_updates(algo, batch) -> tuple:
+    """IMPALA's first update on ``batch`` from a fresh optimizer state:
+    (leaf paths, each leaf's optax update (not applied) on the CPU, the
+    stats)."""
+    from ray_tpu_torch.parallel import transforms as tx
+    from ray_tpu_torch.rllib.algorithms.algorithm import grads_with_aux
+    params = algo.workers.local_worker.policy.params
+    grads, aux = grads_with_aux(algo._loss_fn, params,
+                                algo._to_time_major(batch))
+    updates, _ = algo._optimizer.update(grads, algo._optimizer.init(params),
+                                        params)
+    pairs = tx.tree_leaves_with_path(updates)
+    return ([p for p, _ in pairs], [u.to("cpu") for _, u in pairs],
+            torch.stack(aux).to("cpu"))
+
+
+def impala_step0_check(algo, cpu_algo, batch, tag: str,
+                       fault: Optional[str] = None) -> tuple:
+    """The card's step-0 update against the CPU's on the same weights and
+    batch: (worst leaf's relative L2, its leaf, stats' worst relative
+    error).  ``fault``: one of RL_FAULTS that acts while the update runs
+    (the flatten order; the optimizer is built before), planted on the
+    card's side."""
+    import importlib
+    cpu_algo.workers.local_worker.policy.set_weights(algo.get_weights())
+    names, ref, ref_stats = rl_step0_updates(cpu_algo, batch)
+    orig = None
+    if fault is not None:
+        module, attr, plant = RL_FAULTS[fault]
+        mod = importlib.import_module(f"ray_tpu_torch.{module}")
+        orig = getattr(mod, attr)
+        setattr(mod, attr, plant(orig))
+    try:
+        _, got, stats = rl_step0_updates(algo, batch)
+    finally:
+        if orig is not None:
+            setattr(mod, attr, orig)
+    errs = rel_l2_errors(got, ref)
+    stats_err = float(((stats - ref_stats).abs()
+                       / ref_stats.abs().clamp_min(1e-30)).max())
+    label = "impala_pixel step0 update" + (f" control {fault}" if fault
+                                           else "")
+    worst, leaf = grad_report(label, names, errs, IMPALA_STEP0_TOL, tag)
+    print(f"{label} stats rel_err {stats_err:.4g} [{tag}]", flush=True)
+    return max(worst, stats_err), leaf, stats_err
+
+
+def impala_step0_sweep(batches: int = 3, tag: str = "") -> list:
+    """impala_step0_check on several sampled batches, healthy and with
+    the flatten-order fault planted, without failing: the sweep behind
+    IMPALA_STEP0_TOL."""
+    from ray_tpu_torch._device import disable_tf32
+    from ray_tpu_torch.rllib import IMPALAConfig
+    disable_tf32()
+    dev = torch.device("cuda")
+    algo = IMPALAConfig().update(dict(IMPALA_PIXEL,
+                                      device=str(dev))).build()
+    cpu_algo = IMPALAConfig().update(dict(IMPALA_PIXEL,
+                                          device="cpu")).build()
+    out = []
+    for _ in range(batches):
+        batch = algo.workers.local_worker.sample()
+        out.append({f: impala_step0_check(algo, cpu_algo, batch, tag, f)[0]
+                    for f in (None, "conv_flatten_nchw")})
+    print(f"impala_step0_sweep {out} [{tag}]", flush=True)
+    return out
+
+
+def impala_pixel_phase(dev, card, tag: str) -> dict:
+    """BASELINE #3's learner on the card: the step-0 update against the
+    CPU's (a planted flatten-order fault must fail it), then train() for
+    IMPALA_WALL_S of wall time with local sampling; learner update ms
+    (wall and device), compute_actions ms, env frames/s, the busy share
+    of one profiled update and the peak memory."""
+    from ray_tpu_torch.parallel import transforms as tx
+    from ray_tpu_torch.rllib import IMPALAConfig
+    t0 = time.perf_counter()
+    algo = IMPALAConfig().update(dict(IMPALA_PIXEL, device=str(dev))).build()
+    cpu_algo = IMPALAConfig().update(dict(IMPALA_PIXEL,
+                                          device="cpu")).build()
+    policy = algo.workers.local_worker.policy
+    n_params = sum(p.numel() for p in tx.tree_leaves(policy.params))
+    print(f"impala_pixel config {IMPALA_PIXEL} Nature CNN "
+          f"{policy.model_config.conv_filters} dense "
+          f"{policy.model_config.conv_dense}: {n_params} params; float32, "
+          f"TF32 off [{tag}]", flush=True)
+    batch = algo.workers.local_worker.sample()
+    worst, leaf, _ = impala_step0_check(algo, cpu_algo, batch, tag)
+    control, _, _ = impala_step0_check(algo, cpu_algo, batch, tag,
+                                       "conv_flatten_nchw")
+    if not worst <= IMPALA_STEP0_TOL:
+        fail(f"IMPALA's step-0 update on the card disagrees with the CPU's "
+             f"({leaf} {worst})")
+    if control <= IMPALA_STEP0_TOL:
+        fail("the planted flatten order passed the IMPALA step-0 check")
+    del cpu_algo
+    check_s = time.perf_counter() - t0
+    # -- the main path: train() for a fixed wall budget
+    zero_kernel_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iters, infos = [], []
+    t_run = time.perf_counter()
+    frames0 = algo.workers.local_worker.get_metrics()["num_env_steps"]
+    while time.perf_counter() - t_run < IMPALA_WALL_S:
+        t = time.perf_counter()
+        r = algo.train()
+        iters.append(time.perf_counter() - t)
+        infos.append(r["info"])
+    wall = time.perf_counter() - t_run
+    frames = r["timesteps_total"] - frames0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rl_kernel_check("impala_pixel")
+    if not all(math.isfinite(i[k]) for i in infos
+               for k in ("policy_loss", "vf_loss", "entropy")):
+        fail(f"impala_pixel: non-finite learner stats {infos[-1]}")
+    # -- the learner update alone, on one 512-frame batch, and acting
+    learn = lambda: algo._learn_on(batch)            # noqa: E731
+    learn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(10):
+        learn()
+    torch.cuda.synchronize()
+    update_wall_ms = (time.perf_counter() - t) * 1e2
+    obs = batch["obs"][:IMPALA_PIXEL["num_envs_per_worker"]]
+    policy.compute_actions(obs)
+    t = time.perf_counter()
+    for _ in range(50):
+        policy.compute_actions(obs)
+    act_ms = (time.perf_counter() - t) * 20
+    prof = profile_once("impala_pixel_update", learn, tag)
+    res = dict(check_s=check_s, step0_rel_err=worst, step0_worst_leaf=leaf,
+               step0_tol=IMPALA_STEP0_TOL,
+               step0_control_flatten_nchw=control,
+               iterations=len(iters), wall_s=wall, env_frames=frames,
+               env_frames_per_s=frames / wall,
+               iteration_ms=1e3 * sum(iters[1:]) / max(len(iters) - 1, 1),
+               update_wall_ms=update_wall_ms,
+               update_device_ms=prof["device_ms"], update_busy=prof["busy"],
+               compute_actions_ms=act_ms, peak_mem_gb=peak_gb,
+               last_info=infos[-1], launches={})
+    for k, val in res.items():
+        print(f"impala_pixel {k} {val} [{tag}]", flush=True)
+    del algo, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def ppo_pixel_phase(dev, card, tag: str) -> dict:
+    """BASELINE #1's learner settings on PixelSquareEnv with the Nature
+    CNN: train() until the episode reward reaches PPO_TARGET_REWARD (a
+    random policy earns PPO_RANDOM_REWARD) within PPO_ITER_CAP
+    iterations; update ms and iteration ms."""
+    from ray_tpu_torch.rllib import PPOConfig
+    algo = PPOConfig().update(dict(PPO_PIXEL, device=str(dev))).build()
+    learner = algo._learners["default_policy"]
+    update = learner["update"]
+    update_s = []
+
+    def timed_update(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = update(*a)
+        torch.cuda.synchronize()
+        update_s.append(time.perf_counter() - t)
+        return out
+
+    learner["update"] = timed_update
+    zero_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rewards, iters = [], []
+    for _ in range(PPO_ITER_CAP):
+        t = time.perf_counter()
+        r = algo.train()
+        iters.append(time.perf_counter() - t)
+        rewards.append(r["episode_reward_mean"])
+        print(f"ppo_pixel iteration {r['training_iteration']} reward "
+              f"{rewards[-1]:.4g} kl {r['info']['kl']:.4g} iteration_ms "
+              f"{iters[-1] * 1e3:.5g} update_ms {update_s[-1] * 1e3:.5g} "
+              f"[{tag}]", flush=True)
+        if rewards[-1] >= PPO_TARGET_REWARD:
+            break
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rl_kernel_check("ppo_pixel")
+    learner["update"] = update
+    if not rewards[-1] >= PPO_TARGET_REWARD:
+        fail(f"PPO did not reach {PPO_TARGET_REWARD} (random "
+             f"{PPO_RANDOM_REWARD}) in {PPO_ITER_CAP} iterations: "
+             f"{rewards}")
+    batch = algo.workers.local_worker.sample()
+    from ray_tpu_torch.rllib.algorithms.ppo import LEARNER_COLUMNS, \
+        device_batch
+    dbatch = device_batch(batch, LEARNER_COLUMNS, dev)
+    prof = profile_once("ppo_pixel_update", lambda: update(
+        algo.get_policy().params, learner["opt_state"], dbatch,
+        learner["kl_coeff"], algo._gen), tag)
+    res = dict(rewards=rewards, iterations=len(rewards),
+               iteration_ms=1e3 * sum(iters[1:]) / max(len(iters) - 1, 1),
+               update_ms=1e3 * sum(update_s[1:]) / max(len(update_s) - 1,
+                                                       1),
+               update_device_ms=prof["device_ms"], update_busy=prof["busy"],
+               peak_mem_gb=peak_gb, launches={})
+    for k, val in res.items():
+        print(f"ppo_pixel {k} {val} [{tag}]", flush=True)
+    del algo, batch, dbatch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def dqn_pixel_phase(dev, card, tag: str) -> dict:
+    """DQN on PixelSquareEnv with the Nature CNN for DQN_UPDATES updates:
+    every TD error finite, the target a copy of the params taken every
+    ``target_network_update_freq`` updates (equal right after a sync,
+    apart after every other update)."""
+    from ray_tpu_torch.parallel import transforms as tx
+    from ray_tpu_torch.rllib import DQNConfig
+    algo = DQNConfig().update(dict(DQN_PIXEL, device=str(dev))).build()
+    policy = algo.get_policy()
+    freq = DQN_PIXEL["target_network_update_freq"]
+
+    def same(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in
+                   zip(tx.tree_leaves(a), tx.tree_leaves(b)))
+
+    zero_kernel_counts()
+    tds, step_s, updates, synced_equal, apart = [], [], 0, 0, 0
+    while updates < DQN_UPDATES:
+        syncs = algo.target_syncs
+        t = time.perf_counter()
+        info = algo.train()["info"]
+        step_s.append(time.perf_counter() - t)
+        if "mean_td_error" not in info:
+            continue
+        updates += 1
+        tds.append(info["mean_td_error"])
+        if algo.target_syncs != updates // freq:
+            fail(f"dqn_pixel: {algo.target_syncs} target syncs after "
+                 f"{updates} updates (every {freq})")
+        if algo.target_syncs > syncs:
+            synced_equal += same(algo.target_params, policy.params)
+        else:
+            apart += not same(algo.target_params, policy.params)
+    rl_kernel_check("dqn_pixel")
+    if not all(math.isfinite(x) for x in tds):
+        fail(f"dqn_pixel: non-finite TD error {tds}")
+    if synced_equal != DQN_UPDATES // freq or \
+            apart != DQN_UPDATES - DQN_UPDATES // freq:
+        fail(f"dqn_pixel: the target equals the params after "
+             f"{synced_equal} syncs, differs after {apart} other updates")
+    res = dict(updates=updates, target_syncs=algo.target_syncs,
+               td_first=tds[0], td_last=tds[-1],
+               train_step_ms=1e3 * sum(step_s[-10:]) / 10, launches={})
+    for k, val in res.items():
+        print(f"dqn_pixel {k} {val} [{tag}]", flush=True)
+    del algo
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 # The weights-plane phase: a child process attaches to what an engine in
 # this one published.  Its private init is stamped (+1 on every leaf), so
 # only an attach can give it the publisher's bytes.
@@ -3051,6 +3725,14 @@ def main() -> int:
     phase_done("vit_train")
     t5_train = t5_train_phase(dev, card, tag)
     phase_done("t5_train")
+    rllib_reference_check(dev, tag)
+    phase_done("rllib_reference")
+    impala_pixel_phase(dev, card, tag)
+    phase_done("impala_pixel")
+    ppo_pixel_phase(dev, card, tag)
+    phase_done("ppo_pixel")
+    dqn_pixel_phase(dev, card, tag)
+    phase_done("dqn_pixel")
     # every main path's launches of the kernels it counts, each counted
     # from 0 over its own run
     paths = {"engine": eng, "llama_engine": llama, "train": train,

@@ -140,6 +140,27 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8
     return GradientTransformation(init, update)
 
 
+def scale_by_rms(decay: float = 0.9, eps: float = 1e-8,
+                 initial_scale: float = 0.0) -> GradientTransformation:
+    """RMSProp's scaling, as optax's (``eps_in_sqrt``, no bias
+    correction): ``nu = (1 - decay) g² + decay nu``, ``g / sqrt(nu +
+    eps)`` with ``eps`` INSIDE the root; ``nu`` starts at
+    ``initial_scale``.  (``torch.optim.RMSprop`` divides by ``sqrt(nu) +
+    eps``, far from this at RLlib's eps 0.1.)"""
+    def init(params):
+        return {"nu": tree_map(
+            lambda p: torch.full_like(p, initial_scale), params)}
+
+    def update(updates, state, params=None):
+        def leaf(g, v):
+            v.mul_(decay).add_((1 - decay) * (g * g))
+            return g * torch.rsqrt(v + eps)
+
+        return tree_map(leaf, updates, state["nu"]), state
+
+    return GradientTransformation(init, update)
+
+
 def add_decayed_weights(weight_decay: float = 0.0) -> GradientTransformation:
     def init(params):
         return ()
@@ -177,6 +198,21 @@ def scale_by_learning_rate(learning_rate: ScalarOrSchedule
         return out, state
 
     return GradientTransformation(init, update)
+
+
+def adam(learning_rate: ScalarOrSchedule, b1: float = 0.9,
+         b2: float = 0.999, eps: float = 1e-8) -> GradientTransformation:
+    """optax.adam: eps outside the root, bias-corrected moments."""
+    return chain(scale_by_adam(b1, b2, eps),
+                 scale_by_learning_rate(learning_rate))
+
+
+def rmsprop(learning_rate: ScalarOrSchedule, decay: float = 0.9,
+            eps: float = 1e-8, initial_scale: float = 0.0
+            ) -> GradientTransformation:
+    """optax.rmsprop without momentum or centering (its defaults)."""
+    return chain(scale_by_rms(decay, eps, initial_scale),
+                 scale_by_learning_rate(learning_rate))
 
 
 def adamw(learning_rate: ScalarOrSchedule, b1: float = 0.9,

@@ -28,6 +28,8 @@ from typing import Dict, List, Sequence, Union
 
 import torch
 
+from ray_tpu_torch._device import DeviceLike, resolve_device
+
 
 class NoFreeBlocks(Exception):
     """Allocation failed: the pool is exhausted (caller should preempt)."""
@@ -41,12 +43,12 @@ class PagedKVCache:
 
     def __init__(self, num_blocks: int, n_layer: int, block_size: int,
                  n_kv: int, head_dim: int, dtype=torch.float32,
-                 device: Union[str, torch.device] = "cpu"):
+                 device: DeviceLike = None):
         self.num_blocks = num_blocks
         self.block_shape = (n_layer, 2, block_size, n_kv, head_dim)
         self.block_size = block_size
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)     # None: the card
         self.pool = torch.zeros((num_blocks,) + self.block_shape,
                                 dtype=dtype, device=self.device)
         self._lock = threading.Lock()

@@ -760,7 +760,42 @@ def test_port_imports_no_jax_and_no_ray_tpu():
     for family in ("resnet", "bert", "vit", "t5"):
         assert REPO / "ray_tpu_torch" / "models" / f"{family}.py" in \
             _port_sources()
+    rllib = REPO / "ray_tpu_torch" / "rllib"
+    for mod in ("__init__", "sample_batch", "env", "models", "policy",
+                "evaluation", "multi_agent", "algorithms/__init__",
+                "algorithms/algorithm", "algorithms/ppo",
+                "algorithms/impala", "algorithms/appo", "algorithms/dqn"):
+        assert rllib / f"{mod}.py" in _port_sources(), mod
     assert not bad, bad
+
+
+def test_port_imports_gymnasium_only_where_the_reference_does():
+    """The card's machine has no gymnasium: the port imports it only inside
+    the functions of ``rllib/env.py`` that import it in the reference
+    (the spaces, with a fallback, and an id that is not registered)."""
+    where = []
+    for path in _port_sources():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        parent = {c: n for n in ast.walk(tree)
+                  for c in ast.iter_child_nodes(n)}
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            if not any(n.split(".")[0] == "gymnasium" for n in names):
+                continue
+            fn = node
+            while fn in parent and not isinstance(fn, ast.FunctionDef):
+                fn = parent[fn]
+            where.append((path.relative_to(REPO).as_posix(),
+                          getattr(fn, "name", None)))
+    assert set(where) == {("ray_tpu_torch/rllib/env.py", "make_box"),
+                          ("ray_tpu_torch/rllib/env.py", "make_discrete"),
+                          ("ray_tpu_torch/rllib/env.py", "create_env")}, \
+        where
 
 
 def test_kernel_modules_import_without_nvcc():

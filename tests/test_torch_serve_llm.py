@@ -207,7 +207,7 @@ def test_oversize_prompt_and_cancel(jparams):
 # ---------------------------------------------------------- cache units
 def test_kv_cache_alloc_refcount_and_pressure():
     c = PagedKVCache(num_blocks=4, n_layer=1, block_size=2, n_kv=1,
-                     head_dim=4)
+                     head_dim=4, device="cpu")
     c.alloc_seq("a", 3)                       # 2 blocks
     assert c.free_block_count() == 2
     c.fork_seq("a", "b")                      # shared, no new blocks
@@ -234,7 +234,7 @@ def test_kv_cache_device_writes_match_reference_loops():
     rng = np.random.default_rng(4)
     L, bs, KV, D = 2, 4, 2, 3
     c = PagedKVCache(num_blocks=8, n_layer=L, block_size=bs, n_kv=KV,
-                     head_dim=D)
+                     head_dim=D, device="cpu")
     ref = np.zeros((8, L, 2, bs, KV, D), np.float32)
     table = c.alloc_seq("s", 7)
     ks = rng.standard_normal((L, 16, KV, D)).astype(np.float32)
@@ -302,6 +302,18 @@ def test_entry_points_raise_without_card_unless_cpu(monkeypatch):
     assert eng.cache.pool.device.type == "cpu"
     assert eng.runner.params["wte"].device.type == "cpu"
     eng.shutdown()
+
+
+def test_kv_cache_defaults_to_the_card(monkeypatch):
+    """A pool built directly, with no device, lands on the card; with no
+    card that raises rather than dropping to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedKVCache(num_blocks=2, n_layer=1, block_size=2, n_kv=1,
+                     head_dim=4)
+    c = PagedKVCache(num_blocks=2, n_layer=1, block_size=2, n_kv=1,
+                     head_dim=4, device="cpu")
+    assert c.pool.device.type == "cpu"
 
 
 def test_later_slices_raise_not_implemented(shm_dir):
