@@ -99,6 +99,19 @@
    peak memory).  PPO with BASELINE #1's learner settings on
    PixelSquareEnv must beat the random policy's reward within a cap of
    iterations.  DQN: finite TD errors, the target synced on schedule.
+   The reference check also holds SAC, DDPG, TD3 (two updates), MARWIL,
+   BC, A3C (compute_gradients and apply) and Ape-X (one update), with
+   SAC's log-probability without its 1e-6, TD3's actor stepping on every
+   update, MARWIL's advantages normalised by the pre-update c² and Ape-X
+   without its importance weights planted.  SAC with its defaults on
+   PendulumLite (gymnasium's Pendulum-v1, copied below: the card's
+   machine has no gymnasium): the step-0 update against the CPU's (a
+   swapped Polyak average must fail), then a fixed step cap, after which
+   it must beat a random policy's return.  TD3: the actor, its Adam count
+   and its target move on exactly every second update; actions in
+   bounds.  MARWIL and BC over 80 recorded episodes (BC's dataset NLL
+   must fall); A3C's and Ape-X's local paths on the pixel task
+   (priorities written back, the target synced on schedule).
 7. Prints each phase's wall seconds, one JSON line of per-kernel numbers,
    then, as the last line, ``{"ok": true, "device": {...}}``.
 
@@ -2922,8 +2935,35 @@ RL_ALGO_CONFIG = {
     "impala": {}, "appo": {},
     "dqn_double": {"double_q": True}, "dqn_single": {"double_q": False},
 }
+# The rest of the one-card learners, appended so that the runs above keep
+# their draws: SAC, DDPG and TD3 (two updates: one actor step, one
+# skipped) on PendulumLite's spaces (obs 3, one action in [-2, 2]),
+# hiddens (16, 16), RL_CONTINUOUS_ROWS rows an update; MARWIL (two
+# updates, c² carried) and BC; A3C (one compute_gradients on a fixed
+# fragment, then one apply); Ape-X (one update with drawn importance
+# weights).
+RL_MORE_CONFIG = {"sac": {}, "ddpg": {}, "td3": {},
+                  "marwil": {"lr": 1e-3, "vf_norm_rate": 1e-2},
+                  "bc": {"lr": 1e-3},
+                  "a3c": {"lr": 1e-3}, "apex": {}}
+RL_MORE_RUNS = ("sac_mlp", "ddpg_mlp", "td3_mlp", "marwil_mlp",
+                "marwil_conv", "bc_mlp", "a3c_mlp", "a3c_conv", "apex_mlp",
+                "apex_conv")
 RL_RUNS = tuple(f"{a}_{s}" for a in RL_ALGO_CONFIG for s in RL_SIZES) \
-    + ("vtrace",)
+    + ("vtrace",) + RL_MORE_RUNS
+RL_CONTINUOUS = {"env": "PendulumLite", "env_config": {},
+                 "fcnet_hiddens": (16, 16)}
+RL_CONTINUOUS_ROWS = 32
+RL_UPDATES = {"td3": 2, "marwil": 2, "bc": 2}
+# SAC's actor output layer is drawn x SAC_ACTOR_OUT_SCALE, so that some
+# pre-tanh samples saturate float32's tanh (|pre| > 10: the action is ±1
+# exactly and the 1e-6 decides logp and stops its gradient), and every
+# row's pre-tanh samples avoid SAC_BAND, where 1/(1 − tanh²) amplifies
+# an ulp of tanh (XLA's CPU tanh is a rational approximation, up to 4
+# ulps from torch's) past the limits.  tests/test_torch_rllib_offpolicy.py
+# holds the formula inside the band against float64.
+SAC_ACTOR_OUT_SCALE = 16.0
+SAC_BAND = (3.0, 10.0)
 RL_VTRACE_TB = (7, 5)
 RL_VTRACE_CLIPS = {"clip_rho": 1.0, "clip_c": 1.0, "clip_pg_rho": 0.9}
 # The leaves recorded after the update (the file stays small).
@@ -2935,6 +2975,20 @@ RL_LEAVES = {
     ("q", "conv"): ("torso/conv_0/b", "torso/conv_1/b", "torso/dense/b",
                     "q_out/w"),
 }
+# (tree, leaf) recorded after the update of the runs in RL_MORE_RUNS.
+RL_MORE_LEAVES = {
+    "sac": (("actor", "q_2/w"), ("actor", "q_0/b"), ("q1", "q_2/w"),
+            ("q2_t", "q_1/b")),
+    "ddpg": (("actor", "q_2/w"), ("q1", "q_2/w"), ("q2", "q_2/w"),
+             ("actor_t", "q_2/b"), ("q1_t", "q_0/b")),
+    ("ac", "mlp"): (("params", "pi_out/w"), ("params", "pi_0/b"),
+                    ("params", "vf_out/b")),
+    ("ac", "conv"): (("params", "torso/conv_1/b"), ("params", "pi_out/b"),
+                     ("params", "vf_out/w")),
+    ("q", "mlp"): (("params", "q_2/w"), ("params", "q_0/b")),
+    ("q", "conv"): (("params", "torso/conv_0/b"), ("params", "q_out/b")),
+}
+RL_MORE_LEAVES["td3"] = RL_MORE_LEAVES["ddpg"]
 # Limits, each entry's largest error over its largest magnitude (float32
 # on both sides, sums in other orders).  Params after the update: 1e-5,
 # the target for one update.  Everything else (stats, the gradient's
@@ -2979,6 +3033,35 @@ def _rl_unbiased_std(f):
     return lambda adv: (adv - adv.mean()) / (adv.std() + 1e-8)
 
 
+def _rl_tanh_transform(f):
+    """SAC's log-probability with ``torch.distributions.TanhTransform``'s
+    log-Jacobian, 2·(log 2 − x − softplus(−2x)): no 1e-6."""
+    def tanh_log_det(pre, act):
+        return (2 * (math.log(2) - pre
+                     - torch.nn.functional.softplus(-2 * pre))).sum(-1)
+    return tanh_log_det
+
+
+def _rl_actor_every_update(f):
+    """TD3's actor stepping on every update, not every policy_delay-th."""
+    return lambda n_updates, policy_delay: True
+
+
+def _rl_pre_update_c2(f):
+    """MARWIL's advantages normalised by c² before this minibatch moves
+    it."""
+    def advantage_weights(adv, sq_norm, beta, rate):
+        w = torch.exp(beta * adv / torch.sqrt(sq_norm + 1e-8))
+        return torch.clamp(w, max=20.0), \
+            sq_norm + rate * (torch.square(adv).mean() - sq_norm)
+    return advantage_weights
+
+
+def _rl_no_is_weights(f):
+    """Ape-X's TD loss without the importance weights."""
+    return lambda td, is_weights: torch.square(td).mean()
+
+
 # Faults that must fail the check: (module of ray_tpu_torch, attribute,
 # plant).
 RL_FAULTS = {
@@ -2987,16 +3070,39 @@ RL_FAULTS = {
                                  _rl_rms_eps_outside_root),
     "ppo_unbiased_std": ("rllib.algorithms.ppo", "normalize_advantages",
                          _rl_unbiased_std),
+    "sac_tanh_transform": ("rllib.algorithms.sac", "tanh_log_det",
+                           _rl_tanh_transform),
+    "td3_actor_every_update": ("rllib.algorithms.ddpg", "actor_step_due",
+                               _rl_actor_every_update),
+    "marwil_pre_update_c2": ("rllib.algorithms.marwil", "advantage_weights",
+                             _rl_pre_update_c2),
+    "apex_no_is_weights": ("rllib.algorithms.apex", "weighted_td_loss",
+                           _rl_no_is_weights),
+}
+# The runs each fault is checked on (the worst of them must fail): the
+# runs that reach the faulty code.
+RL_FAULT_RUNS = {
+    "conv_flatten_nchw": RL_RUNS[:RL_RUNS.index("vtrace") + 1],
+    "rmsprop_eps_outside_root": RL_RUNS[:RL_RUNS.index("vtrace") + 1],
+    "ppo_unbiased_std": RL_RUNS[:RL_RUNS.index("vtrace") + 1],
+    "sac_tanh_transform": ("sac_mlp",),
+    "td3_actor_every_update": ("td3_mlp",),
+    "marwil_pre_update_c2": ("marwil_mlp", "marwil_conv"),
+    "apex_no_is_weights": ("apex_mlp", "apex_conv"),
 }
 
 
-def rl_config(run: str) -> dict:
-    """The algorithm config of one learner run (both sides)."""
+def rl_config(run: str, input: Optional[str] = None) -> dict:  # noqa: A002
+    """The algorithm config of one learner run (both sides); ``input``:
+    MARWIL's and BC's dataset directory."""
     algo, size = run.rsplit("_", 1)
-    cfg = {k: v for k, v in RL_SIZES[size].items()}
+    cfg = dict(RL_CONTINUOUS if algo in ("sac", "ddpg", "td3")
+               else RL_SIZES[size])
     cfg.update(num_workers=0, num_envs_per_worker=1, seed=RL_SEED,
                rollout_fragment_length=RL_TB[size][0])
-    cfg.update(RL_ALGO_CONFIG[algo])
+    cfg.update({**RL_ALGO_CONFIG, **RL_MORE_CONFIG}[algo])
+    if input is not None:
+        cfg["input"] = input
     if algo == "ppo":
         cfg.update(train_batch_size=RL_ROWS[size],
                    sgd_minibatch_size=RL_ROWS[size])
@@ -3104,6 +3210,308 @@ def rl_update_norm(before: dict, after: dict) -> float:
         np.sum((np.asarray(a[k], np.float64) - b[k]) ** 2) for k in b)))
 
 
+# ------------------------------------------- the continuous-action env
+class PendulumLite:
+    """gymnasium's ``Pendulum-v1`` (classic_control/pendulum.py), copied:
+    the card's machine has no gymnasium.  Swing a pole up: g 10, m 1, l 1,
+    dt 0.05, max speed 8, max torque 2; reward −(θ̂² + 0.1·θ̇² +
+    0.001·u²) with θ̂ the angle wrapped to [−π, π); observation (cos θ,
+    sin θ, θ̇); the start uniform in θ ∈ [−π, π], θ̇ ∈ [−1, 1]; episodes
+    truncated at 200 steps (gymnasium's TimeLimit).  Spaces from the
+    port's ``env.make_box``."""
+
+    max_speed, max_torque, dt, m, l = 8.0, 2.0, 0.05, 1.0, 1.0
+    max_episode_steps = 200
+
+    def __init__(self, config: Optional[dict] = None):
+        from ray_tpu_torch.rllib import env as rl_env
+        config = config or {}
+        self.g = float(config.get("g", 10.0))
+        high = np.array([1.0, 1.0, self.max_speed], dtype=np.float32)
+        self.observation_space = rl_env.make_box(-high, high, (3,))
+        self.action_space = rl_env.make_box(-self.max_torque,
+                                            self.max_torque, (1,))
+        self._rng = np.random.default_rng(config.get("seed"))
+        self.state = np.zeros(2)
+        self._t = 0
+
+    def reset(self, *, seed=None, options=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        high = np.array([np.pi, 1.0])
+        self.state = self._rng.uniform(low=-high, high=high)
+        self._t = 0
+        return self._obs(), {}
+
+    def step(self, u):
+        th, thdot = self.state
+        g, m, l, dt = self.g, self.m, self.l, self.dt
+        u = np.clip(u, -self.max_torque, self.max_torque)[0]
+        th_n = ((th + np.pi) % (2 * np.pi)) - np.pi
+        costs = th_n ** 2 + 0.1 * thdot ** 2 + 0.001 * (u ** 2)
+        newthdot = thdot + (3 * g / (2 * l) * np.sin(th)
+                            + 3.0 / (m * l ** 2) * u) * dt
+        newthdot = np.clip(newthdot, -self.max_speed, self.max_speed)
+        newth = th + newthdot * dt
+        self.state = np.array([newth, newthdot])
+        self._t += 1
+        return self._obs(), -costs, False, \
+            self._t >= self.max_episode_steps, {}
+
+    def _obs(self):
+        theta, thetadot = self.state
+        return np.array([np.cos(theta), np.sin(theta), thetadot],
+                        dtype=np.float32)
+
+
+def register_pendulum_lite(register_env) -> None:
+    """``PendulumLite`` in a package's env registry (the port's, or the
+    JAX package's for the reference generator)."""
+    register_env("PendulumLite", lambda cfg: PendulumLite(cfg))
+
+
+# ------------------------------- the learners of RL_MORE_RUNS, both sides
+def _np_q_net(params: dict, x) -> np.ndarray:
+    """The catalog's Q-net MLP (tanh hidden layers) in float64 numpy."""
+    n = len(params)
+    x = np.asarray(x, np.float64)
+    for i in range(n):
+        p = params[f"q_{i}"]
+        x = x @ np.asarray(p["w"], np.float64) + p["b"]
+        if i < n - 1:
+            x = np.tanh(x)
+    return x
+
+
+def _sac_rows(rng, actor: dict, eps: np.ndarray, obs_dim: int) -> np.ndarray:
+    """One observation row for each row of draws ``eps`` (B, act_dim):
+    standard normal, redrawn until every pre-tanh sample of the actor
+    (float64) lies outside SAC_BAND."""
+    rows = []
+    for e in eps:
+        while True:
+            o = rng.standard_normal(obs_dim).astype(np.float32)
+            out = _np_q_net(actor, o[None])[0]
+            pre = np.abs(out[:len(e)] + np.exp(np.clip(
+                out[len(e):], -20.0, 2.0)) * e)
+            if np.all((pre < SAC_BAND[0]) | (pre > SAC_BAND[1])):
+                rows.append(o)
+                break
+    return np.stack(rows)
+
+
+def rl_offpolicy_state(run: str, rng, actor_leaves, q_leaves) -> dict:
+    """SAC's, DDPG's or TD3's drawn state in the reference's layout: the
+    actor (SAC's output layer scaled by SAC_ACTOR_OUT_SCALE), DDPG's actor
+    target, the two critics and their targets, SAC's log_alpha."""
+    algo = run.rsplit("_", 1)[0]
+    state = {"actor": rl_draw_tree(rng, actor_leaves)}
+    if algo == "sac":
+        out = state["actor"][f"q_{len(state['actor']) - 1}"]
+        out["w"] = (out["w"] * SAC_ACTOR_OUT_SCALE).astype(np.float32)
+    else:
+        state["actor_t"] = rl_draw_tree(rng, actor_leaves)
+    for k in ("q1", "q2", "q1_t", "q2_t"):
+        state[k] = rl_draw_tree(rng, q_leaves)
+    if algo == "sac":
+        state["log_alpha"] = np.float32(0.1 * rng.standard_normal())
+    return state
+
+
+def _rl_obs(size: str, rng, lead: tuple) -> np.ndarray:
+    if size == "mlp":
+        return rng.standard_normal(lead + (4,)).astype(np.float32)
+    return rng.integers(0, 256, lead + (36, 36, 2), dtype=np.uint8)
+
+
+def rl_minibatches(run: str, rng, draws: Optional[dict] = None,
+                   actor: Optional[dict] = None) -> list:
+    """The host minibatches of a run of RL_MORE_RUNS, one an update, drawn
+    after its params.  SAC's rows are chosen against its draws (JAX's,
+    from the reference file) and drawn actor (``_sac_rows``)."""
+    algo, size = run.rsplit("_", 1)
+    out = []
+    for _ in range(RL_UPDATES.get(algo, 1)):
+        if algo in ("sac", "ddpg", "td3"):
+            n = RL_CONTINUOUS_ROWS
+            if algo == "sac":
+                obs = _sac_rows(rng, actor, draws["actor"], 3)
+                new_obs = _sac_rows(rng, actor, draws["next"], 3)
+            else:
+                obs = rng.standard_normal((n, 3)).astype(np.float32)
+                new_obs = rng.standard_normal((n, 3)).astype(np.float32)
+            mb = {"obs": obs, "new_obs": new_obs,
+                  "raw_action": rng.uniform(-1, 1, (n, 1)).astype(
+                      np.float32)}
+        else:
+            n = RL_ROWS[size]
+            A = RL_SIZES[size]["env_config"]["num_actions"]
+            mb = {"obs": _rl_obs(size, rng, (n,)),
+                  "actions": rng.integers(0, A, n).astype(np.int64)}
+        if algo in ("marwil", "bc"):
+            mb["returns"] = (20.0 * rng.standard_normal(n) + 5.0).astype(
+                np.float32)
+        elif algo == "a3c":
+            mb["advantages"] = (2.0 * rng.standard_normal(n) + 0.5).astype(
+                np.float32)
+            mb["value_targets"] = rng.standard_normal(n).astype(np.float32)
+        else:
+            mb["rewards"] = rng.standard_normal(n).astype(np.float32)
+            mb["dones"] = (rng.uniform(size=n) < 0.2).astype(np.float32)
+            if algo == "apex":
+                mb["new_obs"] = _rl_obs(size, rng, (n,))
+                mb["is_weights"] = rng.uniform(0.05, 1.0, n).astype(
+                    np.float32)
+        out.append(mb)
+    return out
+
+
+def rl_offline_stub(run: str, path: str) -> str:
+    """One one-step episode in ``path``: MARWIL and BC need a dataset to
+    build (the reference runs feed their minibatches directly)."""
+    size = run.rsplit("_", 1)[1]
+    shape = (4,) if size == "mlp" else (36, 36, 2)
+    with open(os.path.join(path, "stub.json"), "w") as f:
+        f.write(json.dumps({"obs": np.zeros((1,) + shape).tolist(),
+                            "actions": [0], "rewards": [0.0],
+                            "terminated": True}) + "\n")
+    return path
+
+
+def rl_more_record(run: str, pairs: dict, trees: dict, stats: dict,
+                   extra: Optional[dict] = None) -> dict:
+    """What a run of RL_MORE_RUNS records, from numpy trees in the
+    reference's layout (both sides): ``stats`` (name → one value an
+    update), the global L2 norm of each update in ``pairs`` (name →
+    (tree before, tree after)), the leaves of RL_MORE_LEAVES from
+    ``trees`` (the trees after the update), and ``extra`` as it is."""
+    algo, size = run.rsplit("_", 1)
+    res = {f"stat/{k}": v for k, v in stats.items()}
+    for k, (b, a) in pairs.items():
+        res[f"update_norm/{k}"] = rl_update_norm(b, a)
+    key = algo if algo in RL_MORE_LEAVES else (
+        "q" if algo == "apex" else "ac", size)
+    for tree, path in RL_MORE_LEAVES[key]:
+        res[f"param/{tree}/{path}"] = dict(rl_tree_paths(trees[tree]))[path]
+    res.update(extra or {})
+    return {k: np.asarray(v, np.float32) for k, v in res.items()}
+
+
+def rl_offpolicy_pairs(before: dict, after: dict) -> dict:
+    """SAC's, DDPG's and TD3's updates as rl_more_record takes them: the
+    actor, the two critics, the targets."""
+    def pick(state, keys):
+        return {k: state[k] for k in keys}
+    targets = [k for k in before if k.endswith("_t")]
+    return {"actor": (before["actor"], after["actor"]),
+            "critics": (pick(before, ("q1", "q2")), pick(after, ("q1", "q2"))),
+            "targets": (pick(before, targets), pick(after, targets))}
+
+
+def rl_tree_norm(tree: dict) -> np.float32:
+    """The global L2 norm of a numpy tree, in float64."""
+    return np.float32(np.sqrt(sum(np.sum(np.asarray(v, np.float64) ** 2)
+                                  for _, v in rl_tree_paths(tree))))
+
+
+def rl_more_outputs(run: str, dev, draws: Optional[dict] = None) -> tuple:
+    """The port's outputs for a run of RL_MORE_RUNS on ``dev``, as
+    tests/rllib_reference.py records the reference's: (the record, every
+    tree before the update, every tree after it).  ``draws``: SAC's and TD3's Gaussian draws,
+    JAX's from the reference file."""
+    import tempfile as _tmp
+    from ray_tpu_torch.rllib import SampleBatch, algorithms, register_env
+    from ray_tpu_torch.rllib import models as rl_models
+    from ray_tpu_torch.rllib.algorithms.algorithm import grads_with_aux
+    from ray_tpu_torch.parallel import transforms as tx
+    register_pendulum_lite(register_env)
+    rng = np.random.default_rng((RL_SEED, RL_RUNS.index(run)))
+    algo_name, size = run.rsplit("_", 1)
+    cls = {"sac": algorithms.SACConfig, "ddpg": algorithms.DDPGConfig,
+           "td3": algorithms.TD3Config, "marwil": algorithms.MARWILConfig,
+           "bc": algorithms.BCConfig, "a3c": algorithms.A3CConfig,
+           "apex": algorithms.APEXConfig}[algo_name]
+    with _tmp.TemporaryDirectory() as d:
+        algo = cls().update(dict(rl_config(run, rl_offline_stub(run, d)),
+                                 device=str(dev))).build()
+    policy = algo.get_policy()
+    to_dev = lambda mb: {k: torch.tensor(v, device=dev)  # noqa: E731
+                         for k, v in mb.items()}
+    extra = {}
+    if algo_name in ("sac", "ddpg", "td3"):
+        actor_leaves = [(p, v.shape) for p, v in rl_tree_paths(
+            policy.get_weights()["params"])]
+        q_leaves = [(p, v.shape) for p, v in rl_tree_paths(
+            algo.get_learner_state()["q1"])]
+        state = rl_offpolicy_state(run, rng, actor_leaves, q_leaves)
+        mbs = rl_minibatches(run, rng, draws, state["actor"])
+        policy.set_weights({"params": state["actor"]})
+        algo.set_learner_state({k: v for k, v in state.items()
+                                if k != "actor"})
+        draws = to_dev(draws or {})
+        rows = []
+        for u, mb in enumerate(mbs):
+            if algo_name == "sac":
+                rows.append(algo.learn_on(to_dev(mb), draws["next"],
+                                          draws["actor"]))
+            else:
+                rows.append(algo.learn_on(to_dev(mb), draws["noise"][u]
+                                          if algo_name == "td3" else None))
+        after = dict(algo.get_learner_state(),
+                     actor=rl_models.params_to_numpy(policy.params))
+        names = ("alpha", "entropy") if algo_name == "sac" \
+            else ("critic_loss", "q_mean")
+        stats = dict(zip(names, torch.stack(rows).T.cpu().numpy()))
+        if algo_name == "sac":
+            extra["log_alpha"] = after["log_alpha"]
+        return rl_more_record(run, rl_offpolicy_pairs(state, after), after,
+                              stats, extra), state, after
+    q_net = algo_name == "apex"
+    tree = policy.get_weights()
+    tree = tree["params"] if q_net else tree
+    leaves = [(p, v.shape) for p, v in rl_tree_paths(tree)]
+    before = rl_draw_tree(rng, leaves)
+    target = rl_draw_tree(rng, leaves) if q_net else None
+    mbs = rl_minibatches(run, rng)
+    policy.set_weights({"params": before} if q_net else before)
+    if algo_name in ("marwil", "bc"):
+        mb = mbs[0]
+        grads, _ = grads_with_aux(
+            algo._loss_fn, policy.params, algo._sq_norm,
+            *(torch.from_numpy(mb[k]).to(dev)
+              for k in ("obs", "actions", "returns")))
+        extra["grad_norm"] = tx.global_norm(grads).cpu().numpy()
+        rows = [torch.stack(algo.learn_on(mb)) for mb in mbs]
+        stats = dict(zip(("policy_loss", "vf_loss"),
+                         torch.stack(rows).T.cpu().numpy()))
+        if algo_name == "marwil":
+            extra["sq_norm"] = algo._sq_norm.cpu().numpy()
+    elif algo_name == "a3c":
+        worker = algo.workers.local_worker
+        worker.sample = lambda: SampleBatch(dict(mbs[0]))  # the fragment
+        grads, count, info = worker.compute_gradients(None, **algo._grad_kw)
+        algo.apply_gradients(grads)
+        stats = {k: [info[k]] for k in ("policy_loss", "vf_loss",
+                                         "entropy")}
+        extra["grad_norm"] = rl_tree_norm(grads)
+        key = ("ac", size)
+        for _, path in RL_MORE_LEAVES[key][:2]:
+            extra[f"grad/{path}"] = dict(rl_tree_paths(grads))[path]
+    else:
+        algo.set_learner_state({"target": target})
+        mb = to_dev(mbs[0])
+        grads, _ = grads_with_aux(algo._loss_fn, policy.params,
+                                  algo.target_params, mb)
+        extra["grad_norm"] = tx.global_norm(grads).cpu().numpy()
+        extra["td_abs"] = algo._update(policy.params, algo.target_params,
+                                       algo._opt_state, mb).cpu().numpy()
+        stats = {}
+    after = rl_models.params_to_numpy(policy.params)
+    return (rl_more_record(run, {"params": (before, after)},
+                           {"params": after}, stats, extra),
+            {"params": before}, {"params": after})
+
+
 def rl_outputs(run: str, dev) -> dict:
     """The port's outputs for one run on ``dev`` (numpy arrays), as
     tests/rllib_reference.py records the reference's."""
@@ -3160,13 +3568,25 @@ def rl_outputs(run: str, dev) -> dict:
     return {k: np.asarray(v, np.float32) for k, v in res.items()}
 
 
+def rl_entry(entry: dict) -> np.ndarray:
+    return np.asarray(entry["values"], np.float32).reshape(entry["shape"])
+
+
 def rl_errors(run: str, ref: dict, dev) -> tuple:
     """(worst error over its limit, that entry, each entry's error): each
-    entry's largest error over the reference's largest magnitude."""
-    got = rl_outputs(run, dev)
+    entry's largest error over the reference's largest magnitude.  The
+    ``draw/`` entries are inputs: JAX's Gaussian draws, fed to the port."""
+    if run in RL_MORE_RUNS:
+        got = rl_more_outputs(run, dev, {
+            k[5:]: rl_entry(e) for k, e in ref.items()
+            if k.startswith("draw/")})[0]
+    else:
+        got = rl_outputs(run, dev)
     errs = {}
     for key, entry in ref.items():
-        r = np.asarray(entry["values"], np.float32).reshape(entry["shape"])
+        if key.startswith("draw/"):
+            continue
+        r = rl_entry(entry)
         if got[key].shape != r.shape:
             fail(f"rllib {run} {key}: shape {got[key].shape}, reference "
                  f"{r.shape}")
@@ -3202,7 +3622,8 @@ def rllib_reference_check(dev, tag: str = "") -> dict:
         setattr(mod, attr, plant(orig))
         try:
             worst = max(((rl_errors(run, ref[run], dev)[:2], run)
-                         for run in RL_RUNS), key=lambda x: x[0][0])
+                         for run in RL_FAULT_RUNS[fault]),
+                        key=lambda x: x[0][0])
         finally:
             setattr(mod, attr, orig)
         (ratio, entry), run = worst
@@ -3546,6 +3967,613 @@ def dqn_pixel_phase(dev, card, tag: str) -> dict:
     return res
 
 
+# The rest of RLlib on one card: SAC, TD3, MARWIL/BC over offline data,
+# and the local paths of A3C and Ape-X.  No hand-written kernel is on
+# these paths either (catalog MLPs and the Nature CNN: cuBLAS products,
+# cuDNN convolutions); every kernel counter must stay at 0.
+#
+# SAC and TD3 with their configs' defaults ((256, 256), batch 256,
+# buffer 100k, learning_starts 256, fragment 1, one update an env step)
+# on PendulumLite, gymnasium's Pendulum-v1 copied (the card's machine has
+# no gymnasium).  SAC's step-0 update on the card against the CPU's (same
+# weights, batch and draws): each leaf's update (after − before),
+# relative L2, limit SAC_STEP0_TOL; a swapped Polyak average on the
+# card's side must fail it.  sac_step0_sweep over three sampled batches
+# (PERF.md §6): healthy 1.6e-6 to 1.9e-3 over two sweeps, the worst
+# mostly a target leaf (a target moves by tau·(critic − target), ~1.5e-6
+# a weight at step 0, of which one float32 ulp of a 0.1 weight is 0.5 %);
+# the swapped Polyak 198.  Adam's first step is about −lr·sign(g), so the
+# update holds the gradients' signs only; the same call also holds each
+# loss's gradient leaf by leaf and the returned (alpha, entropy), limit
+# SAC_GRAD_TOL, which TF32 matmuls on the card's side must fail.  Its
+# sweep: healthy 2.8e-7, 2.6e-7, 5.7e-6 (log_alpha's gradient, a mean of
+# 256 log-probabilities); TF32 3.9e-4, 6.7e-4, 8.3e-4, while TF32's
+# update stays inside SAC_STEP0_TOL (7.8e-3, 2.3e-3, 1.6e-3).  The limit
+# is their geometric middle.  Then SAC_STEPS env steps through train();
+# the mean return of the last SAC_LAST_EPISODES episodes must beat a
+# random policy's (PENDULUM_RANDOM_EPISODES uniform-torque episodes,
+# measured in the phase: −1,112) by SAC_MARGIN.  The CPU's runs of the
+# recipe (PERF.md §6) reached −152 (seed 0) and −157 (seed 1) over their
+# last five episodes; the card's first run −643 at 4,000 steps, still
+# rising.
+SAC_PENDULUM = {"env": "PendulumLite", "num_workers": 0, "seed": SEED}
+SAC_STEP0_TOL = 1e-2
+SAC_GRAD_TOL = 5e-5
+SAC_STEPS = 5000
+SAC_LAST_EPISODES = 5
+SAC_MARGIN = 400.0
+PENDULUM_RANDOM_EPISODES = 20
+TD3_PENDULUM = dict(SAC_PENDULUM)
+TD3_STEPS = 1000
+# TD3's delay is watched over this many updates (each a host read of the
+# actor and its Adam count), then the budget runs unwatched.
+TD3_WATCH = 16
+# bench_marwil (benchmarks/rllib_bench.py:450-489): 80 episodes recorded
+# by an untrained policy, then MARWIL (β 1) and BC (β 0) at
+# train_batch_size 512, 50 updates an iteration.  Cut: RandomEnv (obs 4,
+# 2 actions, 20 steps) in CartPole's place (no gymnasium on the card's
+# machine); the recorder acts greedily (explore=False), so the actions are
+# a function of the observation that BC can learn.
+MARWIL_ENV = {"env": "RandomEnv",
+              "env_config": {"obs_dim": 4, "num_actions": 2,
+                             "episode_len": 20}}
+MARWIL_EPISODES = 80
+MARWIL_ITERS = 4
+# A3C's local mode and Ape-X's single-process path on PixelSquareEnv
+# 84×84×4 with the Nature CNN.
+A3C_PIXEL = {"env": "PixelSquareEnv", "env_config": {"size": 84, "frames": 4},
+             "num_workers": 0, "num_envs_per_worker": 4,
+             "rollout_fragment_length": 32, "grads_per_iteration": 4,
+             "seed": SEED}
+A3C_ITERS = 3
+APEX_PIXEL = {"env": "PixelSquareEnv",
+              "env_config": {"size": 84, "frames": 4},
+              "num_workers": 0, "seed": SEED}
+APEX_ITERS = 100
+
+
+def pendulum_random_return(episodes: int = PENDULUM_RANDOM_EPISODES) -> float:
+    """The mean return of uniform random torques on PendulumLite."""
+    rng = np.random.default_rng(SEED)
+    env, total = PendulumLite(), 0.0
+    for ep in range(episodes):
+        env.reset(seed=10_000 + ep)
+        done = False
+        while not done:
+            _, r, term, trunc, _ = env.step(rng.uniform(-2.0, 2.0, (1,)))
+            total += r
+            done = term or trunc
+    return total / episodes
+
+
+def mem_base() -> int:
+    """The bytes allocated on the card now, with the peak counter reset: a
+    phase's own peak is the peak above this (``peak_above_gb``), not what
+    earlier phases left allocated."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak_above_gb(base: int) -> float:
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def timed_update(label: str, fn, tag: str, calls: int = 20) -> dict:
+    """An update alone: wall ms over ``calls`` calls after a warm one,
+    each ending in a synchronize, and one under the profiler (device ms,
+    busy share)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3 / calls
+    prof = profile_once(f"{label}_update", fn, tag)
+    return dict(update_wall_ms=wall_ms, update_device_ms=prof["device_ms"],
+                update_busy=prof["busy"])
+
+
+def _tree_step(before: dict, after: dict) -> dict:
+    """path → after − before of two numpy trees."""
+    b = dict(rl_tree_paths(before))
+    return {p: np.asarray(a, np.float64) - b[p]
+            for p, a in rl_tree_paths(after)}
+
+
+def _sac_state(algo) -> dict:
+    from ray_tpu_torch.rllib import models as rl_models
+    return dict(algo.get_learner_state(),
+                actor=rl_models.params_to_numpy(algo.get_policy().params))
+
+
+def _sac_polyak_swapped(f):
+    """Polyak averaging with the weights swapped: (1 − tau)·s + tau·t."""
+    def polyak(target, source, tau):
+        f(target, source, 1 - tau)
+    return polyak
+
+
+def _host_tree(tree) -> dict:
+    """path → float64 numpy of a dict of tensors."""
+    return {p: v.detach().double().cpu().numpy()
+            for p, v in rl_tree_paths(tree)}
+
+
+def _rel_l2(got, ref) -> float:
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float(np.linalg.norm(got - ref) / max(np.linalg.norm(ref), 1e-30))
+
+
+def sac_step0_check(algo, cpu_algo, mb: dict, tag: str,
+                    fault: Optional[str] = None) -> dict:
+    """The card's first SAC update against the CPU's from the same state,
+    minibatch and draws, two ways: ``update``, each leaf's update (after −
+    before, relative L2); ``grads``, the three losses' gradients leaf by
+    leaf (critics, actor against the updated critics, log_alpha) and the
+    returned (alpha, entropy), which keep the magnitude that Adam's
+    sign-like first step drops.  Each → (worst relative L2, its leaf).
+    ``fault`` on the card's side: "polyak" (the Polyak average swapped) or
+    "tf32" (TF32 matmuls)."""
+    import importlib
+    from ray_tpu_torch._device import disable_tf32
+    sac = importlib.import_module("ray_tpu_torch.rllib.algorithms.sac")
+    state = _sac_state(algo)
+    cpu_algo.get_policy().set_weights({"params": state["actor"]})
+    cpu_algo.set_learner_state({k: v for k, v in state.items()
+                                if k != "actor"})
+    gen = torch.Generator(device=algo.get_policy().device).manual_seed(SEED)
+    shape = (len(mb["obs"]), algo.get_policy().act_dim)
+    eps = [torch.randn(shape, generator=gen, device=gen.device)
+           for _ in range(2)]
+    orig_polyak, orig_grads = sac.polyak, sac.grads_with_aux
+
+    def learn(a, draws):
+        """One update; the gradients of its three losses, in order, and
+        the returned stats."""
+        seen = []
+
+        def recording(loss_fn, params, *args):
+            grads, aux = orig_grads(loss_fn, params, *args)
+            seen.append(_host_tree(grads))
+            return grads, aux
+
+        sac.grads_with_aux = recording
+        try:
+            stats = a.learn_on(sac.device_minibatch(
+                mb, a.get_policy().device), *draws)
+        finally:
+            sac.grads_with_aux = orig_grads
+        return seen, stats.cpu().numpy()
+
+    ref_grads, ref_stats = learn(cpu_algo, [e.to("cpu") for e in eps])
+    if fault == "polyak":
+        sac.polyak = _sac_polyak_swapped(orig_polyak)
+    if fault == "tf32":
+        torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got_grads, got_stats = learn(algo, eps)
+    finally:
+        sac.polyak = orig_polyak
+        disable_tf32()
+    got, ref = _sac_state(algo), _sac_state(cpu_algo)
+    names, errs = [], []
+    for k in ("actor", "q1", "q2", "q1_t", "q2_t"):
+        g, r = _tree_step(state[k], got[k]), _tree_step(state[k], ref[k])
+        for p in r:
+            names.append(f"{k}/{p}")
+            errs.append(_rel_l2(g[p], r[p]))
+    names.append("log_alpha")
+    errs.append(_rel_l2(float(got["log_alpha"]) - float(state["log_alpha"]),
+                        float(ref["log_alpha"]) - float(state["log_alpha"])))
+    g_names, g_errs = [], []
+    for loss, g, r in zip(("critic", "actor", "alpha"), got_grads, ref_grads):
+        for p in r:
+            g_names.append(f"grad {loss}/{p}")
+            g_errs.append(_rel_l2(g[p], r[p]))
+    for i, s in enumerate(sac.STATS):
+        g_names.append(f"stat {s}")
+        g_errs.append(_rel_l2(got_stats[i], ref_stats[i]))
+    # back to the state the check started from, for the next call
+    for a in (algo, cpu_algo):
+        a.get_policy().set_weights({"params": state["actor"]})
+        a.set_learner_state({k: v for k, v in state.items()
+                             if k != "actor"})
+    label = "sac_pendulum step0" + (f" control {fault}" if fault else "")
+    return {"update": grad_report(f"{label} update", names, errs,
+                                  SAC_STEP0_TOL, tag),
+            "grads": grad_report(f"{label} grads", g_names, g_errs,
+                                 SAC_GRAD_TOL, tag)}
+
+
+def sac_step0_sweep(batches: int = 3, tag: str = "") -> list:
+    """sac_step0_check on several sampled minibatches, healthy and with
+    each fault planted, without failing: the sweep behind SAC_STEP0_TOL
+    and SAC_GRAD_TOL."""
+    from ray_tpu_torch._device import disable_tf32
+    from ray_tpu_torch.rllib import SACConfig, register_env
+    disable_tf32()
+    register_pendulum_lite(register_env)
+    algo = SACConfig().update(dict(SAC_PENDULUM, device="cuda")).build()
+    cpu_algo = SACConfig().update(dict(SAC_PENDULUM, device="cpu")).build()
+    out = []
+    for i in range(batches):
+        mb = _pendulum_minibatch(algo, seed=i)
+        out.append({f: {k: v[0] for k, v in
+                        sac_step0_check(algo, cpu_algo, mb, tag, f).items()}
+                    for f in (None, "polyak", "tf32")})
+    print(f"sac_step0_sweep {out} [{tag}]", flush=True)
+    return out
+
+
+def _pendulum_minibatch(algo, seed: int = 0) -> dict:
+    """learning_starts env steps sampled by ``algo``'s worker (what its
+    buffer holds when the first update comes), as one minibatch."""
+    from ray_tpu_torch.rllib import concat_samples
+    w = algo.workers.local_worker
+    n = int(algo.config["learning_starts"])
+    b = concat_samples([w.sample() for _ in range(
+        -(-n // w.fragment_length))])
+    rows = np.random.default_rng(seed).permutation(b.count)[:n]
+    return {k: b[k][rows] for k in ("obs", "raw_action", "rewards",
+                                    "new_obs", "terminateds")}
+
+
+def continuous_run(label: str, algo, steps: int, tag: str, base: int,
+                   after_step=None) -> dict:
+    """``steps`` train() calls on the card from zeroed kernel counters:
+    returns of the episodes that ended, each call's wall time, the last
+    info; then the update alone (wall over 20 calls, and one profiled),
+    compute_actions on one observation, the peak memory above ``base``
+    (``mem_base()`` before the algorithm was built)."""
+    policy = algo.get_policy()
+    zero_kernel_counts()
+    rets, step_s, info = [], [], {}
+    t_run = time.perf_counter()
+    for i in range(steps):
+        t = time.perf_counter()
+        r = algo.train()
+        step_s.append(time.perf_counter() - t)
+        info = r["info"]
+        if r["episodes_this_iter"]:
+            rets.append(r["episode_reward_mean"])
+        if after_step is not None:
+            after_step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    peak_gb = peak_above_gb(base)
+    rl_kernel_check(label)
+    from ray_tpu_torch.rllib import SAC
+    from ray_tpu_torch.rllib.algorithms.sac import device_minibatch
+    n = int(algo.config["train_batch_size"])
+    mb = device_minibatch(algo.buffer.sample(n, np.random.default_rng(SEED)),
+                          policy.device)
+    gen = torch.Generator(device=policy.device).manual_seed(SEED)
+    draws = [torch.randn((n, policy.act_dim), generator=gen,
+                         device=gen.device) for _ in range(2)]
+    learn = (lambda: algo.learn_on(mb, *draws)) if isinstance(algo, SAC) \
+        else (lambda: algo.learn_on(mb, draws[0]))
+    update = timed_update(label, learn, tag)
+    obs = algo.buffer.sample(1, np.random.default_rng(SEED))["obs"]
+    policy.compute_actions(obs)
+    t = time.perf_counter()
+    for _ in range(100):
+        policy.compute_actions(obs)
+    act_ms = (time.perf_counter() - t) * 10
+    return dict(steps=steps, wall_s=wall, env_steps_per_s=steps / wall,
+                train_step_ms=1e3 * sum(step_s[-500:]) / len(step_s[-500:]),
+                **update, compute_actions_ms=act_ms, peak_mem_gb=peak_gb,
+                episodes=len(rets), returns=rets, last_info=info)
+
+
+def sac_pendulum_phase(dev, card, tag: str) -> dict:
+    """SAC's defaults on PendulumLite: the step-0 update against the
+    CPU's (the swapped Polyak must fail it), then SAC_STEPS env steps
+    through train(); the last episodes' mean return must beat a random
+    policy's by SAC_MARGIN, alpha stays > 0 and the entropy finite."""
+    from ray_tpu_torch.rllib import SACConfig, register_env
+    register_pendulum_lite(register_env)
+    t0 = time.perf_counter()
+    algo = SACConfig().update(dict(SAC_PENDULUM, device=str(dev))).build()
+    cpu_algo = SACConfig().update(dict(SAC_PENDULUM, device="cpu")).build()
+    mb = _pendulum_minibatch(algo)
+    healthy = sac_step0_check(algo, cpu_algo, mb, tag)
+    polyak = sac_step0_check(algo, cpu_algo, mb, tag, "polyak")
+    tf32 = sac_step0_check(algo, cpu_algo, mb, tag, "tf32")
+    (worst, leaf), (g_worst, g_leaf) = healthy["update"], healthy["grads"]
+    if not worst <= SAC_STEP0_TOL:
+        fail(f"SAC's step-0 update on the card disagrees with the CPU's "
+             f"({leaf} {worst})")
+    if not g_worst <= SAC_GRAD_TOL:
+        fail(f"SAC's step-0 gradients on the card disagree with the CPU's "
+             f"({g_leaf} {g_worst})")
+    if polyak["update"][0] <= SAC_STEP0_TOL:
+        fail("the swapped Polyak average passed the SAC step-0 check")
+    if tf32["grads"][0] <= SAC_GRAD_TOL:
+        fail("TF32 matmuls passed the SAC step-0 gradient check")
+    del algo, cpu_algo
+    check_s = time.perf_counter() - t0
+    random_return = pendulum_random_return()
+    base = mem_base()
+    algo = SACConfig().update(dict(SAC_PENDULUM, device=str(dev))).build()
+    res = continuous_run("sac_pendulum", algo, SAC_STEPS, tag, base)
+    last = float(np.mean(res["returns"][-SAC_LAST_EPISODES:]))
+    info = res.pop("last_info")
+    res.update(check_s=check_s, step0_rel_err=worst, step0_worst_leaf=leaf,
+               step0_tol=SAC_STEP0_TOL,
+               step0_control_polyak_swapped=polyak["update"][0],
+               step0_grads_rel_err=g_worst, step0_grads_worst_leaf=g_leaf,
+               step0_grads_tol=SAC_GRAD_TOL,
+               step0_control_tf32_grads=tf32["grads"][0],
+               step0_control_tf32_update=tf32["update"][0],
+               random_return=random_return, last_return=last,
+               alpha=info["alpha"], entropy=info["entropy"])
+    for k, val in res.items():
+        print(f"sac_pendulum {k} {val} [{tag}]", flush=True)
+    if not last > random_return + SAC_MARGIN:
+        fail(f"SAC's last {SAC_LAST_EPISODES} returns {last:.1f} do not beat "
+             f"the random policy's {random_return:.1f} by {SAC_MARGIN}")
+    if not (info["alpha"] > 0 and math.isfinite(info["entropy"])):
+        fail(f"sac_pendulum: alpha {info['alpha']} entropy {info['entropy']}")
+    del algo
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def td3_pendulum_phase(dev, card, tag: str) -> dict:
+    """TD3's defaults on PendulumLite for TD3_STEPS env steps: scaled
+    actions inside the bounds and raw ones inside [-1, 1]; over the first
+    TD3_WATCH updates the actor, its Adam count and its target move on
+    exactly every second update (the first included) and stay bitwise
+    still on the others."""
+    from ray_tpu_torch.rllib import TD3Config, register_env
+    from ray_tpu_torch.rllib import models as rl_models
+    register_pendulum_lite(register_env)
+    base = mem_base()
+    algo = TD3Config().update(dict(TD3_PENDULUM, device=str(dev))).build()
+    policy = algo.get_policy()
+    watched = []
+
+    def snapshot():
+        count = algo._actor_state[0]["count"].item()
+        return (rl_models.params_to_numpy(policy.params),
+                rl_models.params_to_numpy(algo.actor_t), count)
+
+    prev = [snapshot()]
+
+    def watch():
+        """(update index, actor moved, target moved, Adam count step)."""
+        n = algo._n_updates
+        if n == 0 or len(watched) >= TD3_WATCH:
+            return
+        now = snapshot()
+        moved = [any(not np.array_equal(a, b) for (_, a), (_, b) in zip(
+            rl_tree_paths(x), rl_tree_paths(y))) for x, y in
+            zip(now[:2], prev[0][:2])]
+        watched.append((n - 1, moved[0], moved[1], now[2] - prev[0][2]))
+        prev[0] = now
+
+    res = continuous_run("td3_pendulum", algo, TD3_STEPS, tag, base, watch)
+    # an actor step on every even update (the first included), none else
+    bad = [w for w in watched
+           if w[1:] != (w[0] % 2 == 0,) * 2 + (int(w[0] % 2 == 0),)]
+    obs = algo.buffer.sample(256, np.random.default_rng(SEED))["obs"]
+    acts, extras = policy.compute_actions(obs)
+    raw = algo.buffer._cols["raw_action"][:len(algo.buffer)]
+    in_bounds = bool((acts >= policy.low).all() and (acts <= policy.high).all()
+                     and np.abs(extras["raw_action"]).max() <= 1.0
+                     and np.abs(raw).max() <= 1.0)
+    info = res.pop("last_info")
+    res.update(watched_updates=len(watched), delay_violations=bad,
+               actions_in_bounds=in_bounds, critic_loss=info["critic_loss"],
+               q_mean=info["q_mean"], num_updates=info["num_updates"])
+    for k, val in res.items():
+        print(f"td3_pendulum {k} {val} [{tag}]", flush=True)
+    if len(watched) != TD3_WATCH or bad:
+        fail(f"td3_pendulum: the actor did not step on exactly every second "
+             f"update: {watched}")
+    if not in_bounds:
+        fail("td3_pendulum: an action left its bounds")
+    if not all(math.isfinite(info[k]) for k in ("critic_loss", "q_mean")):
+        fail(f"td3_pendulum: non-finite learner stats {info}")
+    del algo
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _dataset_nll(algo) -> float:
+    """The mean negative log-likelihood of the whole dataset's actions
+    under ``algo``'s policy."""
+    from ray_tpu_torch.rllib.policy import to_device
+    policy = algo.get_policy()
+    with torch.no_grad():
+        inputs, _ = policy.apply_fn(policy.params, to_device(
+            algo.data.obs, policy.device))
+        return float(-policy.dist_class.logp(inputs, to_device(
+            algo.data.actions, policy.device)).mean())
+
+
+def offline_marwil_phase(dev, card, tag: str) -> dict:
+    """bench_marwil's recipe: MARWIL_EPISODES episodes recorded by an
+    untrained policy (``record_rollouts``), then MARWIL (β 1) and BC (β 0)
+    for MARWIL_ITERS iterations each after a warm one: updates/s and
+    trained steps/s, one update alone (wall, device, busy share), the peak
+    memory above the phase's start; BC's NLL of the dataset must fall
+    below the untrained policy's."""
+    from ray_tpu_torch.rllib import BCConfig, MARWILConfig, Policy
+    from ray_tpu_torch.rllib import env as rl_env
+    from ray_tpu_torch.rllib.offline import record_rollouts
+    res = {}
+    with tempfile.TemporaryDirectory() as data_dir:
+        e = rl_env.create_env(MARWIL_ENV["env"], MARWIL_ENV["env_config"])
+        recorder = Policy(e.observation_space, e.action_space,
+                          {"seed": SEED + 1, "device": str(dev)})
+        t = time.perf_counter()
+        res["recorded_steps"] = record_rollouts(
+            recorder, MARWIL_ENV["env"], data_dir,
+            episodes=MARWIL_EPISODES, env_config=MARWIL_ENV["env_config"],
+            explore=False, seed=SEED)
+        res["record_s"] = time.perf_counter() - t
+        for label, cls in (("marwil_beta1", MARWILConfig),
+                           ("bc_beta0", BCConfig)):
+            base = mem_base()
+            algo = cls().update(dict(MARWIL_ENV, input=data_dir,
+                                     train_batch_size=512,
+                                     updates_per_iteration=50, seed=SEED,
+                                     device=str(dev))).build()
+            nll0 = _dataset_nll(algo)
+            zero_kernel_counts()
+            algo.train()                              # warm
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            trained0 = algo._trained
+            losses = [algo.train()["info"]["policy_loss"]
+                      for _ in range(MARWIL_ITERS)]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            rl_kernel_check(f"offline_marwil {label}")
+            res[label] = dict(
+                updates_per_s=50 * MARWIL_ITERS / wall,
+                trained_steps_per_s=(algo._trained - trained0) / wall,
+                policy_loss=losses, nll_untrained=nll0,
+                nll_trained=_dataset_nll(algo), batch_size=512)
+            rng = np.random.default_rng(SEED)
+            # the host minibatch as training_step makes it, its upload
+            # inside the update
+            res[label].update(timed_update(
+                f"offline_marwil_{label}",
+                lambda: algo.learn_on(algo.data.minibatch(rng, 512)), tag))
+            res[label]["peak_mem_gb"] = peak_above_gb(base)
+            if not all(math.isfinite(x) for x in losses):
+                fail(f"offline_marwil {label}: non-finite loss {losses}")
+            del algo
+    for k, val in res.items():
+        print(f"offline_marwil {k} {val} [{tag}]", flush=True)
+    bc = res["bc_beta0"]
+    if not bc["nll_trained"] < bc["nll_untrained"]:
+        fail(f"BC's dataset NLL {bc['nll_trained']} did not fall below the "
+             f"untrained policy's {bc['nll_untrained']}")
+    return res
+
+
+def a3c_pixel_phase(dev, card, tag: str) -> dict:
+    """A3C's local mode on PixelSquareEnv with the Nature CNN: A3C_ITERS
+    iterations of grads_per_iteration (compute_gradients, apply) pairs;
+    one such update under the profiler (device ms, busy share); the
+    gradient's device → numpy → device round trip (the reference's
+    contract) timed on its own; the peak memory above the phase's
+    start."""
+    from ray_tpu_torch.rllib import A3CConfig
+    from ray_tpu_torch.rllib import models as rl_models
+    base = mem_base()
+    algo = A3CConfig().update(dict(A3C_PIXEL, device=str(dev))).build()
+    worker, policy = algo.workers.local_worker, algo.get_policy()
+    before = rl_models.params_to_numpy(policy.params)
+    algo.train()                                      # warm
+    zero_kernel_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    infos = [algo.train()["info"] for _ in range(A3C_ITERS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    rl_kernel_check("a3c_pixel")
+    steps = A3C_ITERS * A3C_PIXEL["grads_per_iteration"] * \
+        A3C_PIXEL["num_envs_per_worker"] * A3C_PIXEL["rollout_fragment_length"]
+    prof = profile_once("a3c_pixel_update", lambda: algo.apply_gradients(
+        worker.compute_gradients(None, **algo._grad_kw)[0]), tag)
+    grads, _, _ = worker.compute_gradients(None, **algo._grad_kw)
+    g_dev = rl_models.params_from_numpy(grads, policy.model_config, dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(10):
+        rl_models.params_from_numpy(rl_models.params_to_numpy(g_dev),
+                                    policy.model_config, dev)
+    torch.cuda.synchronize()
+    round_trip_ms = (time.perf_counter() - t) * 100
+    t = time.perf_counter()
+    for _ in range(10):
+        algo.apply_gradients(grads)
+    torch.cuda.synchronize()
+    apply_ms = (time.perf_counter() - t) * 100
+    moved = rl_tree_norm(_tree_step(before,
+                                    rl_models.params_to_numpy(policy.params)))
+    res = dict(iterations=A3C_ITERS, wall_s=wall, env_steps_per_s=steps / wall,
+               update_ms=1e3 * wall / (A3C_ITERS *
+                                       A3C_PIXEL["grads_per_iteration"]),
+               update_device_ms=prof["device_ms"], update_busy=prof["busy"],
+               grad_round_trip_ms=round_trip_ms, apply_ms=apply_ms,
+               grad_mb=sum(v.nbytes for _, v in rl_tree_paths(grads)) / 1e6,
+               peak_mem_gb=peak_above_gb(base), params_moved=float(moved),
+               last_info=infos[-1])
+    for k, val in res.items():
+        print(f"a3c_pixel {k} {val} [{tag}]", flush=True)
+    if not all(math.isfinite(v) for v in infos[-1].values()) or \
+            not moved > 0:
+        fail(f"a3c_pixel: stats {infos[-1]}, params moved {moved}")
+    del algo, g_dev
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def apex_pixel_phase(dev, card, tag: str) -> dict:
+    """Ape-X's single-process path (APEXConfig defaults, num_workers=0) on
+    PixelSquareEnv with the Nature CNN for APEX_ITERS iterations: the
+    sampled rows' priorities change after their updates, the target
+    syncs every target_network_update_freq updates; the prioritized
+    sample and the update timed on their own (the update also under the
+    profiler); the peak memory above the phase's start."""
+    from ray_tpu_torch.rllib import APEXConfig
+    base = mem_base()
+    algo = APEXConfig().update(dict(APEX_PIXEL, device=str(dev))).build()
+    freq = int(algo.config["target_network_update_freq"])
+    replay = algo._local_replay
+    zero_kernel_counts()
+    t = time.perf_counter()
+    infos = [algo.train()["info"] for _ in range(APEX_ITERS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    rl_kernel_check("apex_pixel")
+    updates = algo._updates
+    n = int(algo.config["train_batch_size"])
+    beta = float(algo.config["prioritized_replay_beta"])
+    cols, idx, w = replay.sample(n, beta)
+    prio0 = replay._prio[idx].copy()
+    t = time.perf_counter()
+    for _ in range(20):
+        replay.sample(n, beta)
+    sample_ms = (time.perf_counter() - t) * 50
+    algo._learn(cols, idx, w)
+    changed = int((replay._prio[idx] != prio0).sum())
+    syncs = algo.target_syncs
+    # the timed updates run after the schedule's check is read
+    update = timed_update("apex_pixel", lambda: algo._learn(cols, idx, w), tag)
+    res = dict(iterations=APEX_ITERS, wall_s=wall,
+               env_steps=infos[-1]["num_env_steps_sampled"],
+               env_steps_per_s=infos[-1]["num_env_steps_sampled"] / wall,
+               learner_updates=updates, target_syncs=syncs,
+               prioritized_sample_ms=sample_ms, **update,
+               peak_mem_gb=peak_above_gb(base),
+               priorities_changed=changed, batch=n,
+               mean_td_error=infos[-1].get("mean_td_error"))
+    for k, val in res.items():
+        print(f"apex_pixel {k} {val} [{tag}]", flush=True)
+    if syncs != (updates + 1) // freq or updates < freq:
+        fail(f"apex_pixel: {syncs} target syncs after "
+             f"{updates + 1} updates (every {freq})")
+    if changed == 0 or not math.isfinite(res["mean_td_error"]):
+        fail(f"apex_pixel: priorities changed {changed}, "
+             f"td {res['mean_td_error']}")
+    del algo
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 # The weights-plane phase: a child process attaches to what an engine in
 # this one published.  Its private init is stamped (+1 on every leaf), so
 # only an attach can give it the publisher's bytes.
@@ -3733,6 +4761,16 @@ def main() -> int:
     phase_done("ppo_pixel")
     dqn_pixel_phase(dev, card, tag)
     phase_done("dqn_pixel")
+    sac_pendulum_phase(dev, card, tag)
+    phase_done("sac_pendulum")
+    td3_pendulum_phase(dev, card, tag)
+    phase_done("td3_pendulum")
+    offline_marwil_phase(dev, card, tag)
+    phase_done("offline_marwil")
+    a3c_pixel_phase(dev, card, tag)
+    phase_done("a3c_pixel")
+    apex_pixel_phase(dev, card, tag)
+    phase_done("apex_pixel")
     # every main path's launches of the kernels it counts, each counted
     # from 0 over its own run
     paths = {"engine": eng, "llama_engine": llama, "train": train,

@@ -4,10 +4,13 @@
 Reference: ``rllib/``.  A rollout worker steps vectorized envs on the host
 with one device call a step for the policy; a learner is eager PyTorch on
 the same device (PPO: all SGD epochs with no host read; IMPALA/APPO:
-V-trace plus RMSProp; DQN: double-Q).  Entry points run on the card unless
-the config says ``device="cpu"`` (``.resources(device="cpu")``).  Sampling
-is local (``num_workers=0``); remote rollout workers wait for the
-runtime::
+V-trace plus RMSProp; DQN and Ape-X's local path: double-Q, Ape-X over
+prioritized replay; SAC, DDPG/TD3: actor, critics and targets; MARWIL/BC:
+offline JSON data, ``offline.py``; A3C's local mode: worker-side
+gradients).  Entry points run on the card unless the config says
+``device="cpu"`` (``.resources(device="cpu")``).  Sampling is local
+(``num_workers=0``); remote rollout workers, and with them ES, wait for
+the runtime::
 
     from ray_tpu_torch.rllib import PPOConfig
     algo = (PPOConfig().environment("PixelSquareEnv")
@@ -28,8 +31,10 @@ from ray_tpu_torch.rllib.evaluation import (
     RolloutWorker, WorkerSet, collect_metrics, synchronous_parallel_sample)
 from ray_tpu_torch.rllib.multi_agent import MultiAgentRolloutWorker
 from ray_tpu_torch.rllib.algorithms import (
-    APPO, APPOConfig, Algorithm, AlgorithmConfig, DQN, DQNConfig, IMPALA,
-    IMPALAConfig, PPO, PPOConfig)
+    A3C, A3CConfig, APEX, APEXConfig, APPO, APPOConfig, Algorithm,
+    AlgorithmConfig, BC, BCConfig, DDPG, DDPGConfig, DQN, DQNConfig, IMPALA,
+    IMPALAConfig, MARWIL, MARWILConfig, PPO, PPOConfig, SAC, SACConfig, TD3,
+    TD3Config)
 from ray_tpu_torch.rllib.algorithms.impala import vtrace
 
 __all__ = [
@@ -38,5 +43,8 @@ __all__ = [
     "Policy", "compute_gae", "RolloutWorker", "MultiAgentRolloutWorker",
     "WorkerSet", "collect_metrics", "synchronous_parallel_sample",
     "Algorithm", "AlgorithmConfig", "PPO", "PPOConfig", "IMPALA",
-    "IMPALAConfig", "DQN", "DQNConfig", "vtrace", "APPO", "APPOConfig",
+    "IMPALAConfig", "DQN", "DQNConfig", "APEX", "APEXConfig", "vtrace",
+    "APPO", "APPOConfig", "A3C", "A3CConfig", "MARWIL", "MARWILConfig",
+    "BC", "BCConfig", "SAC", "SACConfig", "DDPG", "DDPGConfig", "TD3",
+    "TD3Config",
 ]

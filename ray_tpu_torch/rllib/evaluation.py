@@ -10,7 +10,9 @@ the whole vector of envs (``Policy.compute_actions``).
 The port runs the local worker only (``num_workers=0``, every learner of
 the reference has a path for it).  Remote workers are actors of the
 runtime, which the port does not have yet: ``num_workers > 0`` raises.
-So does the A3C worker step (``compute_gradients``), which waits with A3C.
+The A3C worker step (``compute_gradients``) runs on the local worker and
+returns the reference's contract, a numpy gradient tree in the
+reference's layout: what a remote worker will ship to the learner.
 """
 
 from __future__ import annotations
@@ -19,12 +21,14 @@ import collections
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
 from ray_tpu_torch.rllib import env as env_lib
-from ray_tpu_torch.rllib.policy import Policy, compute_gae
+from ray_tpu_torch.rllib import models
+from ray_tpu_torch.rllib.policy import Policy, compute_gae, to_device
 from ray_tpu_torch.rllib.sample_batch import (
-    ACTIONS, EPS_ID, OBS, NEXT_OBS, REWARDS, SampleBatch,
-    TERMINATEDS, TRUNCATEDS, concat_samples)
+    ACTIONS, ADVANTAGES, EPS_ID, OBS, NEXT_OBS, REWARDS, SampleBatch,
+    TERMINATEDS, TRUNCATEDS, VALUE_TARGETS, concat_samples)
 
 class RolloutWorker:
     """Holds ``num_envs_per_worker`` envs + a policy; ``sample()`` returns a
@@ -108,6 +112,43 @@ class RolloutWorker:
         if weights is not None:
             self.policy.set_weights(weights)
         return self.sample()
+
+    def compute_gradients(self, weights: Optional[dict],
+                          vf_loss_coeff: float = 0.5,
+                          entropy_coeff: float = 0.01):
+        """A3C worker step: sample a fragment, compute a2c gradients ON
+        THE WORKER, return (numpy grad tree in the reference's layout,
+        steps, metrics) — the gradient-push execution pattern (reference:
+        a3c async_optimizer).  Advantages are normalized on the host with
+        numpy's population std; the gradient comes back in one
+        device-to-host copy."""
+        # algorithm.py imports this module
+        from ray_tpu_torch.rllib.algorithms.algorithm import grads_with_aux
+        if weights is not None:
+            self.policy.set_weights(weights)
+        batch = self.sample()
+        apply_fn = self.policy.apply_fn
+        dist = self.policy.dist_class
+
+        def loss(params, obs, actions, adv, targets):
+            inputs, values = apply_fn(params, obs)
+            logp = dist.logp(inputs, actions)
+            entropy = dist.entropy(inputs).mean()
+            pi_loss = -(logp * adv).mean()
+            vf_loss = 0.5 * torch.square(values - targets).mean()
+            total = pi_loss + vf_loss_coeff * vf_loss \
+                - entropy_coeff * entropy
+            return total, (pi_loss, vf_loss, entropy)
+
+        adv = batch[ADVANTAGES]
+        adv = (adv - adv.mean()) / (adv.std() + 1e-8)
+        dev = self.policy.device
+        grads, aux = grads_with_aux(
+            loss, self.policy.params, *(to_device(x, dev) for x in (
+                batch[OBS], batch[ACTIONS], adv, batch[VALUE_TARGETS])))
+        pi_l, vf_l, ent = torch.stack(aux).tolist()
+        return models.params_to_numpy(grads), batch.count, {
+            "policy_loss": pi_l, "vf_loss": vf_l, "entropy": ent}
 
     def get_weights(self) -> dict:
         return self.policy.get_weights()

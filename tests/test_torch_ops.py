@@ -764,7 +764,9 @@ def test_port_imports_no_jax_and_no_ray_tpu():
     for mod in ("__init__", "sample_batch", "env", "models", "policy",
                 "evaluation", "multi_agent", "algorithms/__init__",
                 "algorithms/algorithm", "algorithms/ppo",
-                "algorithms/impala", "algorithms/appo", "algorithms/dqn"):
+                "algorithms/impala", "algorithms/appo", "algorithms/dqn",
+                "offline", "algorithms/sac", "algorithms/ddpg",
+                "algorithms/marwil", "algorithms/a3c", "algorithms/apex"):
         assert rllib / f"{mod}.py" in _port_sources(), mod
     assert not bad, bad
 
