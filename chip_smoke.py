@@ -38,12 +38,28 @@
    the weights and the pool are freed before the next phase.
    Between the two, the weights-plane phase: a GPT-2 124M engine with
    ``share_weights=True`` publishes its params to this run's own
-   directory under ``/dev/shm`` (``RTPU_SHM_DIR``, set for the whole run
+   directory under ``/dev/shm`` (``RTT_SHM_DIR``, set for the whole run
    and removed at exit, so two runs on one machine never meet in the
    plane), an engine in a child process attaches (its private
    init is stamped, so only the attach gives the publisher's bytes) and
    must hold ``wte`` and a block matrix bitwise equal to the publisher's;
    shutdown unlinks the segment.
+   Then the runtime phase: the port's own runtime at its default config
+   (``ray_tpu_torch.init(num_cpus=4)``, the card detected, the native
+   slab store and wire codec loaded), 1,000 tasks in worker processes,
+   put/get of 64 MB, a plain task that sees no card, then a
+   ``num_gpus=1`` actor that builds the engine phase's GPT-2 engine and
+   answers its 16 requests with the same token ids and the same flash
+   and LayerNorm launches as the driver's run, and returns a bf16 CUDA
+   tensor that arrives on ``cuda`` with the actor's checksum.  A
+   ``num_gpus=0`` actor and a plain task reading the CUDA tensor must
+   fail.  Then ``ray_perf``'s quick suite, and after ``shutdown`` none
+   of the workers its GCS spawned may be alive and no segment it made
+   may be left; every name it made in the run's own shm directory must
+   carry the port's ``rtt_`` prefix (never the JAX package's), and none
+   of its segments may appear in ``/dev/shm`` outside that directory
+   under either prefix.  The session lives under a root of the run's
+   own (``RTT_SESSION_DIR_ROOT``).
 4. Train phase: trains GPT-2 124M (full width, random init from the seed,
    batch 32 x seq 1024, remat on) through ``spmd.build_train_program``.
    Holds every parameter's step-0 gradient to an independent reference
@@ -130,6 +146,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from typing import Optional
 
@@ -1292,6 +1309,8 @@ def engine_phase(dev, spec: Optional[dict] = None, tag: str = "") -> dict:
         sfx = f" [{tag}]" if tag else ""
         for k, val in res.items():
             print(f"{label} {k} {val}{sfx}", flush=True)
+        # the runtime phase replays these requests in an actor
+        res["requests"] = (prompts, outs)
         if spec["profile"]:
             res["profile"] = profile_steps(runner, eng.cache.pool, dev,
                                            *spec["profile"], tag)
@@ -4613,8 +4632,8 @@ def weights_phase(dev, tag: str) -> dict:
     import hashlib
     from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine, weights
     shm = weights._shm_dir()
-    if str(shm) != os.environ.get("RTPU_SHM_DIR"):
-        fail("the weights plane is not in this run's own RTPU_SHM_DIR")
+    if str(shm) != os.environ.get("RTT_SHM_DIR"):
+        fail("the weights plane is not in this run's own RTT_SHM_DIR")
     st = os.statvfs(shm)
     print(f"weights shm_dir {shm} free_gb {st.f_bavail * st.f_frsize / 1e9:.2f}"
           f" [{tag}]", flush=True)
@@ -4666,21 +4685,409 @@ def weights_phase(dev, tag: str) -> dict:
     return res
 
 
+# The runtime phase: GPT-2 124M served by an actor the port's runtime
+# placed on the card (num_gpus=1), against the engine phase's own run.
+class EngineActor:
+    """``gpt2_engine()``'s LLMEngine (same spec, seed and block scale as the
+    engine phase) inside a worker process.  Requests are submitted while
+    the engine loop is stopped and ``run`` starts it, so the schedule is
+    the engine phase's: every prefill, then the decode steps."""
+
+    def __init__(self, cfg, blocks, block_scale, seed, device=None):
+        from ray_tpu_torch._device import disable_tf32
+        from ray_tpu_torch.serve.llm import LLMEngine
+        from ray_tpu_torch.serve.llm.config import resolve_model
+        disable_tf32()                     # as the driver's main() does
+        self.mod, self.mcfg = resolve_model(cfg)
+        gen = torch.Generator(device="cpu").manual_seed(seed)
+        # device=None: the card, or an error on a worker that sees none
+        params = self.mod.init_params(gen, self.mcfg, device=device)
+        for name in blocks:
+            params["blocks"][name]["kernel"].mul_(block_scale)
+        self.eng = LLMEngine(cfg, params, start=False, device=device)
+        self.streams, self.first = [], {}
+        emit = self.eng._emit
+
+        def record_emit(seq, tok):
+            self.first.setdefault(seq.seq_id, time.perf_counter())
+            emit(seq, tok)
+
+        self.eng._emit = record_emit
+
+    def visible(self) -> dict:
+        return {"device_count": torch.cuda.device_count(),
+                "RTT_GPU_WORKER": os.environ.get("RTT_GPU_WORKER"),
+                "CUDA_VISIBLE_DEVICES": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "name": torch.cuda.get_device_name(0)
+                if torch.cuda.device_count() else None, "pid": os.getpid()}
+
+    def warm(self, lengths, seed: int) -> None:
+        """One short request per prefill bucket, stepped by hand."""
+        from ray_tpu_torch.serve.llm import SamplingParams
+        rng = np.random.default_rng(seed)
+        for n in lengths:
+            p = rng.integers(0, self.eng.runner.vocab, n).tolist()
+            s = self.eng.submit(p, SamplingParams(max_tokens=2))
+            while self.eng.step():
+                pass
+            s.tokens()
+
+    def submit(self, prompt, max_tokens: int) -> int:
+        from ray_tpu_torch.serve.llm import SamplingParams
+        self.streams.append(self.eng.submit(prompt, SamplingParams(
+            max_tokens=max_tokens)))
+        return len(self.streams) - 1
+
+    def run(self) -> dict:
+        """Start the loop on every submitted request; their tokens, each
+        one's time to first token and the kernels' launches in this run
+        (counted from 0)."""
+        from ray_tpu_torch.ops import flash_attention as fa
+        from ray_tpu_torch.ops import layer_norm as ln
+        counters = {"layer_norm_fwd": (ln, "launches"),
+                    "flash_attention_fwd": (fa, "launches"),
+                    "layer_norm_fwd_scalar": (ln, "scalar_launches"),
+                    "flash_attention_fwd_f32": (fa, "f32_launches"),
+                    "flash_attention_fwd_gqa_d128": (fa, "d128_launches")}
+        for m, a in counters.values():
+            setattr(m, a, 0)
+        t0 = time.perf_counter()
+        self.eng.start()
+        outs = [s.tokens() for s in self.streams]
+        wall = time.perf_counter() - t0
+        counts = {k: getattr(m, a) for k, (m, a) in counters.items()}
+        ttft = [self.first[s.seq_id] - t0 for s in self.streams]
+        return dict(outs=outs, counts=counts, ttft_s=ttft, wall_s=wall,
+                    stats=self.eng.stats())
+
+    def logits(self, prompt):
+        """One prefill step's logits as a bf16 CUDA tensor, with the
+        sha256 of its bytes."""
+        import hashlib
+        dev = self.eng.runner.device
+        with torch.no_grad():
+            out = self.mod.forward(self.eng.runner.params,
+                                   torch.tensor([prompt], device=dev),
+                                   self.mcfg)[0].to(torch.bfloat16)
+        digest = hashlib.sha256(
+            out.cpu().view(torch.int16).numpy().tobytes()).hexdigest()
+        return out, digest
+
+
+def _names(d) -> set:
+    try:
+        return set(os.listdir(d))
+    except OSError:
+        return set()
+
+
+# The JAX package's shm prefix: the runtime phase requires that the port
+# never puts a segment under it.  The one string of the port that names
+# a host name of the reference, and the package-rules test allows it here
+# alone.
+REFERENCE_SHM_PREFIX = "rtpu_"
+
+
+class ClusterWatch:
+    """What one runtime cluster puts on the host, and nothing else: the
+    names in the run's own shm directory, the worker pids its GCS
+    spawned, and the places outside that directory where this cluster's
+    segments would land under a hard-coded path or the JAX package's
+    prefix (``/dev/shm/<either prefix><its segment's suffix>``).  Polled on
+    a thread from ``start`` (just after ``init``) to ``stop``; made
+    before ``init``, so the slab and ring files count as the cluster's."""
+
+    def __init__(self, shm_dir):
+        self.shm_dir = str(shm_dir)
+        self.before = _names(self.shm_dir)
+        self.made: set = set()
+        self.pids: set = set()
+        self.stray: set = set()
+
+    def start(self, head, session_dir: str) -> None:
+        import hashlib
+        self.head = head
+        name = os.path.basename(session_dir)
+        # the slab and the flight-recorder dir, under any prefix
+        self.fixed = [f"slab_{hashlib.md5(name.encode()).hexdigest()[:12]}",
+                      f"flight/{name}"]
+        self.outside = os.path.isdir("/dev/shm") and \
+            os.path.realpath(self.shm_dir) != "/dev/shm"
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def poll(self) -> None:
+        now = _names(self.shm_dir) - self.before
+        self.made |= now
+        try:
+            self.pids.update(w.pid for w in list(self.head.workers.values())
+                             if w.pid)
+        except RuntimeError:    # the table changed under the copy
+            pass
+        if not self.outside:
+            return
+        # segments only: the ring base dir is shared by design
+        suffixes = self.fixed + [
+            n[4:] for n in now if n.startswith("rtt_")
+            and not os.path.isdir(os.path.join(self.shm_dir, n))]
+        for sfx in suffixes:
+            for pre in ("rtt_", REFERENCE_SHM_PREFIX):
+                if os.path.lexists(f"/dev/shm/{pre}{sfx}"):
+                    self.stray.add(pre + sfx)
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            self.poll()
+            self._stop.wait(0.05)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join()
+        self.poll()
+
+    def alive(self) -> list:
+        from ray_tpu_torch._private.memory_monitor import _pid_is_local_worker
+        return sorted(p for p in self.pids if _pid_is_local_worker(p))
+
+    def left(self) -> list:
+        return sorted(n for n in _names(self.shm_dir) - self.before
+                      if not os.path.isdir(os.path.join(self.shm_dir, n)))
+
+
+def session_root() -> str:
+    """A session root of this run's own, removed at exit.  A session's
+    actor sockets are AF_UNIX paths of at most 107 bytes, about 80 of
+    them below the root, so a TMPDIR too long for that gives way to
+    /tmp."""
+    root = tempfile.mkdtemp(prefix="rtt_s")
+    if len(root) > 27:
+        shutil.rmtree(root, ignore_errors=True)
+        root = tempfile.mkdtemp(prefix="rtt_s", dir="/tmp")
+    atexit.register(shutil.rmtree, root, ignore_errors=True)
+    return root
+
+
+def runtime_phase(dev, eng_res: dict, tag: str) -> dict:
+    """The port's own runtime on one host, at its default config: init
+    (the card detected, not passed in), 1,000 tasks in worker processes,
+    put/get of 64 MB, a plain task that sees no card, the GPU actor
+    answering the engine phase's 16 requests (token ids and kernel
+    launches equal to the driver's run), a bf16 CUDA tensor through the
+    store, two planted faults that must fail, ray_perf's quick suite,
+    then shutdown with no segment and no worker left."""
+    import hashlib
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import exceptions as rexc
+    from ray_tpu_torch._private import ray_perf, shm_store, wire
+    from ray_tpu_torch.native import load_slab_lib, load_wirecodec
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    saved = os.environ.get("PYTHONPATH")
+    # workers import the package from this checkout
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [here] + ([saved] if saved else []))
+    watch = ClusterWatch(shm_store._SHM_DIR)
+    res: dict = {}
+    prompts, driver_outs = eng_res["requests"]
+    spec = gpt2_engine()
+    try:
+        t0 = time.perf_counter()
+        info = rt.init(num_cpus=4)
+        res["init_s"] = time.perf_counter() - t0
+        watch.start(rt._head, info["session_dir"])
+        root = os.environ["RTT_SESSION_DIR_ROOT"]
+        if not info["session_dir"].startswith(root + os.sep):
+            fail(f"runtime: the session {info['session_dir']} is not under "
+                 f"this run's root {root}")
+        gpus = rt.cluster_resources().get("GPU")
+        native = {"slab_store": load_slab_lib() is not None
+                  and rt._head.slab is not None,
+                  "wirecodec": load_wirecodec() is not None
+                  and wire._native_codec() is not None}
+        print(f"runtime session {info['session_dir']} GPU {gpus} (detected) "
+              f"native {native} [{tag}]", flush=True)
+        if gpus != 1:
+            fail(f"runtime: cluster_resources GPU {gpus}, expected 1")
+        if not all(native.values()):
+            fail(f"runtime: the native layer did not load: {native}")
+
+        @rt.remote
+        def pid():
+            return os.getpid()
+
+        t0 = time.perf_counter()
+        pids = rt.get([pid.remote() for _ in range(1000)], timeout=300)
+        res["tasks_1000_s"] = time.perf_counter() - t0
+        if os.getpid() in pids:
+            fail("runtime: a task ran in the driver")
+        res["task_workers"] = len(set(pids))
+
+        arr = np.random.default_rng(SEED).integers(
+            0, 255, 64 * 2 ** 20, dtype=np.uint8)
+        t0 = time.perf_counter()
+        ref = rt.put(arr)
+        res["put_64mb_gb_s"] = arr.nbytes / (time.perf_counter() - t0) / 1e9
+        t0 = time.perf_counter()
+        back = rt.get(ref)
+        res["get_64mb_gb_s"] = arr.nbytes / (time.perf_counter() - t0) / 1e9
+        if not np.array_equal(back, arr):
+            fail("runtime: the 64 MB array came back different")
+        del back, ref
+
+        @rt.remote
+        def plain_view():
+            import torch as t
+            return t.cuda.device_count(), \
+                os.environ.get("CUDA_VISIBLE_DEVICES")
+
+        view = rt.get(plain_view.remote(), timeout=120)
+        print(f"runtime plain task sees {view} [{tag}]", flush=True)
+        if view != (0, ""):
+            fail(f"runtime: a plain task sees {view}, expected (0, '')")
+
+        args = (spec["cfg"], spec["blocks"], spec["block_scale"], SEED)
+        gpu_actor = rt.remote(num_gpus=1)(EngineActor)
+        t0 = time.perf_counter()
+        actor = gpu_actor.remote(*args)
+        vis = rt.get(actor.visible.remote(), timeout=600)
+        res["actor_boot_s"] = time.perf_counter() - t0
+        print(f"runtime gpu actor sees {vis} [{tag}]", flush=True)
+        if vis["device_count"] != 1 or vis["RTT_GPU_WORKER"] != "1" \
+                or vis["pid"] == os.getpid():
+            fail(f"runtime: the num_gpus=1 actor sees {vis}")
+        rt.get(actor.warm.remote(spec["warm"], SEED), timeout=600)
+        rt.get([actor.submit.remote(p, 32) for p in prompts], timeout=120)
+        t0 = time.perf_counter()
+        run = rt.get(actor.run.remote(), timeout=600)
+        res["actor_serve_s"] = time.perf_counter() - t0
+        same = [a == b for a, b in zip(run["outs"], driver_outs)]
+        print(f"runtime actor tokens equal to the driver's: {sum(same)} of "
+              f"{len(same)} requests [{tag}]", flush=True)
+        if len(same) != 16 or not all(same):
+            fail("runtime: the actor's tokens differ from the driver's")
+        want = eng_res["launches"]
+        got = run["counts"]
+        print(f"runtime actor launches {got}, driver's engine phase {want} "
+              f"[{tag}]", flush=True)
+        for k, n in want.items():
+            if got[k] != n or n <= 0:
+                fail(f"runtime: {k} launched {got[k]} times in the actor, "
+                     f"{n} in the driver's run")
+        for k in ("layer_norm_fwd_scalar", "flash_attention_fwd_f32",
+                  "flash_attention_fwd_gqa_d128"):
+            if got[k]:
+                fail(f"runtime: {k} ran {got[k]} times in the actor")
+        res["launches"] = {k: got[k] for k in want}
+        ttft = sorted(run["ttft_s"])
+        res["actor_ttft_ms"] = [round(1e3 * t, 3) for t in run["ttft_s"]]
+        res["actor_ttft_p50_ms"] = 1e3 * ttft[len(ttft) // 2]
+        res["actor_ttft_max_ms"] = 1e3 * ttft[-1]
+        res["actor_output_tok_s"] = 16 * 32 / run["wall_s"]
+        res["driver_ttft_p50_ms"] = eng_res["ttft_p50_ms"]
+
+        lref = actor.logits.remote(prompts[0][:32])
+        t_logits, digest = rt.get(lref, timeout=120)
+        mine = hashlib.sha256(t_logits.cpu().view(torch.int16).numpy()
+                              .tobytes()).hexdigest()
+        print(f"runtime bf16 logits {tuple(t_logits.shape)} on "
+              f"{t_logits.device} sha256 {mine[:16]} (actor's "
+              f"{digest[:16]}) [{tag}]", flush=True)
+        if t_logits.device.type != "cuda" or \
+                t_logits.dtype != torch.bfloat16 or mine != digest:
+            fail("runtime: the CUDA tensor did not arrive intact on cuda")
+
+        # planted faults: each must fail
+        cpu_actor = gpu_actor.options(num_gpus=0).remote(*args)
+        try:
+            rt.get(cpu_actor.visible.remote(), timeout=300)
+            fail("runtime: a num_gpus=0 actor built the engine")
+        except (rexc.RayActorError, rexc.RayTaskError) as e:
+            ok = "no CUDA device" in str(e)
+            print(f"runtime control num_gpus=0 actor raised "
+                  f"{type(e).__name__} ({'no CUDA device' if ok else e}) "
+                  f"[{tag}]", flush=True)
+            if not ok:
+                fail(f"runtime: the num_gpus=0 actor failed otherwise: {e}")
+
+        @rt.remote
+        def read_cuda(box):
+            return float(rt.get(box[0])[0].float().sum())
+
+        try:
+            rt.get(read_cuda.remote([lref]), timeout=300)
+            fail("runtime: a plain task read the CUDA tensor")
+        except rexc.RayTaskError as e:
+            ok = "num_gpus" in str(e)
+            print(f"runtime control plain task reading a CUDA tensor "
+                  f"raised ({'names num_gpus' if ok else e}) [{tag}]",
+                  flush=True)
+            if not ok:
+                fail(f"runtime: the plain read failed otherwise: {e}")
+        rt.kill(actor)
+        rt.kill(cpu_actor)
+        del t_logits, lref
+
+        perf = ray_perf.main(quick=True)
+        for row in perf:
+            print(f"runtime ray_perf {json.dumps(row)} [{tag}]", flush=True)
+        try:
+            ray_perf.assert_sane(perf)
+        except AssertionError as e:
+            fail(f"runtime: ray_perf is not sane: {e}")
+        res["ray_perf"] = {r["name"]: r.get("ops_per_s", r.get("gb_per_s"))
+                           for r in perf}
+    finally:
+        started = hasattr(watch, "head")
+        if started:
+            watch.poll()
+        rt.shutdown()
+        if started:
+            watch.stop()
+        if saved is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = saved
+    deadline = time.monotonic() + 30
+    while watch.alive() and time.monotonic() < deadline:
+        time.sleep(0.2)
+    alive, left = watch.alive(), watch.left()
+    foreign = sorted(n for n in watch.made if not n.startswith("rtt_"))
+    print(f"runtime after shutdown: of the {len(watch.pids)} workers its "
+          f"GCS spawned alive {alive}, segments left {left}, names made in "
+          f"{watch.shm_dir} {len(watch.made)}, not the port's {foreign}, "
+          f"this cluster's segments outside it {sorted(watch.stray)} "
+          f"(checked: {watch.outside}; the flight recorder's ring dir "
+          f"rtt_flight stays by design) [{tag}]", flush=True)
+    if alive or left or foreign or watch.stray or not watch.pids:
+        fail("runtime: shutdown left port workers or segments, or the "
+             "run made a segment of another prefix or outside its own "
+             "directory")
+    for k, val in res.items():
+        print(f"runtime {k} {val} [{tag}]", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one GPU",
               file=sys.stderr)
         return 1
-    from ray_tpu_torch import _build
-    from ray_tpu_torch._device import disable_tf32, resolve_device
-
     # The shm weights plane (its segments, locks and the engines' boot-time
-    # reaping) works in a directory of this run's own, on tmpfs where there
-    # is one, removed at exit.
-    shm_dir = tempfile.mkdtemp(prefix="rtpu_smoke_", dir="/dev/shm"
+    # reaping) and the runtime's objects, slab and flight rings work in a
+    # directory of this run's own, on tmpfs where there is one; the
+    # runtime's sessions in a root of its own under TMPDIR.  Both are set
+    # before the package is imported (the store resolves its directory
+    # then) and removed at exit, so two runs on one machine never meet.
+    shm_dir = tempfile.mkdtemp(prefix="rtt_smoke_", dir="/dev/shm"
                                if os.path.isdir("/dev/shm") else None)
     atexit.register(shutil.rmtree, shm_dir, ignore_errors=True)
-    os.environ["RTPU_SHM_DIR"] = shm_dir
+    os.environ["RTT_SHM_DIR"] = shm_dir
+    os.environ["RTT_SESSION_DIR_ROOT"] = session_root()
+    from ray_tpu_torch import _build
+    from ray_tpu_torch._device import disable_tf32, resolve_device
     tag = gpu_line()
     print(tag, flush=True)
     dev = resolve_device(None)
@@ -4729,6 +5136,8 @@ def main() -> int:
     phase_done("engine")
     weights_phase(dev, tag)
     phase_done("weights")
+    runtime = runtime_phase(dev, eng, tag)
+    phase_done("runtime")
     llama = engine_phase(dev, llama_engine(), tag)
     print(f"llama_engine depth {llama['n_layer']} layers (the preset's, "
           f"uncut) at full width [{tag}]", flush=True)
@@ -4773,7 +5182,8 @@ def main() -> int:
     phase_done("apex_pixel")
     # every main path's launches of the kernels it counts, each counted
     # from 0 over its own run
-    paths = {"engine": eng, "llama_engine": llama, "train": train,
+    paths = {"engine": eng, "runtime": runtime, "llama_engine": llama,
+             "train": train,
              "llama_train": llama_train, "xl_train": xl_train,
              "moe_train": moe_train, "resnet50_train": resnet_train,
              "bert_serve": bert_serve, "vit_train": vit_train,

@@ -70,7 +70,7 @@ class GPT2Config:
     remat_policy: str = "full"  # full | dots | attn | attn_qkv
     # "auto" resolves per device: the flash kernel on CUDA, dense
     # attention elsewhere.
-    attn_impl: str = "auto"    # auto | dense | flash
+    attn_impl: str = "auto"    # auto | dense | flash | blockwise
     # >0: the LM head and cross entropy in this many sequence chunks, each
     # checkpointed, so the (B, T, vocab) f32 logits never exist at once.
     loss_chunks: int = 0
@@ -190,8 +190,11 @@ def _resolve_attn(cfg: GPT2Config, device: torch.device) -> AttnImpl:
         return dense_causal_attention
     if impl == "flash":
         return flash_attention_for_model
-    raise ValueError(f"unknown attn_impl {impl!r} (expected auto, dense or "
-                     f"flash)")
+    if impl == "blockwise":
+        from ray_tpu_torch.ops.attention import blockwise_attention
+        return lambda q, k, v, cfg: blockwise_attention(q, k, v, causal=True)
+    raise ValueError(f"unknown attn_impl {impl!r} (expected auto, dense, "
+                     f"flash or blockwise)")
 
 
 def _qkv_projection(h: torch.Tensor, kernel: torch.Tensor,

@@ -66,6 +66,38 @@ class RequestStream:
                 raise RuntimeError(f"llm request failed: {payload}")
             yield item
 
+    def poll(self, max_items: int = 16,
+             timeout: float = 0.2) -> tuple:
+        """Non-blocking-ish drain: wait up to ``timeout`` for the FIRST
+        available token, then take whatever else is already queued (cap
+        ``max_items``).  Returns (tokens, done) — the serve streaming
+        path's bounded-occupancy pull."""
+        out: List[int] = []
+        try:
+            item = self._q.get(timeout=timeout)
+        except queue.Empty:
+            return out, False
+        while True:
+            if isinstance(item, tuple):
+                kind, payload = item
+                if kind == _DONE:
+                    self.finish_reason = payload
+                    return out, True
+                if out:
+                    # deliver the tokens drained BEFORE the failure
+                    # (parity with __iter__); the error marker goes
+                    # back for the next poll — nothing follows it
+                    self._q.put(item)
+                    return out, False
+                raise RuntimeError(f"llm request failed: {payload}")
+            out.append(item)
+            if len(out) >= max_items:
+                return out, False
+            try:
+                item = self._q.get_nowait()
+            except queue.Empty:
+                return out, False
+
     def cancel(self) -> None:
         """Abandon the request: the engine frees its KV blocks and
         drops it from the batch at the next iteration."""
@@ -370,6 +402,11 @@ class LLMEngine:
         q = self._streams.pop(seq.seq_id, None)
         if q is not None:
             q.put((_ERR, err))
+
+    def max_num_seqs_room(self) -> int:
+        """Sequences the running batch can still take (what the Serve
+        deployment's admission reads)."""
+        return self.cfg.max_num_seqs - len(self.sched.running)
 
     # ------------------------------------------------------------------ stats
     def stats(self) -> dict:

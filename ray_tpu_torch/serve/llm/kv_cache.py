@@ -65,6 +65,14 @@ class PagedKVCache:
         with self._lock:
             return len(self._free)
 
+    def used_block_count(self) -> int:
+        with self._lock:
+            return self.num_blocks - len(self._free)
+
+    def can_alloc(self, n_blocks: int) -> bool:
+        with self._lock:
+            return len(self._free) >= n_blocks
+
     def alloc_seq(self, seq_id: str, n_tokens: int) -> List[int]:
         """Allocate blocks for ``n_tokens`` of context; table starts full
         to ``n_tokens`` (prefill scatters into them immediately)."""
@@ -153,6 +161,14 @@ class PagedKVCache:
     def fill(self, seq_id: str) -> int:
         with self._lock:
             return self._fill[seq_id]
+
+    def has_seq(self, seq_id: str) -> bool:
+        with self._lock:
+            return seq_id in self._tables
+
+    def seq_ids(self) -> List[str]:
+        with self._lock:
+            return list(self._tables)
 
     # ------------------------------------------------------- device writes
     def scatter_prefill(self, seq_id: str, ks: torch.Tensor,

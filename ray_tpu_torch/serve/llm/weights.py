@@ -3,12 +3,16 @@
 
 Every LLM replica on a node needs the same parameters.  The first replica
 to arrive publishes them, flattened to float32, into one segment under
-``RTPU_SHM_DIR`` (default ``/dev/shm``); later replicas attach to it and
+``RTT_SHM_DIR`` (default ``/dev/shm``); later replicas attach to it and
 copy each leaf onto their own device, with no init of their own.
+
+The port's files carry the port's prefix (``rtt_llmw_``), never the
+reference's own: the two packages draw other values and write other
+headers, so neither may attach to, or reap, the other's.
 
 Publication protocol (crash-safe, single-writer), as the reference's:
 
-- segment ``rtpu_llmw_<key>.<publisher_pid>`` holds an 8-byte header
+- segment ``rtt_llmw_<key>.<publisher_pid>`` holds an 8-byte header
   length, a JSON header (each leaf's key path, shape, dtype, offset and
   size, in a fixed key order) and the raw leaf bytes; the pid in the name
   makes a SIGKILLed publisher's segment recognizably orphaned;
@@ -46,7 +50,7 @@ InitFn = Callable[[torch.device], Params]
 
 
 def _shm_dir() -> Path:
-    return Path(os.environ.get("RTPU_SHM_DIR", "/dev/shm"))
+    return Path(os.environ.get("RTT_SHM_DIR", "/dev/shm"))
 
 
 def _pid_alive(pid: int) -> bool:
@@ -60,11 +64,11 @@ def _pid_alive(pid: int) -> bool:
 
 
 def _lock_path(key: str) -> str:
-    return str(_shm_dir() / f"rtpu_llmw_{key}.lock")
+    return str(_shm_dir() / f"rtt_llmw_{key}.lock")
 
 
 def _seg_path(key: str, pid: int) -> str:
-    return str(_shm_dir() / f"rtpu_llmw_{key}.{pid}")
+    return str(_shm_dir() / f"rtt_llmw_{key}.{pid}")
 
 
 def _parse_pid(name: str) -> Optional[int]:
@@ -79,7 +83,7 @@ def _parse_pid(name: str) -> Optional[int]:
 
 def _live_segment(key: str) -> Optional[str]:
     """A live publisher's segment base for ``key`` (reaping dead ones)."""
-    prefix = f"rtpu_llmw_{key}."
+    prefix = f"rtt_llmw_{key}."
     shm = _shm_dir()
     try:
         names = os.listdir(shm)
@@ -112,7 +116,7 @@ def reap_orphans() -> int:
     except OSError:
         return n
     for name in names:
-        if not name.startswith("rtpu_llmw_"):
+        if not name.startswith("rtt_llmw_"):
             continue
         pid = _parse_pid(name)
         if pid is None or pid == os.getpid() or _pid_alive(pid):

@@ -55,6 +55,18 @@ def test_forward_matches_jax(models):
     np.testing.assert_allclose(got.numpy(), ref, atol=ATOL)
 
 
+def test_forward_blockwise_matches_jax(models):
+    """attn_impl="blockwise": the reference's lax.scan over KV blocks
+    against the port's loop over them."""
+    jcfg, tcfg, jp, tp = models
+    jcfg = dataclasses.replace(jcfg, attn_impl="blockwise")
+    tcfg = dataclasses.replace(tcfg, attn_impl="blockwise")
+    toks = _tokens(2, 32, jcfg.vocab_size, seed=3)
+    ref = np.asarray(jgpt2.forward(jp, jnp.asarray(toks), jcfg))
+    got = tgpt2.forward(tp, torch.from_numpy(toks).long(), tcfg)
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL)
+
+
 def test_forward_prefill_matches_jax(models):
     jcfg, tcfg, jp, tp = models
     toks = _tokens(1, 32, jcfg.vocab_size, seed=1)

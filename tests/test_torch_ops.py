@@ -11,6 +11,7 @@ plain versions there (``chip_smoke.py`` does the same at full width).
 import ast
 import importlib
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -723,6 +724,61 @@ def test_gather_kv_matches_jax():
     np.testing.assert_array_equal(got, ref)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("block", [8, 16, 64])
+def test_blockwise_attention_matches_jax(causal, block):
+    """The reference's scan over KV blocks (tests/test_ops.py's shapes)
+    against the port's loop, in float32, at one to eight blocks."""
+    q, k, v = _qkv(np.random.default_rng(11), 2, 64, 4, 16)
+    ref = np.asarray(j_attn.blockwise_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        block_size=block))
+    got = t_attn.blockwise_attention(_t(q), _t(k), _t(v), causal=causal,
+                                     block_size=block)
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-5)
+    dense = t_attn.dense_attention(_t(q), _t(k), _t(v), causal=causal)
+    np.testing.assert_allclose(got.numpy(), dense.numpy(), atol=2e-5)
+    with pytest.raises(ValueError, match="not divisible"):
+        t_attn.blockwise_attention(_t(q), _t(k[:, :60]), _t(v[:, :60]),
+                                   block_size=16)
+
+
+def test_flash_update_and_finalize_match_jax():
+    """One masked online-softmax step from a running state, then the
+    normalisation, as the reference's helpers compute them."""
+    rng = np.random.default_rng(5)
+    B, Tq, Tk, H, D = 2, 8, 16, 3, 8
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((B, Tq, H, D), (B, Tk, H, D), (B, Tk, H, D)))
+    o = rng.standard_normal((B, H, Tq, D)).astype(np.float32)
+    m = rng.standard_normal((B, H, Tq)).astype(np.float32)
+    l = rng.uniform(0.5, 2.0, (B, H, Tq)).astype(np.float32)
+    mask = rng.random((Tq, Tk)) > 0.3
+    scale = 0.35
+    jo, jm, jl = j_attn.flash_update(*map(jnp.asarray, (o, m, l, q, k, v)),
+                                     jnp.asarray(mask)[None, None], scale)
+    to, tm, tl = t_attn.flash_update(*map(_t, (o, m, l, q, k, v)),
+                                     torch.from_numpy(mask)[None, None],
+                                     scale)
+    for got, ref in ((to, jo), (tm, jm), (tl, jl)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+    np.testing.assert_allclose(
+        t_attn.flash_finalize(to, tl, torch.float32).numpy(),
+        np.asarray(j_attn.flash_finalize(jo, jl, jnp.float32)), atol=1e-5)
+
+
+def test_ops_package_exports():
+    """The one-card names of ray_tpu.ops that clash with no submodule;
+    flash_attention stays the submodule, by decision."""
+    from ray_tpu_torch.ops import (blockwise_attention, dense_attention,
+                                   paged_attention_decode)
+    import ray_tpu_torch.ops as ops
+    assert blockwise_attention is t_attn.blockwise_attention
+    assert dense_attention is t_attn.dense_attention
+    assert paged_attention_decode is t_paged.paged_attention_decode
+    assert ops.flash_attention is t_flash
+
+
 def test_neg_inf_is_float32_min_not_inf():
     assert t_attn.NEG_INF == float(j_attn.NEG_INF)
     assert np.isfinite(t_attn.NEG_INF)
@@ -734,6 +790,34 @@ def _port_sources():
     return sorted(p for p in (REPO / "ray_tpu_torch").rglob("*.py")
                   if "_build" not in p.relative_to(REPO).parts) + \
         [REPO / "chip_smoke.py", REPO / "c1_kgroups.py"]
+
+
+# A string naming the reference's module (a spawn command, the OOM
+# killer's proof of a worker) or one of its host names (env variables,
+# shm segments, the session root), anywhere in the string: an import
+# scan cannot see these, and a copied runtime would still run the other
+# package's workers or touch its segments and sessions.
+_FOREIGN_STRING = re.compile(
+    r"""(^|[^A-Za-z0-9])(rtpu_|RTPU_|RAY_TPU_)|(^|[\s"'])ray_tpu\.|-m ray_tpu\.""")
+# chip_smoke.py names the reference's shm prefix once, to check that no
+# segment of the port's runtime ever carries it
+_ALLOWED_ASSIGN = "REFERENCE_SHM_PREFIX"
+
+
+def _foreign_strings(tree, smoke: bool = False) -> list:
+    allowed = {id(node.value) for node in ast.walk(tree)
+               if smoke and isinstance(node, ast.Assign)
+               and [getattr(t, "id", None) for t in node.targets]
+               == [_ALLOWED_ASSIGN]}
+    out = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and id(node) not in allowed and \
+                isinstance(node.value, (str, bytes)):
+            text = node.value if isinstance(node.value, str) \
+                else node.value.decode("latin-1")
+            if _FOREIGN_STRING.search(text):
+                out.append((node.lineno, text[:60]))
+    return out
 
 
 def test_port_imports_no_jax_and_no_ray_tpu():
@@ -750,6 +834,39 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                 continue
             bad += [f"{path.relative_to(REPO)}:{node.lineno} {n}"
                     for n in names if n.split(".")[0] in banned]
+        bad += [f"{path.relative_to(REPO)}:{line} string {text!r}"
+                for line, text in _foreign_strings(
+                    tree, smoke=path.name == "chip_smoke.py")]
+    # the scan sees the strings it is meant to catch
+    probe = ast.parse('cmd = [sys.executable, "-m", '
+                      '"ray_tpu._private.worker_main"]\n'
+                      'x = b"ray_tpu._private.worker_main" in f.read()\n'
+                      'os.environ["RTPU_SHM_DIR"]\n'
+                      'p = f"rtpu_llmw_{key}"\n'
+                      'doc = "python -m ray_tpu._private.replication"\n'
+                      'root = "/tmp/rtpu_sessions"\n'
+                      'slab = f"/dev/shm/rtpu_slab_{tag}"\n'
+                      'ring = "/dev/shm/rtpu_flight"\n')
+    assert len(_foreign_strings(probe)) == 8
+    # ... and not the port's own names, nor a file of the reference
+    assert not _foreign_strings(ast.parse(
+        'a = "/tmp/rtt_sessions"\nb = f"/dev/shm/rtt_slab_{tag}"\n'
+        'c = "-m ray_tpu_torch._private.worker_main"\n'
+        'd = "ray_tpu/ops/attention.py:29"\ne = "RTT_SHM_DIR"\n'))
+    runtime = REPO / "ray_tpu_torch"
+    for mod in ("__init__", "actor", "remote_function", "exceptions",
+                "native/__init__", "util/metrics", "util/metrics_catalog",
+                "util/tracing", "util/profiler", "util/tsdb",
+                "util/trace_assembly", "util/scheduling_strategies",
+                *(f"_private/{m}" for m in (
+                    "config", "ids", "pg_scheduler", "resource_sanitizer",
+                    "runtime_env", "rtlog", "session", "shm_store",
+                    "memory_monitor", "wire", "object_ref",
+                    "serialization", "protocol", "data_plane",
+                    "actor_server", "worker", "worker_main", "raylet",
+                    "replication", "gcs", "flight_recorder",
+                    "lock_watchdog", "ray_perf"))):
+        assert runtime / f"{mod}.py" in _port_sources(), mod
     assert len(_port_sources()) > 10
     assert REPO / "ray_tpu_torch" / "models" / "llama.py" in _port_sources()
     assert REPO / "ray_tpu_torch" / "serve" / "llm" / "weights.py" in \
@@ -769,6 +886,19 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                 "algorithms/marwil", "algorithms/a3c", "algorithms/apex"):
         assert rllib / f"{mod}.py" in _port_sources(), mod
     assert not bad, bad
+
+
+def test_port_root_import_leaves_torch_out():
+    """Every spawned worker imports the package root; a plain worker
+    never touches a tensor, so the root must not import torch."""
+    out = subprocess.run(
+        [sys.executable, "-c", "import sys, ray_tpu_torch; "
+         "print('torch' in sys.modules, 'jax' in sys.modules); "
+         "ray_tpu_torch.resolve_device('cpu'); print('torch' in sys.modules)"],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "False", "True"]
 
 
 def test_port_imports_gymnasium_only_where_the_reference_does():

@@ -204,6 +204,87 @@ def test_oversize_prompt_and_cancel(jparams):
         eng.shutdown()
 
 
+# ------------------------------------------- the Serve deployment's API
+POLL_SEQUENCES = [
+    ([1, 2, 3, ("__llm_done__", "length")], [(16, 0.01)] * 2),
+    ([4, 5, 6, 7, 8], [(2, 0.01)] * 4),
+    ([9, ("__llm_err__", "boom")], [(16, 0.01)] * 2),
+    ([("__llm_err__", "boom")], [(16, 0.01)]),
+    ([], [(16, 0.01)]),
+]
+
+
+@pytest.mark.parametrize("items,polls", POLL_SEQUENCES)
+def test_request_stream_poll_matches_reference(items, polls):
+    """poll() on the port's RequestStream and the reference's, over the
+    same queued items: the same (tokens, done) and the same errors."""
+    import queue
+    from ray_tpu.serve.llm.engine import RequestStream as JStream
+    from ray_tpu_torch.serve.llm.engine import RequestStream as TStream
+
+    def run(cls):
+        q = queue.Queue()
+        for it in items:
+            q.put(it)
+        s, out = cls("s", q), []
+        for n, timeout in polls:
+            try:
+                out.append(s.poll(max_items=n, timeout=timeout))
+            except RuntimeError as e:
+                out.append(("raised", str(e)))
+        return out, s.finish_reason
+
+    assert run(TStream) == run(JStream)
+
+
+def test_max_num_seqs_room_follows_the_reference(jparams):
+    """max_num_seqs_room over one request sequence, against the
+    reference's own method applied to the same engine state."""
+    from ray_tpu.serve.llm.engine import LLMEngine as JEngine
+    tp = params_from_numpy(jax.tree.map(np.asarray, jparams), TCFG, "cpu")
+    eng = LLMEngine(tiny_cfg(max_num_seqs=3), tp, device="cpu",
+                    model_cfg=TCFG, start=False)     # stepped by hand
+    try:
+        rooms = [eng.max_num_seqs_room()]
+        streams = [eng.submit([1 + i, 2, 3], SamplingParams(max_tokens=3))
+                   for i in range(4)]
+        while eng.step():
+            assert eng.max_num_seqs_room() == JEngine.max_num_seqs_room(eng)
+            rooms.append(eng.max_num_seqs_room())
+        assert rooms[:4] == [3, 2, 1, 0] and rooms[-1] == 3
+        assert min(rooms) == 0
+        assert [len(s.tokens()) for s in streams] == [3] * 4
+    finally:
+        eng.shutdown()
+
+
+def test_kv_cache_accessors_match_reference():
+    """used_block_count / can_alloc / has_seq / seq_ids over the same
+    alloc / fork / free sequence on the port's cache and the reference's."""
+    from ray_tpu.serve.llm.kv_cache import PagedKVCache as JCache
+    t = PagedKVCache(num_blocks=6, n_layer=1, block_size=2, n_kv=1,
+                     head_dim=4, device="cpu")
+    j = JCache(num_blocks=6, n_layer=1, block_size=2, n_kv=1, head_dim=4)
+    try:
+        def state(c):
+            return (c.used_block_count(), c.free_block_count(),
+                    [c.can_alloc(n) for n in range(8)],
+                    [c.has_seq(s) for s in "abcd"], sorted(c.seq_ids()))
+
+        steps = [lambda c: c.alloc_seq("a", 3), lambda c: c.fork_seq("a", "b"),
+                 lambda c: c.alloc_seq("c", 5), lambda c: c.free_seq("a"),
+                 lambda c: c.append_slot("b"), lambda c: c.free_seq("b"),
+                 lambda c: c.alloc_seq("d", 1), lambda c: c.free_seq("c")]
+        assert state(t) == state(j)
+        for step in steps:
+            step(t)
+            step(j)
+            assert state(t) == state(j)
+    finally:
+        t.close()
+        j.close()
+
+
 # ---------------------------------------------------------- cache units
 def test_kv_cache_alloc_refcount_and_pressure():
     c = PagedKVCache(num_blocks=4, n_layer=1, block_size=2, n_kv=1,
@@ -354,7 +435,7 @@ def test_engine_rejects_uncovered_buckets():
 @pytest.fixture
 def shm_dir(monkeypatch, tmp_path):
     """The weights plane's directory, private to the test."""
-    monkeypatch.setenv("RTPU_SHM_DIR", str(tmp_path))
+    monkeypatch.setenv("RTT_SHM_DIR", str(tmp_path))
     return tmp_path
 
 
@@ -447,10 +528,10 @@ def test_reap_orphans_and_stale_lock(shm_dir):
     live = os.getppid()
     for pid in (dead.pid, live):
         for sfx in ("", ".ready"):
-            (shm_dir / f"rtpu_llmw_k.{pid}{sfx}").write_bytes(b"x")
+            (shm_dir / f"rtt_llmw_k.{pid}{sfx}").write_bytes(b"x")
     assert wmod.reap_orphans() == 2
     assert sorted(x.name for x in shm_dir.iterdir()) == \
-        [f"rtpu_llmw_k.{live}", f"rtpu_llmw_k.{live}.ready"]
+        [f"rtt_llmw_k.{live}", f"rtt_llmw_k.{live}.ready"]
     for x in shm_dir.iterdir():
         x.unlink()
     key = "stale"
