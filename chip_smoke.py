@@ -79,7 +79,18 @@
    equal, and "attn" must not replay the flash forward; a gradient check
    at 2 layers against dense attention, with two planted faults; six
    steps with every LayerNorm on the wide-row kernels (E 1600) and the
-   flash forward once a layer.  Last, moe-small (the top-2 MoE
+   flash forward once a layer.  Then the ray_train phase, in a cluster
+   of the port's own runtime (``init(num_cpus=4)``, the card detected):
+   the same six xl steps through ``TorchTrainer`` in a ``num_gpus=1``
+   train worker, whose losses must equal the driver's bitwise (a batch
+   shifted by one token must not) with the same launches a step; a loop
+   on a worker without the card must fail through ``Result.error``;
+   GPT-2 124M (b8 x s1024) checkpointed at step 2, its worker killed at
+   step 4 and restored from the checkpoint, whose final params must be
+   bitwise those of an uninterrupted run (a restore without the
+   optimizer state must not); two ``GPU: 0.5`` workers allreducing a
+   bf16 CUDA tensor through ``train_default``; then nothing left after
+   ``shutdown``.  Last, moe-small (the top-2 MoE
    transformer, 0.52 B params) at full size, held to its plain path
    (plain LayerNorm, the reference's einsum dispatch) with the routing
    held equal, then six steps on the LayerNorm kernels.
@@ -1448,24 +1459,23 @@ def kernel_counters() -> dict:
             "flash_attention_bwd_f32": (fa, "f32_bwd_launches")}
 
 
-def train_steps(label: str, prog, state, batch, per_step: dict,
-                tokens: int) -> tuple:
-    """The main path of a train phase: TRAIN_STEPS steps of ``prog`` on one
-    batch with host syncs made errors.  Every counter is zeroed just
-    before; each step must launch exactly ``per_step`` (the kernels it
-    leaves out, 0 times); the loss must be finite and fall, and the step
-    count match.  Returns (state, the run's numbers)."""
+def timed_steps(prog, state, batch, on_step=None) -> tuple:
+    """TRAIN_STEPS steps of ``prog`` on one batch, each timed on the host
+    between two synchronizes, with host syncs made errors inside it; every
+    kernel counter and the peak memory are reset just before.
+    ``on_step(i, metrics, step_s, launches)`` runs after step i, outside
+    its timed window.  Returns (state, metrics, step seconds, launches of
+    each step)."""
     counters = kernel_counters()
 
     def counts() -> dict:
         return {k: getattr(m, a) for k, (m, a) in counters.items()}
 
-    per_step = {k: per_step.get(k, 0) for k in counters}
     torch.cuda.reset_peak_memory_stats()
     for m, a in counters.values():
         setattr(m, a, 0)
     metrics, step_s, step_counts = [], [], []
-    for _ in range(TRAIN_STEPS):
+    for i in range(TRAIN_STEPS):
         before = counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1478,7 +1488,27 @@ def train_steps(label: str, prog, state, batch, per_step: dict,
         step_s.append(time.perf_counter() - t)
         metrics.append(m)
         step_counts.append({k: v - before[k] for k, v in counts().items()})
-    launches = counts()
+        if on_step is not None:
+            on_step(i, m, step_s[-1], step_counts[-1])
+    return state, metrics, step_s, step_counts
+
+
+def steady_rate(step_ms_each, tokens: int) -> tuple:
+    """(mean step ms, tokens/s) over the steps after the first: the tokens
+    of one step over the mean steady step time."""
+    step_ms = sum(step_ms_each[1:]) / (len(step_ms_each) - 1)
+    return step_ms, tokens / step_ms * 1e3
+
+
+def train_steps(label: str, prog, state, batch, per_step: dict,
+                tokens: int) -> tuple:
+    """The main path of a train phase: ``timed_steps``; each step must
+    launch exactly ``per_step`` (the kernels it leaves out, 0 times); the
+    loss must be finite and fall, and the step count match.  Returns
+    (state, the run's numbers)."""
+    state, metrics, step_s, step_counts = timed_steps(prog, state, batch)
+    per_step = {k: per_step.get(k, 0) for k in kernel_counters()}
+    launches = {k: sum(c[k] for c in step_counts) for k in per_step}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [m["loss"].item() for m in metrics]
     gnorms = [m["grad_norm"].item() for m in metrics]
@@ -1494,10 +1524,11 @@ def train_steps(label: str, prog, state, batch, per_step: dict,
     for c in step_counts:
         if c != per_step:
             fail(f"{label}: launches per step {c}, expected {per_step}")
-    step_ms = 1e3 * sum(step_s[1:]) / (len(step_s) - 1)
+    step_ms_each = [1e3 * t for t in step_s]
+    step_ms, tokens_per_s = steady_rate(step_ms_each, tokens)
     return state, dict(losses=losses, grad_norms=gnorms,
-                       step_ms_each=[1e3 * t for t in step_s],
-                       step_ms=step_ms, tokens_per_s=tokens / step_ms * 1e3,
+                       step_ms_each=step_ms_each,
+                       step_ms=step_ms, tokens_per_s=tokens_per_s,
                        peak_mem_gb=peak_gb, launches=launches,
                        launches_per_step=step_counts[-1])
 
@@ -1761,11 +1792,27 @@ def xl_config():
                                param_dtype=torch.bfloat16)
 
 
-def xl_batch(dev, vocab: int) -> dict:
-    """One batch of b8 x s1024 tokens from the full vocabulary, seed 0, as
-    int64 tensors on ``dev`` (what spmd.shard_batch gives)."""
-    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
-        0, vocab, (XL_TRAIN_BATCH, XL_TRAIN_SEQ + 1))).to(dev)
+def xl_program(dev, cfg):
+    """bench.py's GPT-2-1.5B train program: spmd.build_train_program with
+    the train phase's optimizer and bf16 moments."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.parallel import spmd
+    return spmd.build_train_program(
+        loss_fn=lambda p, b: gpt2.loss_fn(p, b, cfg),
+        init_params_fn=lambda g: gpt2.init_params(g, cfg, device=dev),
+        optimizer=spmd.default_optimizer(lr=TRAIN_LR, warmup=1,
+                                         total_steps=1000,
+                                         moments_dtype=torch.bfloat16),
+        device=dev)
+
+
+def xl_batch(dev, vocab: int, B: int = XL_TRAIN_BATCH,
+             T: int = XL_TRAIN_SEQ, seed: int = SEED) -> dict:
+    """One batch of B x T tokens (b8 x s1024 by default) from the full
+    vocabulary, drawn from ``seed``, as int64 tensors on ``dev`` (what
+    spmd.shard_batch gives)."""
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, vocab, (B, T + 1))).to(dev)
     return {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
 
 
@@ -1876,7 +1923,6 @@ def xl_train_phase(dev, card, tag: str) -> dict:
     LayerNorm, the head-dim-64 flash kernels, nothing else), the falling
     loss, the step time and one profiled step."""
     from ray_tpu_torch.models import gpt2
-    from ray_tpu_torch.parallel import spmd
 
     cfg = xl_config()
     B, T, L = XL_TRAIN_BATCH, XL_TRAIN_SEQ, cfg.n_layer
@@ -1892,13 +1938,7 @@ def xl_train_phase(dev, card, tag: str) -> dict:
           f"{fpt * B * T / card[1] * 1e3:.1f} ms at the peak [{tag}]",
           flush=True)
     t0 = time.perf_counter()
-    prog = spmd.build_train_program(
-        loss_fn=lambda p, b: gpt2.loss_fn(p, b, cfg),
-        init_params_fn=lambda g: gpt2.init_params(g, cfg, device=dev),
-        optimizer=spmd.default_optimizer(lr=TRAIN_LR, warmup=1,
-                                         total_steps=1000,
-                                         moments_dtype=torch.bfloat16),
-        device=dev)
+    prog = xl_program(dev, cfg)
     state = prog.init_fn(torch.Generator(device=dev).manual_seed(SEED))
     batch = xl_batch(dev, cfg.vocab_size)
     torch.cuda.synchronize()
@@ -5070,6 +5110,393 @@ def runtime_phase(dev, eng_res: dict, tag: str) -> dict:
     return res
 
 
+# The ray_train phase: the port's Ray Train on its own runtime.  BASELINE
+# #5's recipe (xl_train_phase's main path) runs in a num_gpus=1 train
+# worker that TorchTrainer's placement group placed; GPT-2 124M restarts
+# from a checkpoint after a worker crash; two workers share the card.
+# The losses through the trainer are held to the driver's xl_train losses
+# with RAY_TRAIN_LOSS_TOL: the same program, seed, batch and card, so
+# bitwise equality is expected (limit 0); a batch shifted by one token
+# must land beyond it.  The crash-and-restore run's final params must be
+# bitwise those of an uninterrupted run (sha256 over the leaves); a
+# restore that re-initialises the optimizer state must not.
+RAY_TRAIN_LOSS_TOL = 0.0
+RESTORE_BATCH, RESTORE_SEQ = 8, 1024
+RESTORE_CKPT_STEP, RESTORE_CRASH_STEP = 2, 4
+
+
+def params_sha256(params) -> str:
+    """sha256 over the bytes of every leaf, in tree order."""
+    import hashlib
+    from ray_tpu_torch.parallel import transforms as tx
+    h = hashlib.sha256()
+    for t in tx.tree_leaves(params):
+        h.update(t.detach().reshape(-1).view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def xl_loop(config: dict) -> None:
+    """BASELINE #5 inside a train worker on the card: xl_train_phase's
+    main path (``resolve_device(None)``, ``xl_config()``, ``xl_program``,
+    the seed, ``xl_batch``, then ``timed_steps``), one ``train.report`` a
+    step.  Before the counters are zeroed, the control: the loss of the
+    batch shifted by one token.  ``config``: ``peak_flops``."""
+    from ray_tpu_torch import _build, train
+    from ray_tpu_torch._device import disable_tf32, resolve_device
+    from ray_tpu_torch.models import gpt2
+    t_entry = time.time()
+    dev = resolve_device(None)
+    _build.lib()                        # the driver's build: no nvcc here
+    lib_mtime = (_build.BUILD_DIR / _build.LIB_NAME).stat().st_mtime_ns
+    disable_tf32()                      # as the driver's main() does
+    cfg = xl_config()
+    B, T = XL_TRAIN_BATCH, XL_TRAIN_SEQ
+    prog = xl_program(dev, cfg)
+    state = prog.init_fn(torch.Generator(device=dev).manual_seed(SEED))
+    batch = xl_batch(dev, cfg.vocab_size)
+    with torch.no_grad():
+        control = gpt2.loss_fn(state.params, {
+            k: v.roll(1, dims=1) for k, v in batch.items()}, cfg).item()
+    torch.cuda.synchronize()
+    t_ready = time.time()
+    fpt = gpt2.flops_per_token(cfg, T)
+    report_ms = []
+
+    def report(i: int, m: dict, step_s: float, launches: dict) -> None:
+        row = {"step": i + 1, "loss": m["loss"].item(),
+               "grad_norm": m["grad_norm"].item(), "step_ms": step_s * 1e3,
+               "tokens_per_s": B * T / step_s,
+               "model_flop_share": fpt * B * T / step_s
+               / config["peak_flops"],
+               "launches": launches,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "report_ms_prev": report_ms[-1] if report_ms else None}
+        if i == 0:
+            row.update(t_entry=t_entry, t_ready=t_ready, pid=os.getpid(),
+                       lib_mtime_ns=lib_mtime, control_loss=control,
+                       device=str(dev),
+                       gpu_worker=os.environ.get("RTT_GPU_WORKER"))
+        t = time.perf_counter()
+        train.report(row)
+        report_ms.append((time.perf_counter() - t) * 1e3)
+
+    timed_steps(prog, state, batch, report)
+
+
+def restore_loop(config: dict) -> None:
+    """GPT-2 124M at full width (the train phase's config and optimizer),
+    TRAIN_STEPS steps, step s on its own batch (``xl_batch`` drawn from
+    SEED + s); after step
+    RESTORE_CKPT_STEP it checkpoints params, optimizer state and step with
+    ``save_pytree``.  With ``crash`` set, the first attempt exits the
+    worker at step RESTORE_CRASH_STEP (the marker file makes it happen
+    once); a restored attempt maps the checkpoint to the card and goes
+    on.  ``plant="no_opt_state"`` restores without the optimizer state.
+    The last report carries the params' sha256.  ``config``: ``device``,
+    ``cfg`` (None: gpt2_small()), ``batch_seq``, ``marker``, ``crash``,
+    ``plant``."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch._device import disable_tf32, resolve_device
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.parallel import spmd
+    dev = resolve_device(config.get("device"))
+    if dev.type == "cuda":
+        disable_tf32()
+    cfg = config.get("cfg") or gpt2.gpt2_small()
+    B, T = config.get("batch_seq") or (RESTORE_BATCH, RESTORE_SEQ)
+    prog = spmd.build_train_program(
+        loss_fn=lambda p, b: gpt2.loss_fn(p, b, cfg),
+        init_params_fn=lambda g: gpt2.init_params(g, cfg, device=dev),
+        optimizer=spmd.default_optimizer(lr=TRAIN_LR, warmup=1,
+                                         total_steps=1000), device=dev)
+    state = prog.init_fn(torch.Generator(device=dev).manual_seed(SEED))
+    start, restored, restore_s, gap_s = 0, None, None, None
+    ck = train.get_checkpoint()
+    if ck is not None:
+        t = time.time()
+        saved = train.restore_pytree(
+            os.path.join(ck.path, "state"),
+            template={"params": state.params, "opt_state": state.opt_state,
+                      "step": state.step})
+        state.params, state.step = saved["params"], saved["step"]
+        if config.get("plant") != "no_opt_state":
+            state.opt_state = saved["opt_state"]
+        start = restored = int(state.step.item())
+        restore_s = time.time() - t
+        with open(config["marker"]) as f:
+            gap_s = t - float(f.read())
+    for step in range(start + 1, TRAIN_STEPS + 1):
+        if config.get("crash") and step == RESTORE_CRASH_STEP \
+                and not os.path.exists(config["marker"]):
+            with open(config["marker"], "w") as f:
+                f.write(repr(time.time()))
+            os._exit(1)                 # the worker dies mid-run
+        state, m = prog.step_fn(state, xl_batch(
+            dev, cfg.vocab_size, B, T, seed=SEED + step))
+        row = {"step": step, "loss": m["loss"].item(),
+               "restored_from": restored, "restore_s": restore_s,
+               "resume_gap_s": gap_s}
+        ckpt = None
+        if step == RESTORE_CKPT_STEP:
+            d = os.path.join(train.get_context().get_storage_path(),
+                             f"staging_{os.getpid()}")
+            train.save_pytree(os.path.join(d, "state"), {
+                "params": state.params, "opt_state": state.opt_state,
+                "step": state.step})
+            ckpt = train.Checkpoint.from_directory(d)
+        if step == TRAIN_STEPS:
+            row["params_sha256"] = params_sha256(state.params)
+        train.report(row, checkpoint=ckpt)
+        if ckpt is not None:
+            shutil.rmtree(ckpt.path, ignore_errors=True)
+
+
+def allreduce_loop(config: dict) -> None:
+    """Each rank allreduces a bf16 tensor on its device through
+    ``train_default`` (test_train.py's gradient sync with a tensor of the
+    card) and writes what came back to ``rank_<r>.json`` in the run's
+    storage: the driver records rank 0's reports only."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch._device import resolve_device
+    from ray_tpu_torch.util import collective as col
+    ctx = train.get_context()
+    rank = ctx.get_world_rank()
+    dev = resolve_device(config.get("device"))
+    g = torch.full((4,), float(rank + 1), dtype=torch.bfloat16, device=dev)
+    avg = col.allreduce(g, "train_default") / 2.0
+    out = {"rank": rank, "device": avg.device.type, "dtype": str(avg.dtype),
+           "values": avg.float().cpu().tolist(), "pid": os.getpid(),
+           "gpu_worker": os.environ.get("RTT_GPU_WORKER")}
+    with open(os.path.join(ctx.get_storage_path(), f"rank_{rank}.json"),
+              "w") as f:
+        json.dump(out, f)
+    train.report({"avg0": out["values"][0]})
+
+
+def ray_train_phase(dev, xl: dict, card, tag: str) -> dict:
+    """Ray Train on the port's runtime, in a cluster of this run's own:
+    BASELINE #5 through ``TorchTrainer`` against the driver's xl_train run
+    (``xl``: its losses and launches per step), the crash and restore of
+    GPT-2 124M, two GPU: 0.5 workers allreducing on the card, then
+    shutdown with nothing left."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import _build, train
+    from ray_tpu_torch._private import shm_store
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    saved_path = os.environ.get("PYTHONPATH")
+    # workers import the package, and the loops' module, from this checkout
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [here] + ([saved_path] if saved_path else []))
+    storage = tempfile.mkdtemp(prefix="rtt_train_")
+    atexit.register(shutil.rmtree, storage, ignore_errors=True)
+    lib_mtime = (_build.BUILD_DIR / _build.LIB_NAME).stat().st_mtime_ns
+    watch = ClusterWatch(shm_store._SHM_DIR)
+    res: dict = {}
+
+    def fit(loop, cfg: dict, name: str, **kw):
+        t = time.perf_counter()
+        r = train.TorchTrainer(loop, train_loop_config=cfg, run_config=(
+            train.RunConfig(name=name, storage_path=storage,
+                            failure_config=kw.pop("failure", None)
+                            or train.FailureConfig())), **kw).fit()
+        return r, time.perf_counter() - t
+
+    gpu1 = train.ScalingConfig(num_workers=1, use_gpu=True)
+    try:
+        t0 = time.perf_counter()
+        # two train workers share the card in part 3: each is an actor in
+        # a GPU worker process of its own
+        info = rt.init(num_cpus=4, _system_config={"gpu_workers_per_node": 2})
+        res["init_s"] = time.perf_counter() - t0
+        watch.start(rt._head, info["session_dir"])
+        if rt.cluster_resources().get("GPU") != 1:
+            fail(f"ray_train: cluster GPU {rt.cluster_resources()}")
+
+        # -- 1. BASELINE #5 through the trainer
+        t_fit = time.time()
+        r, wall = fit(xl_loop, {"peak_flops": card[1]}, "xl",
+                      scaling_config=gpu1)
+        if r.error is not None:
+            fail(f"ray_train xl: the worker failed: {r.error!r}")
+        hist = r.metrics_history
+        rows = [h["step"] for h in hist]
+        if rows != list(range(1, TRAIN_STEPS + 1)) or \
+                [h["training_iteration"] for h in hist] != rows:
+            fail(f"ray_train xl: metrics_history steps {rows}")
+        first = hist[0]
+        losses = [h["loss"] for h in hist]
+        gap = max(abs(a - b) for a, b in zip(losses, xl["losses"]))
+        control_gap = abs(first["control_loss"] - xl["losses"][0])
+        print(f"ray_train xl worker pid {first['pid']} (driver "
+              f"{os.getpid()}) device {first['device']} RTT_GPU_WORKER "
+              f"{first['gpu_worker']} [{tag}]", flush=True)
+        print(f"ray_train xl losses {losses} driver's xl_train "
+              f"{xl['losses']}: max gap {gap:.3g}, limit "
+              f"{RAY_TRAIN_LOSS_TOL}; control batch shifted by one token "
+              f"gap {control_gap:.3g} [{tag}]", flush=True)
+        same = [h["launches"] == xl["launches_per_step"] for h in hist]
+        print(f"ray_train xl launches per step {hist[-1]['launches']}, "
+              f"equal to xl_train's on {sum(same)} of {len(same)} steps "
+              f"[{tag}]", flush=True)
+        if first["pid"] == os.getpid() or first["gpu_worker"] != "1" \
+                or not first["device"].startswith("cuda"):
+            fail(f"ray_train xl: the loop ran in pid {first['pid']} on "
+                 f"{first['device']}")
+        if first["lib_mtime_ns"] != lib_mtime:
+            fail("ray_train xl: the worker rebuilt the kernel library")
+        want = xl["launches_per_step"]
+        if want["layer_norm_fwd_wide"] != 193 or \
+                want["layer_norm_bwd_wide"] != 97 or \
+                want["flash_attention_fwd"] != 48 or \
+                want["flash_attention_bwd"] != 48:
+            fail(f"ray_train: xl_train's launches per step {want}")
+        for h in hist:
+            if h["launches"] != want:
+                fail(f"ray_train xl step {h['step']}: launches "
+                     f"{h['launches']}, xl_train's {want}")
+        if not all(math.isfinite(x) for x in losses) or \
+                not losses[-1] < losses[0]:
+            fail(f"ray_train xl: losses {losses}")
+        if gap > RAY_TRAIN_LOSS_TOL:
+            fail("ray_train xl: losses differ from the driver's xl_train")
+        if control_gap <= RAY_TRAIN_LOSS_TOL:
+            fail("ray_train xl: the shifted-batch control passed the check")
+        step_ms_each = [h["step_ms"] for h in hist]
+        step_ms, tokens_per_s = steady_rate(
+            step_ms_each, XL_TRAIN_BATCH * XL_TRAIN_SEQ)
+        res.update(
+            losses=losses, loss_gap=gap, control_gap=control_gap,
+            launches={k: sum(h["launches"][k] for h in hist)
+                      for k in want},
+            launches_per_step=hist[-1]["launches"],
+            boot_s=first["t_entry"] - t_fit,
+            setup_s=first["t_ready"] - first["t_entry"],
+            step_ms=step_ms, step_ms_each=step_ms_each,
+            tokens_per_s=tokens_per_s,
+            model_flop_share=xl["flops_per_token"] * tokens_per_s / card[1],
+            peak_mem_gb=hist[-1]["peak_mem_gb"],
+            report_ms=[h["report_ms_prev"] for h in hist[1:]],
+            fit_wall_s=wall, driver_step_ms=xl["step_ms"],
+            driver_tokens_per_s=xl["tokens_per_s"],
+            driver_model_flop_share=xl["model_flop_share"])
+        print(f"ray_train xl through the trainer: step_ms "
+              f"{res['step_ms']:.1f} (driver's xl_train {xl['step_ms']:.1f}), "
+              f"tokens/s {res['tokens_per_s']:.0f} ("
+              f"{xl['tokens_per_s']:.0f}), model_flop_share "
+              f"{res['model_flop_share']:.4f} ({xl['model_flop_share']:.4f}); "
+              f"fit() to loop entry {res['boot_s']:.2f} s, loop setup "
+              f"{res['setup_s']:.2f} s, first step {hist[0]['step_ms']:.0f} "
+              f"ms, fit() wall {wall:.2f} s, report round trip "
+              f"{min(res['report_ms']):.2f}-{max(res['report_ms']):.2f} ms "
+              f"[{tag}]", flush=True)
+        gc.collect()
+
+        # -- control: a loop on a plain worker finds no card and raises
+        r, _ = fit(xl_loop, {"peak_flops": card[1]}, "xl_cpu",
+                   scaling_config=train.ScalingConfig(num_workers=1))
+        ok = r.error is not None and "no CUDA device" in str(r.error)
+        print(f"ray_train control use_gpu=False: Result.error "
+              f"{'names no CUDA device' if ok else repr(r.error)} [{tag}]",
+              flush=True)
+        if not ok:
+            fail("ray_train: a use_gpu=False worker did not raise")
+
+        # -- 2. crash and restore of GPT-2 124M
+        runs = {}
+        for name, cfg in (("straight", {}),
+                          ("restored", {"crash": True}),
+                          ("control_no_opt_state",
+                           {"crash": True, "plant": "no_opt_state"})):
+            cfg["marker"] = os.path.join(storage, f"crashed_{name}")
+            r, wall = fit(restore_loop, cfg, f"restore_{name}",
+                          scaling_config=gpu1,
+                          failure=train.FailureConfig(max_failures=1))
+            if r.error is not None:
+                fail(f"ray_train restore {name}: {r.error!r}")
+            steps = [h["step"] for h in r.metrics_history]
+            runs[name] = dict(steps=steps, wall_s=wall,
+                              losses=[h["loss"] for h in r.metrics_history],
+                              sha=r.metrics_history[-1]["params_sha256"],
+                              restore_s=r.metrics_history[-1]["restore_s"],
+                              resume_gap_s=r.metrics_history[-1][
+                                  "resume_gap_s"])
+            print(f"ray_train restore {name}: steps {steps} losses "
+                  f"{runs[name]['losses']} params sha256 "
+                  f"{runs[name]['sha'][:16]} fit {wall:.2f} s restore_s "
+                  f"{runs[name]['restore_s']} crash-to-restored "
+                  f"{runs[name]['resume_gap_s']} s [{tag}]", flush=True)
+        straight, restored = runs["straight"], runs["restored"]
+        want_steps = list(range(1, RESTORE_CRASH_STEP)) + list(
+            range(RESTORE_CKPT_STEP + 1, TRAIN_STEPS + 1))
+        if straight["steps"] != list(range(1, TRAIN_STEPS + 1)) or \
+                restored["steps"] != want_steps:
+            fail(f"ray_train restore: steps {straight['steps']} / "
+                 f"{restored['steps']}")
+        if restored["sha"] != straight["sha"]:
+            fail("ray_train restore: the restored run's params differ from "
+                 "the uninterrupted run's")
+        if runs["control_no_opt_state"]["sha"] == straight["sha"]:
+            fail("ray_train restore: a restore without the optimizer state "
+                 "passed the check")
+        replay = restored["losses"][RESTORE_CRASH_STEP - 1:]
+        if replay != straight["losses"][RESTORE_CKPT_STEP:]:
+            fail("ray_train restore: the restored steps' losses differ")
+        res["restore"] = runs
+
+        # -- 3. two workers on one card
+        r, wall = fit(allreduce_loop, {}, "allreduce",
+                      scaling_config=train.ScalingConfig(
+                          num_workers=2, use_gpu=True,
+                          resources_per_worker={"GPU": 0.5}))
+        if r.error is not None:
+            fail(f"ray_train allreduce: {r.error!r}")
+        outs = []
+        for rank in range(2):
+            with open(os.path.join(storage, "allreduce",
+                                   f"rank_{rank}.json")) as f:
+                outs.append(json.load(f))
+        print(f"ray_train allreduce GPU 0.5 x 2: {outs} fit {wall:.2f} s "
+              f"[{tag}]", flush=True)
+        if len({o["pid"] for o in outs}) != 2 or any(
+                o["device"] != "cuda" or o["dtype"] != "torch.bfloat16"
+                or o["values"] != [1.5] * 4 or o["gpu_worker"] != "1"
+                for o in outs):
+            fail("ray_train: the two GPU: 0.5 workers did not allreduce "
+                 "to 1.5 on cuda")
+        res["allreduce_fit_s"] = wall
+    finally:
+        started = hasattr(watch, "head")
+        if started:
+            watch.poll()
+        rt.shutdown()
+        if started:
+            watch.stop()
+        if saved_path is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = saved_path
+    deadline = time.monotonic() + 30
+    while watch.alive() and time.monotonic() < deadline:
+        time.sleep(0.2)
+    alive, left = watch.alive(), watch.left()
+    foreign = sorted(n for n in watch.made if not n.startswith("rtt_"))
+    print(f"ray_train after shutdown: of the {len(watch.pids)} workers its "
+          f"GCS spawned alive {alive}, segments left {left}, names not "
+          f"the port's {foreign}, this cluster's segments outside its "
+          f"directory {sorted(watch.stray)} (checked: {watch.outside}) "
+          f"[{tag}]", flush=True)
+    if alive or left or foreign or watch.stray or not watch.pids:
+        fail("ray_train: shutdown left workers or segments, or the run "
+             "made a segment of another prefix or outside its directory")
+    for k, val in res.items():
+        print(f"ray_train {k} {val} [{tag}]", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one GPU",
@@ -5150,6 +5577,8 @@ def main() -> int:
     phase_done("llama_train")
     xl_train = xl_train_phase(dev, card, tag)
     phase_done("xl_train")
+    ray_train = ray_train_phase(dev, xl_train, card, tag)
+    phase_done("ray_train")
     moe_train = moe_train_phase(dev, card, tag)
     phase_done("moe_train")
     tiny_reference_check(dev, tag)
@@ -5185,6 +5614,7 @@ def main() -> int:
     paths = {"engine": eng, "runtime": runtime, "llama_engine": llama,
              "train": train,
              "llama_train": llama_train, "xl_train": xl_train,
+             "ray_train": ray_train,
              "moe_train": moe_train, "resnet50_train": resnet_train,
              "bert_serve": bert_serve, "vit_train": vit_train,
              "t5_train": t5_train}

@@ -1105,11 +1105,13 @@ class GcsServer:
             return w
         return None
 
-    def _idle_worker_on(self, node: NodeState,
-                        need_gpu: bool = False) -> Optional[WorkerState]:
+    def _idle_worker_on(self, node: NodeState, need_gpu: bool = False,
+                        actor: bool = False) -> Optional[WorkerState]:
         """Pop an idle worker matching the device requirement.  GPU work
         only runs on GPU-capable workers (spawned with device access);
-        CPU work prefers plain workers but may ride a GPU-capable one."""
+        a CPU task prefers plain workers but may ride a GPU-capable one.
+        A CPU actor never does: it would hold a process that sees the
+        cards for its lifetime, though it asked for none."""
         skipped = []
         found = None
         fallback = None  # gpu-capable worker a CPU task may ride if no
@@ -1123,7 +1125,7 @@ class GcsServer:
                 skipped.append(wid)
                 continue
             if not need_gpu and w.gpu_capable:
-                if fallback is None:
+                if fallback is None and not actor:
                     fallback = w
                 else:
                     skipped.append(wid)
@@ -1521,7 +1523,8 @@ class GcsServer:
                     misses = 0
                     continue
                 need_gpu = req.get("GPU", 0) > 0
-                worker = self._idle_worker_on(node, need_gpu)
+                worker = self._idle_worker_on(
+                    node, need_gpu, bool(spec.get("is_actor_creation")))
                 if worker is None:
                     spawned = False
                     if node.is_remote:

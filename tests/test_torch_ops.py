@@ -821,7 +821,7 @@ def _foreign_strings(tree, smoke: bool = False) -> list:
 
 
 def test_port_imports_no_jax_and_no_ray_tpu():
-    banned = {"jax", "jaxlib", "flax", "optax", "ray_tpu"}
+    banned = {"jax", "jaxlib", "flax", "optax", "orbax", "ray_tpu"}
     bad = []
     for path in _port_sources():
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -885,6 +885,16 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                 "offline", "algorithms/sac", "algorithms/ddpg",
                 "algorithms/marwil", "algorithms/a3c", "algorithms/apex"):
         assert rllib / f"{mod}.py" in _port_sources(), mod
+    for mod in ("experimental/__init__", "experimental/internal_kv",
+                "util/placement_group", "util/collective/__init__",
+                "util/collective/types", "util/collective/collective",
+                "util/collective/collective_group/shm_group",
+                "air/__init__", "air/config", "train/__init__",
+                "train/_checkpoint", "train/result", "train/backend",
+                "train/base_trainer", "train/_internal/session",
+                "train/_internal/worker_group",
+                "train/_internal/backend_executor"):
+        assert runtime / f"{mod}.py" in _port_sources(), mod
     assert not bad, bad
 
 

@@ -151,6 +151,35 @@ def test_gpu_task_routing_and_worker_capability(monkeypatch):
         rt.shutdown()
 
 
+def test_plain_actor_never_takes_a_gpu_worker(monkeypatch):
+    """A GPU worker left idle by a num_gpus task may carry plain tasks,
+    but a plain actor holds its worker for life: it must get a plain
+    worker that sees no card (a use_gpu=False train worker on a GPU
+    worker would train on the card unasked)."""
+    _stop()
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "3")
+    rt.init(num_cpus=2, num_gpus=1)
+    try:
+        @rt.remote(num_gpus=1, num_cpus=0)
+        def on_gpu_worker():
+            return os.getpid()
+
+        gpu_pid = rt.get(on_gpu_worker.remote(), timeout=60)
+
+        @rt.remote(num_cpus=0)
+        class Plain:
+            def view(self):
+                return (os.getpid(), os.environ.get("RTT_GPU_WORKER"),
+                        os.environ.get("CUDA_VISIBLE_DEVICES"))
+
+        actors = [Plain.remote() for _ in range(3)]
+        views = rt.get([a.view.remote() for a in actors], timeout=60)
+        assert all(v[1:] == (None, "") for v in views), views
+        assert gpu_pid not in {v[0] for v in views}
+    finally:
+        rt.shutdown()
+
+
 def test_no_card_means_no_gpu_and_gpu_work_waits(monkeypatch):
     """Without a card (this CPU build) init reports no GPU, and a
     num_gpus=1 task stays pending instead of running on the CPU."""
