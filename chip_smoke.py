@@ -60,6 +60,32 @@
    of its segments may appear in ``/dev/shm`` outside that directory
    under either prefix.  The session lives under a root of the run's
    own (``RTT_SESSION_DIR_ROOT``).
+   Then the serve phase: the port's Serve in a cluster of its own
+   (``init(num_cpus=8, _system_config={"gpu_workers_per_node": 4})``).
+   BASELINE #4's recipe (``benchmarks/serve_bench.py``): bert-base in a
+   ``num_gpus=0.25`` replica with the driver's weights (sha256), 200
+   requests from 8 closed-loop clients through the handle and again
+   through the HTTP proxy, every response's logits bitwise the driver's
+   ``classify`` on the same ids, 25 LayerNorm launches a call in the
+   replica and no other kernel; a redeploy to 3 replicas (the same
+   load again), one killed and the controller's re-convergence timed.
+   ``examples/06_serve_bert.py``'s batched deployment
+   (``@serve.batch(8, 5 ms)``, autoscaling 1 to 3 at 4 ongoing requests
+   a replica, delays of seconds): up to 2 ready replicas under the 8
+   clients and back to 1 after them, each batched row within
+   ``BERT_PAD_TOL`` of the ids alone.  A bert deployment without
+   ``num_gpus`` must fail naming the missing card.  Then
+   ``llm_deployment`` on a ``num_gpus=1`` replica with the engine
+   phase's spec and weights (published by the driver through the
+   weights plane): the engine phase's 16 requests, submitted while the
+   engine is held and then released so they are scheduled as there,
+   stream through the handle (and once with one of them through HTTP)
+   the engine phase's tokens with its flash and LayerNorm launches, and
+   ``rtt_llm_tokens_total`` agrees with the engine's counts; a stream
+   without its last token must fail that check.  ``naive_llm_deployment``
+   serves the 16 prompts one at a time with the tokens of the same
+   requests run alone.  After ``shutdown`` nothing of the cluster is
+   left (as in the runtime phase).
 4. Train phase: trains GPT-2 124M (full width, random init from the seed,
    batch 32 x seq 1024, remat on) through ``spmd.build_train_program``.
    Holds every parameter's step-0 gradient to an independent reference
@@ -5088,23 +5114,693 @@ def runtime_phase(dev, eng_res: dict, tag: str) -> dict:
             os.environ.pop("PYTHONPATH", None)
         else:
             os.environ["PYTHONPATH"] = saved
+    check_cluster_gone(watch, "runtime", tag)
+    for k, val in res.items():
+        print(f"runtime {k} {val} [{tag}]", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_cluster_gone(watch: ClusterWatch, label: str, tag: str) -> None:
+    """After ``shutdown``: none of the workers the cluster's GCS spawned
+    alive, no segment it made left, every name it made in the run's shm
+    directory the port's, and none of its segments outside it."""
     deadline = time.monotonic() + 30
     while watch.alive() and time.monotonic() < deadline:
         time.sleep(0.2)
     alive, left = watch.alive(), watch.left()
     foreign = sorted(n for n in watch.made if not n.startswith("rtt_"))
-    print(f"runtime after shutdown: of the {len(watch.pids)} workers its "
+    print(f"{label} after shutdown: of the {len(watch.pids)} workers its "
           f"GCS spawned alive {alive}, segments left {left}, names made in "
           f"{watch.shm_dir} {len(watch.made)}, not the port's {foreign}, "
           f"this cluster's segments outside it {sorted(watch.stray)} "
           f"(checked: {watch.outside}; the flight recorder's ring dir "
           f"rtt_flight stays by design) [{tag}]", flush=True)
     if alive or left or foreign or watch.stray or not watch.pids:
-        fail("runtime: shutdown left port workers or segments, or the "
+        fail(f"{label}: shutdown left port workers or segments, or the "
              "run made a segment of another prefix or outside its own "
              "directory")
+
+
+# The serve phase: BASELINE #4's recipe (benchmarks/serve_bench.py:83-85,
+# 166-245; examples/06_serve_bert.py:16-31) through the port's Serve on
+# its own runtime, then the LLM deployment streaming GPT-2 tokens.
+# bert-base at full size in num_gpus=0.25 replicas: four GPU worker
+# processes share the card (gpu_workers_per_node=4).  An unbatched
+# replica runs the driver's shapes on the driver's card with the driver's
+# weights, so its logits must equal the driver's classify bitwise
+# (SERVE_BERT_TOL 0.0); a batched row runs other GEMM shapes and is held
+# to BERT_PAD_TOL against the same ids alone.  The autoscaling delays are
+# cut from the reference's 30 s / 600 s to seconds so the phase sees both
+# directions.
+SERVE_REQUESTS, SERVE_CLIENTS = 200, 8           # serve_bench.py:83-85
+SERVE_BERT_TOL = 0.0
+SERVE_GPU_WORKERS = 4
+SERVE_AUTOSCALING = dict(min_replicas=1, max_replicas=3,
+                         target_ongoing_requests=4,
+                         upscale_delay_s=2.0, downscale_delay_s=4.0)
+SERVE_LLM_TOKENS = 32                            # the engine phase's
+
+
+class BertServer:
+    """bert-base's classify behind Serve (serve_bench.py:166-180 carried
+    to torch): the bert_serve phase's params for ``cfg`` from ``seed``,
+    drawn on the card the replica sees (``device`` None: the card, or an
+    error in a worker that sees none), every batch shape warmed in
+    ``__init__``.
+    Calls run one at a time, so each call's kernel launches are counted
+    exactly (25 vector LayerNorm forwards and no other kernel); calls
+    that launch anything else are counted in ``bad``, the first kept."""
+
+    def __init__(self, seed: int, cfg, device=None):
+        import threading
+        from ray_tpu_torch._device import disable_tf32, resolve_device
+        from ray_tpu_torch.models import bert
+        disable_tf32()                     # as the driver's main() does
+        self.bert, self.cfg = bert, cfg
+        self.dev = resolve_device(device)
+        gen = torch.Generator(device=self.dev).manual_seed(seed)
+        self.params = with_head(bert.init_params(gen, self.cfg,
+                                                 device=self.dev),
+                                "cls", gen, BERT_CLS_STD)
+        self.sha = params_sha256(self.params)
+        self.lock = threading.Lock()
+        self.counters = kernel_counters()
+        self.per_call = {k: 0 for k in self.counters}
+        self.per_call["layer_norm_fwd"] = 1 + 2 * self.cfg.n_layer
+        self.reset()
+        for b in BERT_BATCHES:
+            self.classify(np.zeros((b, BERT_SEQ), np.int64))
+        self.reset()
+
+    def reset(self) -> None:
+        self.calls, self.bad, self.first_bad, self.sizes = 0, 0, None, {}
+        self.launches = {k: 0 for k in self.counters}
+
+    def classify(self, ids: np.ndarray) -> np.ndarray:
+        with self.lock:
+            before = {k: getattr(m, a) for k, (m, a) in self.counters.items()}
+            with torch.no_grad():
+                out = self.bert.classify(
+                    self.params, torch.as_tensor(ids, device=self.dev),
+                    self.cfg).cpu().numpy()
+            got = {k: getattr(m, a) - before[k]
+                   for k, (m, a) in self.counters.items()}
+            self.calls += 1
+            self.sizes[len(ids)] = self.sizes.get(len(ids), 0) + 1
+            for k, n in got.items():
+                self.launches[k] += n
+            if got != self.per_call:
+                self.bad += 1
+                self.first_bad = self.first_bad or got
+        return out
+
+    def __call__(self, request):
+        from ray_tpu_torch.serve import Request
+        ids = request.json()["ids"] if isinstance(request, Request) \
+            else request
+        return self.classify(np.asarray(ids, np.int64)[None])[0].tolist()
+
+    def info(self) -> dict:
+        return {"sha": self.sha, "pid": os.getpid(), "calls": self.calls,
+                "bad": self.bad, "first_bad": self.first_bad,
+                "launches": self.launches, "sizes": self.sizes,
+                "device": str(self.dev),
+                "cuda_visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "gpu_worker": os.environ.get("RTT_GPU_WORKER")}
+
+
+def llm_token_totals() -> dict:
+    """This process's rtt_llm_tokens_total, by phase."""
+    from ray_tpu_torch.util import metrics_catalog as mcat
+    out = {"prefill": 0.0, "decode": 0.0}
+    for s in mcat.get("rtt_llm_tokens_total").snapshot():
+        out[s["tags"]["phase"]] += s["value"]
+    return out
+
+
+def gated_llm_deployment(cfg, device=None):
+    """``llm_deployment(cfg)``'s server (its ``__call__``, token streams,
+    multiplexed engine and metrics unchanged) with three methods for the
+    check.  ``hold`` stops the engine loop before its next step and
+    zeroes the launch counters; requests submitted until ``release``
+    wait in the engine's inbox, so the loop then schedules them as the
+    engine phase did (every prefill, then each decode step over all of
+    them).  ``report`` gives the launches, the engine's counts, the
+    token counter and each request's emit times from that run."""
+    from ray_tpu_torch.serve.llm import llm_deployment
+    base = llm_deployment(cfg, device=device).user_class
+
+    class GatedLLMServer(base):
+        async def hold(self) -> bool:
+            eng = await self._engine_for(self._cfg.model)
+            gate, step, emit = threading.Event(), eng.step, eng._emit
+            emits: dict = {}
+
+            def held():
+                gate.wait()
+                return step()
+
+            def record(seq, tok):
+                emits.setdefault(seq.seq_id, []).append(time.perf_counter())
+                emit(seq, tok)
+
+            eng.step, eng._emit = held, record
+            for m, a in kernel_counters().values():
+                setattr(m, a, 0)
+            self._held = dict(gate=gate, eng=eng, step=step, emit=emit,
+                              emits=emits, stats=eng.stats(),
+                              tokens=llm_token_totals())
+            return True
+
+        def release(self) -> bool:
+            h = self._held
+            h["t"] = time.perf_counter()
+            h["eng"].step = h["step"]
+            h["gate"].set()
+            return True
+
+        def report(self) -> dict:
+            h = self._held
+            h["eng"]._emit = h["emit"]
+            emits = list(h["emits"].values())
+            return dict(
+                launches={k: getattr(m, a)
+                          for k, (m, a) in kernel_counters().items()},
+                stats=h["eng"].stats(), stats0=h["stats"],
+                tokens=llm_token_totals(), tokens0=h["tokens"],
+                ttft_s=[e[0] - h["t"] for e in emits],
+                tpot_s=[b - a for e in emits for a, b in zip(e, e[1:])],
+                pid=os.getpid(),
+                cuda_visible=os.environ.get("CUDA_VISIBLE_DEVICES"))
+
+    return GatedLLMServer
+
+
+def _pct(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def serve_clients(call, items, clients: int = SERVE_CLIENTS) -> tuple:
+    """Closed-loop clients (serve_bench.py:192-211): ``clients`` threads
+    each send their share of ``items`` one at a time.  Returns the
+    results in order, each one's latency (s) and the wall time (s)."""
+    out, lat, errs = [None] * len(items), [0.0] * len(items), []
+
+    def client(k):
+        for i in range(k, len(items), clients):
+            t = time.perf_counter()
+            try:
+                out[i] = call(items[i])
+            except Exception as e:  # noqa: BLE001 - reported below
+                errs.append(repr(e))
+                return
+            lat[i] = time.perf_counter() - t
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errs or any(t.is_alive() for t in threads):
+        fail(f"serve: a client failed: {errs[:3]}")
+    return out, lat, wall
+
+
+def http_post(url: str, payload: dict, timeout: float = 120.0) -> bytes:
+    import urllib.request
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.read()
+
+
+def serve_phase(dev, eng_res: dict, runtime_res: dict, tag: str,
+                device=None) -> dict:
+    """BASELINE #4 through the port's Serve, then the LLM deployment:
+    see the comment above SERVE_REQUESTS and the module docstring's
+    item 3.
+    The replicas build their models on ``device`` (None: the card)."""
+    import dataclasses
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private import shm_store
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+    from ray_tpu_torch.models import bert
+    from ray_tpu_torch.serve.llm import naive_llm_deployment, weights
+    from ray_tpu_torch.serve.llm.config import resolve_model
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    saved = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [here] + ([saved] if saved else []))
+    watch = ClusterWatch(shm_store._SHM_DIR)
+    res: dict = {}
+    wkey = None                           # the LLM weights' shm key
+
+    def say(msg: str) -> None:
+        print(f"serve {msg} [{tag}]", flush=True)
+
+    # -- the driver's own classify on the ids the clients send
+    cfg = bert.bert_base()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = with_head(bert.init_params(gen, cfg, device=dev), "cls", gen,
+                       BERT_CLS_STD)
+    sha = params_sha256(params)
+    ids = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (SERVE_REQUESTS, BERT_SEQ)).astype(np.int64)
+    ref, direct = [], []
+    with torch.no_grad():
+        for i, row in enumerate(np.concatenate([ids[:5], ids])):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = bert.classify(params, torch.as_tensor(row[None],
+                                                        device=dev), cfg)
+            torch.cuda.synchronize()
+            if i >= 5:                         # 5 warm-up calls
+                direct.append(time.perf_counter() - t)
+                ref.append(out.cpu().numpy()[0])
+    del params
+    res["direct_p50_ms"] = 1e3 * _pct(direct, 50)
+
+    def same_logits(got, i) -> bool:
+        return np.array_equal(np.asarray(got, np.float32), ref[i])
+
+    def replicas(key):
+        ctrl = rt.get_actor("SERVE_CONTROLLER")
+        return rt.get(ctrl.get_deployment_targets.remote(key))["replicas"]
+
+    def on_replica(name, method):
+        return rt.get(rt.get_actor(name).handle_request.remote(
+            method, (), {}), timeout=120)
+
+    def wait_status(key, pred, timeout_s: float, what: str) -> float:
+        t0 = time.perf_counter()
+        while not pred(serve.status().get(key, {})):
+            if time.perf_counter() - t0 > timeout_s:
+                fail(f"serve: {what} not within {timeout_s} s: "
+                     f"{serve.status()}")
+            time.sleep(0.05)
+        return time.perf_counter() - t0
+
+    try:
+        t0 = time.perf_counter()
+        info = rt.init(num_cpus=8, _system_config={
+            "gpu_workers_per_node": SERVE_GPU_WORKERS})
+        res["init_s"] = time.perf_counter() - t0
+        watch.start(rt._head, info["session_dir"])
+        say(f"session {info['session_dir']} resources "
+            f"{rt.cluster_resources()} gpu_workers_per_node "
+            f"{SERVE_GPU_WORKERS}; autoscaling {SERVE_AUTOSCALING} "
+            f"(reference defaults: upscale_delay_s 30, downscale_delay_s "
+            f"600)")
+
+        # -- 1. bert-base, unbatched: handle, then HTTP
+        Bert = serve.deployment(
+            name="Bert", num_replicas=1, max_ongoing_requests=16,
+            ray_actor_options={"num_gpus": 0.25})(BertServer)
+        t0 = time.perf_counter()
+        h = serve.run(Bert.bind(SEED, cfg, device), name="bert",
+                      route_prefix="/bert", _wait_timeout_s=300)
+        res["bert_replica_boot_s"] = time.perf_counter() - t0
+        host, port = serve.get_http_address()
+        url = f"http://{host}:{port}/bert"
+        for row in ids[:8]:                       # warm both paths
+            h.remote(row.tolist()).result()
+            http_post(url, {"ids": row.tolist()})
+        (name0,) = replicas("bert#Bert").values()
+        on_replica(name0, "reset")
+        rows = [(i, ids[i].tolist()) for i in range(SERVE_REQUESTS)]
+        by_path = {}
+        for path, call in (
+                ("handle", lambda r: h.remote(r[1]).result(timeout_s=120)),
+                ("http", lambda r: json.loads(http_post(url,
+                                                        {"ids": r[1]})))):
+            outs, lat, wall = serve_clients(call, rows)
+            same = sum(same_logits(o, i) for o, (i, _) in zip(outs, rows))
+            by_path[path] = dict(p50_ms=1e3 * _pct(lat, 50),
+                                 p99_ms=1e3 * _pct(lat, 99),
+                                 qps=len(rows) / wall, equal=same)
+            say(f"bert {path}: {len(rows)} requests from {SERVE_CLIENTS} "
+                f"clients, p50 {by_path[path]['p50_ms']:.4g} ms p99 "
+                f"{by_path[path]['p99_ms']:.4g} ms qps "
+                f"{by_path[path]['qps']:.4g}; logits equal to the "
+                f"driver's classify {same} of {len(rows)} (limit "
+                f"{SERVE_BERT_TOL}); the driver's direct classify p50 "
+                f"{res['direct_p50_ms']:.4g} ms")
+            if same != len(rows):
+                fail(f"serve: {len(rows) - same} {path} responses differ "
+                     f"from the driver's classify")
+        res["bert"] = by_path
+        rinfo = on_replica(name0, "info")
+        say(f"bert replica {rinfo}; the driver's params sha256 {sha[:16]}")
+        if rinfo["sha"] != sha or rinfo["bad"] or \
+                rinfo["launches"]["layer_norm_fwd"] != \
+                rinfo["calls"] * (1 + 2 * cfg.n_layer) or \
+                rinfo["calls"] != 2 * SERVE_REQUESTS or \
+                rinfo["gpu_worker"] != "1" or rinfo["pid"] == os.getpid():
+            fail("serve: the bert replica's weights, place or launches "
+                 "are not the driver's (25 LayerNorm forwards a call, no "
+                 "other kernel)")
+        res["launches"] = {k: rinfo["launches"][k]
+                           for k in ("layer_norm_fwd", "flash_attention_fwd")}
+
+        # scale to 3 (serve_bench.py:216-222), kill one (:224-245)
+        t0 = time.perf_counter()
+        serve.run(Bert.options(num_replicas=3).bind(SEED, cfg, device),
+                  name="bert", route_prefix="/bert", _wait_timeout_s=300)
+        if not same_logits(h.remote(rows[0][1]).result(), 0):
+            fail("serve: the scaled deployment's logits differ")
+        res["scale_up_1_to_3_s"] = time.perf_counter() - t0
+        names = list(replicas("bert#Bert").values())
+        infos = [on_replica(n, "info") for n in names]
+        if len(names) != 3 or len({i["pid"] for i in infos}) != 3 or \
+                any(i["sha"] != sha or i["gpu_worker"] != "1"
+                    for i in infos):
+            fail(f"serve: the 3 replicas are not 3 GPU workers with the "
+                 f"driver's weights: {infos}")
+        outs, lat, wall = serve_clients(
+            lambda r: h.remote(r[1]).result(timeout_s=120), rows)
+        same = sum(same_logits(o, i) for o, (i, _) in zip(outs, rows))
+        res["bert_3_replicas"] = dict(p50_ms=1e3 * _pct(lat, 50),
+                                      p99_ms=1e3 * _pct(lat, 99),
+                                      qps=len(rows) / wall, equal=same)
+        say(f"bert scale 1 -> 3 in {res['scale_up_1_to_3_s']:.3f} s "
+            f"(redeploy: 3 new replicas), replicas on pids "
+            f"{[i['pid'] for i in infos]}; GPU available "
+            f"{rt.available_resources().get('GPU', 0.0)}; handle with 3 "
+            f"replicas: p50 {res['bert_3_replicas']['p50_ms']:.4g} ms "
+            f"p99 {res['bert_3_replicas']['p99_ms']:.4g} ms qps "
+            f"{res['bert_3_replicas']['qps']:.4g}, logits equal {same} of "
+            f"{len(rows)}")
+        if same != len(rows):
+            fail("serve: the 3 replicas' logits differ from the driver's")
+        victim = names[0]
+        t0 = time.perf_counter()
+        rt.kill(rt.get_actor(victim), no_restart=True)
+        wait_status("bert#Bert", lambda st: st.get("ready", 0) >= 3 and
+                    victim not in replicas("bert#Bert").values(), 180,
+                    "re-convergence after the kill")
+        retries = 0
+        while True:
+            try:
+                got = h.remote(rows[1][1]).result(timeout_s=60)
+                break
+            except (rt.exceptions.RayActorError,
+                    rt.exceptions.RayServeError):
+                retries += 1           # the router's view of the dead one
+                if retries > 100:
+                    raise
+                time.sleep(0.05)
+        res["kill_to_recovered_s"] = time.perf_counter() - t0
+        say(f"bert kill to recovered {res['kill_to_recovered_s']:.3f} s "
+            f"(the next request after {retries} retries gives the same "
+            f"logits: {same_logits(got, 1)})")
+        if not same_logits(got, 1):
+            fail("serve: the recovered deployment's logits differ")
+        serve.delete("bert")
+
+        # -- 2. @serve.batch and autoscaling (06_serve_bert.py:16-31)
+        class BatchedBertServer(BertServer):
+            @serve.batch(max_batch_size=8, batch_wait_timeout_s=0.005)
+            async def classify_batch(self, ids_list):
+                return [r.tolist() for r in self.classify(np.stack(ids_list))]
+
+            async def __call__(self, request):
+                return await self.classify_batch(np.asarray(request,
+                                                            np.int64))
+
+        Batched = serve.deployment(
+            name="BertBatched", num_replicas=1,
+            autoscaling_config=SERVE_AUTOSCALING,
+            ray_actor_options={"num_gpus": 0.25})(BatchedBertServer)
+        wait_status("bert#Bert", lambda st: not st, 60, "the delete")
+        hb = serve.run(Batched.bind(SEED, cfg, device), name="bert_batched",
+                       route_prefix=None, _wait_timeout_s=300)
+        bkey = "bert_batched#BertBatched"
+        stop, worst, peak = threading.Event(), [0.0], {"target": 0,
+                                                       "ready": 0}
+        errs = []
+
+        def load(k):
+            i = k
+            while not stop.is_set():
+                try:
+                    got = np.asarray(hb.remote(ids[i].tolist()).result(
+                        timeout_s=120), np.float32)
+                except Exception as e:  # noqa: BLE001 - reported below
+                    errs.append(repr(e))
+                    return
+                worst[0] = max(worst[0], float(np.abs(got - ref[i]).max()
+                                               / np.abs(ref[i]).max()))
+                i = (i + SERVE_CLIENTS) % SERVE_REQUESTS
+
+        threads = [threading.Thread(target=load, args=(k,))
+                   for k in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+
+        def up(st):
+            for k in peak:
+                peak[k] = max(peak[k], st.get(k, 0))
+            return st.get("ready", 0) >= 2 or errs
+
+        res["autoscale_up_s"] = wait_status(bkey, up, 120,
+                                            "upscale to 2 ready")
+        time.sleep(1.0)
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        if errs or any(t.is_alive() for t in threads):
+            fail(f"serve: batched clients failed: {errs[:3]}")
+        infos = [on_replica(n, "info") for n in replicas(bkey).values()]
+        res["autoscale_down_s"] = wait_status(
+            bkey, lambda st: st.get("target") == 1 and st.get("ready") == 1
+            and not st.get("draining"), 120, "downscale to 1")
+        sizes: dict = {}
+        for i in infos:
+            for b, n in i["sizes"].items():
+                sizes[b] = sizes.get(b, 0) + n
+        say(f"bert batched+autoscaling: up to {peak['ready']} ready "
+            f"(target {peak['target']}) {res['autoscale_up_s']:.3f} s "
+            f"after the load began, back to 1 "
+            f"{res['autoscale_down_s']:.3f} s after it stopped; batch "
+            f"sizes {dict(sorted(sizes.items()))}; worst row rel_err "
+            f"against the ids alone {worst[0]:.4g} (limit {BERT_PAD_TOL})")
+        if worst[0] > BERT_PAD_TOL or max(sizes) < 2 or \
+                any(i["bad"] or i["sha"] != sha for i in infos):
+            fail("serve: the batched deployment's rows, batches, weights "
+                 "or launches are wrong")
+        serve.delete("bert_batched")
+
+        # -- 4a. planted fault: bert without num_gpus
+        t0 = time.perf_counter()
+        try:
+            serve.run(Bert.options(name="BertNoCard",
+                                   ray_actor_options={}).bind(SEED, cfg),
+                      name="nocard", route_prefix=None,
+                      _wait_timeout_s=300)
+            fail("serve: a bert deployment without num_gpus became ready")
+        except rt.exceptions.RayServeError as e:
+            ok = "no CUDA device" in str(e)
+            say(f"control bert without num_gpus: not ready, reported "
+                f"{'the missing card' if ok else e} after "
+                f"{time.perf_counter() - t0:.3f} s")
+            if not ok:
+                fail(f"serve: the card-less deployment failed otherwise: "
+                     f"{e}")
+        serve.delete("nocard")
+        wait_status(bkey, lambda st: not st, 60, "the deletes")
+        deadline = time.monotonic() + 60
+        while rt.available_resources().get("GPU", 0.0) < 1.0:
+            if time.monotonic() > deadline:
+                fail("serve: the bert replicas' GPU share did not return")
+            time.sleep(0.05)
+
+        # -- 3. the LLM deployment: the engine phase's 16 requests
+        spec = gpt2_engine()
+        lcfg = dataclasses.replace(spec["cfg"], share_weights=True)
+        mod, mcfg = resolve_model(lcfg)
+
+        def engine_phase_params(device):
+            p = mod.init_params(torch.Generator(device="cpu")
+                                .manual_seed(SEED), mcfg, device=device)
+            for name in spec["blocks"]:
+                p["blocks"][name]["kernel"].mul_(spec["block_scale"])
+            return p
+
+        wkey = f"{lcfg.model_key()}_s{lcfg.seed}"
+        weights.publish_or_attach(wkey, engine_phase_params,
+                                  torch.device("cpu"))
+        prompts, driver_outs = eng_res["requests"]
+        LLM = serve.deployment(
+            name="LLMServer", max_ongoing_requests=64,
+            ray_actor_options={"num_gpus": 1.0})(
+                gated_llm_deployment(lcfg, device))
+        t0 = time.perf_counter()
+        hl = serve.run(LLM.bind(), name="llm", route_prefix="/llm",
+                       _wait_timeout_s=300)
+        hl.engine_stats.remote().result(timeout_s=300)   # engine built
+        res["llm_replica_boot_s"] = time.perf_counter() - t0
+        rng = np.random.default_rng(SEED)
+        for n in spec["warm"]:                # one request a bucket
+            list(hl.remote({"prompt": rng.integers(0, mcfg.vocab_size, n)
+                            .tolist(), "max_tokens": 2}).result())
+
+        def toks(chunks) -> list:
+            return [int(x) for x in chunks]
+
+        def gated_run(http_first: bool) -> tuple:
+            """The 16 requests submitted while the engine is held, then
+            released; each stream drained on a thread of its own (the
+            first through HTTP when asked).  Their tokens, the replica's
+            report and each stream's first chunk after the release."""
+            hl.hold.remote().result()
+            srcs, ready = [], []
+            for i, p in enumerate(prompts):
+                body = {"prompt": p, "max_tokens": SERVE_LLM_TOKENS}
+                if http_first and i == 0:
+                    import urllib.request
+                    r = urllib.request.urlopen(urllib.request.Request(
+                        f"http://{host}:{port}/llm",
+                        data=json.dumps(body).encode(), method="POST"),
+                        timeout=300)       # headers: the stream is in
+                    srcs.append(("http", r))
+                else:
+                    srcs.append(("handle", hl.remote(body).result()))
+            outs, first = [None] * len(srcs), [None] * len(srcs)
+
+            def drain(i):
+                kind, src = srcs[i]
+                got = []
+                if kind == "http":
+                    for line in src:
+                        first[i] = first[i] or time.perf_counter()
+                        got.append(line)
+                    src.close()
+                else:
+                    for chunk in src:
+                        first[i] = first[i] or time.perf_counter()
+                        got.append(chunk)
+                outs[i] = toks(got)
+
+            threads = [threading.Thread(target=drain, args=(i,))
+                       for i in range(len(srcs))]
+            t_rel = time.perf_counter()
+            hl.release.remote().result()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            rep = hl.report.remote().result()
+            return outs, rep, [f - t_rel for f in first]
+
+        outs, rep, first = gated_run(http_first=False)
+        same = [a == b for a, b in zip(outs, driver_outs)]
+        got, want = rep["launches"], eng_res["launches"]
+        tok = {k: rep["tokens"][k] - rep["tokens0"][k] for k in ("prefill",
+                                                                 "decode")}
+        st = {k: rep["stats"][k] - rep["stats0"][k]
+              for k in ("prefill_steps", "decode_steps", "tokens_out",
+                        "preemptions")}
+        say(f"llm 16 streams through the handle equal to the engine "
+            f"phase's: {sum(same)} of {len(same)}; replica launches "
+            f"{ {k: got[k] for k in want} }, the driver's engine phase "
+            f"{want}; engine {st}; rtt_llm_tokens_total {tok} "
+            f"(replica pid {rep['pid']}, CUDA_VISIBLE_DEVICES "
+            f"{rep['cuda_visible']!r})")
+        if not all(same) or len(same) != 16:
+            fail("serve: the LLM deployment's tokens differ from the "
+                 "engine phase's")
+        for k, n in want.items():
+            if got[k] != n or n <= 0:
+                fail(f"serve: {k} launched {got[k]} times in the LLM "
+                     f"replica, {n} in the driver's run")
+        for k in ("layer_norm_fwd_scalar", "flash_attention_fwd_f32",
+                  "flash_attention_fwd_gqa_d128"):
+            if got[k]:
+                fail(f"serve: {k} ran {got[k]} times in the LLM replica")
+        if tok["prefill"] != sum(map(len, prompts)) or \
+                tok["decode"] != st["tokens_out"] - st["prefill_steps"] \
+                or st["tokens_out"] != 16 * SERVE_LLM_TOKENS:
+            fail("serve: rtt_llm_tokens_total disagrees with the engine")
+        for k in want:
+            res["launches"][k] += got[k]
+        res["llm_ttft_p50_ms"] = 1e3 * _pct(rep["ttft_s"], 50)
+        res["llm_ttft_max_ms"] = 1e3 * max(rep["ttft_s"])
+        res["llm_client_ttft_p50_ms"] = 1e3 * _pct(first, 50)
+        res["llm_client_ttft_max_ms"] = 1e3 * max(first)
+        res["llm_tpot_p50_ms"] = 1e3 * _pct(rep["tpot_s"], 50)
+        say(f"llm ttft p50 {res['llm_ttft_p50_ms']:.4g} ms max "
+            f"{res['llm_ttft_max_ms']:.4g} ms in the replica (first chunk "
+            f"at the client p50 {res['llm_client_ttft_p50_ms']:.4g} ms max "
+            f"{res['llm_client_ttft_max_ms']:.4g} ms), tpot p50 "
+            f"{res['llm_tpot_p50_ms']:.4g} ms; the engine phase's ttft "
+            f"p50 {eng_res['ttft_p50_ms']:.4g} ms max "
+            f"{eng_res['ttft_max_ms']:.4g} ms tpot p50 "
+            f"{eng_res['tpot_p50_ms']:.4g} ms; the runtime actor's ttft "
+            f"p50 {runtime_res['actor_ttft_p50_ms']:.4g} ms (each from "
+            f"the release of all 16)")
+
+        outs_b, _, _ = gated_run(http_first=True)
+        same_b = [a == b for a, b in zip(outs_b, driver_outs)]
+        say(f"llm 15 handle streams and 1 HTTP stream equal to the engine "
+            f"phase's: {sum(same_b)} of 16 (HTTP: {same_b[0]})")
+        if not all(same_b):
+            fail("serve: the LLM tokens through HTTP differ")
+        # -- 4b. planted fault: a stream that drops its last token
+        if outs_b[1][:-1] == driver_outs[1]:
+            fail("serve: a stream without its last token passed the check")
+        say("control stream without its last token: differs, as it must")
+
+        solo = [toks(hl.remote({"prompt": p, "max_tokens":
+                                SERVE_LLM_TOKENS}).result())
+                for p in prompts]
+        serve.delete("llm")
+        wait_status("llm#LLMServer", lambda st: not st, 60, "the delete")
+        Naive = naive_llm_deployment(lcfg, device=device).options(
+            ray_actor_options={"num_gpus": 1.0})
+        hn = serve.run(Naive.bind(), name="naive", route_prefix=None,
+                       _wait_timeout_s=300)
+        t0 = time.perf_counter()
+        naive = [toks(hn.remote({"prompt": p, "max_tokens":
+                                 SERVE_LLM_TOKENS}).result())
+                 for p in prompts]
+        res["naive_wall_s"] = time.perf_counter() - t0
+        nst = hn.engine_stats.remote().result()
+        same_n = sum(a == b for a, b in zip(naive, driver_outs))
+        same_s = sum(a == b for a, b in zip(naive, solo))
+        say(f"llm naive_llm_deployment: 16 requests one at a time in "
+            f"{res['naive_wall_s']:.3f} s; tokens equal to the engine "
+            f"phase's {same_n} of 16, to the continuous deployment's solo "
+            f"runs {same_s} of 16; engine {nst}")
+        if same_s != 16:
+            fail("serve: the naive deployment's tokens differ from the "
+                 "same requests run alone")
+        serve.delete("naive")
+    finally:
+        if wkey is not None:
+            weights.release(wkey)
+        started = hasattr(watch, "head")
+        if started:
+            watch.poll()
+        serve.shutdown()
+        rt.shutdown()
+        GLOBAL_CONFIG.reset()
+        if started:
+            watch.stop()
+        if saved is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = saved
+    check_cluster_gone(watch, "serve", tag)
     for k, val in res.items():
-        print(f"runtime {k} {val} [{tag}]", flush=True)
+        say(f"{k} {val}")
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -5565,6 +6261,8 @@ def main() -> int:
     phase_done("weights")
     runtime = runtime_phase(dev, eng, tag)
     phase_done("runtime")
+    served = serve_phase(dev, eng, runtime, tag)
+    phase_done("serve")
     llama = engine_phase(dev, llama_engine(), tag)
     print(f"llama_engine depth {llama['n_layer']} layers (the preset's, "
           f"uncut) at full width [{tag}]", flush=True)
@@ -5587,6 +6285,12 @@ def main() -> int:
     phase_done("resnet50_train")
     bert_serve = bert_serve_phase(dev, card, tag)
     phase_done("bert_serve")
+    print(f"serve bert b1x{BERT_SEQ} p50 through Serve: handle "
+          f"{served['bert']['handle']['p50_ms']:.4g} ms, HTTP "
+          f"{served['bert']['http']['p50_ms']:.4g} ms ({SERVE_CLIENTS} "
+          f"clients); the bert_serve phase's direct classify p50 "
+          f"{bert_serve['latency_ms'][1][0]:.4g} ms (one caller) [{tag}]",
+          flush=True)
     vit_train = vit_train_phase(dev, card, tag)
     phase_done("vit_train")
     t5_train = t5_train_phase(dev, card, tag)
@@ -5611,7 +6315,8 @@ def main() -> int:
     phase_done("apex_pixel")
     # every main path's launches of the kernels it counts, each counted
     # from 0 over its own run
-    paths = {"engine": eng, "runtime": runtime, "llama_engine": llama,
+    paths = {"engine": eng, "runtime": runtime, "serve": served,
+             "llama_engine": llama,
              "train": train,
              "llama_train": llama_train, "xl_train": xl_train,
              "ray_train": ray_train,

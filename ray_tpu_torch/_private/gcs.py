@@ -599,6 +599,10 @@ class GcsServer:
         FSM transition — the same shape the snapshot captures (DEAD
         actors are absent from snapshots, so DEAD records a delete,
         which also keeps the standby's tables == the capture)."""
+        if a.state == A_DEAD:
+            # a dead actor never restarts: drop the pin on its
+            # constructor's args (taken in _h_create_actor)
+            self._release_deps(a.spec)
         if self._repl_hub is None:
             return
         if a.state == A_DEAD:
@@ -1759,7 +1763,8 @@ class GcsServer:
                     self.named_actors.pop((a.namespace, a.name), None)
                     self._repl_record("named", a.namespace, a.name, None)
                 self._repl_actor_locked(a)
-        self._release_deps(spec)
+        else:
+            self._release_deps(spec)
 
     def _fail_task(self, spec: dict, err: BaseException) -> None:
         from ray_tpu_torch._private.serialization import serialize_to_bytes
@@ -3833,6 +3838,14 @@ class GcsServer:
                             f"namespace {a.namespace!r}")
                 self.named_actors[key] = a.actor_id
             self.actors[a.actor_id] = a
+            # pin the constructor's args for the actor's lifetime, as a
+            # task's are pinned until it ends: the submitter releases its
+            # own ref to a by-value payload right after this call, and a
+            # restart reads the args again (released at DEAD, in
+            # _repl_actor_locked)
+            for dep in list(spec.get("deps", ())) + \
+                    list(spec.get("borrows", ())):
+                self._get_or_create_meta(dep).refcount += 1
             self._push_pending(spec)
             if a.name:
                 self._repl_record("named", a.namespace, a.name,

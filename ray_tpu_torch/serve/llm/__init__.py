@@ -12,15 +12,23 @@
 - **shared weights**: engines on one node share one copy of the params
   in shared memory (``weights.py``), published by the first to arrive.
 
-Entry point::
+Entry points::
 
     from ray_tpu_torch.serve import llm
     eng = llm.LLMEngine(llm.EngineConfig(model="gpt2:tiny"))
     for tok in eng.submit([1, 2, 3], llm.SamplingParams(max_tokens=16)):
         ...
+
+    app = llm.llm_deployment(llm.EngineConfig(model="gpt2:tiny")).options(
+        ray_actor_options={"num_gpus": 1}).bind()
+    handle = serve.run(app)          # streaming tokens per request
 """
 
 from ray_tpu_torch.serve.llm.config import EngineConfig, SamplingParams  # noqa: F401
 from ray_tpu_torch.serve.llm.engine import LLMEngine  # noqa: F401
+from ray_tpu_torch.serve.llm.deployment import (  # noqa: F401
+    llm_deployment, naive_llm_deployment,
+)
 
-__all__ = ["EngineConfig", "SamplingParams", "LLMEngine"]
+__all__ = ["EngineConfig", "SamplingParams", "LLMEngine",
+           "llm_deployment", "naive_llm_deployment"]

@@ -14,15 +14,24 @@ engine on the node publishes them and later ones attach; every engine
 reaps dead publishers' segments at boot and releases its own at
 shutdown.
 
-Not in this slice: metrics, tracing spans and the flight recorder (they
-ride the ray_tpu runtime) and disaggregated prefill/decode over the data
-plane (with its KV-segment reaping).  ``stats()`` keeps its plain
-counters.
+Metrics and tracing are the reference's, over the port's
+``util/metrics_catalog`` and ``util/tracing`` and behind
+``GLOBAL_CONFIG.metrics_enabled``: ``rtt_llm_tokens_total`` (prefill =
+prompt tokens, decode = tokens of decode iterations), the sequence, KV
+block and occupancy gauges after every step, TTFT and TPOT histograms,
+the preemption counter, and the spans ``llm.prefill``,
+``llm.decode_step`` and ``llm.preempt`` parented to the submitter's span.
+None of them reads the device: every value is a host count or a host
+clock, so a step gains no synchronisation.
+
+Not in this slice: disaggregated prefill/decode over the data plane
+(``prefill_remote``, ``attach``, the KV export plane and the KV pool's
+shm segment; the pool lives on the device) and the flight recorder's
+engine records.
 """
 
 from __future__ import annotations
 
-import logging
 import queue
 import threading
 import time
@@ -33,14 +42,19 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ray_tpu_torch._device import DeviceLike
+from ray_tpu_torch._private import rtlog
+from ray_tpu_torch._private.config import GLOBAL_CONFIG
 from ray_tpu_torch.serve.llm.config import EngineConfig, SamplingParams
 from ray_tpu_torch.serve.llm.kv_cache import NoFreeBlocks, PagedKVCache
 from ray_tpu_torch.serve.llm.model_runner import ModelRunner
 from ray_tpu_torch.serve.llm.scheduler import (FAILED, FINISHED,
-                                               IterationScheduler, Sequence)
+                                               IterationScheduler, Plan,
+                                               Sequence)
 from ray_tpu_torch.serve.llm import weights
+from ray_tpu_torch.util import metrics_catalog as mcat
+from ray_tpu_torch.util import tracing
 
-logger = logging.getLogger("ray_tpu_torch.serve.llm.engine")
+logger = rtlog.get("serve.llm.engine")
 
 _DONE = "__llm_done__"
 _ERR = "__llm_err__"
@@ -180,6 +194,12 @@ class LLMEngine:
         sampling = sampling or SamplingParams()
         seq = Sequence(seq_id=uuid.uuid4().hex[:12],
                        prompt=[int(t) for t in prompt], sampling=sampling)
+        # request tracing: the submitter's span (serve replica method /
+        # driver trace) parents every engine span for this sequence —
+        # captured HERE because the engine loop thread has no context
+        span = tracing.current_span()
+        if span is not None and span.sampled:
+            seq.trace = span
         q: queue.Queue = queue.Queue()
         with self._lock:
             # checked under the same lock shutdown() drains streams
@@ -251,6 +271,7 @@ class LLMEngine:
             self._do_prefill(plan.prefill)
         elif plan.decode:
             self._do_decode(plan.decode)
+        self._publish_metrics(plan)
         return plan.prefill is not None or bool(plan.decode)
 
     # ---------------------------------------------------------------- prefill
@@ -261,6 +282,7 @@ class LLMEngine:
             # plan() checked free blocks, but be safe: requeue
             self.sched.waiting.appendleft(seq)
             return
+        t0 = time.time()
         try:
             logits, ks, vs = self.runner.prefill(seq.prompt)
         except Exception as e:  # noqa: BLE001 - surface to the caller
@@ -273,8 +295,16 @@ class LLMEngine:
         # ORIGINAL prompt, so a preemption re-prefill draws the same rng
         # stream position as the pressure-free run
         tok = self.runner.sample(logits, seq.sampling, step=seq.generated)
+        if seq.trace is not None:
+            # per-sequence prefill span (explicit parent: the engine
+            # loop thread never holds the request's context variable)
+            tracing.emit_span("llm.prefill", seq.trace, t0,
+                              time.time() - t0, cat="llm",
+                              seq_id=seq.seq_id, tokens=len(seq.prompt),
+                              model=self.cfg.model)
         self.sched.start_running(seq)
         self._emit(seq, tok)
+        self._count_tokens(len(seq.prompt), phase="prefill")
         self._maybe_finish(seq)
 
     # ----------------------------------------------------------------- decode
@@ -313,6 +343,7 @@ class LLMEngine:
             toks[i] = s.output[-1] if s.output else s.prompt[-1]
             poss[i] = s.ctx_len - 1
             lens[i] = s.ctx_len - 1
+        t0 = time.time()
         try:
             logits, ks, vs = self.runner.decode(toks, poss,
                                                 self.cache.pool, tables,
@@ -334,6 +365,15 @@ class LLMEngine:
                                      step=s.generated)
             self._emit(s, tok)
             self._maybe_finish(s)
+        traced = next((s for s in batch if s.trace is not None), None)
+        if traced is not None:
+            # one span per decode ITERATION (the batch is the unit of
+            # execution), parented to the first traced sequence in it
+            tracing.emit_span("llm.decode_step", traced.trace, t0,
+                              time.time() - t0, cat="llm",
+                              batch=len(batch), seq_id=traced.seq_id,
+                              model=self.cfg.model)
+        self._count_tokens(len(batch), phase="decode")
 
     def _preempt_one(self, slots: Dict) -> bool:
         """Evict the scheduler's victim (latest arrival — possibly one
@@ -345,10 +385,17 @@ class LLMEngine:
             return False
         logger.info("preempting %s under cache pressure (ctx=%d)",
                     victim.seq_id, victim.ctx_len)
+        if victim.trace is not None:
+            tracing.emit_span("llm.preempt", victim.trace, time.time(),
+                              0.0, cat="llm", seq_id=victim.seq_id,
+                              ctx=victim.ctx_len)
         self.cache.free_seq(victim.seq_id)
         slots.pop(victim.seq_id, None)
         self.sched.preempt(victim)
         self.preemptions += 1
+        if GLOBAL_CONFIG.metrics_enabled:
+            mcat.get("rtt_llm_preemptions_total").inc(
+                tags={"model": self.cfg.model})
         return True
 
     def _drain_cancels(self) -> None:
@@ -371,8 +418,12 @@ class LLMEngine:
 
     # ------------------------------------------------------------- completion
     def _emit(self, seq: Sequence, tok: int) -> None:
+        now = time.monotonic()
         if seq.first_token_at is None:
-            seq.first_token_at = time.monotonic()
+            seq.first_token_at = now
+            if GLOBAL_CONFIG.metrics_enabled:
+                mcat.get("rtt_llm_ttft_seconds").observe(
+                    now - seq.arrival, tags={"model": self.cfg.model})
         seq.output.append(int(tok))
         self.tokens_out += 1
         with self._lock:
@@ -386,6 +437,12 @@ class LLMEngine:
             return
         self.cache.free_seq(seq.seq_id)
         self.sched.finish(seq, FINISHED)
+        if GLOBAL_CONFIG.metrics_enabled and len(seq.output) > 1 and \
+                seq.first_token_at is not None:
+            tpot = (seq.finished_at - seq.first_token_at) / \
+                (len(seq.output) - 1)
+            mcat.get("rtt_llm_tpot_seconds").observe(
+                tpot, tags={"model": self.cfg.model})
         with self._lock:
             q = self._streams.pop(seq.seq_id, None)
         if q is not None:
@@ -407,6 +464,29 @@ class LLMEngine:
         """Sequences the running batch can still take (what the Serve
         deployment's admission reads)."""
         return self.cfg.max_num_seqs - len(self.sched.running)
+
+    # ---------------------------------------------------------------- metrics
+    def _count_tokens(self, n: int, phase: str) -> None:
+        if GLOBAL_CONFIG.metrics_enabled:
+            mcat.get("rtt_llm_tokens_total").inc(
+                n, tags={"model": self.cfg.model, "phase": phase})
+
+    def _publish_metrics(self, plan: Plan) -> None:
+        if not GLOBAL_CONFIG.metrics_enabled:
+            return
+        tags = {"model": self.cfg.model}
+        running = len(self.sched.running)
+        mcat.get("rtt_llm_sequences").set(
+            running, tags={**tags, "state": "running"})
+        mcat.get("rtt_llm_sequences").set(
+            len(self.sched.waiting), tags={**tags, "state": "waiting"})
+        free = self.cache.free_block_count()
+        mcat.get("rtt_llm_kv_blocks").set(
+            self.cfg.num_blocks - free, tags={**tags, "state": "used"})
+        mcat.get("rtt_llm_kv_blocks").set(free,
+                                          tags={**tags, "state": "free"})
+        mcat.get("rtt_llm_batch_occupancy").set(
+            running / max(1, self.cfg.max_num_seqs), tags=tags)
 
     # ------------------------------------------------------------------ stats
     def stats(self) -> dict:

@@ -51,6 +51,10 @@ class Sequence:
     # preemption folds generated tokens into the prompt for re-prefill;
     # the generation budget stays relative to the ORIGINAL prompt
     orig_len: int = 0
+    # request's span context (tracing.SpanContext | None): captured at
+    # submit() on the caller's thread; the engine loop parents its
+    # per-sequence prefill/decode/preempt spans to it
+    trace: Optional[object] = None
 
     def __post_init__(self):
         if not self.orig_len:

@@ -895,6 +895,11 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                 "train/_internal/worker_group",
                 "train/_internal/backend_executor"):
         assert runtime / f"{mod}.py" in _port_sources(), mod
+    for mod in ("__init__", "config", "http_util", "batching", "multiplex",
+                "_replica", "handle", "controller", "deployment", "_proxy",
+                "api", "ingress", "drivers", "_grpc_proxy",
+                "llm/__init__", "llm/deployment", "llm/engine"):
+        assert runtime / "serve" / f"{mod}.py" in _port_sources(), mod
     assert not bad, bad
 
 

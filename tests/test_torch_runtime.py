@@ -601,6 +601,45 @@ def test_actor_pipelined_inline_burst_no_deadlock(cluster):
     assert all(o == blob + b"!" * 50_000 for o in out)
 
 
+def test_actor_constructor_args_beyond_inline_size(cluster):
+    """Constructor args above inline_object_max_bytes travel as an object
+    the submitter releases right after create_actor: the GCS pins them
+    for the actor's lifetime (a restart reads them again), so the actor
+    starts (it stayed PENDING before, the args freed under it) — from
+    the driver and from inside an actor, as Serve's controller creates
+    replicas — and the object goes once the actor is dead."""
+    w = t_worker.global_worker()
+
+    def args_objects(lo, hi):
+        return [o for o in w.rpc("list_objects")["objects"]
+                if lo <= o["size"] < hi]
+
+    class Holder:
+        def __init__(self, arr):
+            self.n = int(arr.sum())
+
+        def n_(self):
+            return self.n
+
+    class Maker:
+        def make(self, size):
+            h = rt.remote(Holder).remote(np.ones(size, np.uint8))
+            return rt.get(h.n_.remote(), timeout=60)
+
+    h = rt.remote(Holder).remote(np.ones(400_000, np.uint8))
+    assert rt.get(h.n_.remote(), timeout=60) == 400_000
+    m = rt.remote(Maker).options(num_cpus=0).remote()
+    assert rt.get(m.make.remote(300_000), timeout=90) == 300_000
+    # h's payload (400 kB and its header) stays while h lives
+    assert len(args_objects(400_000, 410_000)) == 1
+    rt.kill(h)
+    rt.kill(m)
+    deadline = time.monotonic() + 30
+    while args_objects(400_000, 410_000) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    assert not args_objects(400_000, 410_000)
+
+
 # --------------------------------------------- cancel and the RPC channel
 def test_rpc_channel_is_not_reused_after_an_interrupted_call(monkeypatch):
     """A call interrupted between a reply's header and its body (a task

@@ -11,6 +11,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import jax
@@ -598,3 +599,254 @@ def test_engine_oracles_with_shared_weights(jparams, jlparams, shm_dir,
         _preemption(eng, greedy)
     # shutdown released the engine's segment: this process published it
     assert wmod._live_segment(key) is None
+
+
+# ------------------------------------------------------ metrics and spans
+def test_engine_metrics_and_spans(jparams):
+    """The engine's rtt_llm_* series and its three spans: a traced
+    request under cache pressure (PREEMPT) is prefilled, decoded and
+    preempted, and the timeline holds llm.prefill, llm.decode_step and
+    llm.preempt, each a child of the submitter's span; the token counter
+    agrees with the engine's own counts."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.util import metrics_catalog as mcat
+    from ray_tpu_torch.util import tracing
+
+    def total(name, **tags):
+        return sum(s["value"] for s in mcat.get(name).snapshot()
+                   if all(s["tags"].get(k) == v for k, v in tags.items()))
+
+    rt.init(num_cpus=1)
+    try:
+        before = {p: total("rtt_llm_tokens_total", model="gpt2:tiny",
+                           phase=p) for p in ("prefill", "decode")}
+        pre0 = total("rtt_llm_preemptions_total", model="gpt2:tiny")
+        ttft0 = sum(s["value"]["count"] for s in
+                    mcat.get("rtt_llm_ttft_seconds").snapshot())
+        eng = make_engine(jparams, **PREEMPT)
+        prompts = [[1 + 7 * i, 2, 3] for i in range(3)]
+        with tracing.trace("llm-test") as root:
+            streams = [eng.submit(p, SamplingParams(max_tokens=12))
+                       for p in prompts]
+        outs = [s.tokens() for s in streams]
+        st = eng.stats()
+        eng.shutdown()
+        assert all(len(o) == 12 for o in outs) and st["preemptions"] >= 1
+        got = {p: total("rtt_llm_tokens_total", model="gpt2:tiny",
+                        phase=p) - before[p] for p in before}
+        # every emitted token is a prefill's first token or a decode's
+        assert got["decode"] == st["tokens_out"] - st["prefill_steps"]
+        # prefills: the prompts, and each preempted context again
+        assert got["prefill"] >= sum(map(len, prompts))
+        assert total("rtt_llm_preemptions_total", model="gpt2:tiny") \
+            - pre0 == st["preemptions"]
+        assert sum(s["value"]["count"] for s in mcat.get(
+            "rtt_llm_ttft_seconds").snapshot()) - ttft0 == len(prompts)
+        assert {s["tags"]["state"] for s in mcat.get(
+            "rtt_llm_kv_blocks").snapshot()} >= {"used", "free"}
+        assert mcat.get("rtt_llm_batch_occupancy").snapshot()
+        assert mcat.get("rtt_llm_tpot_seconds").snapshot()
+        spans = {}
+        deadline = time.monotonic() + 20
+        while time.monotonic() < deadline:
+            spans = {}
+            for e in rt.timeline(trace_id=root.trace_id):
+                if e.get("name", "").startswith("llm."):
+                    spans.setdefault(e["name"], []).append(e)
+            if len(spans) == 3:
+                break
+            time.sleep(0.2)
+        assert set(spans) == {"llm.prefill", "llm.decode_step",
+                              "llm.preempt"}, set(spans)
+        ours = {root.span_id}
+        assert all(e["args"]["parent_id"] in ours
+                   for evs in spans.values() for e in evs)
+    finally:
+        rt.shutdown()
+
+
+# ---------------------------------------------------- serve integration
+@pytest.fixture(scope="module")
+def serve_llm_cluster(tmp_path_factory):
+    """One cluster for the Serve tests below, its object store and the
+    weights plane in a directory of its own (never /dev/shm): workers
+    take the store's directory from the GCS, the driver's weights plane
+    reads RTT_SHM_DIR.  Restores the package logger as it was."""
+    import logging
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private import rtlog, shm_store
+    log = logging.getLogger("ray_tpu_torch")
+    handlers, propagate, level = log.handlers[:], log.propagate, log.level
+    d = tmp_path_factory.mktemp("serve_llm_shm")
+    mp = pytest.MonkeyPatch()
+    mp.setattr(shm_store, "_SHM_DIR", d)
+    mp.setenv("RTT_SHM_DIR", str(d))
+    if rt.is_initialized():
+        rt.shutdown()
+    rt.init(num_cpus=4)
+    try:
+        yield d
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+        mp.undo()
+        for h in log.handlers[:]:
+            if h not in handlers:
+                log.removeHandler(h)
+                h.close()
+        log.propagate, log.level = propagate, level
+        rtlog._stream_configured = False
+        rtlog._file_handlers.clear()
+
+
+def _toks(chunks):
+    return [int(x.strip()) for x in chunks]
+
+
+def test_serve_llm_streaming_and_stats(serve_llm_cluster):
+    """Mirror of the reference's test: streams through the handle, four
+    concurrent requests alike, the engine's stats, the HTTP chunked
+    path; the replica's engine built on the CPU (``device="cpu"``)."""
+    import json
+    import urllib.request
+
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.llm import llm_deployment
+    app = llm_deployment(tiny_cfg(share_weights=True), device="cpu").bind()
+    h = serve.run(app, name="llm", route_prefix="/llm")
+    req = {"prompt": [4, 8, 15], "max_tokens": 6}
+    toks = _toks(h.remote(req).result())
+    assert len(toks) == 6
+    rs = [h.remote(req) for _ in range(4)]
+    outs = [_toks(r.result()) for r in rs]
+    assert all(o == toks for o in outs)
+    st = h.engine_stats.remote().result()
+    assert st["prefill_steps"] >= 5 and st["tokens_out"] >= 30
+    assert "kv_segment" not in st       # the KV pool lives on the device
+    addr = serve.get_http_address()
+    r = urllib.request.urlopen(urllib.request.Request(
+        f"http://{addr[0]}:{addr[1]}/llm",
+        data=json.dumps(req).encode(), method="POST"), timeout=120)
+    assert [int(x) for x in r.read().decode().split()] == toks
+    serve.delete("llm")
+
+
+def test_serve_llm_multiplexed_models(serve_llm_cluster):
+    """Mirror: one deployment serves two model families, picked per
+    request through @serve.multiplexed."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.llm import llm_deployment
+    h = serve.run(llm_deployment(tiny_cfg(), device="cpu").bind(),
+                  name="llmx", route_prefix="/llmx")
+    req = {"prompt": [3, 5, 7], "max_tokens": 5}
+    base = _toks(h.remote(req).result())
+    other = _toks(h.options(multiplexed_model_id="llama:tiny")
+                  .remote(req).result())
+    assert len(base) == len(other) == 5
+    assert base != other        # different family actually served
+    serve.delete("llmx")
+
+
+def test_naive_baseline_serves(serve_llm_cluster):
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.llm import naive_llm_deployment
+    h = serve.run(naive_llm_deployment(tiny_cfg(), device="cpu").bind(),
+                  name="llmnaive", route_prefix="/llmnaive")
+    req = {"prompt": [4, 8, 15], "max_tokens": 6}
+    assert len(_toks(h.remote(req).result())) == 6
+    serve.delete("llmnaive")
+
+
+def test_llm_deployment_streams_the_jax_engines_tokens(
+        jparams, serve_llm_cluster, monkeypatch):
+    """llm_deployment on gpt2:tiny with the JAX init's weights (published
+    by this process through the weights plane; the replica's engine,
+    given no params, attaches them) streams exactly the greedy tokens of
+    the JAX package's LLMEngine on the same weights, concurrent requests
+    included.  Both sides in float32 (the JAX engine's model config is
+    swapped for JCFG here)."""
+    from ray_tpu.serve.llm import EngineConfig as JEngineConfig
+    from ray_tpu.serve.llm import LLMEngine as JLLMEngine
+    from ray_tpu.serve.llm import SamplingParams as JSamplingParams
+    from ray_tpu.serve.llm import model_runner as jrunner
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.llm import llm_deployment
+
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, 200, int(n)).tolist()
+               for n in rng.integers(3, 20, 5)]
+    monkeypatch.setattr(jrunner, "resolve_model", lambda cfg: (jgpt2, JCFG))
+    fields = {f.name: getattr(tiny_cfg(), f.name)
+              for f in dataclasses.fields(tiny_cfg())}
+    jeng = JLLMEngine(JEngineConfig(**fields), params=jparams)
+    try:
+        want = [s.tokens() for s in [jeng.submit(p, JSamplingParams(
+            max_tokens=8)) for p in prompts]]
+    finally:
+        jeng.shutdown()
+    assert len({t for o in want for t in o}) > 8    # not one repeated
+
+    cfg = tiny_cfg(share_weights=True, seed=7)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jparams), TCFG, "cpu")
+    key = f"{cfg.model_key()}_s{cfg.seed}"
+    wmod.publish_or_attach(key, lambda d: tp, torch.device("cpu"))
+    try:
+        h = serve.run(llm_deployment(cfg, device="cpu", model_cfg=TCFG)
+                      .bind(), name="parity", route_prefix=None)
+        rs = [h.remote({"prompt": p, "max_tokens": 8}) for p in prompts]
+        assert [_toks(r.result()) for r in rs] == want
+        serve.delete("parity")
+    finally:
+        wmod.release(key)
+
+
+def test_chaos_sigkill_decode_replica_no_leaked_kv(serve_llm_cluster):
+    """Mirror of the reference's chaos case: SIGKILL the replica mid-
+    generation.  The in-flight stream fails cleanly (RayServeError, not a
+    hang), the controller replaces the replica and new traffic flows.
+    The port's KV pool lives on the device and dies with the process, so
+    what must not leak is the process and its files: the killed worker
+    is gone, and its weights segment in the shm directory is reaped by
+    the new replica's engine at boot."""
+    import signal
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.llm import llm_deployment
+    shm = serve_llm_cluster
+    app = llm_deployment(tiny_cfg(share_weights=True, seed=3),
+                         device="cpu").bind()
+    h = serve.run(app, name="llmchaos", route_prefix="/llmchaos")
+    assert len(list(h.remote({"prompt": [1, 2], "max_tokens": 2})
+                    .result())) == 2
+    victim_pid = h.engine_stats.remote().result()["pid"]
+    def its_files():          # rtt_llmw_<key>.<pid>[.ready]
+        return [n for n in os.listdir(shm)
+                if n.split(".")[1:2] == [str(victim_pid)]]
+
+    assert its_files(), os.listdir(shm)     # its published weights
+    gen = h.remote({"prompt": [3, 4, 5], "max_tokens": 48}).result()
+    assert len([next(gen), next(gen)]) == 2
+    os.kill(victim_pid, signal.SIGKILL)
+    with pytest.raises(rt.exceptions.RayServeError):
+        for _ in gen:       # fails cleanly, never hangs
+            pass
+    deadline = time.monotonic() + 120
+    out = None
+    while time.monotonic() < deadline:
+        try:
+            out = _toks(h.remote({"prompt": [1, 2], "max_tokens": 3})
+                        .result(timeout_s=30))
+            if len(out) == 3:
+                break
+        except Exception:  # noqa: BLE001 - replica still restarting
+            time.sleep(0.5)
+    assert out is not None and len(out) == 3, out
+    assert h.engine_stats.remote().result()["pid"] != victim_pid
+    with pytest.raises(ProcessLookupError):
+        os.kill(victim_pid, 0)
+    assert not its_files(), f"the killed replica's files leaked: " \
+        f"{its_files()}"
+    serve.delete("llmchaos")
