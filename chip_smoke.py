@@ -165,6 +165,22 @@
    bounds.  MARWIL and BC over 80 recorded episodes (BC's dataset NLL
    must fall); A3C's and Ape-X's local paths on the pixel task
    (priorities written back, the target synced on schedule).
+   Then RLlib's remote paths on one cluster of the port's runtime
+   (``init(num_cpus=8)``): rollout actors, replay shards and ES's
+   episodes on the CPU, the learner on the card.  ``impala_async``,
+   BASELINE #3 at its real shape (4 workers, 512 frames an update): the
+   step-0 update on a batch the remote workers sampled against the
+   CPU's (the planted flatten order must fail), every rollout worker's
+   policy on the CPU in a process that sees no card, nvidia-smi's
+   compute apps unchanged by the fleet, a timed window of train() (env
+   and learner frames/s, updates/s), the remotes' weights bitwise the
+   learner's after a sync, no actor alive after stop().
+   ``impala_overlap``: the latency-bound workload (SlowEnv over CartPole)
+   with sync sampling against the async pipeline; the ratio is recorded.
+   ``rllib_fleet``: PPO with 2 remote workers (restored weights bitwise
+   on every remote), A3C's Hogwild with 4, the Ape-X fleet past
+   learning_starts, ES on CartPole (``CartPoleLite``, gymnasium's
+   CartPole-v1 copied).
 7. Prints each phase's wall seconds, one JSON line of per-kernel numbers,
    then, as the last line, ``{"ok": true, "device": {...}}``.
 
@@ -3722,8 +3738,8 @@ def rllib_reference_check(dev, tag: str = "") -> dict:
 
 
 # The RLlib phases: BASELINE #3's and #1's learner recipes at full size,
-# and DQN, sampling locally (num_workers=0: remote rollout actors wait for
-# the runtime).  No hand-written kernel is on this path: the networks are
+# and DQN, sampling locally (num_workers=0; the remote paths are the
+# rl_cluster_phases further down).  No hand-written kernel is on this path: the networks are
 # cuDNN convolutions and cuBLAS products, as the reference computes them
 # outside Pallas; every kernel counter must stay at 0.
 #
@@ -3806,7 +3822,8 @@ def rl_step0_updates(algo, batch) -> tuple:
 
 
 def impala_step0_check(algo, cpu_algo, batch, tag: str,
-                       fault: Optional[str] = None) -> tuple:
+                       fault: Optional[str] = None,
+                       label: str = "impala_pixel") -> tuple:
     """The card's step-0 update against the CPU's on the same weights and
     batch: (worst leaf's relative L2, its leaf, stats' worst relative
     error).  ``fault``: one of RL_FAULTS that acts while the update runs
@@ -3829,8 +3846,8 @@ def impala_step0_check(algo, cpu_algo, batch, tag: str,
     errs = rel_l2_errors(got, ref)
     stats_err = float(((stats - ref_stats).abs()
                        / ref_stats.abs().clamp_min(1e-30)).max())
-    label = "impala_pixel step0 update" + (f" control {fault}" if fault
-                                           else "")
+    label = f"{label} step0 update" + (f" control {fault}" if fault
+                                        else "")
     worst, leaf = grad_report(label, names, errs, IMPALA_STEP0_TOL, tag)
     print(f"{label} stats rel_err {stats_err:.4g} [{tag}]", flush=True)
     return max(worst, stats_err), leaf, stats_err
@@ -4656,6 +4673,495 @@ def apex_pixel_phase(dev, card, tag: str) -> dict:
     del algo
     gc.collect()
     torch.cuda.empty_cache()
+    return res
+
+
+# ------------------------------------- RLlib's remote paths on the runtime
+class CartPoleLite:
+    """gymnasium's ``CartPole-v1`` (classic_control/cartpole.py), copied:
+    the card's machine has no gymnasium.  Euler steps of 0.02 s, force
+    ±10, gravity 9.8, cart 1.0, pole 0.1 with half-length 0.5; the
+    episode ends when |x| > 2.4 or |θ| > 12°, reward 1 a step (the step
+    that ends it included), truncated at 500 steps (gymnasium's
+    TimeLimit); the start uniform in [−0.05, 0.05]⁴ from the reset's
+    seed.  Spaces from the port's ``env.make_box`` /
+    ``env.make_discrete``."""
+
+    gravity, masscart, masspole, length = 9.8, 1.0, 0.1, 0.5
+    force_mag, tau = 10.0, 0.02
+    theta_threshold_radians = 12 * 2 * math.pi / 360
+    x_threshold = 2.4
+    max_episode_steps = 500
+
+    def __init__(self, config: Optional[dict] = None):
+        from ray_tpu_torch.rllib import env as rl_env
+        high = np.array([self.x_threshold * 2, np.inf,
+                         self.theta_threshold_radians * 2, np.inf],
+                        dtype=np.float32)
+        self.observation_space = rl_env.make_box(-high, high, (4,))
+        self.action_space = rl_env.make_discrete(2)
+        self.total_mass = self.masspole + self.masscart
+        self.polemass_length = self.masspole * self.length
+        self._rng = np.random.default_rng((config or {}).get("seed"))
+        self.state = np.zeros(4)
+        self._t = 0
+
+    def reset(self, *, seed=None, options=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self.state = self._rng.uniform(low=-0.05, high=0.05, size=(4,))
+        self._t = 0
+        return np.array(self.state, dtype=np.float32), {}
+
+    def step(self, action):
+        x, x_dot, theta, theta_dot = self.state
+        force = self.force_mag if action == 1 else -self.force_mag
+        costheta, sintheta = np.cos(theta), np.sin(theta)
+        temp = (force + self.polemass_length * np.square(theta_dot)
+                * sintheta) / self.total_mass
+        thetaacc = (self.gravity * sintheta - costheta * temp) / (
+            self.length * (4.0 / 3.0 - self.masspole * np.square(costheta)
+                           / self.total_mass))
+        xacc = temp - self.polemass_length * thetaacc * costheta \
+            / self.total_mass
+        x = x + self.tau * x_dot
+        x_dot = x_dot + self.tau * xacc
+        theta = theta + self.tau * theta_dot
+        theta_dot = theta_dot + self.tau * thetaacc
+        self.state = np.array((x, x_dot, theta, theta_dot), dtype=np.float64)
+        terminated = bool(x < -self.x_threshold or x > self.x_threshold
+                          or theta < -self.theta_threshold_radians
+                          or theta > self.theta_threshold_radians)
+        self._t += 1
+        return np.array(self.state, dtype=np.float32), 1.0, terminated, \
+            self._t >= self.max_episode_steps, {}
+
+
+# The remote phases run on one cluster of the port's runtime,
+# init(num_cpus=8): rollout workers, replay shards and ES's episodes are
+# CPU processes that see no card; the learner is this process, on the
+# card.
+#
+# impala_async: BASELINE #3 at its real shape, benchmarks/rllib_bench.py:
+# 73-85 (4 workers × 4 envs × 32 steps, 4 fragments = 512 frames an
+# update, a broadcast every 2 updates), with the learner on the card in
+# place of the bench's learner_device="cpu" (the TPU host's link); a warm
+# train(), then IMPALA_WALL_S of train().
+IMPALA_ASYNC = {"env": "RandomPixelEnv",
+                "env_config": {"size": 84, "frames": 4, "num_actions": 6},
+                "num_workers": 4, "num_envs_per_worker": 4,
+                "rollout_fragment_length": 32,
+                "num_batches_per_iteration": 4, "lr": 3e-4,
+                "num_fragments_per_update": 4, "broadcast_interval": 2,
+                "seed": SEED}
+# impala_overlap: rllib_bench.py:101-188's latency_bound workload, SlowEnv
+# (4 ms a step) over CartPole, 4 workers × 1 env × 8 steps, 4 fragments an
+# update; sync_sampling (a broadcast every update) against async (every
+# 4), each for OVERLAP_WALL_S (the bench's 30 s cut to 10).
+IMPALA_OVERLAP = {"env": "SlowEnv",
+                  "env_config": {"inner": CartPoleLite,
+                                 "step_delay_ms": 4.0},
+                  "num_workers": 4, "num_envs_per_worker": 1,
+                  "rollout_fragment_length": 8,
+                  "num_batches_per_iteration": 4,
+                  "num_fragments_per_update": 4, "seed": SEED}
+OVERLAP_MODES = {"sync": {"sync_sampling": True, "broadcast_interval": 1},
+                 "async": {"sync_sampling": False, "broadcast_interval": 4}}
+OVERLAP_WALL_S = 10.0
+# rllib_fleet: BASELINE #1's PPO recipe (rllib_bench.py:24-30, 2 remote
+# workers) on CartPole for FLEET_PPO_ITERS iterations, then save / train /
+# restore; A3C's Hogwild with 4 workers on A3C_PIXEL; Ape-X at
+# rllib_bench.py:272-353's fleet shape (4 workers × 2 envs × 32 steps, 2
+# shards, batch 64, learning_starts 512) for FLEET_APEX_PAST iterations
+# past learning_starts; ES on CartPole, FLEET_ES_ITERS iterations of 16
+# antithetic pairs.
+FLEET_PPO = {"env": CartPoleLite, "num_workers": 2, "num_envs_per_worker": 4,
+             "rollout_fragment_length": 256, "train_batch_size": 2048,
+             "num_sgd_iter": 8, "sgd_minibatch_size": 256, "lr": 3e-4,
+             "seed": SEED}
+FLEET_PPO_ITERS = 3
+FLEET_A3C = dict(A3C_PIXEL, num_workers=4)
+FLEET_APEX = {"env": CartPoleLite, "num_workers": 4, "num_envs_per_worker": 2,
+              "rollout_fragment_length": 32, "num_replay_shards": 2,
+              "buffer_size": 50_000, "train_batch_size": 64,
+              "learning_starts": 512, "num_updates_per_iteration": 16,
+              "seed": SEED}
+FLEET_APEX_PAST = 3
+FLEET_APEX_CAP = 40
+FLEET_ES = {"env": CartPoleLite, "episodes_per_batch": 16, "seed": SEED}
+FLEET_ES_ITERS = 2
+STATS_IMPALA = ("policy_loss", "vf_loss", "entropy")   # IMPALA's and A3C's
+
+
+def compute_app_pids() -> Optional[list]:
+    """The pids nvidia-smi lists as holding a context on the card (None
+    when it cannot say)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        return None
+    return sorted(int(p) for p in out.stdout.split() if p.strip().isdigit())
+
+
+def check_card_holders(label: str, tag: str, before: list) -> None:
+    """Only this process may hold a context on the card: the compute apps
+    nvidia-smi lists must be those it listed before the cluster started,
+    when this process alone held the card (a rollout actor, shard or ES
+    task that opened a context would add one).  In a container the pids
+    may be another namespace's, so the lists are compared, not the pid."""
+    pids = compute_app_pids()
+    print(f"{label} nvidia-smi compute apps {pids}, before the cluster "
+          f"{before} (this process {os.getpid()}) [{tag}]", flush=True)
+    if pids is None or pids != before or len(before) != 1:
+        fail(f"{label}: the card's contexts are {pids}, not this "
+             f"process's alone ({before} before the cluster)")
+
+
+def remote_devices(algo) -> list:
+    """(pid, policy device, config device, CUDA_VISIBLE_DEVICES, CUDA
+    initialized) of each remote rollout worker."""
+    import ray_tpu_torch as rt
+    return rt.get([w.__ray_call__.remote(lambda self: (
+        os.getpid(), self.policy.device.type, self.config["device"],
+        os.environ.get("CUDA_VISIBLE_DEVICES"), torch.cuda.is_initialized()))
+        for w in algo.workers.remote_workers], timeout=120)
+
+
+def check_remote_weights(algo, label: str, tag: str,
+                         want: Optional[dict] = None) -> None:
+    """Every remote worker's weights bitwise the learner's (or ``want``)."""
+    import ray_tpu_torch as rt
+    want = dict(rl_tree_paths(algo.get_weights() if want is None
+                              else want))
+    got = rt.get([w.get_weights.remote()
+                  for w in algo.workers.remote_workers], timeout=120)
+    bad = [(i, k) for i, g in enumerate(got)
+           for k, v in rl_tree_paths(g)
+           if not np.array_equal(v, want[k])]
+    print(f"{label} weights on {len(got)} remote workers bitwise the "
+          f"learner's: {not bad} [{tag}]", flush=True)
+    if bad or any(len(dict(rl_tree_paths(g))) != len(want) for g in got):
+        fail(f"{label}: remote weights differ from the learner's: "
+             f"{bad[:4]}")
+
+
+def stop_and_check(algo, label: str, tag: str) -> None:
+    """``algo.stop()``; then none of its actors may be alive, nor the
+    processes that held them."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import worker as rt_worker
+    from ray_tpu_torch._private.memory_monitor import _pid_is_local_worker
+    handles = list(algo.workers.remote_workers) + list(
+        getattr(algo, "replay_shards", ()))
+    ids = {h._actor_id for h in handles}
+    pids = rt.get([h.__ray_call__.remote(lambda self: os.getpid())
+                   for h in handles], timeout=120)
+    algo.stop()
+    deadline = time.monotonic() + 30
+    while True:
+        alive = [a["actor_id"] for a in rt_worker.global_worker().rpc(
+            "list_actors")["actors"]
+            if a["actor_id"] in ids and a["state"] != "DEAD"]
+        procs = [p for p in pids if _pid_is_local_worker(p)]
+        if not (alive or procs) or time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    print(f"{label} after stop: of {len(ids)} actors alive {alive}, their "
+          f"processes alive {procs} [{tag}]", flush=True)
+    if alive or procs:
+        fail(f"{label}: stop() left actors {alive} / processes {procs}")
+
+
+def rl_finite(label: str, info: dict, keys) -> None:
+    vals = {k: info.get(k) for k in keys}
+    if not all(isinstance(v, float) and math.isfinite(v)
+               for v in vals.values()):
+        fail(f"{label}: non-finite or missing learner stats {vals}")
+
+
+def impala_async_phase(dev, card, tag: str, holders: list) -> dict:
+    """BASELINE #3's async actor-learner at its real shape: CPU rollout
+    actors, the learner on the card.  The step-0 update on a batch the
+    remote workers sampled against the CPU's (the planted flatten order
+    must fail), the card held by this process alone and every rollout
+    worker's policy on the CPU, a warm train(), then train() for
+    IMPALA_WALL_S (env frames/s, learner frames/s and updates/s, the
+    iteration ms); finite stats, no hand-written kernel, one profiled
+    update, the peak memory; after a sync every remote's weights bitwise
+    the learner's; after stop() no rollout actor alive."""
+    from ray_tpu_torch.rllib import IMPALAConfig, synchronous_parallel_sample
+    base = mem_base()
+    t0 = time.perf_counter()
+    algo = IMPALAConfig().update(dict(IMPALA_ASYNC, device=str(dev))).build()
+    cpu_algo = IMPALAConfig().update(dict(IMPALA_ASYNC, num_workers=0,
+                                          device="cpu")).build()
+    devices = remote_devices(algo)
+    print(f"impala_async config {IMPALA_ASYNC}; learner on "
+          f"{algo.get_policy().device}; remote workers (pid, policy, "
+          f"config device, CUDA_VISIBLE_DEVICES, CUDA initialized) "
+          f"{devices} [{tag}]", flush=True)
+    if any(d[1:] != ("cpu", "cpu", "", False) for d in devices) or \
+            os.getpid() in [d[0] for d in devices]:
+        fail(f"impala_async: a rollout worker is not a CPU process: "
+             f"{devices}")
+    algo.workers.sync_weights()
+    batch = synchronous_parallel_sample(algo.workers)
+    frames_per_update = IMPALA_ASYNC["num_fragments_per_update"] * \
+        IMPALA_ASYNC["num_envs_per_worker"] * \
+        IMPALA_ASYNC["rollout_fragment_length"]
+    if batch.count != frames_per_update:
+        fail(f"impala_async: the remote batch has {batch.count} frames")
+    worst, leaf, _ = impala_step0_check(algo, cpu_algo, batch, tag,
+                                        label="impala_async")
+    control, _, _ = impala_step0_check(algo, cpu_algo, batch, tag,
+                                       "conv_flatten_nchw",
+                                       label="impala_async")
+    if not worst <= IMPALA_STEP0_TOL:
+        fail(f"impala_async: the step-0 update on the remote batch "
+             f"disagrees with the CPU's ({leaf} {worst})")
+    if control <= IMPALA_STEP0_TOL:
+        fail("impala_async: the planted flatten order passed the step-0 "
+             "check")
+    del cpu_algo
+    check_s = time.perf_counter() - t0
+    t = time.perf_counter()
+    r = algo.train()                       # warm: the fleet's first round
+    warm_s = time.perf_counter() - t
+    check_card_holders("impala_async", tag, holders)
+    # -- the main path: train() for a fixed wall budget
+    zero_kernel_counts()
+    torch.cuda.synchronize()
+    frames0 = r["timesteps_total"]
+    trained0 = r["info"]["num_env_steps_trained"]
+    iters, infos = [], []
+    t_run = time.perf_counter()
+    while time.perf_counter() - t_run < IMPALA_WALL_S:
+        t = time.perf_counter()
+        r = algo.train()
+        iters.append(time.perf_counter() - t)
+        infos.append(r["info"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    rl_kernel_check("impala_async")
+    for info in infos:
+        rl_finite("impala_async", info, STATS_IMPALA)
+    frames = r["timesteps_total"] - frames0
+    trained = r["info"]["num_env_steps_trained"] - trained0
+    algo.workers.sync_weights()
+    check_remote_weights(algo, "impala_async", tag)
+    prof = profile_once("impala_async_update",
+                        lambda: algo._learn_on(batch), tag)
+    res = dict(check_s=check_s, warm_train_s=warm_s,
+               step0_rel_err=worst, step0_worst_leaf=leaf,
+               step0_tol=IMPALA_STEP0_TOL,
+               step0_control_flatten_nchw=control,
+               iterations=len(iters), wall_s=wall,
+               env_frames=frames, env_frames_per_s=frames / wall,
+               learner_frames=trained, learner_frames_per_s=trained / wall,
+               learner_updates_per_s=trained / frames_per_update / wall,
+               iteration_ms=1e3 * sum(iters) / len(iters),
+               update_device_ms=prof["device_ms"], update_busy=prof["busy"],
+               update_wall_ms=prof["wall_ms"],
+               peak_mem_gb=peak_above_gb(base), last_info=infos[-1])
+    for k, val in res.items():
+        print(f"impala_async {k} {val} [{tag}]", flush=True)
+    stop_and_check(algo, "impala_async", tag)
+    del algo, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+
+def impala_overlap_phase(dev, card, tag: str) -> dict:
+    """The latency-bound workload in both modes, the learner on the card:
+    a warm train(), then OVERLAP_WALL_S of train(); learner frames/s, env
+    frames/s and updates/s of each, and async over sync.  Fails only if a
+    mode trained nothing; the ratio is recorded."""
+    from ray_tpu_torch.rllib import IMPALAConfig
+    per_update = IMPALA_OVERLAP["num_fragments_per_update"] * \
+        IMPALA_OVERLAP["num_envs_per_worker"] * \
+        IMPALA_OVERLAP["rollout_fragment_length"]
+    res = {}
+    for mode, extra in OVERLAP_MODES.items():
+        algo = IMPALAConfig().update(dict(IMPALA_OVERLAP, **extra,
+                                          device=str(dev))).build()
+        r = algo.train()                   # warm: spawn, first round
+        zero_kernel_counts()
+        frames0 = r["timesteps_total"]
+        trained0 = r["info"]["num_env_steps_trained"]
+        t0 = time.perf_counter()
+        n = 0
+        while time.perf_counter() - t0 < OVERLAP_WALL_S:
+            r = algo.train()
+            n += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rl_kernel_check(f"impala_overlap {mode}")
+        rl_finite(f"impala_overlap {mode}", r["info"], STATS_IMPALA)
+        trained = r["info"]["num_env_steps_trained"] - trained0
+        res[mode] = dict(
+            env_frames_per_s=(r["timesteps_total"] - frames0) / wall,
+            learner_frames_per_s=trained / wall,
+            learner_updates_per_s=trained / per_update / wall,
+            iterations=n, wall_s=wall,
+            last_reward=r["episode_reward_mean"])
+        print(f"impala_overlap {mode} {res[mode]} [{tag}]", flush=True)
+        stop_and_check(algo, f"impala_overlap {mode}", tag)
+        if not trained > 0:
+            fail(f"impala_overlap: the {mode} mode trained nothing")
+    res["ratio_learner_frames"] = res["async"]["learner_frames_per_s"] / \
+        res["sync"]["learner_frames_per_s"]
+    res["ratio_env_frames"] = res["async"]["env_frames_per_s"] / \
+        res["sync"]["env_frames_per_s"]
+    print(f"impala_overlap async / sync learner frames "
+          f"{res['ratio_learner_frames']:.4g}, env frames "
+          f"{res['ratio_env_frames']:.4g} (recorded, not gated) [{tag}]",
+          flush=True)
+    return res
+
+
+def rllib_fleet_phase(dev, card, tag: str, holders: list) -> dict:
+    """The other remote paths on the same cluster, each with finite stats
+    and no hand-written kernel: PPO (BASELINE #1's recipe, 2 remote
+    workers) then save / train / restore with the restored weights
+    bitwise on every remote; A3C's Hogwild with 4 workers; the Ape-X
+    fleet past learning_starts; ES on CartPole."""
+    import tempfile as _tmp
+    from ray_tpu_torch.rllib import A3CConfig, APEXConfig, PPOConfig
+    from ray_tpu_torch.rllib.algorithms import ESConfig
+    res = {}
+    # -- PPO, BASELINE #1's recipe
+    algo = PPOConfig().update(dict(FLEET_PPO, device=str(dev))).build()
+    zero_kernel_counts()
+    rows = []
+    for _ in range(FLEET_PPO_ITERS):
+        t = time.perf_counter()
+        r = algo.train()
+        rows.append((r["episode_reward_mean"], time.perf_counter() - t))
+        rl_finite("rllib_fleet ppo", r["info"], ("kl", "entropy",
+                                                 "vf_loss", "policy_loss"))
+    rl_kernel_check("rllib_fleet ppo")
+    check_remote_weights(algo, "rllib_fleet ppo", tag)
+    with _tmp.TemporaryDirectory() as d:
+        ckpt = algo.save(d)
+        saved = algo.get_weights()
+        algo.train()
+        algo.restore(ckpt)
+    check_remote_weights(algo, "rllib_fleet ppo restored", tag, saved)
+    # frames/s over the iterations after the first (the fleet's spawn)
+    res["ppo"] = dict(rewards=[x[0] for x in rows],
+                      iteration_s=[x[1] for x in rows],
+                      env_frames_per_s=(FLEET_PPO_ITERS - 1)
+                      * FLEET_PPO["train_batch_size"]
+                      / sum(x[1] for x in rows[1:]))
+    print(f"rllib_fleet ppo {res['ppo']} [{tag}]", flush=True)
+    stop_and_check(algo, "rllib_fleet ppo", tag)
+    # -- A3C's Hogwild
+    algo = A3CConfig().update(dict(FLEET_A3C, device=str(dev))).build()
+    before = algo.get_weights()
+    algo.train()                                      # warm
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    infos = [algo.train()["info"] for _ in range(A3C_ITERS)]
+    wall = time.perf_counter() - t0
+    rl_kernel_check("rllib_fleet a3c")
+    for info in infos:
+        rl_finite("rllib_fleet a3c", info, STATS_IMPALA)
+    moved = float(rl_update_norm(before, algo.get_weights()))
+    grads = A3C_ITERS * FLEET_A3C["grads_per_iteration"]
+    res["a3c"] = dict(grads_applied=grads, grads_per_s=grads / wall,
+                      env_steps_per_s=grads * FLEET_A3C["num_envs_per_worker"]
+                      * FLEET_A3C["rollout_fragment_length"] / wall,
+                      params_moved=moved, last_info=infos[-1])
+    print(f"rllib_fleet a3c {res['a3c']} [{tag}]", flush=True)
+    if not moved > 0:
+        fail("rllib_fleet a3c: the learner's params did not move")
+    stop_and_check(algo, "rllib_fleet a3c", tag)
+    # -- the Ape-X fleet
+    algo = APEXConfig().update(dict(FLEET_APEX, device=str(dev))).build()
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    past, n = 0, 0
+    while past < FLEET_APEX_PAST and n < FLEET_APEX_CAP:
+        info = algo.train()["info"]
+        n += 1
+        past += info["num_env_steps_sampled"] >= FLEET_APEX["learning_starts"]
+    wall = time.perf_counter() - t0
+    rl_kernel_check("rllib_fleet apex")
+    res["apex"] = dict(iterations=n, learner_updates=info["learner_updates"],
+                       replay_shards=info["replay_shards"],
+                       env_steps_sampled=info["num_env_steps_sampled"],
+                       mean_td_error=info.get("mean_td_error"), wall_s=wall,
+                       updates_per_s=info["learner_updates"] / wall)
+    print(f"rllib_fleet apex learner_updates {info['learner_updates']} "
+          f"replay_shards {info['replay_shards']} {res['apex']} [{tag}]",
+          flush=True)
+    if not info["learner_updates"] > 0 or \
+            info["replay_shards"] != FLEET_APEX["num_replay_shards"]:
+        fail(f"rllib_fleet apex: {res['apex']}")
+    rl_finite("rllib_fleet apex", info, ("mean_td_error",))
+    stop_and_check(algo, "rllib_fleet apex", tag)
+    # -- ES: the episodes are tasks
+    algo = ESConfig().update(dict(FLEET_ES, device=str(dev))).build()
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    rs = [algo.train() for _ in range(FLEET_ES_ITERS)]
+    wall = time.perf_counter() - t0
+    rl_kernel_check("rllib_fleet es")
+    res["es"] = dict(rewards=[r["episode_reward_mean"] for r in rs],
+                     theta_norm=[r["theta_norm"] for r in rs],
+                     episodes_per_s=sum(r["episodes_this_iter"]
+                                        for r in rs) / wall)
+    print(f"rllib_fleet es {res['es']} [{tag}]", flush=True)
+    for r in rs:
+        rl_finite("rllib_fleet es", r, ("episode_reward_mean", "theta_norm"))
+    algo.stop()
+    check_card_holders("rllib_fleet", tag, holders)
+    return res
+
+
+def rl_cluster_phases(dev, card, tag: str, phase_done) -> dict:
+    """impala_async, impala_overlap and rllib_fleet on one cluster of the
+    port's runtime (init(num_cpus=8) in this run's session root and shm
+    directory); after shutdown, none of its workers alive and none of its
+    segments left."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private import shm_store
+    here = os.path.dirname(os.path.abspath(__file__))
+    saved = os.environ.get("PYTHONPATH")
+    # workers import the package from this checkout
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [here] + ([saved] if saved else []))
+    watch = ClusterWatch(shm_store._SHM_DIR)
+    res = {}
+    torch.cuda.synchronize()             # this process's context exists
+    holders = compute_app_pids()
+    try:
+        info = rt.init(num_cpus=8)
+        watch.start(rt._head, info["session_dir"])
+        print(f"rl cluster session {info['session_dir']} resources "
+              f"{rt.cluster_resources()} [{tag}]", flush=True)
+        phase_done("rl_cluster_init")
+        res["impala_async"] = impala_async_phase(dev, card, tag, holders)
+        phase_done("impala_async")
+        res["impala_overlap"] = impala_overlap_phase(dev, card, tag)
+        phase_done("impala_overlap")
+        res["rllib_fleet"] = rllib_fleet_phase(dev, card, tag, holders)
+        phase_done("rllib_fleet")
+    finally:
+        started = hasattr(watch, "head")
+        if started:
+            watch.poll()
+        rt.shutdown()
+        if started:
+            watch.stop()
+        if saved is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = saved
+    check_cluster_gone(watch, "rl cluster", tag)
     return res
 
 
@@ -6313,6 +6819,7 @@ def main() -> int:
     phase_done("a3c_pixel")
     apex_pixel_phase(dev, card, tag)
     phase_done("apex_pixel")
+    rl_cluster_phases(dev, card, tag, phase_done)
     # every main path's launches of the kernels it counts, each counted
     # from 0 over its own run
     paths = {"engine": eng, "runtime": runtime, "serve": served,

@@ -1,25 +1,31 @@
-"""ray_tpu_torch.rllib: the reference's RLlib on one GPU (port of
-``ray_tpu/rllib/``, module for module).
+"""ray_tpu_torch.rllib: the reference's RLlib on the port's runtime and
+one GPU (port of ``ray_tpu/rllib/``, module for module).
 
 Reference: ``rllib/``.  A rollout worker steps vectorized envs on the host
 with one device call a step for the policy; a learner is eager PyTorch on
-the same device (PPO: all SGD epochs with no host read; IMPALA/APPO:
-V-trace plus RMSProp; DQN and Ape-X's local path: double-Q, Ape-X over
-prioritized replay; SAC, DDPG/TD3: actor, critics and targets; MARWIL/BC:
-offline JSON data, ``offline.py``; A3C's local mode: worker-side
-gradients).  Entry points run on the card unless the config says
-``device="cpu"`` (``.resources(device="cpu")``).  Sampling is local
-(``num_workers=0``); remote rollout workers, and with them ES, wait for
-the runtime::
+the config's device (PPO: all SGD epochs with no host read; IMPALA/APPO:
+V-trace plus RMSProp behind the async actor-learner pipeline; DQN and
+Ape-X: double-Q, Ape-X over prioritized replay shards; SAC, DDPG/TD3:
+actor, critics and targets; MARWIL/BC: offline JSON data,
+``offline.py``; A3C: worker-side gradients applied Hogwild; ES: episodes
+as remote tasks).  Entry points run on the card unless the config says
+``device="cpu"`` (``.resources(device="cpu")``).  With ``num_workers >
+0`` the rollout workers are CPU actors of the runtime (``ray_tpu_torch.
+init`` first) and the learner stays on the config's device::
 
-    from ray_tpu_torch.rllib import PPOConfig
-    algo = (PPOConfig().environment("PixelSquareEnv")
-            .rollouts(num_workers=0, num_envs_per_worker=8,
-                      rollout_fragment_length=256)
-            .training(train_batch_size=2048, sgd_minibatch_size=256,
-                      num_sgd_iter=8, lr=3e-4)
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib import IMPALAConfig
+    rt.init(num_cpus=8)
+    algo = (IMPALAConfig().environment(
+                "RandomPixelEnv",
+                env_config={"size": 84, "frames": 4, "num_actions": 6})
+            .rollouts(num_workers=4, num_envs_per_worker=4,
+                      rollout_fragment_length=32)
+            .training(num_batches_per_iteration=4, lr=3e-4,
+                      num_fragments_per_update=4, broadcast_interval=2)
             .debugging(seed=0).build())
     result = algo.train()
+    algo.stop()
 """
 
 from ray_tpu_torch.rllib.sample_batch import (MultiAgentBatch, SampleBatch,

@@ -4,23 +4,26 @@ of ``ray_tpu/rllib/algorithms/a3c.py``).
 Reference: ``rllib/algorithms/a3c/`` (Mnih et al. 2016) — the execution
 pattern where workers push GRADIENTS, not samples: each rollout worker
 computes ∇L on its own fragment and the learner applies the arriving
-gradients, then re-issues the worker with fresh weights.
+gradients Hogwild-style, then re-issues the worker with fresh weights.
+Versus IMPALA, the learner never touches observations: for fat
+observations the gradient (∝ parameter count) is the cheaper thing to
+ship.
 
-The port runs the reference's local mode (no remote workers, its
-"degenerate sync mode"): ``grads_per_iteration`` times, the local
-worker's ``compute_gradients`` returns a numpy gradient tree in the
-reference's layout, which goes back to the device and through optax's
-global-norm clip and RMSProp (eps 0.1 inside the root).  The round trip
-through numpy is the reference's contract, kept for the remote workers
-to come.  The Hogwild path needs the runtime's actors: the reference's
-default ``num_workers=2`` raises at build time (``WorkerSet``), so set
-``num_workers=0``.
+With remote workers (the default ``num_workers=2``; CPU actors, see
+``evaluation.WorkerSet``), one ``compute_gradients(weights_ref)`` stays
+in flight per worker; each numpy gradient tree that arrives is applied
+on the learner's device at once (optax's global-norm clip and RMSProp,
+eps 0.1 inside the root), and that worker is re-issued with a fresh
+``put`` of the weights.  With no remote workers (the reference's sync
+mode) the local worker computes ``grads_per_iteration`` gradients in
+turn, through the same numpy contract.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
+import ray_tpu_torch as rt
 from ray_tpu_torch.parallel import transforms as tx
 from ray_tpu_torch.rllib import models
 from ray_tpu_torch.rllib.algorithms.algorithm import (
@@ -50,6 +53,7 @@ class A3C(Algorithm):
             "vf_loss_coeff": float(config["vf_loss_coeff"]),
             "entropy_coeff": float(config["entropy_coeff"]),
         }
+        self._in_flight: Dict[Any, Any] = {}
         self._trained_steps = 0
 
     def apply_gradients(self, grads) -> None:
@@ -63,13 +67,41 @@ class A3C(Algorithm):
         apply_updates(policy.params, updates)
 
     def training_step(self) -> Dict[str, Any]:
-        worker = self.workers.local_worker
+        remotes = self.workers.remote_workers
+        n = int(self.config["grads_per_iteration"])
+        policy = self.workers.local_worker.policy
         info: Dict[str, Any] = {}
-        for _ in range(int(self.config["grads_per_iteration"])):
-            grads, count, info = worker.compute_gradients(None,
-                                                          **self._grad_kw)
+        if not remotes:  # sync mode on the local worker
+            for _ in range(n):
+                grads, count, info = \
+                    self.workers.local_worker.compute_gradients(
+                        None, **self._grad_kw)
+                self.apply_gradients(grads)
+                self._trained_steps += count
+            info = dict(info)
+            info["num_env_steps_trained"] = self._trained_steps
+            return info
+        # Hogwild: keep one gradient computation in flight per worker;
+        # each completion is applied immediately and the worker re-issued
+        # with the freshest weights.
+        weights_ref = rt.put(policy.get_weights())
+        busy = set(self._in_flight.values())
+        for w in remotes:
+            if w not in busy:
+                self._in_flight[w.compute_gradients.remote(
+                    weights_ref, **self._grad_kw)] = w
+        applied = 0
+        while applied < n:
+            ready, _ = rt.wait(list(self._in_flight), num_returns=1)
+            fut = ready[0]
+            worker = self._in_flight.pop(fut)
+            grads, count, info = rt.get(fut)
             self.apply_gradients(grads)
             self._trained_steps += count
+            applied += 1
+            weights_ref = rt.put(policy.get_weights())
+            self._in_flight[worker.compute_gradients.remote(
+                weights_ref, **self._grad_kw)] = worker
         info = dict(info)
         info["num_env_steps_trained"] = self._trained_steps
         return info

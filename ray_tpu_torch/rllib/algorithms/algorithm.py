@@ -7,7 +7,10 @@ and checkpointing.  ``AlgorithmConfig`` keeps the reference's fluent
 builder surface (``.environment().rollouts().training()``) over a plain
 dict.  The device is the config key ``device``, set through
 ``.resources(device=...)``: ``None`` (the default) is the card, ``"cpu"``
-the CPU.  Checkpoints are pickles of numpy weights in the reference's
+the CPU; it places the local worker's policy, and with it the learner,
+while remote rollout workers run on the CPU (``evaluation.WorkerSet``).
+``restore`` reaches the remotes through ``set_weights``, and ``stop``
+kills them.  Checkpoints are pickles of numpy weights in the reference's
 layout.
 """
 
@@ -204,6 +207,7 @@ class Algorithm:
 
     def set_weights(self, weights: dict) -> None:
         self.workers.local_worker.set_weights(weights)
+        self.workers.sync_weights()
 
     def save(self, checkpoint_dir: str) -> str:
         os.makedirs(checkpoint_dir, exist_ok=True)
@@ -235,7 +239,8 @@ class Algorithm:
         pass
 
     def stop(self) -> None:
-        """Nothing to stop: sampling is local."""
+        """Kills the remote rollout workers."""
+        self.workers.stop()
 
 
 def _picklable(v) -> bool:

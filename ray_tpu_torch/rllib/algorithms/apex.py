@@ -1,23 +1,28 @@
-"""Ape-X: prioritized experience replay DQN (APEX-DQN), its
-single-process path (port of ``ray_tpu/rllib/algorithms/apex.py``).
+"""Ape-X: distributed prioritized experience replay DQN (APEX-DQN)
+(port of ``ray_tpu/rllib/algorithms/apex.py``).
 
 Reference: ``rllib/algorithms/apex_dqn/`` (+ the Ape-X paper's
-architecture): rollout workers, each with its own epsilon from the Ape-X
-ladder, stream fragments into replay shards; the learner pulls
-prioritized minibatches, applies importance-weighted TD updates and
-pushes the new TD errors back as priorities.
+architecture): a fleet of replay-buffer ACTORS sits between the rollout
+workers and the learner.  Rollout workers (each with its own exploration
+epsilon from the Ape-X ladder, set once; later broadcasts are
+params-only) stream fragments into replay shards; the learner pulls
+prioritized minibatches from the shards, applies importance-weighted TD
+updates and pushes the new TD errors back as priorities — the three
+planes overlap through in-flight futures.  A fragment's ref goes from
+the worker to a shard round-robin (``add_batch.remote(ref)``, resolved
+inside the shard), so fragment data never lands on the driver.  One
+prioritized sample is in flight per warm shard; a shard that comes back
+empty is parked until the next ``add_batch`` routes to it.
 
-The port runs the reference's single-process mode: the local worker
-samples (epsilon annealed as DQN's), one local ``PrioritizedReplay``
-holds the whole configured capacity, and each update is the reference's
-importance-weighted SQUARED double-Q TD on the policy's device, with the
-per-sample ``|td|`` read back once an update for the priorities
-(``+1e-6`` in ``update_priorities``).  The target is a copy of the
-params taken every ``target_network_update_freq`` updates.  The replay
-shard actors and the remote workers need the runtime: ``num_workers >
-0`` raises at build time (``WorkerSet``), and the fleet's keys
-(``num_replay_shards``, ``apex_epsilon_base``, ``apex_epsilon_ladder``,
-``broadcast_interval``) return with it in the runtime slice.
+On the port the rollout workers and the shards (``num_cpus=0``) are CPU
+actors; the learner is on the policy's device: each update is the
+reference's importance-weighted SQUARED double-Q TD, with the per-sample
+``|td|`` read back once an update for the priorities (``+1e-6`` in
+``update_priorities``).  The target is a copy of the params taken every
+``target_network_update_freq`` updates.  With no remote workers (the
+reference's single-process mode) the local worker samples with DQN's
+annealed epsilon into one local ``PrioritizedReplay`` of the whole
+configured capacity.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
+import ray_tpu_torch as rt
 from ray_tpu_torch.parallel import transforms as tx
 from ray_tpu_torch.rllib import models
 from ray_tpu_torch.rllib.algorithms.algorithm import (
@@ -118,8 +124,12 @@ class APEXConfig(DQNConfig):
     def __init__(self, algo_class=None):
         super().__init__(algo_class or APEX)
         self._cfg.update({
+            "num_replay_shards": 2,
             "prioritized_replay_alpha": 0.6,
             "prioritized_replay_beta": 0.4,
+            "apex_epsilon_base": 0.4,
+            "apex_epsilon_ladder": 7.0,
+            "broadcast_interval": 4,       # learner updates per broadcast
             "num_updates_per_iteration": 16,
             "learning_starts": 256,
         })
@@ -135,6 +145,7 @@ class APEX(Algorithm):
         self.target_params = models.clone_params(policy.params)
         self.target_syncs = 0
         self._since_target = 0
+        self._since_broadcast = 0
         self._added = 0
         self._updates = 0
         gamma = float(config["gamma"])
@@ -170,11 +181,44 @@ class APEX(Algorithm):
 
         self._loss_fn = loss_fn
         self._update = update
-        # the single-process mode: one local buffer with the user's FULL
-        # configured size (the shards split it only for the fleet)
-        self._local_replay = PrioritizedReplay(
-            int(config["buffer_size"]),
-            float(config["prioritized_replay_alpha"]))
+
+        n_shards = int(config["num_replay_shards"])
+        alpha = float(config["prioritized_replay_alpha"])
+        if self.workers.remote_workers:
+            cap = int(config["buffer_size"]) // max(1, n_shards)
+            replay_cls = rt.remote(PrioritizedReplay).options(num_cpus=0)
+            self.replay_shards = [
+                replay_cls.remote(cap, alpha, seed=i)
+                for i in range(n_shards)]
+            # exploration ladder: one epsilon per rollout worker, set once;
+            # later broadcasts are params-only and preserve it
+            eps = apex_epsilons(len(self.workers.remote_workers),
+                                float(config["apex_epsilon_base"]),
+                                float(config["apex_epsilon_ladder"]))
+            params = policy.get_weights()["params"]
+            rt.get([
+                w.set_weights.remote({"params": params, "epsilon": e})
+                for w, e in zip(self.workers.remote_workers, eps)])
+        else:  # single-process mode
+            self.replay_shards = []
+            # the sharded capacity split only makes sense for the fleet:
+            # one local buffer gets the user's FULL configured size
+            self._local_replay = PrioritizedReplay(
+                int(config["buffer_size"]), alpha)
+        self._sample_futs: Dict[Any, Any] = {}   # worker sample futures
+        self._replay_futs: Dict[Any, int] = {}   # shard sample futures
+        # shards whose last sample() came back empty: re-issued only after
+        # the next add_batch routes to them (a blind re-issue would spin
+        # the wait→sample RPC loop at full speed against an empty shard)
+        self._shard_idle: set = set()
+        self._route_rr = 0
+        self._weights_ref = None
+
+    def stop(self) -> None:
+        for shard in self.replay_shards:
+            rt.kill(shard)               # a no-op on a dead actor
+        self.replay_shards = []
+        super().stop()
 
     def device_minibatch(self, cols: Dict[str, np.ndarray], w: np.ndarray
                          ) -> Dict[str, torch.Tensor]:
@@ -183,14 +227,18 @@ class APEX(Algorithm):
         out["is_weights"] = to_device(w, dev)
         return out
 
-    def _learn(self, cols, idx, w) -> Dict[str, Any]:
+    def _learn(self, cols, idx, w, shard=None) -> Dict[str, Any]:
         policy = self.workers.local_worker.policy
         td = self._update(policy.params, self.target_params,
                           self._opt_state, self.device_minibatch(cols, w))
         self._updates += 1
         self._since_target += 1
+        self._since_broadcast += 1
         td_host = td.cpu().numpy()                   # the one host read
-        self._local_replay.update_priorities(idx, td_host)
+        if shard is not None:
+            shard.update_priorities.remote(idx, td_host)  # fire-and-forget
+        else:
+            self._local_replay.update_priorities(idx, td_host)
         if self._since_target >= int(
                 self.config["target_network_update_freq"]):
             self.target_params = models.clone_params(policy.params)
@@ -205,7 +253,100 @@ class APEX(Algorithm):
         self.target_params = models.params_from_numpy(
             state["target"], policy.model_config, policy.device)
 
+    def _maybe_broadcast(self) -> None:
+        if self._since_broadcast < int(self.config["broadcast_interval"]):
+            return
+        self._since_broadcast = 0
+        # params-only: workers keep their ladder epsilons
+        self._weights_ref = rt.put(
+            {"params": self.workers.local_worker.policy.get_weights()
+             ["params"]})
+
     def training_step(self) -> Dict[str, Any]:
+        if not self.workers.remote_workers:
+            return self._training_step_local()
+        cfg = self.config
+        frag = int(cfg["rollout_fragment_length"]) * \
+            int(cfg.get("num_envs_per_worker", 1))
+        n_updates = int(cfg["num_updates_per_iteration"])
+        batch_size = int(cfg["train_batch_size"])
+        beta = float(cfg["prioritized_replay_beta"])
+        info: Dict[str, Any] = {}
+        # keep one sample in flight per rollout worker
+        busy = set(self._sample_futs.values())
+        for w in self.workers.remote_workers:
+            if w not in busy:
+                self._sample_futs[w.sample_with_weights.remote(
+                    self._weights_ref)] = w
+        done_updates = 0
+        warm = self._added >= int(cfg["learning_starts"])
+        # keep one prioritized sample in flight per shard once warm
+        # (parked shards stay parked — an add_batch routing to them wakes
+        # them below; re-issuing here would stack a second sample chain
+        # on the same shard)
+        if warm:
+            for i, shard in enumerate(self.replay_shards):
+                if i not in self._replay_futs.values() \
+                        and i not in self._shard_idle:
+                    self._replay_futs[shard.sample.remote(
+                        batch_size, beta)] = i
+        while done_updates < n_updates:
+            futs = list(self._sample_futs) + list(self._replay_futs)
+            if not futs:
+                break
+            ready, _ = rt.wait(futs, num_returns=1)
+            fut = ready[0]
+            if fut in self._sample_futs:
+                worker = self._sample_futs.pop(fut)
+                # route the fragment REF to a shard — data never lands on
+                # the driver (the shard resolves it from the worker)
+                si = self._route_rr % len(self.replay_shards)
+                self._route_rr += 1
+                self.replay_shards[si].add_batch.remote(fut)
+                self._added += frag
+                self._sample_futs[worker.sample_with_weights.remote(
+                    self._weights_ref)] = worker
+                if not warm and self._added >= int(cfg["learning_starts"]):
+                    warm = True
+                    for i, shard in enumerate(self.replay_shards):
+                        self._replay_futs[shard.sample.remote(
+                            batch_size, beta)] = i
+                elif warm and si in self._shard_idle:
+                    # data just routed to a drained shard: wake it
+                    self._shard_idle.discard(si)
+                    self._replay_futs[self.replay_shards[si].sample.remote(
+                        batch_size, beta)] = si
+            else:
+                i = self._replay_futs.pop(fut)
+                shard = self.replay_shards[i]
+                out = rt.get(fut)
+                if out is not None:
+                    # a stale park flag here would let the next routed
+                    # fragment wake the shard into a SECOND chain
+                    self._shard_idle.discard(i)
+                    cols, idx, w = out
+                    info.update(self._learn(cols, idx, w, shard))
+                    done_updates += 1
+                    self._maybe_broadcast()
+                    self._replay_futs[shard.sample.remote(
+                        batch_size, beta)] = i
+                else:
+                    # empty shard: park it until an add_batch routes here
+                    # (an immediate re-issue would spin the RPC loop)
+                    self._shard_idle.add(i)
+            if not warm and not self._sample_futs:
+                break
+            if not warm and done_updates == 0 and \
+                    self._added >= n_updates * frag * 4:
+                break  # pure warmup iteration: don't loop forever
+        info.update({
+            "num_env_steps_sampled": self._added,
+            "learner_updates": self._updates,
+            "replay_shards": len(self.replay_shards),
+        })
+        return info
+
+    def _training_step_local(self) -> Dict[str, Any]:
         cfg = self.config
         policy = self.workers.local_worker.policy
         # single-process mode has no exploration ladder: anneal epsilon

@@ -1,12 +1,14 @@
 """APPO: IMPALA's learner with PPO's clipped surrogate (port of
 ``ray_tpu/rllib/algorithms/appo.py``).
 
-Reference: ``rllib/algorithms/appo/`` — the IMPALA architecture (actor
-fleet, V-trace off-policy correction) with PPO's clipped importance-ratio
-surrogate as the policy loss instead of the plain V-trace policy
-gradient.  Everything but the surrogate is inherited from ``IMPALA``; the
-ratio uses the BEHAVIOR logp as the "old" policy, so staleness itself is
-what gets clipped.
+Reference: ``rllib/algorithms/appo/`` — the IMPALA architecture (async
+actor fleet, V-trace off-policy correction, broadcast-interval weight
+staleness) with PPO's clipped importance-ratio surrogate as the policy
+loss instead of the plain V-trace policy gradient.  The execution path
+(futures pipeline, time-major columns, learner device, the
+``sync_sampling`` control) is inherited from ``IMPALA``; only the
+policy-surrogate term differs — the ratio uses the BEHAVIOR logp as the
+"old" policy, so staleness itself is what gets clipped.
 """
 
 from __future__ import annotations

@@ -283,6 +283,7 @@ class DDPG(Algorithm):
                                 device=policy.device) if smooth else None
             stats = self.learn_on(device_minibatch(mb, policy.device), noise)
         info.update(zip(STATS, stats.tolist()))       # the one host read
+        self.workers.sync_weights()
         info["num_updates"] = self._n_updates
         return info
 

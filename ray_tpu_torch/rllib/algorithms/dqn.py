@@ -217,4 +217,5 @@ class DQN(Algorithm):
             self.target_params = models.clone_params(policy.params)
             self.target_syncs += 1
             self._steps_since_target_sync = 0
+        self.workers.sync_weights()
         return info

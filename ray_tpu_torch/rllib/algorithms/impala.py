@@ -1,32 +1,40 @@
-"""IMPALA: actor-learner with V-trace off-policy correction (port of
-``ray_tpu/rllib/algorithms/impala.py``).
+"""IMPALA: async actor-learner with V-trace off-policy correction (port
+of ``ray_tpu/rllib/algorithms/impala.py``).
 
-Reference: ``rllib/algorithms/impala/`` — rollout actors push batches to a
-learner, which applies V-trace (Espeholt et al. 2018) to correct for
-policy lag, then broadcasts weights.  The port runs the reference's path
-for a set with no remote workers: each of ``num_batches_per_iteration``
-updates learns on one fragment of the local worker.  The learner is the
-reference's: time-major [T, B] columns, V-trace as a reverse loop over T
-outside autograd (the reference stops gradients through ``vs`` and the
-policy-gradient advantages), optax's global-norm clip and RMSProp (eps
-inside the root).  The async actor pipeline needs the runtime's
-``put``/``wait``/``get`` and waits for it.
+Reference: ``rllib/algorithms/impala/`` — rollout actors continuously
+push batches to a learner, which applies V-trace (Espeholt et al. 2018)
+to correct for policy lag, then broadcasts weights.  As in the
+reference, the "queue" is the object store: each remote worker keeps
+exactly one ``sample_with_weights`` call in flight; the learner drains
+whichever fragment is ready (``wait``), re-issues that worker at once
+with the freshest weights ref, learns on ``num_fragments_per_update``
+fragments at a time and puts new weights every ``broadcast_interval``
+updates, so the CPU rollout actors sample while the learner updates on
+the card.  ``sync_sampling`` is the barrier control (broadcast, wait for
+every worker, learn), and a set with no remote workers learns on the
+local worker's fragments.  The learner is the reference's: time-major
+[T, B] columns, V-trace as a reverse loop over T outside autograd (the
+reference stops gradients through ``vs`` and the policy-gradient
+advantages), optax's global-norm clip and RMSProp (eps inside the
+root).  Its stats stay on the device until one host read an iteration.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
 
+import ray_tpu_torch as rt
 from ray_tpu_torch.parallel import transforms as tx
 from ray_tpu_torch.rllib.algorithms.algorithm import (
     Algorithm, AlgorithmConfig, apply_updates, grads_with_aux)
+from ray_tpu_torch.rllib.evaluation import synchronous_parallel_sample
 from ray_tpu_torch.rllib.policy import to_device
 from ray_tpu_torch.rllib.sample_batch import (
     ACTION_LOGP, ACTIONS, NEXT_OBS, OBS, REWARDS, SampleBatch, TERMINATEDS,
-    TRUNCATEDS)
+    TRUNCATEDS, concat_samples)
 
 STATS = ("policy_loss", "vf_loss", "entropy")
 
@@ -71,9 +79,21 @@ class IMPALAConfig(AlgorithmConfig):
             "vtrace_clip_pg_rho_threshold": 1.0,
             "vf_loss_coeff": 0.5, "entropy_coeff": 0.01, "grad_clip": 40.0,
             "num_batches_per_iteration": 10,
+            # Weight broadcast cadence in learner updates (reference:
+            # impala broadcast_interval) — actors run stale-by-at-most-this
+            # policies; V-trace corrects the lag.  A broadcast is one
+            # device-to-host copy of the params and one put.
+            "broadcast_interval": 1,
+            # Fragments concatenated (along B) per learner update
+            # (reference: train_batch_size assembly from fragments).
+            "num_fragments_per_update": 1,
             # "auto" (the policy's device) | "cpu": the policy's params,
             # and so the learner, live on the host CPU.
             "learner_device": "auto",
+            # True = barrier sampling (wait for every worker, then learn)
+            # — the control for the actor/learner overlap
+            # (benchmarks/rllib_bench.py impala_overlap).
+            "sync_sampling": False,
         })
 
 
@@ -140,7 +160,10 @@ class IMPALA(Algorithm):
 
         self._loss_fn = loss_fn
         self._update = update
+        self._in_flight: Dict[Any, Any] = {}  # future -> worker
         self._trained_steps = 0
+        self._weights_ref = None
+        self._updates_since_broadcast = 0
 
     def _to_time_major(self, batch: SampleBatch) -> Dict[str, torch.Tensor]:
         """Worker fragments arrive env-major ([env0 t0..T, env1 t0..T,
@@ -170,12 +193,66 @@ class IMPALA(Algorithm):
         self._trained_steps += batch.count
         return stats
 
-    def training_step(self) -> Dict[str, Any]:
-        n_batches = int(self.config["num_batches_per_iteration"])
-        stats = None
-        for _ in range(n_batches):
-            stats = self._learn_on(self.workers.local_worker.sample())
-        # a single host read for the whole iteration's metrics
+    def _info(self, stats) -> Dict[str, Any]:
+        """The iteration's metrics: a single host read of the last
+        update's stats."""
         info = dict(zip(STATS, stats.tolist())) if stats is not None else {}
         info["num_env_steps_trained"] = self._trained_steps
         return info
+
+    def training_step(self) -> Dict[str, Any]:
+        remotes = self.workers.remote_workers
+        n_batches = int(self.config["num_batches_per_iteration"])
+        stats = None
+        if not remotes:  # sync mode on the local worker
+            for _ in range(n_batches):
+                stats = self._learn_on(self.workers.local_worker.sample())
+            return self._info(stats)
+        if bool(self.config.get("sync_sampling")):
+            # Barrier mode — the control for the actor/learner-overlap
+            # benchmark: broadcast, wait for EVERY worker's fragment,
+            # learn, repeat.  The async path below re-issues each worker
+            # the moment its fragment lands and learns while the others
+            # are still sampling.
+            for _ in range(n_batches):
+                self.workers.sync_weights()
+                stats = self._learn_on(
+                    synchronous_parallel_sample(self.workers))
+            return self._info(stats)
+        # Broadcast at most every `broadcast_interval` updates (reference:
+        # IMPALA's broadcast_interval — actors run slightly stale policies
+        # and V-trace corrects for the lag).
+        interval = max(1, int(self.config.get("broadcast_interval", 1)))
+        per_update = max(1, int(self.config.get(
+            "num_fragments_per_update", 1)))
+        if self._weights_ref is None:
+            self._weights_ref = rt.put(
+                self.workers.local_worker.get_weights())
+        busy = set(self._in_flight.values())
+        for w in remotes:
+            if w not in busy:
+                self._in_flight[w.sample_with_weights.remote(
+                    self._weights_ref)] = w
+        processed = 0
+        pending: List[SampleBatch] = []
+        while processed < n_batches:
+            ready, _ = rt.wait(list(self._in_flight), num_returns=1)
+            fut = ready[0]
+            worker = self._in_flight.pop(fut)
+            pending.append(rt.get(fut))
+            # Re-issue immediately with the freshest broadcast ref.
+            self._in_flight[worker.sample_with_weights.remote(
+                self._weights_ref)] = worker
+            if len(pending) < per_update:
+                continue
+            batch = pending[0] if len(pending) == 1 \
+                else concat_samples(pending)
+            pending = []
+            stats = self._learn_on(batch)
+            processed += 1
+            self._updates_since_broadcast += 1
+            if self._updates_since_broadcast >= interval:
+                self._weights_ref = rt.put(
+                    self.workers.local_worker.get_weights())
+                self._updates_since_broadcast = 0
+        return self._info(stats)

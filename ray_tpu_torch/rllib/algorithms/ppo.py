@@ -170,6 +170,7 @@ class PPO(Algorithm):
         else:
             info = self._update_one(self._learners["default_policy"], batch)
         info["num_env_steps_trained"] = batch.count
+        self.workers.sync_weights()
         return info
 
     def get_extra_state(self):

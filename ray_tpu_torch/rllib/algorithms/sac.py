@@ -313,4 +313,5 @@ class SAC(Algorithm):
             stats = self.learn_on(device_minibatch(mb, policy.device),
                                   eps_next, eps_actor)
         info.update(zip(STATS, stats.tolist()))       # the one host read
+        self.workers.sync_weights()
         return info

@@ -7,28 +7,34 @@ loop, and emits SampleBatches; the set is 1 local worker + N remote
 actors.  The policy inference inside the loop is one device call over
 the whole vector of envs (``Policy.compute_actions``).
 
-The port runs the local worker only (``num_workers=0``, every learner of
-the reference has a path for it).  Remote workers are actors of the
-runtime, which the port does not have yet: ``num_workers > 0`` raises.
-The A3C worker step (``compute_gradients``) runs on the local worker and
-returns the reference's contract, a numpy gradient tree in the
-reference's layout: what a remote worker will ship to the learner.
+The local worker's policy lives on ``config["device"]`` (the card
+unless the config says ``"cpu"``): it is the learner's.  The remote
+workers are actors of the port's runtime with ``num_cpus_per_worker``
+CPUs and a copy of the config with ``device="cpu"``: the runtime gives a
+plain actor a worker that sees no card, and rollouts run on the CPU, as
+upstream RLlib's rollout workers do by default.  Weights travel as the
+numpy trees of ``get_weights`` / ``set_weights``, so nothing moves
+between devices in the object store.  The A3C worker step
+(``compute_gradients``) returns the reference's contract, a numpy
+gradient tree in the reference's layout.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
+import ray_tpu_torch as rt
 from ray_tpu_torch.rllib import env as env_lib
 from ray_tpu_torch.rllib import models
 from ray_tpu_torch.rllib.policy import Policy, compute_gae, to_device
 from ray_tpu_torch.rllib.sample_batch import (
     ACTIONS, ADVANTAGES, EPS_ID, OBS, NEXT_OBS, REWARDS, SampleBatch,
-    TERMINATEDS, TRUNCATEDS, VALUE_TARGETS, concat_samples)
+    TERMINATEDS, TRUNCATEDS, VALUE_TARGETS, MultiAgentBatch, concat_samples)
+
 
 class RolloutWorker:
     """Holds ``num_envs_per_worker`` envs + a policy; ``sample()`` returns a
@@ -171,36 +177,65 @@ class RolloutWorker:
 
 
 class WorkerSet:
-    """The local worker (learner-side policy + spaces); remote actors wait
-    for the runtime."""
+    """1 local worker (learner-side policy + spaces) + N remote actors."""
 
     def __init__(self, config: Dict[str, Any]):
         self.config = config
-        num_workers = int(config.get("num_workers", 0))
-        if num_workers > 0:
-            raise NotImplementedError(
-                f"num_workers={num_workers}: remote rollout workers are "
-                f"actors of the runtime, the port's runtime slice "
-                f"(ROADMAP queue A, slice 5); use num_workers=0 (local "
-                f"sampling)")
         worker_cls = RolloutWorker
         if config.get("multiagent"):
             from ray_tpu_torch.rllib.multi_agent import \
                 MultiAgentRolloutWorker
             worker_cls = MultiAgentRolloutWorker
         self.local_worker = worker_cls(config, worker_index=0)
+        num_workers = int(config.get("num_workers", 0))
+        remote_cls = rt.remote(worker_cls).options(
+            num_cpus=config.get("num_cpus_per_worker", 1))
+        # rollouts on the CPU: a plain actor's worker sees no card
+        remote_config = dict(config, device="cpu")
+        self.remote_workers: List = [
+            remote_cls.remote(remote_config, worker_index=i + 1)
+            for i in range(num_workers)]
+
+    def sync_weights(self) -> None:
+        """Broadcast local weights to all remotes via one object-store put."""
+        if not self.remote_workers:
+            return
+        ref = rt.put(self.local_worker.get_weights())
+        rt.get([w.set_weights.remote(ref) for w in self.remote_workers])
+
+    def stop(self) -> None:
+        for w in self.remote_workers:
+            rt.kill(w)
+        self.remote_workers = []
 
 
 def synchronous_parallel_sample(worker_set: WorkerSet) -> SampleBatch:
     """Reference: ``rllib/execution/rollout_ops.py`` — one sample() round
-    of the set: the local worker's batch (a ``MultiAgentBatch`` for a
-    multi-agent worker)."""
-    return worker_set.local_worker.sample()
+    across the set (remote if any remotes, else local); a
+    ``MultiAgentBatch`` for multi-agent workers."""
+    if worker_set.remote_workers:
+        batches = rt.get(
+            [w.sample.remote() for w in worker_set.remote_workers])
+    else:
+        batches = [worker_set.local_worker.sample()]
+    if isinstance(batches[0], MultiAgentBatch):
+        return MultiAgentBatch.concat_samples(batches)
+    return concat_samples(batches)
 
 
 def collect_metrics(worker_set: WorkerSet) -> Dict[str, Any]:
-    m = worker_set.local_worker.get_metrics()
-    rewards, lens = m["episode_rewards"], m["episode_lens"]
+    if worker_set.remote_workers:
+        metrics = rt.get([w.get_metrics.remote()
+                          for w in worker_set.remote_workers])
+    else:
+        metrics = [worker_set.local_worker.get_metrics()]
+    rewards: List[float] = []
+    lens: List[int] = []
+    steps = 0
+    for m in metrics:
+        rewards += m["episode_rewards"]
+        lens += m["episode_lens"]
+        steps += m["num_env_steps"]
     return {
         "episode_reward_mean": float(np.mean(rewards)) if rewards else
         float("nan"),
@@ -210,5 +245,5 @@ def collect_metrics(worker_set: WorkerSet) -> Dict[str, Any]:
         float("nan"),
         "episode_len_mean": float(np.mean(lens)) if lens else float("nan"),
         "episodes_this_iter": len(rewards),
-        "num_env_steps_sampled": m["num_env_steps"],
+        "num_env_steps_sampled": steps,
     }

@@ -883,7 +883,8 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                 "algorithms/algorithm", "algorithms/ppo",
                 "algorithms/impala", "algorithms/appo", "algorithms/dqn",
                 "offline", "algorithms/sac", "algorithms/ddpg",
-                "algorithms/marwil", "algorithms/a3c", "algorithms/apex"):
+                "algorithms/marwil", "algorithms/a3c", "algorithms/apex",
+                "algorithms/es"):
         assert rllib / f"{mod}.py" in _port_sources(), mod
     for mod in ("experimental/__init__", "experimental/internal_kv",
                 "util/placement_group", "util/collective/__init__",

@@ -402,16 +402,6 @@ def test_rollout_worker_sample_shapes():
     assert w.get_spaces()[0].shape == (3,)
 
 
-def test_num_workers_above_zero_raises():
-    cfg = PPOConfig().environment("RandomEnv").resources(device="cpu")
-    with pytest.raises(NotImplementedError, match="runtime"):
-        cfg.rollouts(num_workers=2).build()
-    # IMPALA keeps the reference's default of 2 remote workers
-    with pytest.raises(NotImplementedError, match="num_workers=0"):
-        IMPALAConfig().environment("RandomEnv").resources(
-            device="cpu").build()
-
-
 def test_entry_points_need_a_card_unless_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     env = tenv.RandomEnv()

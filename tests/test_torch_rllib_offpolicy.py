@@ -43,9 +43,8 @@ from ray_tpu.rllib.algorithms import ddpg as jddpg
 from ray_tpu.rllib.algorithms import sac as jsac
 from ray_tpu.rllib.evaluation import RolloutWorker as JRolloutWorker
 from ray_tpu.rllib.sample_batch import SampleBatch as JSampleBatch
-from ray_tpu_torch.rllib import (A3CConfig, APEXConfig, Policy, RolloutWorker,
+from ray_tpu_torch.rllib import (APEXConfig, Policy, RolloutWorker,
                                  SampleBatch, TD3Config, offline, register_env)
-from ray_tpu_torch.rllib import algorithms as talgorithms
 from ray_tpu_torch.rllib import models as tm
 from ray_tpu_torch.rllib.algorithms import apex as tapex
 from ray_tpu_torch.rllib.algorithms import ddpg as tddpg
@@ -423,19 +422,6 @@ def test_apex_local_path_updates_priorities_and_syncs_the_target():
     assert (algo._local_replay._prio[:algo._local_replay.size()]
             != 1.0).any()
     assert algo.get_policy().epsilon < 1.0
-
-
-def test_remote_paths_raise_and_es_waits_for_the_runtime():
-    with pytest.raises(NotImplementedError, match="runtime"):
-        A3CConfig().environment("RandomEnv").resources(device="cpu").build()
-    with pytest.raises(NotImplementedError, match="runtime"):
-        APEXConfig().environment("RandomEnv").rollouts(
-            num_workers=2).resources(device="cpu").build()
-    assert not hasattr(talgorithms, "ES") and "ES" not in \
-        talgorithms.__all__
-    assert "ES waits for the runtime" in talgorithms.__doc__
-    with pytest.raises(ImportError):
-        from ray_tpu_torch.rllib.algorithms import ES  # noqa: F401
 
 
 # ----------------------------------------------------------- PendulumLite

@@ -7,10 +7,12 @@ parity of the object and wire formats with the JAX package.
 Tests that need no fresh cluster share one cluster at ``num_cpus=2``
 (``cluster``); the fixture restarts it if a fresh-cluster test ran in
 between.  Tests that leave a task running get their own
-(``fresh_cluster``, the reference's ``ray_start_regular``).  Functions and classes here are pickled by value, so spawned
-workers never import this module (nor JAX through it).
+(``fresh_cluster``, the reference's ``ray_start_regular``).  Functions
+and classes here are pickled by value, so spawned workers never import
+this module (nor JAX through it).
 """
 
+import gc
 import logging
 import os
 import pickle
@@ -638,6 +640,70 @@ def test_actor_constructor_args_beyond_inline_size(cluster):
     while args_objects(400_000, 410_000) and time.monotonic() < deadline:
         time.sleep(0.1)
     assert not args_objects(400_000, 410_000)
+
+
+def test_actor_method_args_by_ref_outlive_the_callers_ref(cluster):
+    """RLlib's pipelines pass weights (MBs, above the inline size) to
+    actor methods as a ref and drop it at the next broadcast, while the
+    call may still wait behind another: the call's args are pinned until
+    it ends, so it reads the value it was given."""
+
+    class Worker:
+        def busy(self, s):
+            time.sleep(s)
+            return s
+
+        def total(self, x):
+            return float(np.asarray(x).sum())
+
+    w = rt.remote(Worker).remote()
+    rt.get(w.busy.remote(0), timeout=60)
+    outs = []
+    for i in range(4):
+        ref = rt.put(np.full(1_000_000, i + 1.0, np.float32))    # 4 MB
+        w.busy.remote(0.2)
+        outs.append(w.total.remote(ref))
+        del ref
+        gc.collect()
+        junk = [rt.put(np.zeros(1_000_000, np.float32)) for _ in range(4)]
+        del junk
+        gc.collect()
+    assert rt.get(outs, timeout=60) == [1e6 * (i + 1) for i in range(4)]
+    rt.kill(w)
+
+
+def test_actor_result_ref_resolves_inside_another_actor(cluster):
+    """Ape-X routes a rollout worker's result ref to a replay shard
+    (``shard.add_batch.remote(ref)``): the shard resolves it, after the
+    driver dropped its ref and never fetched the value."""
+
+    class Producer:
+        def make(self, v):
+            return np.full(500_000, v, np.float32)
+
+    class Shard:
+        def __init__(self):
+            self.seen = []
+
+        def add(self, batch):
+            self.seen.append(float(batch.sum()))
+            return len(self.seen)
+
+        def sums(self):
+            return self.seen
+
+    p = rt.remote(Producer).remote()
+    s = rt.remote(Shard).options(num_cpus=0).remote()
+    for v in (1.0, 2.0, 3.0):
+        frag = p.make.remote(v)
+        ready, _ = rt.wait([frag], num_returns=1, timeout=60)
+        assert ready == [frag] and ready[0] is frag
+        s.add.remote(frag)
+        del frag, ready
+        gc.collect()
+    assert rt.get(s.sums.remote(), timeout=60) == [5e5, 1e6, 1.5e6]
+    rt.kill(p)
+    rt.kill(s)
 
 
 # --------------------------------------------- cancel and the RPC channel
