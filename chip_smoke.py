@@ -181,7 +181,26 @@
    on every remote), A3C's Hogwild with 4, the Ape-X fleet past
    learning_starts, ES on CartPole (``CartPoleLite``, gymnasium's
    CartPole-v1 copied).
-7. Prints each phase's wall seconds, one JSON line of per-kernel numbers,
+7. Ray Data phase (after resnet50_train), in a cluster of the port's
+   runtime of its own (``init(num_cpus=4)``): a token Dataset (six
+   distinct b32 x 1025 batches, one block each) and BASELINE #2's image
+   Dataset (ten b128 x 224² blocks, drawn in their tasks as
+   resnet_bench.py draws a batch) built and materialized by data tasks,
+   which must leave nvidia-smi's compute apps as they were.  The driver
+   runs its own programs on the same batches (``iter_batches``), frees
+   the card, then GPT-2 124M at the train phase's shape trains through
+   ``TorchTrainer`` in a ``num_gpus=1`` worker from
+   ``get_dataset_shard("train").iter_device_batches(batch_size=32)``:
+   losses bitwise the driver's (the Dataset shifted by one row must
+   not), every batch on the card equal to its numpy batch (checksums
+   taken on the card as each arrives), the train phase's launches every
+   step.  Then ResNet-50 through ``DataParallelTrainer`` the same way
+   (ten steps, losses bitwise, no kernel launched, step-0 loss ln 1000):
+   step ms and images/s on the card's timeline beside the resident
+   resnet50_train phase's, and a profiled window showing each batch's
+   host-to-device copy against the kernels of the compute stream.  After
+   ``shutdown`` nothing of the cluster is left.
+8. Prints each phase's wall seconds, one JSON line of per-kernel numbers,
    then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
@@ -1501,6 +1520,12 @@ def kernel_counters() -> dict:
             "flash_attention_bwd_f32": (fa, "f32_bwd_launches")}
 
 
+def zero_counts(counters: dict) -> None:
+    """Every counter of ``kernel_counters()`` to 0."""
+    for m, a in counters.values():
+        setattr(m, a, 0)
+
+
 def timed_steps(prog, state, batch, on_step=None) -> tuple:
     """TRAIN_STEPS steps of ``prog`` on one batch, each timed on the host
     between two synchronizes, with host syncs made errors inside it; every
@@ -1514,8 +1539,7 @@ def timed_steps(prog, state, batch, on_step=None) -> tuple:
         return {k: getattr(m, a) for k, (m, a) in counters.items()}
 
     torch.cuda.reset_peak_memory_stats()
-    for m, a in counters.values():
-        setattr(m, a, 0)
+    zero_counts(counters)
     metrics, step_s, step_counts = [], [], []
     for i in range(TRAIN_STEPS):
         before = counts()
@@ -1575,6 +1599,20 @@ def train_steps(label: str, prog, state, batch, per_step: dict,
                        launches_per_step=step_counts[-1])
 
 
+def gpt2_program(dev, cfg, init_params_fn=None):
+    """The train phase's GPT-2 program on ``dev`` (``default_optimizer`` at
+    TRAIN_LR); params drawn from the init's generator unless
+    ``init_params_fn`` is given."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.parallel import spmd
+    return spmd.build_train_program(
+        loss_fn=lambda p, b: gpt2.loss_fn(p, b, cfg),
+        init_params_fn=init_params_fn
+        or (lambda g: gpt2.init_params(g, cfg, device=dev)),
+        optimizer=spmd.default_optimizer(lr=TRAIN_LR, warmup=1,
+                                         total_steps=1000), device=dev)
+
+
 def train_phase(dev, card, tag: str) -> dict:
     from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.parallel import spmd
@@ -1582,11 +1620,7 @@ def train_phase(dev, card, tag: str) -> dict:
     cfg = gpt2.gpt2_small()                  # remat "full", bf16 activations
     B, T, L = TRAIN_BATCH, TRAIN_SEQ, cfg.n_layer
     t0 = time.perf_counter()
-    prog = spmd.build_train_program(
-        loss_fn=lambda p, b: gpt2.loss_fn(p, b, cfg),
-        init_params_fn=lambda g: gpt2.init_params(g, cfg, device=dev),
-        optimizer=spmd.default_optimizer(lr=TRAIN_LR, warmup=1,
-                                         total_steps=1000), device=dev)
+    prog = gpt2_program(dev, cfg)
     state = prog.init_fn(torch.Generator(device=dev).manual_seed(SEED))
     toks = np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (B, T + 1)).astype(np.int32)
@@ -2489,9 +2523,8 @@ def resnet_grad_check(cfg, params, batch, gen,
     return worst, leaf, control
 
 
-def resnet_setup(dev):
-    """ResNet-50's train program, state and batch (images and labels as
-    resnet_bench.py makes them, from the seed)."""
+def resnet_program(dev) -> tuple:
+    """ResNet-50's config, train program and state from the seed."""
     from ray_tpu_torch.models import resnet
     from ray_tpu_torch.parallel import spmd
     cfg = resnet.resnet50()
@@ -2501,6 +2534,14 @@ def resnet_setup(dev):
         optimizer=spmd.default_optimizer(lr=TRAIN_LR, warmup=1,
                                          total_steps=1000), device=dev)
     state = prog.init_fn(torch.Generator(device=dev).manual_seed(SEED))
+    return cfg, prog, state
+
+
+def resnet_setup(dev):
+    """ResNet-50's train program, state and batch (images and labels as
+    resnet_bench.py makes them, from the seed)."""
+    from ray_tpu_torch.parallel import spmd
+    cfg, prog, state = resnet_program(dev)
     rng = np.random.default_rng(SEED)
     B, hw = RESNET_BATCH, RESNET_IMAGE
     batch = spmd.shard_batch(prog, {
@@ -6401,17 +6442,12 @@ def restore_loop(config: dict) -> None:
     from ray_tpu_torch import train
     from ray_tpu_torch._device import disable_tf32, resolve_device
     from ray_tpu_torch.models import gpt2
-    from ray_tpu_torch.parallel import spmd
     dev = resolve_device(config.get("device"))
     if dev.type == "cuda":
         disable_tf32()
     cfg = config.get("cfg") or gpt2.gpt2_small()
     B, T = config.get("batch_seq") or (RESTORE_BATCH, RESTORE_SEQ)
-    prog = spmd.build_train_program(
-        loss_fn=lambda p, b: gpt2.loss_fn(p, b, cfg),
-        init_params_fn=lambda g: gpt2.init_params(g, cfg, device=dev),
-        optimizer=spmd.default_optimizer(lr=TRAIN_LR, warmup=1,
-                                         total_steps=1000), device=dev)
+    prog = gpt2_program(dev, cfg)
     state = prog.init_fn(torch.Generator(device=dev).manual_seed(SEED))
     start, restored, restore_s, gap_s = 0, None, None, None
     ck = train.get_checkpoint()
@@ -6699,6 +6735,624 @@ def ray_train_phase(dev, xl: dict, card, tag: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- ray_data
+# Ray Data on the port's runtime (the ray_data phase).  GPT-2 124M at the
+# train phase's shape (model, remat, optimizer, b32 x s1024) from a token
+# Dataset of DATA_GPT2_BATCHES distinct batches, one block a batch; and
+# BASELINE #2, ResNet-50 at resnet_bench.py's b128 x 224² (:37, 41-44),
+# from a Dataset of DATA_RESNET_STEPS blocks of RESNET_BATCH images (771
+# MB in the store).  Each block is drawn in its task from
+# default_rng((SEED, its first row id)).  Both train in a num_gpus=1
+# worker from get_dataset_shard("train").iter_device_batches; their
+# losses must equal, bitwise, the driver's own programs' on the same
+# batches, and every batch on the card its numpy batch (checksums).
+DATA_GPT2_BATCHES = 6
+DATA_RESNET_STEPS = 10
+DATA_PREFETCH = 2
+DATA_LOSS_TOL = 0.0
+DATA_SUM_PERIOD = 8191               # checksum weights: i % it + 1
+DATA_PROFILE_STEPS = 3
+
+
+def data_token_block(batch: dict, seq: int, vocab: int) -> dict:
+    """A token Dataset's block, drawn in its task: a row of ``seq + 1``
+    int32 tokens an id, from default_rng((SEED, the block's first id))."""
+    ids = batch["id"]
+    rng = np.random.default_rng((SEED, int(ids[0])))
+    return {"tokens": rng.integers(0, vocab, (len(ids), seq + 1))
+            .astype(np.int32)}
+
+
+def data_image_block(batch: dict, hw: int, classes: int) -> dict:
+    """An image Dataset's block, drawn in its task as resnet_bench.py
+    draws a batch (standard normal, NHWC, float32) from
+    default_rng((SEED, the block's first id)); labels id % ``classes``."""
+    ids = batch["id"]
+    rng = np.random.default_rng((SEED, int(ids[0])))
+    return {"images": rng.standard_normal((len(ids), hw, hw, 3))
+            .astype(np.float32),
+            "labels": (ids % classes).astype(np.int32)}
+
+
+def token_dataset(rows: int, blocks: int, seq: int, vocab: int):
+    """``blocks`` blocks of ``rows`` token rows (``data_token_block``)."""
+    from ray_tpu_torch import data as rd
+    return rd.range(rows * blocks, override_num_blocks=blocks).map_batches(
+        lambda b: data_token_block(b, seq, vocab))
+
+
+def image_dataset(rows: int, blocks: int, hw: int, classes: int):
+    """``blocks`` blocks of ``rows`` images (``data_image_block``)."""
+    from ray_tpu_torch import data as rd
+    return rd.range(rows * blocks, override_num_blocks=blocks).map_batches(
+        lambda b: data_image_block(b, hw, classes))
+
+
+def host_checksums(batch: dict) -> list:
+    """Per column, in key order: [sum, weighted sum] of its elements read
+    as integers of their width, in int64 that wraps (so the order of the
+    additions cannot matter), the weights i % DATA_SUM_PERIOD + 1 over the
+    flat index i.  ``device_checksums`` computes the same of tensors."""
+    out = []
+    for k in sorted(batch):
+        a = np.ascontiguousarray(batch[k]).reshape(-1)
+        a = a.view(f"i{a.dtype.itemsize}").astype(np.int64)
+        w = np.arange(a.size, dtype=np.int64) % DATA_SUM_PERIOD + 1
+        out.append([int(a.sum()), int((a * w).sum())])
+    return out
+
+
+def device_checksums(batch: dict) -> torch.Tensor:
+    """``host_checksums`` of a batch of tensors, computed where they lie
+    (on the card: queued on the current stream, no sync), as one
+    (columns, 2) int64 tensor."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    rows = []
+    for k in sorted(batch):
+        t = batch[k].reshape(-1)
+        t = t.view(ints[t.element_size()]).long()
+        w = torch.arange(t.numel(), device=t.device) % DATA_SUM_PERIOD + 1
+        rows.append(torch.stack([t.sum(), (t * w).sum()]))
+    return torch.stack(rows)
+
+
+def data_gpt2_loop(config: dict) -> None:
+    """GPT-2 from a token Dataset in a train worker: for each name of
+    ``config["names"]`` (the shard the driver holds, then a control), a
+    fresh program from the seed (``gpt2_program``) and one step a batch of
+    ``get_dataset_shard(name).iter_device_batches``, each batch's
+    ``device_checksums`` queued as it arrives; every kernel counter is
+    zeroed just before each run and read around each step.  One report
+    at the end: losses, checksums and launches of each run, the worker's
+    pid and device, and (on the card) nvidia-smi's compute apps.
+    ``config``: ``names``, ``device`` (None: the card), ``cfg`` (None:
+    gpt2_small()), ``tree`` (numpy params in the reference's layout;
+    None: drawn from the seed), ``batch_size``."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch._device import disable_tf32, resolve_device
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.models.convert import params_from_numpy
+    from ray_tpu_torch.parallel import spmd
+    dev = resolve_device(config.get("device"))
+    if dev.type == "cuda":
+        disable_tf32()
+    cfg = config.get("cfg") or gpt2.gpt2_small()
+    tree = config.get("tree")
+    init = None if tree is None else (
+        lambda g: params_from_numpy(tree, cfg, dev))
+    counters = kernel_counters()
+
+    def counts() -> dict:
+        return {k: getattr(m, a) for k, (m, a) in counters.items()}
+
+    row = {"pid": os.getpid(), "device": str(dev),
+           "gpu_worker": os.environ.get("RTT_GPU_WORKER")}
+    for name in config["names"]:
+        prog = gpt2_program(dev, cfg, init)
+        state = prog.init_fn(torch.Generator(device=dev).manual_seed(SEED))
+        zero_counts(counters)
+        losses, sums, launches = [], [], []
+        for batch in train.get_dataset_shard(name).iter_device_batches(
+                batch_size=config.get("batch_size", TRAIN_BATCH),
+                device=config.get("device"), prefetch=DATA_PREFETCH):
+            sums.append(device_checksums(batch))
+            before = counts()
+            state, m = prog.step_fn(state, spmd.shard_batch(
+                prog, {"tokens": batch["tokens"]}))
+            launches.append({k: v - before[k] for k, v in counts().items()})
+            losses.append(m["loss"])
+        row[name] = {"losses": [x.item() for x in losses],
+                     "sums": [s.tolist() for s in sums],
+                     "launches": launches}
+        if dev.type == "cuda" and "card_apps" not in row:
+            row["card_apps"] = compute_app_pids()
+        del prog, state
+    train.report(row)
+
+
+def copy_overlap(prof) -> list:
+    """From a torch.profiler trace: each host-to-device copy's ms and
+    bytes, and the ms of it during which a kernel ran on another stream."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.unlink(path)
+
+    def span(e) -> tuple:
+        return float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))
+
+    kernels = [(span(e), e.get("args", {}).get("stream"))
+               for e in events if e.get("cat") == "kernel"]
+    out = []
+    for e in events:
+        if e.get("cat") != "gpu_memcpy" or "HtoD" not in e.get("name", ""):
+            continue
+        (a, b), stream = span(e), e.get("args", {}).get("stream")
+        covered, end = 0.0, a
+        for x, y in sorted((max(a, x), min(b, y)) for (x, y), s in kernels
+                           if s != stream and x < b and y > a):
+            x = max(x, end)
+            if y > x:
+                covered, end = covered + y - x, y
+        out.append({"ms": (b - a) / 1e3, "overlapped_ms": covered / 1e3,
+                    "bytes": e.get("args", {}).get("bytes"),
+                    "stream": stream})
+    return out
+
+
+def data_resnet_loop(config: dict) -> None:
+    """BASELINE #2 in a train worker: ResNet-50 from the seed
+    (``resnet_program``), one step a batch of
+    ``get_dataset_shard("train").iter_device_batches(batch_size=
+    RESNET_BATCH, prefetch=DATA_PREFETCH)`` with no sync in the loop: a
+    CUDA event on the compute stream before each step and after the last
+    times the steps on the card's timeline; each batch's
+    ``device_checksums`` queued as it arrives; every kernel counter zeroed
+    just before.  Then a second pass over the shard: its first step, then
+    DATA_PROFILE_STEPS steps under torch.profiler (``copy_overlap``).
+    cuDNN runs its deterministic algorithms, as in the driver's run.
+    ``config``: ``device`` (None: the card)."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch._device import disable_tf32, resolve_device
+    from ray_tpu_torch.parallel import spmd
+    # imported here: a function pickled by value cannot carry cuDNN's
+    # module object, which torch.backends.cudnn is
+    from torch.backends import cudnn
+    dev = resolve_device(config.get("device"))
+    cuda = dev.type == "cuda"
+    if cuda:
+        disable_tf32()
+        cudnn.deterministic = True
+    _, prog, state = resnet_program(dev)
+    shard = train.get_dataset_shard("train")
+    counters = kernel_counters()
+
+    def mark():
+        if not cuda:
+            return time.perf_counter()
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    zero_counts(counters)
+    losses, sums, marks = [], [], []
+    t0 = time.perf_counter()
+    for batch in shard.iter_device_batches(
+            batch_size=RESNET_BATCH, device=config.get("device"),
+            prefetch=DATA_PREFETCH):
+        sums.append(device_checksums(batch))
+        marks.append(mark())
+        state, m = prog.step_fn(state, spmd.shard_batch(prog, batch))
+        losses.append(m["loss"])
+    marks.append(mark())
+    if cuda:
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {k: getattr(m, a) for k, (m, a) in counters.items()}
+    step_ms_each = [a.elapsed_time(b) if cuda else (b - a) * 1e3
+                    for a, b in zip(marks, marks[1:])]
+    row = {"pid": os.getpid(), "device": str(dev),
+           "gpu_worker": os.environ.get("RTT_GPU_WORKER"),
+           "losses": [x.item() for x in losses],
+           "sums": [s.tolist() for s in sums], "launches": launches,
+           "step_ms_each": step_ms_each, "loop_wall_s": wall_s}
+    if cuda:
+        from torch.profiler import ProfilerActivity, profile
+        row["card_apps"] = compute_app_pids()
+        it = shard.iter_device_batches(batch_size=RESNET_BATCH,
+                                       prefetch=DATA_PREFETCH)
+        state, _ = prog.step_fn(state, spmd.shard_batch(prog, next(it)))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for _ in range(DATA_PROFILE_STEPS):
+                state, _ = prog.step_fn(state,
+                                        spmd.shard_batch(prog, next(it)))
+            torch.cuda.synchronize()
+            row["profile_wall_ms"] = (time.perf_counter() - t) * 1e3
+        it.close()
+        row["copies"] = copy_overlap(prof)
+    train.report(row)
+
+
+def wait_card_holders(label: str, tag: str, holders: list,
+                      timeout_s: float = 60.0) -> None:
+    """Waits up to ``timeout_s`` for nvidia-smi's compute apps to be
+    ``holders`` again (a train worker of an earlier fit may still be
+    exiting), then ``check_card_holders``."""
+    deadline = time.monotonic() + timeout_s
+    while compute_app_pids() != holders and time.monotonic() < deadline:
+        time.sleep(0.5)
+    check_card_holders(label, tag, holders)
+
+
+def one_more_holder(apps, holders: list) -> bool:
+    """``apps`` are ``holders`` and one more (as multisets: in a container
+    every pid may read the same)."""
+    from collections import Counter
+    return isinstance(apps, list) and \
+        not Counter(holders) - Counter(apps) and len(apps) == \
+        len(holders) + 1
+
+
+def _data_check_run(label: str, got: dict, ref_losses: list,
+                    ref_sums: list, tag: str) -> tuple:
+    """(max loss gap to the driver's, batches whose checksums differ from
+    the driver's numpy batches) of one run in a worker."""
+    gaps = [abs(a - b) for a, b in zip(got["losses"], ref_losses)]
+    gap = max(gaps) if len(gaps) == len(ref_losses) == \
+        len(got["losses"]) else float("inf")
+    bad = [i for i, (a, b) in enumerate(zip(got["sums"], ref_sums))
+           if a != b] + list(range(len(got["sums"]), len(ref_sums)))
+    print(f"ray_data {label}: losses {got['losses']} driver's "
+          f"{ref_losses}: max gap {gap:.3g}, limit {DATA_LOSS_TOL}; "
+          f"batches whose checksums differ from the driver's numpy "
+          f"batches {bad} of {len(ref_sums)} [{tag}]", flush=True)
+    return gap, bad
+
+
+def data_ingest_probe(tag: str = "") -> dict:
+    """Where a fed ResNet-50 step's host time goes (the probe behind
+    PERF.md's ray_data notes; on the card, in a cluster of its own,
+    ResNet-50 in this process over the phase's image Dataset): ten steps
+    with no sync in the loop (card ms by CUDA events; host ms in
+    ``next()`` and in the step's launches) on one resident batch, from
+    ``_CudaStager`` on the consumer's thread (the reference's loop), and
+    from ``iter_device_batches`` (its staging thread); then one block's
+    ``get`` and its copy into pinned memory from a fresh mapping, again,
+    and from private memory."""
+    import collections
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._device import disable_tf32, resolve_device
+    from ray_tpu_torch.data import Dataset
+    from ray_tpu_torch.data.dataset import _CudaStager
+    from ray_tpu_torch.parallel import spmd
+    disable_tf32()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    dev = resolve_device(None)
+    rt.init(num_cpus=4)
+    res: dict = {}
+    try:
+        images = image_dataset(RESNET_BATCH, DATA_RESNET_STEPS,
+                               RESNET_IMAGE, 1000).materialize()
+        refs = list(images._cached_refs)
+        _, prog, state = resnet_program(dev)
+        resident = spmd.shard_batch(prog, {
+            k: np.array(v) for k, v in rt.get(refs[0]).items()})
+        for _ in range(3):
+            state, _ = prog.step_fn(state, resident)
+        torch.cuda.synchronize()
+
+        def inline():
+            stager = _CudaStager(dev, DATA_PREFETCH)
+            q: collections.deque = collections.deque()
+            for b in Dataset([], input_refs=refs).iter_batches(
+                    batch_size=RESNET_BATCH):
+                q.append(stager.put(b))
+                if len(q) > DATA_PREFETCH:
+                    yield stager.take(q.popleft())
+            while q:
+                yield stager.take(q.popleft())
+
+        for label, batches in (
+                ("resident", iter(lambda: resident, None)),
+                ("consumer_thread", inline()),
+                ("staging_thread", Dataset([], input_refs=refs)
+                 .iter_device_batches(batch_size=RESNET_BATCH,
+                                      prefetch=DATA_PREFETCH))):
+            marks, next_ms, launch_ms = [], [], []
+            for _ in range(DATA_RESNET_STEPS):
+                t = time.perf_counter()
+                b = next(batches)
+                t1 = time.perf_counter()
+                e = torch.cuda.Event(enable_timing=True)
+                e.record()
+                marks.append(e)
+                state, _ = prog.step_fn(state, spmd.shard_batch(prog, b))
+                next_ms.append((t1 - t) * 1e3)
+                launch_ms.append((time.perf_counter() - t1) * 1e3)
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            marks.append(e)
+            torch.cuda.synchronize()
+            ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+            res[label] = dict(step_ms=steady_rate(ms, RESNET_BATCH)[0],
+                              step_ms_each=ms, next_ms=next_ms,
+                              launch_ms=launch_ms)
+            print(f"data_ingest_probe {label}: step_ms (2-"
+                  f"{DATA_RESNET_STEPS}) {res[label]['step_ms']:.2f} "
+                  f"each {[round(x, 1) for x in ms]}; host ms in next() "
+                  f"{[round(x, 1) for x in next_ms]}; host ms launching "
+                  f"the step {[round(x, 1) for x in launch_ms]} [{tag}]",
+                  flush=True)
+        t = time.perf_counter()
+        blk = rt.get(refs[-1])
+        get_ms = (time.perf_counter() - t) * 1e3
+        pinned = torch.empty(blk["images"].shape, pin_memory=True)
+        copies = []
+        for src in (blk["images"], blk["images"], np.array(blk["images"])):
+            t = time.perf_counter()
+            np.copyto(pinned.numpy(), src)
+            copies.append((time.perf_counter() - t) * 1e3)
+        res.update(get_ms=get_ms, copy_fresh_ms=copies[0],
+                   copy_mapped_ms=copies[1], copy_private_ms=copies[2])
+        print(f"data_ingest_probe a block's get {get_ms:.2f} ms; its "
+              f"{blk['images'].nbytes} image bytes into pinned memory: "
+              f"from a fresh mapping {copies[0]:.2f} ms, again "
+              f"{copies[1]:.2f} ms, from private memory {copies[2]:.2f} "
+              f"ms [{tag}]", flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        rt.shutdown()
+    return res
+
+
+def ray_data_phase(dev, card, train_res: dict, resnet_res: dict,
+                   tag: str, device: Optional[str] = None) -> dict:
+    """Ray Data on the port's runtime, in a cluster of this run's own
+    (``init(num_cpus=4)``, the card detected): the datasets are built
+    and materialized by data tasks (which must leave the card's contexts
+    as they were), the driver runs its own programs on the same batches
+    (``iter_batches``) and frees the card, then GPT-2 124M through
+    ``TorchTrainer`` (``data_gpt2_loop``: its losses the driver's
+    bitwise, a Dataset shifted by one row not, every batch on the card
+    equal to its numpy batch, the train phase's launches a step) and
+    BASELINE #2 through ``DataParallelTrainer`` (``data_resnet_loop``:
+    losses bitwise, no kernel launched, images/s beside the resident
+    resnet50_train phase's, the host-to-device copies against the
+    kernels in a profiled window); then shutdown with nothing left.
+    ``device`` goes to the loops (None: the card; "cpu" rehearses the
+    phase off the card, where the card's checks fail by design)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch import train
+    from ray_tpu_torch._private import shm_store
+    from ray_tpu_torch.models import gpt2, resnet
+    from ray_tpu_torch.parallel import spmd
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    saved_path = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [here] + ([saved_path] if saved_path else []))
+    storage = tempfile.mkdtemp(prefix="rtt_data_")
+    atexit.register(shutil.rmtree, storage, ignore_errors=True)
+    watch = ClusterWatch(shm_store._SHM_DIR)
+    torch.cuda.synchronize()             # this process's context exists
+    holders = compute_app_pids()
+    gpu1 = train.ScalingConfig(num_workers=1, use_gpu=True)
+    cfg = gpt2.gpt2_small()
+    rcfg = resnet.resnet50()
+    B, T, L = TRAIN_BATCH, TRAIN_SEQ, cfg.n_layer
+    res: dict = {}
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        t0 = time.perf_counter()
+        info = rt.init(num_cpus=4)
+        watch.start(rt._head, info["session_dir"])
+        if rt.cluster_resources().get("GPU") != 1:
+            fail(f"ray_data: cluster GPU {rt.cluster_resources()}")
+        # -- the data tasks: every dataset materialized in the store
+        tokens = token_dataset(B, DATA_GPT2_BATCHES, T,
+                               cfg.vocab_size).materialize()
+        host = [{k: np.array(v) for k, v in b.items()}
+                for b in tokens.iter_batches(batch_size=B)]
+        whole = np.concatenate([h["tokens"] for h in host])
+        shifted = rd.from_numpy(
+            np.roll(whole, -1, axis=0), override_num_blocks=len(host)
+        ).rename_columns({"item": "tokens"}).materialize()
+        images = image_dataset(RESNET_BATCH, DATA_RESNET_STEPS,
+                               RESNET_IMAGE, rcfg.num_classes).materialize()
+        res["materialize_s"] = time.perf_counter() - t0
+        print(f"ray_data datasets: tokens {tokens.num_blocks()} blocks "
+              f"{tokens.size_bytes() / 1e6:.3f} MB, images "
+              f"{images.num_blocks()} blocks {images.size_bytes() / 1e6:.2f}"
+              f" MB, made and materialized in {res['materialize_s']:.2f} s "
+              f"(init included) [{tag}]", flush=True)
+        check_card_holders("ray_data after the data tasks", tag, holders)
+        if len(host) != DATA_GPT2_BATCHES or any(
+                h["tokens"].shape != (B, T + 1) for h in host) or len(
+                {h["tokens"].tobytes() for h in host}) != len(host):
+            fail("ray_data: the token Dataset is not "
+                 f"{DATA_GPT2_BATCHES} distinct batches of {B} x {T + 1}")
+
+        # -- the driver's own programs on the same batches
+        t0 = time.perf_counter()
+        prog = gpt2_program(dev, cfg)
+        state = prog.init_fn(torch.Generator(device=dev).manual_seed(SEED))
+        ref = []
+        for h in host:
+            state, m = prog.step_fn(state, spmd.shard_batch(prog, h))
+            ref.append(m["loss"])
+        gpt2_ref = [x.item() for x in ref]
+        gpt2_sums = [host_checksums(h) for h in host]
+        del prog, state, ref
+        torch.backends.cudnn.deterministic = True
+        _, prog, state = resnet_program(dev)
+        ref, resnet_sums = [], []
+        for b in images.iter_batches(batch_size=RESNET_BATCH):
+            b = {k: np.array(v) for k, v in b.items()}
+            resnet_sums.append(host_checksums(b))
+            state, m = prog.step_fn(state, spmd.shard_batch(prog, b))
+            ref.append(m["loss"])
+        resnet_ref = [x.item() for x in ref]
+        del prog, state, ref, b
+        torch.backends.cudnn.deterministic = deterministic
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["driver_s"] = time.perf_counter() - t0
+
+        # -- a. GPT-2 124M through TorchTrainer from the token Dataset
+        wait_card_holders("ray_data before the gpt2 fit", tag, holders)
+        t = time.perf_counter()
+        r = train.TorchTrainer(
+            data_gpt2_loop, train_loop_config={
+                "names": ["train", "shifted"], "cfg": cfg, "device": device},
+            scaling_config=gpu1, datasets={"train": tokens,
+                                           "shifted": shifted},
+            run_config=train.RunConfig(name="gpt2", storage_path=storage)
+        ).fit()
+        res["gpt2_fit_s"] = time.perf_counter() - t
+        if r.error is not None:
+            fail(f"ray_data gpt2: the worker failed: {r.error!r}")
+        row = r.metrics
+        gap, bad = _data_check_run("gpt2", row["train"], gpt2_ref,
+                                   gpt2_sums, tag)
+        cgap, cbad = _data_check_run(
+            "gpt2 control shifted by one row (must fail)", row["shifted"],
+            gpt2_ref, gpt2_sums, tag)
+        want = {k: 0 for k in kernel_counters()}
+        want.update(train_res["launches_per_step"])
+        launches = row["train"]["launches"]
+        print(f"ray_data gpt2 worker pid {row['pid']} (driver "
+              f"{os.getpid()}) device {row['device']} RTT_GPU_WORKER "
+              f"{row['gpu_worker']}; launches per step {launches[-1]}, "
+              f"equal to the train phase's on "
+              f"{sum(x == want for x in launches)} of {len(launches)} "
+              f"steps; nvidia-smi compute apps in the worker "
+              f"{row.get('card_apps')} (before the fit {holders}) [{tag}]",
+              flush=True)
+        if row["pid"] == os.getpid() or row["gpu_worker"] != "1" or \
+                not row["device"].startswith("cuda"):
+            fail(f"ray_data gpt2: the loop ran in pid {row['pid']} on "
+                 f"{row['device']}")
+        if want["layer_norm_fwd"] != 4 * L + 1 or \
+                want["layer_norm_bwd"] != 2 * L + 1 or \
+                want["flash_attention_fwd"] != 2 * L or \
+                want["flash_attention_bwd"] != L:
+            fail(f"ray_data: the train phase's launches per step {want}")
+        if any(x != want for x in launches):
+            fail("ray_data gpt2: launches per step differ from the train "
+                 "phase's")
+        if gap > DATA_LOSS_TOL or bad:
+            fail("ray_data gpt2: losses or batches differ from the "
+                 "driver's")
+        if cgap <= DATA_LOSS_TOL or not cbad:
+            fail("ray_data gpt2: the Dataset shifted by one row passed "
+                 "the check")
+        if not one_more_holder(row.get("card_apps"), holders):
+            fail("ray_data gpt2: the card's contexts during the fit are "
+                 "not those before it and the worker's")
+        res["gpt2"] = dict(losses=row["train"]["losses"], loss_gap=gap,
+                           control_gap=cgap, launches_per_step=launches[-1],
+                           launches={k: sum(x[k] for x in launches)
+                                     for k in want})
+
+        # -- b. BASELINE #2 through DataParallelTrainer
+        wait_card_holders("ray_data before the resnet50 fit", tag, holders)
+        t = time.perf_counter()
+        r = train.DataParallelTrainer(
+            data_resnet_loop, train_loop_config={"device": device},
+            scaling_config=gpu1,
+            datasets={"train": images},
+            run_config=train.RunConfig(name="resnet", storage_path=storage)
+        ).fit()
+        res["resnet_fit_s"] = time.perf_counter() - t
+        if r.error is not None:
+            fail(f"ray_data resnet50: the worker failed: {r.error!r}")
+        row = r.metrics
+        gap, bad = _data_check_run("resnet50", row, resnet_ref, resnet_sums,
+                                   tag)
+        loss0_err = abs(row["losses"][0] - math.log(rcfg.num_classes))
+        moved = {k: v for k, v in row["launches"].items() if v}
+        step_ms, images_per_s = steady_rate(row["step_ms_each"],
+                                            RESNET_BATCH)
+        copies = row.get("copies", [])
+        big = [c for c in copies if (c["bytes"] or 0) >= 1e6
+               or c["ms"] >= 0.5]
+        print(f"ray_data resnet50 worker pid {row['pid']} device "
+              f"{row['device']}; kernel counters moved {moved}; step-0 "
+              f"loss - ln {rcfg.num_classes} {loss0_err:.3g}; nvidia-smi "
+              f"compute apps in the worker {row.get('card_apps')} (before "
+              f"the fit {holders}) [{tag}]", flush=True)
+        print(f"ray_data resnet50 step_ms_each {row['step_ms_each']} "
+              f"(card timeline) loop wall {row['loop_wall_s']:.3f} s "
+              f"[{tag}]", flush=True)
+        print(f"ray_data resnet50 from iter_device_batches: step_ms "
+              f"{step_ms:.2f} images_per_s {images_per_s:.1f} (steps 2-"
+              f"{DATA_RESNET_STEPS}); resident resnet50_train phase: "
+              f"step_ms {resnet_res['step_ms']:.2f} images_per_s "
+              f"{resnet_res['images_per_s']:.1f}; ratio "
+              f"{images_per_s / resnet_res['images_per_s']:.4f} [{tag}]",
+              flush=True)
+        print(f"ray_data resnet50 profiled {DATA_PROFILE_STEPS} steps "
+              f"({row.get('profile_wall_ms', math.nan):.1f} ms): "
+              f"host-to-device copies "
+              f"{[(round(c['ms'], 4), c['bytes'], round(c['overlapped_ms'], 4)) for c in copies]}"
+              f" (ms, bytes, ms of it under a kernel on another stream) "
+              f"[{tag}]", flush=True)
+        if row["pid"] == os.getpid() or row["gpu_worker"] != "1" or \
+                not row["device"].startswith("cuda"):
+            fail(f"ray_data resnet50: the loop ran in pid {row['pid']} on "
+                 f"{row['device']}")
+        if gap > DATA_LOSS_TOL or bad:
+            fail("ray_data resnet50: losses or batches differ from the "
+                 "driver's")
+        if moved:
+            fail(f"ray_data resnet50: kernel counters moved {moved}")
+        if not loss0_err <= 1e-3:
+            fail(f"ray_data resnet50: step-0 loss {row['losses'][0]}")
+        if not one_more_holder(row.get("card_apps"), holders):
+            fail("ray_data resnet50: the card's contexts during the fit "
+                 "are not those before it and the worker's")
+        if not big:
+            fail("ray_data resnet50: no host-to-device copy of a batch in "
+                 "the profiled steps")
+        res["resnet50"] = dict(
+            losses=row["losses"], loss_gap=gap, step_ms=step_ms,
+            step_ms_each=row["step_ms_each"], images_per_s=images_per_s,
+            resident_step_ms=resnet_res["step_ms"],
+            resident_images_per_s=resnet_res["images_per_s"],
+            htod_ms=[c["ms"] for c in big],
+            htod_overlapped_ms=[c["overlapped_ms"] for c in big],
+            htod_bytes=[c["bytes"] for c in big])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        started = hasattr(watch, "head")
+        if started:
+            watch.poll()
+        rt.shutdown()
+        if started:
+            watch.stop()
+        if saved_path is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = saved_path
+    check_cluster_gone(watch, "ray_data", tag)
+    for k, val in res.items():
+        print(f"ray_data {k} {val} [{tag}]", flush=True)
+    res["launches"] = res["gpt2"]["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one GPU",
@@ -6789,6 +7443,8 @@ def main() -> int:
     phase_done("tiny_reference")
     resnet_train = resnet50_train_phase(dev, card, tag)
     phase_done("resnet50_train")
+    ray_data = ray_data_phase(dev, card, train, resnet_train, tag)
+    phase_done("ray_data")
     bert_serve = bert_serve_phase(dev, card, tag)
     phase_done("bert_serve")
     print(f"serve bert b1x{BERT_SEQ} p50 through Serve: handle "
@@ -6826,7 +7482,7 @@ def main() -> int:
              "llama_engine": llama,
              "train": train,
              "llama_train": llama_train, "xl_train": xl_train,
-             "ray_train": ray_train,
+             "ray_train": ray_train, "ray_data": ray_data,
              "moe_train": moe_train, "resnet50_train": resnet_train,
              "bert_serve": bert_serve, "vit_train": vit_train,
              "t5_train": t5_train}

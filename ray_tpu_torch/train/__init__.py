@@ -49,7 +49,11 @@ def get_checkpoint() -> Optional[Checkpoint]:
 
 
 def get_dataset_shard(name: str = "train"):
-    """This worker's shard of ``datasets[name]``: an object with a
-    ``split(n)`` method is split across the workers, any other object is
-    handed to every worker unchanged."""
+    """This worker's shard of ``datasets[name]``: a
+    ``ray_tpu_torch.data.Dataset`` (or any object with a ``split(n)``
+    method) is split across the workers, ``Dataset.split(n)``
+    materializing it in the store first, and each worker reads its
+    shard's blocks as a borrower of the driver's refs (``iter_batches``,
+    ``iter_device_batches``); any other object is handed to every worker
+    unchanged."""
     return get_session().get_dataset_shard(name)

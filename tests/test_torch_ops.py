@@ -901,6 +901,10 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                 "api", "ingress", "drivers", "_grpc_proxy",
                 "llm/__init__", "llm/deployment", "llm/engine"):
         assert runtime / "serve" / f"{mod}.py" in _port_sources(), mod
+    for mod in ("__init__", "context", "block", "dataset", "read_api",
+                "_internal/__init__", "_internal/aggregate",
+                "_internal/execution", "_internal/streaming"):
+        assert runtime / "data" / f"{mod}.py" in _port_sources(), mod
     assert not bad, bad
 
 
