@@ -200,7 +200,20 @@
    resnet50_train phase's, and a profiled window showing each batch's
    host-to-device copy against the kernels of the compute stream.  After
    ``shutdown`` nothing of the cluster is left.
-8. Prints each phase's wall seconds, one JSON line of per-kernel numbers,
+8. Tune phase (after ray_data), in a cluster of its own
+   (``init(num_cpus=4)``, four GPU workers): ASHA (max_t 8, grace 1,
+   reduction 2: rungs 1, 2, 4) over eight GPT-2 124M trials, lr from a
+   seeded loguniform, four at once, each a function trainable holding a
+   ``num_gpus=0.25`` actor (full width and depth, the train phase's
+   program, b16 x 1024) that it kills in ``finally``; each trial's
+   losses bitwise the driver's run of its config, the decision log
+   replayed through a fresh ASHA to the same decisions, every early stop
+   at a rung (at least one), the train phase's launches every step of
+   every trial.  Then ``Tuner(TorchTrainer)``: two trials on GPU: 0.5
+   workers at once, their losses bitwise the driver's,
+   ``get_best_result`` and ``Tuner.restore`` right.  After each fit the
+   card holds the driver alone.
+9. Prints each phase's wall seconds, one JSON line of per-kernel numbers,
    then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, with no result line, when there is no CUDA device or any
@@ -1250,11 +1263,17 @@ def engine_phase(dev, spec: Optional[dict] = None, tag: str = "") -> dict:
         return res
 
     def serve(prompts, sp):
-        """Submit every prompt at once; wait for every stream."""
+        """Submit every prompt at once; wait for every stream.  The first
+        call starts the engine's loop once every prompt is in its inbox,
+        so its schedule is fixed (every prefill, then the decode steps),
+        as the runtime phase's actor and the serve phase's replica run
+        the same requests: submitted to a running loop, a prompt that
+        arrives after the first step can add a decode step."""
         for v in rec.values():
             v.clear()
         t = time.perf_counter()
         streams = [eng.submit(p, sp) for p in prompts]
+        eng.start()                     # a no-op once the loop runs
         outs = [s.tokens() for s in streams]
         return streams, outs, t, time.perf_counter() - t
 
@@ -1286,14 +1305,17 @@ def engine_phase(dev, spec: Optional[dict] = None, tag: str = "") -> dict:
 
     runner.sample, eng._emit = sample, record_emit
     runner.prefill, runner.decode = timed_prefill, timed_decode
-    eng.start()
     try:
         V = runner.vocab
         rng = np.random.default_rng(SEED)
-        # warm-up: one short request per prefill bucket
+        # warm-up: one short request per prefill bucket, stepped by hand
+        # (the loop starts with the first served requests)
         for n in spec["warm"]:
-            eng.generate(rng.integers(0, V, n).tolist(),
-                         SamplingParams(max_tokens=2))
+            s = eng.submit(rng.integers(0, V, n).tolist(),
+                           SamplingParams(max_tokens=2))
+            while eng.step():
+                pass
+            s.tokens()
         lens = rng.integers(*spec["prompt_lens"], size=16)
         prompts = [rng.integers(0, V, int(n)).tolist() for n in lens]
         for m, a in counters.values():
@@ -1599,17 +1621,17 @@ def train_steps(label: str, prog, state, batch, per_step: dict,
                        launches_per_step=step_counts[-1])
 
 
-def gpt2_program(dev, cfg, init_params_fn=None):
+def gpt2_program(dev, cfg, init_params_fn=None, lr: float = TRAIN_LR):
     """The train phase's GPT-2 program on ``dev`` (``default_optimizer`` at
-    TRAIN_LR); params drawn from the init's generator unless
-    ``init_params_fn`` is given."""
+    ``lr``, TRAIN_LR by default); params drawn from the init's generator
+    unless ``init_params_fn`` is given."""
     from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.parallel import spmd
     return spmd.build_train_program(
         loss_fn=lambda p, b: gpt2.loss_fn(p, b, cfg),
         init_params_fn=init_params_fn
         or (lambda g: gpt2.init_params(g, cfg, device=dev)),
-        optimizer=spmd.default_optimizer(lr=TRAIN_LR, warmup=1,
+        optimizer=spmd.default_optimizer(lr=lr, warmup=1,
                                          total_steps=1000), device=dev)
 
 
@@ -7353,6 +7375,461 @@ def ray_data_phase(dev, card, train_res: dict, resnet_res: dict,
     return res
 
 
+# Tune phase: ASHA over GPT-2 124M trials in examples/04_tune_asha.py's
+# shape (a function trainable a trial, a seeded loguniform lr, ASHA on
+# "loss"), each trial holding the card through a num_gpus=TUNE_GPU_SHARE
+# actor of its own; then Tuner(TorchTrainer) with two GPU: 0.5 trials.
+TUNE_TRIALS = 8
+TUNE_CONCURRENT = 4                  # trials holding the card at once
+TUNE_GPU_SHARE = 1.0 / TUNE_CONCURRENT
+TUNE_SEARCH_SEED = 16                # the trials' lr draws, fixed once
+TUNE_LR = (1e-5, 1e-2)               # tune.loguniform bounds
+TUNE_MAX_T, TUNE_GRACE, TUNE_RF = 8, 1, 2    # rungs at 1, 2 and 4
+# steps a report: the schedule's first step has lr 0 (warmup 1), so a
+# report of 1 or 2 steps would show every trial the same loss at rung 1
+TUNE_STEPS_PER_REPORT = 3
+# the batch: cut from the train phase's 32 to the largest at which four
+# trials fit on one card beside the driver (TUNE_BATCH_NOTE)
+TUNE_BATCH = 16
+TUNE_BATCH_NOTE = ("cut from 32: alone, b16 reserves 20.4 GB, b24 29.8, "
+                   "b32 39.3 (probes/tune_batch_probe.py)")
+TUNE_TRAINER_LRS = (3e-4, 3e-3)
+TUNE_TRAINER_STEPS = 3
+
+
+class TuneGPT2:
+    """One trial's model on its share of the card: GPT-2 at ``cfg`` (124M
+    at full width and depth on the card) through the train phase's
+    program at the trial's ``lr``, params from SEED, fitting one batch of
+    ``batch`` x ``seq`` tokens drawn from SEED (the same for every trial,
+    so the lr alone sets a trial apart).  Every kernel counter is zeroed
+    once the program is built; ``train(k)`` runs k steps and returns
+    their losses and each step's launches.  ``config``: ``lr``, ``cfg``,
+    ``batch``, ``seq``, ``device`` (None: the card)."""
+
+    def __init__(self, config: dict):
+        from ray_tpu_torch import _build
+        from ray_tpu_torch._device import disable_tf32, resolve_device
+        self.t_entry = time.time()
+        self.dev = resolve_device(config.get("device"))
+        if self.dev.type == "cuda":
+            _build.lib()                # the driver's build: no nvcc here
+            disable_tf32()              # as the driver's main() does
+        cfg = config["cfg"]
+        self.prog = gpt2_program(self.dev, cfg, lr=config["lr"])
+        self.state = self.prog.init_fn(
+            torch.Generator(device=self.dev).manual_seed(SEED))
+        self.batch = xl_batch(self.dev, cfg.vocab_size, config["batch"],
+                              config["seq"], seed=SEED)
+        self.counters = kernel_counters()
+        zero_counts(self.counters)
+        self.t_ready = time.time()
+
+    def train(self, k: int) -> dict:
+        def counts() -> dict:
+            return {n: getattr(m, a) for n, (m, a) in self.counters.items()}
+
+        t = time.perf_counter()
+        losses, launches = [], []
+        for _ in range(k):
+            before = counts()
+            self.state, m = self.prog.step_fn(self.state, self.batch)
+            launches.append({n: v - before[n] for n, v in counts().items()})
+            losses.append(m["loss"])
+        out = {"losses": [x.item() for x in losses], "launches": launches,
+               "train_s": time.perf_counter() - t,    # .item() synced
+               "pid": os.getpid(), "device": str(self.dev),
+               "gpu_worker": os.environ.get("RTT_GPU_WORKER"),
+               "t_entry": self.t_entry, "t_ready": self.t_ready,
+               "t_done": time.time()}
+        if self.dev.type == "cuda":
+            out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            out["reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
+        return out
+
+
+def tune_gpt2_trial(config: dict) -> None:
+    """An ASHA trial, a function trainable run by a Tune task in a plain
+    worker: a ``TuneGPT2`` in an actor holding ``gpu_share`` of the card,
+    one ``tune.report`` each ``k`` steps (the last loss, the steps' losses
+    and launches), the actor killed in ``finally`` (a trial ASHA stops
+    leaves through ``SessionStopped``, raised in ``tune.report``, and so
+    frees its share).  ``config``: TuneGPT2's, ``gpu_share``, ``k``,
+    ``max_t``."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import tune
+    t0 = time.time()
+    actor = rt.remote(num_gpus=config["gpu_share"], num_cpus=0)(
+        TuneGPT2).remote(config)
+    try:
+        for i in range(1, config["max_t"] + 1):
+            out = rt.get(actor.train.remote(config["k"]))
+            tune.report({"loss": out["losses"][-1], "training_iteration": i,
+                         "t_trial": t0, **out})
+    finally:
+        rt.kill(actor)
+
+
+def tune_trainer_loop(config: dict) -> None:
+    """``Tuner(TorchTrainer)``'s loop, in a train worker on a GPU: 0.5
+    share: a ``TuneGPT2`` at the trial's lr, ``steps`` steps, one report a
+    step with every loss so far, the step's launches and the loop's time
+    window; on the card, nvidia-smi's compute apps at the last step."""
+    from ray_tpu_torch import train
+    t0 = time.time()
+    model = TuneGPT2(config)
+    losses, launches = [], []
+    for s in range(config["steps"]):
+        out = model.train(1)
+        losses += out["losses"]
+        launches += out["launches"]
+        row = {**out, "loss": losses[-1], "losses": list(losses),
+               "launches": list(launches), "t_loop": t0}
+        if s == config["steps"] - 1 and model.dev.type == "cuda":
+            row["card_apps"] = compute_app_pids()
+        train.report(row)
+
+
+def tune_replay(dev, runs) -> list:
+    """The driver's runs of trials' configs: for each ``(config, steps)``
+    of ``runs``, ``TuneGPT2`` in this process, ``steps`` steps; each run's
+    losses.  The allocator's cache is emptied once, after the last run."""
+    out = []
+    for config, steps in runs:
+        model = TuneGPT2(dict(config, device=None if dev.type == "cuda"
+                              else "cpu"))
+        out.append(model.train(steps)["losses"])
+        del model
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def max_overlap(windows) -> int:
+    """The most (start, end) windows open at one time."""
+    edges = sorted([(a, 1) for a, _ in windows] + [(b, -1) for _, b in
+                                                   windows])
+    n = best = 0
+    for _, d in edges:
+        n += d
+        best = max(best, n)
+    return best
+
+
+def tune_phase(dev, card, train_res: dict, tag: str,
+               device: Optional[str] = None) -> dict:
+    """Ray Tune on the port's runtime, in a cluster of this run's own
+    (``init(num_cpus=4)``, the card detected, TUNE_CONCURRENT GPU
+    workers).  a. ASHA over TUNE_TRIALS GPT-2 124M trials
+    (``tune_gpt2_trial``), TUNE_CONCURRENT at once on the card: each
+    trial's losses bitwise the prefix of the driver's run of its config,
+    the decision log (a logging ASHA in this process, where the
+    controller runs) replayed through a fresh ``ASHAScheduler`` to the
+    same decisions, each trial ending at its first STOP, every early stop
+    at a rung, at least one, the train phase's launches every step in
+    every trial.  b. ``Tuner(TorchTrainer)``: two trials of
+    ``tune_trainer_loop`` on GPU: 0.5 workers at once, their losses
+    bitwise the driver's, ``get_best_result`` the lower final loss,
+    ``Tuner.restore`` both trials.  After each fit the card holds this
+    process alone; after shutdown nothing of the cluster is left.
+    ``device`` goes to the trials (None: the card; "cpu" rehearses the
+    phase off the card, where the card's checks fail by design)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train, tune
+    from ray_tpu_torch._private import shm_store
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.tune.schedulers import ASHAScheduler
+    from ray_tpu_torch.tune.trial import Trial
+
+    class LoggedASHA(ASHAScheduler):
+        """ASHA that logs (trial, iteration, loss, decision) in the order
+        the controller drained the reports."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.log = []
+
+        def on_trial_result(self, controller, trial, result):
+            d = super().on_trial_result(controller, trial, result)
+            self.log.append((trial.id, result["training_iteration"],
+                             result["loss"], d))
+            return d
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    saved_path = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [here] + ([saved_path] if saved_path else []))
+    storage = tempfile.mkdtemp(prefix="rtt_tune_")
+    atexit.register(shutil.rmtree, storage, ignore_errors=True)
+    watch = ClusterWatch(shm_store._SHM_DIR)
+    torch.cuda.synchronize()             # this process's context exists
+    holders = compute_app_pids()
+    cfg = gpt2.gpt2_small()
+    K, L = TUNE_STEPS_PER_REPORT, cfg.n_layer
+    base = {"cfg": cfg, "batch": TUNE_BATCH, "seq": TRAIN_SEQ,
+            "device": device}
+    want = {k: 0 for k in kernel_counters()}
+    want.update(train_res["launches_per_step"])
+    if want["layer_norm_fwd"] != 4 * L + 1 or \
+            want["layer_norm_bwd"] != 2 * L + 1 or \
+            want["flash_attention_fwd"] != 2 * L or \
+            want["flash_attention_bwd"] != L:
+        fail(f"tune: the train phase's launches per step {want}")
+    res: dict = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    if dev.type == "cuda":
+        free, total = torch.cuda.mem_get_info()
+        print(f"tune driver before the cluster: "
+              f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated, "
+              f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved; the "
+              f"card {free / 1e9:.2f} GB free of {total / 1e9:.2f} [{tag}]",
+              flush=True)
+    try:
+        info = rt.init(num_cpus=4, _system_config={
+            "gpu_workers_per_node": TUNE_CONCURRENT})
+        watch.start(rt._head, info["session_dir"])
+        if rt.cluster_resources().get("GPU") != 1:
+            fail(f"tune: cluster GPU {rt.cluster_resources()}")
+
+        # -- a. ASHA over GPT-2 124M trials, four on the card at once
+        sched = LoggedASHA(metric="loss", mode="min", max_t=TUNE_MAX_T,
+                           grace_period=TUNE_GRACE,
+                           reduction_factor=TUNE_RF)
+        t = time.perf_counter()
+        grid = tune.Tuner(
+            tune_gpt2_trial,
+            param_space=dict(base, lr=tune.loguniform(*TUNE_LR),
+                             gpu_share=TUNE_GPU_SHARE, k=K,
+                             max_t=TUNE_MAX_T),
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min", num_samples=TUNE_TRIALS,
+                max_concurrent_trials=TUNE_CONCURRENT, scheduler=sched,
+                seed=TUNE_SEARCH_SEED),
+            run_config=train.RunConfig(name="asha", storage_path=storage)
+        ).fit()
+        res["asha_fit_s"] = time.perf_counter() - t
+        if grid.errors or len(grid) != TUNE_TRIALS:
+            fail(f"tune asha: {len(grid)} trials, errors {grid.errors!r}")
+        wait_card_holders("tune after the ASHA fit", tag, holders)
+        trials = []
+        for r in grid:
+            hist = r.metrics_history
+            cfg_r = r.metrics["config"]
+            trials.append(dict(
+                id=hist[0]["trial_id"], lr=cfg_r["lr"],
+                iters=[m["training_iteration"] for m in hist],
+                losses=[x for m in hist for x in m["losses"]],
+                launches=[x for m in hist for x in m["launches"]],
+                pids={m["pid"] for m in hist},
+                devices={m["device"] for m in hist},
+                gpu_worker={m["gpu_worker"] for m in hist},
+                peak_gb=max(m.get("peak_mem_gb", math.nan) for m in hist),
+                reserved_gb=max(m.get("reserved_gb", math.nan)
+                                for m in hist),
+                window=(hist[0]["t_entry"], hist[-1]["t_done"]),
+                wall_s=hist[-1]["t_done"] - hist[0]["t_trial"],
+                boot_s=hist[0]["t_entry"] - hist[0]["t_trial"],
+                setup_s=hist[0]["t_ready"] - hist[0]["t_entry"],
+                first_ms=hist[0]["train_s"] / K * 1e3,
+                step_ms=[m["train_s"] / K * 1e3 for m in hist[1:]]))
+        log = sched.log
+        decisions = {}
+        for tid, it, _, d in log:
+            decisions.setdefault(tid, []).append((it, d))
+        # the log replayed through a fresh ASHA gives the same decisions
+        fresh = ASHAScheduler(metric="loss", mode="min", max_t=TUNE_MAX_T,
+                              grace_period=TUNE_GRACE,
+                              reduction_factor=TUNE_RF)
+        shadow = {}
+        replayed = [fresh.on_trial_result(
+            None, shadow.setdefault(tid, Trial(tid, {})),
+            {"training_iteration": it, "loss": loss})
+            for tid, it, loss, _ in log]
+        same = replayed == [d for *_, d in log]
+        rungs = fresh.rungs
+        early = []
+        bad_end = []
+        for tr in trials:
+            ds = decisions.get(tr["id"], [])
+            first_stop = next((it for it, d in ds if d == "STOP"), None)
+            last = tr["iters"][-1]
+            if tr["iters"] != list(range(1, last + 1)) or \
+                    first_stop != last or \
+                    [it for it, _ in ds] != tr["iters"]:
+                bad_end.append(tr["id"])
+            if last < TUNE_MAX_T:
+                early.append((tr["id"], last))
+        off_rung = [e for e in early if e[1] not in rungs]
+        print(f"tune asha decision log ({len(log)} reports, in the order "
+              f"the controller drained them): "
+              f"{[(tid[-2:], it, round(loss, 5), d) for tid, it, loss, d in log]}"
+              f" [{tag}]", flush=True)
+        print(f"tune asha replayed through a fresh ASHAScheduler: same "
+              f"decisions {same}; rungs {rungs}; early stops "
+              f"{[(tid[-2:], it) for tid, it in early]}, off a rung "
+              f"{off_rung}; trials not ending at their first STOP "
+              f"{bad_end} [{tag}]", flush=True)
+
+        # each trial's losses against the driver's run of its config, as
+        # lists: bitwise, and a NaN never equals anything
+        t = time.perf_counter()
+        refs_a = tune_replay(dev, [(dict(base, lr=tr["lr"]),
+                                    len(tr["losses"])) for tr in trials])
+        for tr, ref in zip(trials, refs_a):
+            tr["same"] = tr["losses"] == ref and \
+                all(map(math.isfinite, tr["losses"]))
+            tr["first_diff"] = None if tr["same"] else next(
+                (i + 1 for i, (a, b) in enumerate(zip(tr["losses"], ref))
+                 if not a == b or not math.isfinite(a)),
+                min(len(ref), len(tr["losses"])) + 1)
+            steps_ok = sum(x == want for x in tr["launches"])
+            tr["launch_ok"] = steps_ok == len(tr["launches"]) > 0
+            print(f"tune asha trial {tr['id'][-5:]} lr {tr['lr']:.6g}: "
+                  f"stopped at iteration {tr['iters'][-1]} of "
+                  f"{TUNE_MAX_T} ({len(tr['losses'])} steps), last loss "
+                  f"{tr['losses'][-1]:.6f}, wall {tr['wall_s']:.2f} s "
+                  f"(trial start to last report: actor boot "
+                  f"{tr['boot_s']:.2f} s, model setup {tr['setup_s']:.2f} s,"
+                  f" first report's steps {tr['first_ms']:.1f} ms each, "
+                  f"later reports' {[round(x, 1) for x in tr['step_ms']]});"
+                  f" losses bitwise the driver's run {tr['same']} (first "
+                  f"step that differs {tr['first_diff']}); launches equal "
+                  f"to the train phase's on {steps_ok} of "
+                  f"{len(tr['launches'])} steps; actor pid {tr['pids']} "
+                  f"{tr['devices']} RTT_GPU_WORKER {tr['gpu_worker']}; "
+                  f"peak {tr['peak_gb']:.3f} GB allocated, "
+                  f"{tr['reserved_gb']:.3f} GB reserved [{tag}]",
+                  flush=True)
+        res["driver_replay_s"] = time.perf_counter() - t
+        overlap = max_overlap([tr["window"] for tr in trials])
+        print(f"tune asha fit {res['asha_fit_s']:.2f} s for "
+              f"{TUNE_TRIALS} trials, {sum(len(tr['losses']) for tr in trials)}"
+              f" steps of b{TUNE_BATCH} x {TRAIN_SEQ} ({TUNE_BATCH_NOTE}); "
+              f"most actors alive at once {overlap} of {TUNE_CONCURRENT}; "
+              f"driver's replay {res['driver_replay_s']:.2f} s [{tag}]",
+              flush=True)
+        if not same:
+            fail("tune asha: the decision log replayed to other decisions")
+        if bad_end or off_rung:
+            fail("tune asha: a trial did not end at its first STOP, or "
+                 "stopped off a rung")
+        if not early:
+            fail("tune asha: no trial stopped early")
+        if not all(tr["same"] for tr in trials):
+            fail("tune asha: a trial's losses differ from the driver's run "
+                 "of its config, or are not finite")
+        if not all(tr["launch_ok"] for tr in trials):
+            fail("tune asha: a trial's steps launched other than the train "
+                 "phase's kernels")
+        if any(tr["pids"] & {os.getpid()} or tr["gpu_worker"] != {"1"} or
+               not all(d.startswith("cuda") for d in tr["devices"])
+               for tr in trials):
+            fail("tune asha: a trial's model ran outside a GPU worker on "
+                 "the card")
+        res["asha"] = dict(
+            trials=[{k: tr[k] for k in ("id", "lr", "iters", "wall_s",
+                                         "boot_s", "setup_s", "first_ms",
+                                         "step_ms", "peak_gb",
+                                         "reserved_gb")}
+                    | {"last_loss": tr["losses"][-1]} for tr in trials],
+            early=early, overlap=overlap, fit_s=res["asha_fit_s"])
+        res["launches"] = {k: sum(x[k] for tr in trials
+                                  for x in tr["launches"]) for k in want}
+
+        # -- b. Tuner(TorchTrainer) on GPU: 0.5 workers, both at once
+        trainer = train.TorchTrainer(
+            tune_trainer_loop,
+            train_loop_config=dict(base, steps=TUNE_TRAINER_STEPS,
+                                   lr=TUNE_TRAINER_LRS[0]),
+            scaling_config=train.ScalingConfig(
+                num_workers=1, use_gpu=True,
+                resources_per_worker={"GPU": 0.5}),
+            run_config=train.RunConfig(storage_path=storage))
+        t = time.perf_counter()
+        grid = tune.Tuner(
+            trainer, param_space={"train_loop_config": {
+                "lr": tune.grid_search(list(TUNE_TRAINER_LRS))}},
+            tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                        max_concurrent_trials=2),
+            run_config=train.RunConfig(name="trainer", storage_path=storage)
+        ).fit()
+        res["trainer_fit_s"] = time.perf_counter() - t
+        if grid.errors or len(grid) != 2:
+            fail(f"tune trainer: {len(grid)} trials, errors "
+                 f"{grid.errors!r}")
+        wait_card_holders("tune after the Tuner(TorchTrainer) fit", tag,
+                          holders)
+        got = {r.metrics["config"]["train_loop_config"]["lr"]: r.metrics
+               for r in grid}
+        refs = dict(zip(TUNE_TRAINER_LRS, tune_replay(
+            dev, [(dict(base, lr=lr), TUNE_TRAINER_STEPS)
+                  for lr in TUNE_TRAINER_LRS])))
+        best = grid.get_best_result()
+        best_lr = best.metrics["config"]["train_loop_config"]["lr"]
+        want_lr = min(refs, key=lambda lr: refs[lr][-1])
+        restored = tune.Tuner.restore(os.path.join(storage, "trainer"),
+                                      trainable=trainer).get_results()
+        back = sorted(r.metrics["losses"][-1] for r in restored
+                      if r.metrics)
+        overlap_b = max_overlap([(m["t_entry"], m["t_done"])
+                                 for m in got.values()])
+        for lr in TUNE_TRAINER_LRS:
+            m = got.get(lr, {})
+            print(f"tune trainer lr {lr}: losses {m.get('losses')}, the "
+                  f"driver's {refs[lr]}; worker pid {m.get('pid')} "
+                  f"{m.get('device')} RTT_GPU_WORKER {m.get('gpu_worker')};"
+                  f" nvidia-smi compute apps at its last step "
+                  f"{m.get('card_apps')} (before the fit {holders}); peak "
+                  f"{m.get('peak_mem_gb', math.nan):.3f} GB [{tag}]",
+                  flush=True)
+        print(f"tune trainer fit {res['trainer_fit_s']:.2f} s; workers "
+              f"alive at once {overlap_b} of 2; get_best_result lr "
+              f"{best_lr} (lower final loss: {want_lr}); Tuner.restore "
+              f"gives {len(restored)} trials, final losses {back} [{tag}]",
+              flush=True)
+        if any(got.get(lr, {}).get("losses") != refs[lr]
+               for lr in TUNE_TRAINER_LRS):
+            fail("tune trainer: a trial's losses differ from the driver's")
+        if best_lr != want_lr:
+            fail("tune trainer: get_best_result picked the higher loss")
+        if len(restored) != 2 or back != sorted(
+                refs[lr][-1] for lr in TUNE_TRAINER_LRS):
+            fail("tune trainer: Tuner.restore did not give both trials")
+        if overlap_b != 2:
+            fail("tune trainer: the two GPU: 0.5 trials never held the card "
+                 "at once")
+        if any(m.get("gpu_worker") != "1" or m.get("pid") == os.getpid()
+               or not str(m.get("device")).startswith("cuda")
+               or m.get("launches") != [want] * TUNE_TRAINER_STEPS
+               for m in got.values()):
+            fail("tune trainer: a worker ran off the card or launched other "
+                 "than the train phase's kernels")
+        res["trainer"] = dict(losses={lr: got[lr]["losses"]
+                                      for lr in TUNE_TRAINER_LRS},
+                              best_lr=best_lr, overlap=overlap_b,
+                              fit_s=res["trainer_fit_s"])
+        for m in got.values():
+            for k in want:
+                res["launches"][k] += sum(x[k] for x in m["launches"])
+    finally:
+        started = hasattr(watch, "head")
+        if started:
+            watch.poll()
+        rt.shutdown()
+        if started:
+            watch.stop()
+        if saved_path is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = saved_path
+    check_cluster_gone(watch, "tune", tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one GPU",
@@ -7445,6 +7922,8 @@ def main() -> int:
     phase_done("resnet50_train")
     ray_data = ray_data_phase(dev, card, train, resnet_train, tag)
     phase_done("ray_data")
+    tuned = tune_phase(dev, card, train, tag)
+    phase_done("tune")
     bert_serve = bert_serve_phase(dev, card, tag)
     phase_done("bert_serve")
     print(f"serve bert b1x{BERT_SEQ} p50 through Serve: handle "
@@ -7483,6 +7962,7 @@ def main() -> int:
              "train": train,
              "llama_train": llama_train, "xl_train": xl_train,
              "ray_train": ray_train, "ray_data": ray_data,
+             "tune": tuned,
              "moe_train": moe_train, "resnet50_train": resnet_train,
              "bert_serve": bert_serve, "vit_train": vit_train,
              "t5_train": t5_train}

@@ -48,7 +48,7 @@ from ray_tpu_torch._private import protocol, rtlog
 from ray_tpu_torch._private.config import GLOBAL_CONFIG
 from ray_tpu_torch._private.ids import NodeID, WorkerID
 from ray_tpu_torch._private.serialization import dumps_call
-from ray_tpu_torch._private.session import Session
+from ray_tpu_torch._private.session import Session, reap_orphan_segments
 from ray_tpu_torch._private import shm_store
 from ray_tpu_torch._private.shm_store import ShmObjectStore
 from ray_tpu_torch.util import metrics_catalog as mcat
@@ -287,6 +287,14 @@ class GcsServer:
         from ray_tpu_torch.util import profiler as profiler_mod
         profiler_mod.maybe_install("gcs")
         self.store = ShmObjectStore(spill_dir=str(session.spill_dir))
+        # this head's session joins the shm directory's registry before it
+        # makes a segment, then the slabs and objects dead sessions left
+        # there go (a head killed by a signal cannot unlink its own)
+        session.register_process()
+        reaped = reap_orphan_segments()
+        if reaped:
+            logger.info("reaped %d segment(s) of dead sessions: %s",
+                        len(reaped), reaped[:8])
         # Native C++ slab store: the small-object data plane (workers attach
         # and read/write directly; the GCS owns lifecycle + refcount deletes).
         self.slab = None
@@ -4877,6 +4885,7 @@ class GcsServer:
         self.store.shutdown()
         if self.slab is not None:
             self.slab.close()
+        self.session.unregister()
         # discharge the flight recorder's mmap (the ring FILE stays —
         # it is the crash artifact); must precede the leak assert below
         from ray_tpu_torch._private import flight_recorder

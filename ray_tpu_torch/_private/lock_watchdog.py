@@ -83,6 +83,12 @@ WORKER_LOCK_DAG: Dict[str, Set[str]] = {
     # local-raylet release routing (one conn, lazily dialed + sent
     # under this lock; a bounded unix-pipe send by design)
     "_raylet_ref_lock": set(),
+    # a leaf: guards _in_user_fn / _cancel_pending, the handoff between
+    # a cancel arriving on the control thread and the exec thread
+    # entering or leaving user code; held for a flag flip or a dict op,
+    # with no other lock taken inside (the async raise into the exec
+    # thread happens under it and takes no lock)
+    "_cancel_lock": set(),
 }
 
 WORKER_NOBLOCK_LOCKS: Set[str] = {

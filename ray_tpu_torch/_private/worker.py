@@ -291,6 +291,10 @@ class Worker:
         self._profile_events: List[dict] = []
         self._slab = None          # native slab store attachment (lazy)
         self._slab_tried = self.is_client  # clients have no local data plane
+        # in the shm directory's session registry before this process
+        # makes a segment (session.reap_orphan_segments)
+        if session is not None and not self.is_client:
+            session.register_process()
         # registration happens on first channel creation
         info = self.pool.call("register_client", role=role,
                               client_id=self.worker_id, pid=os.getpid(),

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 
 @dataclass
@@ -43,6 +43,14 @@ class ScalingConfig:
         return res
 
 
+def _unread(config, **defaults) -> None:
+    for name, default in defaults.items():
+        if getattr(config, name) != default:
+            raise NotImplementedError(
+                f"{type(config).__name__}.{name} is not implemented: "
+                f"nothing reads it (leave it at {default!r})")
+
+
 @dataclass
 class FailureConfig:
     """Reference: ``ray.air.FailureConfig`` — worker-group restarts from the
@@ -53,17 +61,40 @@ class FailureConfig:
 
 @dataclass
 class CheckpointConfig:
-    """Reference: ``ray.air.CheckpointConfig`` — retention policy."""
+    """Reference: ``ray.air.CheckpointConfig`` — retention policy.
+
+    ``checkpoint_frequency`` is read by Tune's class trainables.  The
+    score fields keep the reference's signature, but neither package
+    retains by score (``num_to_keep`` keeps the newest), so a value other
+    than the default raises rather than being ignored."""
 
     num_to_keep: Optional[int] = None
+    checkpoint_score_attribute: Optional[str] = None
+    checkpoint_score_order: str = "max"
+    checkpoint_frequency: int = 0
+
+    def __post_init__(self):
+        _unread(self, checkpoint_score_attribute=None,
+                checkpoint_score_order="max")
 
 
 @dataclass
 class RunConfig:
+    """``stop`` is read by Tune.  ``verbose`` keeps the reference's
+    signature; nothing in either package reads it, so a value other than
+    the default raises rather than being ignored."""
+
     name: Optional[str] = None
     storage_path: Optional[str] = None
     failure_config: FailureConfig = field(default_factory=FailureConfig)
     checkpoint_config: CheckpointConfig = field(default_factory=CheckpointConfig)
+    verbose: int = 1
+    # Tune stop criteria: {"metric_or_time_attr": bound} — stop a trial
+    # once attribute >= bound (reference: ``air.RunConfig(stop=...)``)
+    stop: Optional[Dict[str, Any]] = None
+
+    def __post_init__(self):
+        _unread(self, verbose=1)
 
     def resolved_storage_path(self) -> str:
         return self.storage_path or os.path.expanduser(

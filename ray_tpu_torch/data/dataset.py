@@ -603,10 +603,20 @@ class Dataset:
 
     def iter_torch_batches(self, *, batch_size: int = 256,
                            **kw) -> Iterator[Dict[str, Any]]:
+        """Batches as CPU tensors.  A column that is a view of a block
+        is copied, as ``_HostStager.put`` does: a block above the inline
+        size maps its store segment read-only, so an in-place op on the
+        tensor would fault, and an inline block is this process's cached
+        copy, which the op would change for every later read.  A column
+        the batch owns (rows concatenated across blocks) stays
+        zero-copy."""
         import torch
         for batch in self.iter_batches(batch_size=batch_size,
                                        batch_format="numpy"):
-            yield {k: torch.as_tensor(v) for k, v in batch.items()}
+            yield {k: torch.as_tensor(
+                v if getattr(v, "flags", None) is None
+                or (v.flags.writeable and v.flags.owndata)
+                else np.array(v)) for k, v in batch.items()}
 
     def iter_device_batches(self, *, batch_size: int = 256,
                             device: Optional[Any] = None,

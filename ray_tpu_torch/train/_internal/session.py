@@ -27,6 +27,11 @@ from ray_tpu_torch.train._checkpoint import Checkpoint
 NAMESPACE = "train"
 
 
+class SessionStopped(Exception):
+    """Raised by report() when the controller set this run's stop flag —
+    the cooperative early-stop used by Tune schedulers (ASHA/PBT/stop
+    criteria).  Trial wrappers catch it and exit cleanly."""
+
 _session: Optional["_TrainSession"] = None
 _lock = threading.Lock()
 
@@ -68,7 +73,8 @@ class _TrainSession:
                  local_rank: Optional[int] = None,
                  local_world_size: Optional[int] = None, node_rank: int = 0,
                  dataset_shards: Optional[Dict[str, Any]] = None,
-                 attempt: int = 0, start_iteration: int = 0):
+                 attempt: int = 0, start_iteration: int = 0,
+                 sync_report: bool = False):
         self.run_id = run_id
         self.run_name = run_name
         self.rank = rank
@@ -82,6 +88,11 @@ class _TrainSession:
         self.dataset_shards = dataset_shards or {}
         self.attempt = attempt
         self.iteration = start_iteration
+        # sync_report: block in report() until the controller consumed the
+        # report (deleted the key).  Tune trials use this so scheduler
+        # decisions (ASHA/PBT stops) are deterministic — the reference's
+        # function-API report blocks on the trial executor the same way.
+        self.sync_report = sync_report
         # step telemetry: report()-to-report() interval == one step
         self._last_report_mono = time.monotonic()
         self._last_report_wall = time.time()
@@ -165,6 +176,18 @@ class _TrainSession:
              "iteration": self.iteration})
         key = f"{self.run_id}/r/{self.iteration}/{self.rank}"
         self._kv_put(key, payload)
+        if self.sync_report:
+            # Tune path only: block until the controller consumed the
+            # report, then honor its stop decision.  Plain Train runs skip
+            # both RPCs — nothing ever sets their stop flag.
+            poll = 0.0005
+            while internal_kv._internal_kv_get(key,
+                                               namespace=NAMESPACE) is not None:
+                time.sleep(poll)
+                poll = min(poll * 2, 0.01)
+            if internal_kv._internal_kv_get(f"{self.run_id}/ctl/stop",
+                                            namespace=NAMESPACE) is not None:
+                raise SessionStopped(self.run_id)
 
     def get_checkpoint(self) -> Optional[Checkpoint]:
         return self.restore_checkpoint

@@ -50,7 +50,7 @@ class TorchConfig(BackendConfig):
         shm collective group under a run- and attempt-unique name,
         aliased to ``train_default`` in each worker.
     use_distributed: ``torch.distributed`` over NCCL — the multi-GPU
-        slice's (ROADMAP queue A, item 4); ``True`` raises.
+        slice's (ROADMAP queue A, item 8); ``True`` raises.
     drain_handler: a driver callback for ``node_draining`` fleet events —
         waits for ``elastic/events``; setting it raises.
     elastic: the elastic worker loop — waits for ``elastic/manager``;
@@ -67,15 +67,15 @@ class TorchConfig(BackendConfig):
             raise NotImplementedError(
                 "TorchConfig(use_distributed=True): torch.distributed "
                 "over NCCL is the multi-GPU slice's (ROADMAP queue A, "
-                "item 4)")
+                "item 8)")
         if self.drain_handler is not None:
             raise NotImplementedError(
                 "TorchConfig(drain_handler=...): drain events need "
-                "elastic/events, not ported yet (ROADMAP queue A, item 1)")
+                "elastic/events, not ported yet (ROADMAP queue A, item 7)")
         if self.elastic:
             raise NotImplementedError(
                 "TorchConfig(elastic=True): the elastic worker loop needs "
-                "elastic/manager, not ported yet (ROADMAP queue A, item 1)")
+                "elastic/manager, not ported yet (ROADMAP queue A, item 7)")
 
     @property
     def backend_cls(self):

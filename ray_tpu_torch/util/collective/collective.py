@@ -8,7 +8,7 @@ Reference: ``python/ray/util/collective/collective.py`` —
 
 One backend (types.Backend): ``shm`` — object-plane collectives among
 arbitrary actors/processes (the GLOO analog; ``gloo`` is its alias).  The
-NCCL group waits for the multi-GPU slice (ROADMAP queue A, item 4).
+NCCL group waits for the multi-GPU slice (ROADMAP queue A, item 8).
 
 Rendezvous is through the GCS KV (namespace "collective"): each rank
 registers ``<group>/meta/<rank>`` and init blocks until all ranks are
@@ -61,7 +61,7 @@ def init_collective_group(world_size: int, rank: int,
     if b != Backend.SHM:
         raise NotImplementedError(
             f"the {b.value!r} backend is the device group of the multi-GPU "
-            "slice (ROADMAP queue A, item 4); use 'shm'")
+            "slice (ROADMAP queue A, item 8); use 'shm'")
     g = ShmCollectiveGroup(world_size, rank, group_name)
     meta = pickle.dumps({"world_size": world_size, "backend": b.value})
     g._kv_put(f"{group_name}/meta/{rank}", meta)

@@ -3,7 +3,7 @@
 Reference: ``python/ray/util/collective/types.py`` — ``ReduceOp`` and
 backend identifiers.  The port has one backend, the object-plane ``shm``
 group; the reference's ``gloo`` name is an alias of it, and ``nccl`` (the
-device group) waits for the multi-GPU slice (ROADMAP queue A, item 4).
+device group) waits for the multi-GPU slice (ROADMAP queue A, item 8).
 """
 
 from __future__ import annotations

@@ -320,6 +320,6 @@ def test_recv_reads_before_it_releases_the_key():
 def test_backends():
     assert Backend.coerce("gloo") == Backend.SHM
     assert Backend.coerce("shm") == Backend.SHM
-    with pytest.raises(NotImplementedError, match="queue A, item 4"):
+    with pytest.raises(NotImplementedError, match="queue A, item 8"):
         col.init_collective_group(1, 0, "nccl", "never")
     assert not col.is_group_initialized("never")

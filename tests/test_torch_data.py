@@ -485,3 +485,40 @@ def test_import_needs_neither_pyarrow_nor_pandas():
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["refused", "pandas", "refused",
                                   "pyarrow", "ok"]
+
+
+_INPLACE_CHILD = """
+import numpy as np, ray_tpu_torch as rt
+from ray_tpu_torch import data as rd
+rt.init(num_cpus=1)
+for rows in (262144, 16):     # one 1 MB float32 block (a store segment), inline
+    arr = np.arange(rows, dtype=np.float32) / 7
+    ds = rd.from_numpy(arr, override_num_blocks=1).materialize()
+    ref = [np.array(b["item"]) for b in ds.iter_batches(batch_size=rows)]
+    (t,) = [b["item"] for b in ds.iter_torch_batches(batch_size=rows)]
+    t.add_(1)
+    again = [np.array(b["item"]) for b in ds.iter_batches(batch_size=rows)]
+    assert len(ref) == 1 and np.array_equal(ref[0], arr)
+    assert np.array_equal(t.numpy(), ref[0] + 1)
+    assert np.array_equal(again[0], arr)      # the block itself unchanged
+    print("ok", rows, ds.size_bytes())
+rt.shutdown()
+"""
+
+
+def test_iter_torch_batches_in_place_op_on_a_store_block(tmp_path):
+    """A batch that is one block above the inline size is a view of the
+    store's read-only mapping; ``iter_torch_batches`` copies such a column,
+    so ``add_`` works (it killed the process with SIGSEGV before) and gives
+    ``iter_batches``' values plus 1 while the block stays as it was.  A
+    16-row inline dataset behaves the same (its block, the process's
+    cached copy, unchanged too).  In a child process with a cluster and a
+    store directory of its own."""
+    env = dict(os.environ, PYTHONPATH=REPO, RTT_SHM_DIR=str(tmp_path))
+    env.pop("RTT_NUM_GPUS", None)
+    out = subprocess.run([sys.executable, "-c", _INPLACE_CHILD], env=env,
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, (out.returncode, out.stderr[-2000:])
+    assert out.stdout.split() == ["ok", "262144", "1048576", "ok", "16",
+                                  "64"]

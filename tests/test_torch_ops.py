@@ -905,6 +905,11 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                 "_internal/__init__", "_internal/aggregate",
                 "_internal/execution", "_internal/streaming"):
         assert runtime / "data" / f"{mod}.py" in _port_sources(), mod
+    tune = sorted(p.relative_to(REPO / "ray_tpu").as_posix()
+                  for p in (REPO / "ray_tpu" / "tune").rglob("*.py"))
+    assert len(tune) == 21
+    for rel in tune:    # every module of the reference's Tune, same name
+        assert runtime / rel in _port_sources(), rel
     assert not bad, bad
 
 
