@@ -35,7 +35,28 @@
    on each.  Then the same for Llama-3 8B (full width and depth, weights
    drawn on the card, block matrices x2): 32 head-dim-128 flash launches
    per prefill step and per full forward, none of another instantiation;
-   the weights and the pool are freed before the next phase.
+   the weights and the pool are freed before the next phase.  GPT-2's
+   warm-up and 16 requests run with the step-hygiene oracle armed
+   (``RTT_XLA_WATCHDOG=1``): no host read inside a prefill or decode
+   forward, no more input signatures than buckets; a ``.item()`` and a
+   blocking host-to-device copy planted in the decode forward, and a
+   prefill length off the buckets, must each raise naming the site.
+   Then the serve_llm_split phase, in a cluster of its own
+   (``init(num_cpus=4)``, three GPU workers): GPT-2 124M disaggregated
+   over two ``num_gpus=0.5`` engines with the engine phase's params
+   (published through the weights plane): ``prefill_remote`` of the 16
+   prompts on one, ``attach`` of the 16 manifests on the other while its
+   loop is held, so it decodes them as one batch: the engine phase's
+   tokens bitwise, 0 prefill steps on the decode side and 0 decode steps
+   on the prefill side, 192 flash and 400 LayerNorm launches in the
+   prefill engine, 25 LayerNorm a decode step and no flash in the decode
+   engine, one request's blocks in the decode pool the prefill pool's
+   bytes (sha256); a manifest with two blocks swapped must change its
+   tokens (and no other's), and a ``block_size=8`` engine must refuse the
+   manifest; then the same 16 attached as they arrive.  Then
+   ``llm_deployment`` with Llama-3 8B on a ``num_gpus=1`` replica (the
+   ``llama_engine`` phase's params, drawn on the card): that phase's
+   tokens bitwise and its 512 head-dim-128 flash launches.
    Between the two, the weights-plane phase: a GPT-2 124M engine with
    ``share_weights=True`` publishes its params to this run's own
    directory under ``/dev/shm`` (``RTT_SHM_DIR``, set for the whole run
@@ -83,7 +104,7 @@
    the engine phase's tokens with its flash and LayerNorm launches, and
    ``rtt_llm_tokens_total`` agrees with the engine's counts; a stream
    without its last token must fail that check.  ``naive_llm_deployment``
-   serves the 16 prompts one at a time with the tokens of the same
+   serves the first 8 prompts one at a time with the tokens of the same
    requests run alone.  After ``shutdown`` nothing of the cluster is
    left (as in the runtime phase).
 4. Train phase: trains GPT-2 124M (full width, random init from the seed,
@@ -91,7 +112,8 @@
    Holds every parameter's step-0 gradient to an independent reference
    (plain autograd through dense attention and the plain LayerNorm),
    requires two planted backward faults to fail that check, then runs six
-   steps on one batch with host syncs made errors, and checks the falling
+   steps on one batch with host syncs made errors and the step-hygiene
+   oracle armed (one batch signature, no host read), and checks the falling
    loss, the step count and each kernel's launches per step (none of the
    float32 flash kernels or the scalar-I/O LayerNorm ones).  Prints the
    step time, tokens/s, the model-FLOP share and one profiled step.
@@ -113,8 +135,8 @@
    on a worker without the card must fail through ``Result.error``;
    GPT-2 124M (b8 x s1024) checkpointed at step 2, its worker killed at
    step 4 and restored from the checkpoint, whose final params must be
-   bitwise those of an uninterrupted run (a restore without the
-   optimizer state must not); two ``GPU: 0.5`` workers allreducing a
+   bitwise those of the same run uninterrupted in the driver (a restore
+   without the optimizer state must not); two ``GPU: 0.5`` workers allreducing a
    bf16 CUDA tensor through ``train_default``; then nothing left after
    ``shutdown``.  Last, moe-small (the top-2 MoE
    transformer, 0.52 B params) at full size, held to its plain path
@@ -1127,28 +1149,135 @@ def profile_once(name: str, fn, tag: str = "") -> dict:
     for k, v in top:
         print(f"profile {name}   {v:.4g} ms  {k[:90]}{tag}", flush=True)
     return res
-def profile_steps(runner, pool, dev, prefill_len: int = 1000,
+def profile_steps(runner, pool, dev, prefill_len: Optional[int] = 1000,
                   ctx: int = 512, tag: str = "") -> dict:
-    """One prefill of ``prefill_len`` tokens and one decode step at batch
-    16 over ``ctx`` tokens of context each, under torch.profiler."""
+    """One prefill of ``prefill_len`` tokens (none when None) and one
+    decode step at batch 16 over ``ctx`` tokens of context each, under
+    torch.profiler."""
     from ray_tpu_torch.serve.llm.model_runner import _bucket
     rng = np.random.default_rng(SEED + 1)
     V, maxb = runner.vocab, runner.cfg.max_blocks_per_seq
     tables = rng.integers(0, pool.shape[0], (16, maxb)).astype(np.int32)
     lens = np.full(16, ctx, np.int32)
-    bucket = _bucket(prefill_len, runner.cfg.prefill_len_buckets)
-    steps = {
-        f"prefill_{bucket}": lambda: runner.prefill(
-            rng.integers(0, V, prefill_len).tolist()),
-        f"decode_b16_ctx{ctx}": lambda: runner.decode(
-            rng.integers(0, V, 16).astype(np.int32), lens, pool, tables,
-            lens),
-    }
+    steps = {}
+    if prefill_len is not None:
+        bucket = _bucket(prefill_len, runner.cfg.prefill_len_buckets)
+        steps[f"prefill_{bucket}"] = lambda: runner.prefill(
+            rng.integers(0, V, prefill_len).tolist())
+    steps[f"decode_b16_ctx{ctx}"] = lambda: runner.decode(
+        rng.integers(0, V, 16).astype(np.int32), lens, pool, tables, lens)
     out = {}
     for name, fn in steps.items():
         fn()
         out[name] = profile_once(name, fn, tag)
     return out
+
+
+# ----------------------------------------------------------------- oracle
+def oracle_armed(on: bool) -> None:
+    """The step-hygiene oracle (``RTT_XLA_WATCHDOG``, read at each step
+    region's entry) on, with its stats reset and no warm-up allowance, or
+    off, in this process."""
+    from ray_tpu_torch._private import xla_watchdog as xw
+    if on:
+        os.environ["RTT_XLA_WATCHDOG"] = "1"
+        os.environ.pop("RTT_XLA_WATCHDOG_WARMUP", None)
+        xw.reset_xla_stats()
+    else:
+        os.environ.pop("RTT_XLA_WATCHDOG", None)
+
+
+def oracle_check(label: str, budgets: dict, tag: str) -> dict:
+    """The armed run's ``xla_stats()``: each site in ``budgets`` entered,
+    no host read in it, and no more signatures than its budget."""
+    from ray_tpu_torch._private import xla_watchdog as xw
+    stats = xw.xla_stats()
+    print(f"{label} step-hygiene oracle (RTT_XLA_WATCHDOG=1): xla_stats "
+          f"{stats} (site: signatures, host-read violations), budgets "
+          f"{budgets} [{tag}]", flush=True)
+    for site, budget in budgets.items():
+        if site not in stats or stats[site][1] or \
+                not 0 < stats[site][0] <= budget:
+            fail(f"{label}: the oracle saw {stats.get(site)} at {site}, "
+                 f"budget {budget}")
+    return stats
+
+
+def oracle_controls(runner, prefill, decode, pool, label: str,
+                    tag: str) -> dict:
+    """With the oracle armed, each planted fault must raise
+    ``XlaHygieneViolation`` naming its site: a ``.item()`` inside the
+    decode forward (the interposers), a blocking host-to-device copy
+    inside it (the card's native guard alone sees it), and a prefill
+    length past the bucket budget (a new signature).  ``prefill`` and
+    ``decode`` are the runner's own methods, unwrapped."""
+    import types
+    from ray_tpu_torch._private import xla_watchdog as xw
+    from ray_tpu_torch.serve.llm import model_runner as mr
+    mod = runner.mod
+    maxb = runner.cfg.max_blocks_per_seq
+    one = np.ones(1, np.int32)
+
+    def synced(kind):
+        def forward_decode(params, tokens, *a):
+            out = mod.forward_decode(params, tokens, *a)
+            if kind == "item":
+                tokens[0].item()
+            else:
+                torch.ones(4).to(tokens.device)
+            return out
+        return forward_decode
+
+    got = {}
+    for kind in ("item", "h2d_copy"):
+        runner.mod = types.SimpleNamespace(
+            forward_decode=synced(kind), forward_prefill=mod.forward_prefill)
+        try:
+            decode(one, one, pool, np.zeros((1, maxb), np.int32), one)
+            got[kind] = None
+        except xw.XlaHygieneViolation as e:
+            got[kind] = str(e)
+        finally:
+            runner.mod = mod
+    bucket = mr._bucket
+    mr._bucket = lambda n, buckets: n       # a length off the buckets
+    try:
+        prefill(list(range(1, runner.cfg.prefill_len_buckets[0] + 2)))
+        got["unbucketed_prefill"] = None
+    except xw.XlaHygieneViolation as e:
+        got["unbucketed_prefill"] = str(e)
+    finally:
+        mr._bucket = bucket
+    sites = {"item": "llm.decode", "h2d_copy": "llm.decode",
+             "unbucketed_prefill": "llm.prefill"}
+    for kind, msg in got.items():
+        print(f"{label} oracle control {kind}: "
+              f"{'raised ' + repr(msg[:160]) if msg else 'passed'} "
+              f"[{tag}]", flush=True)
+        if msg is None or f"'{sites[kind]}'" not in msg:
+            fail(f"{label}: the planted {kind} did not raise "
+                 f"XlaHygieneViolation at {sites[kind]}")
+    return {k: v and v.split(chr(10))[0] for k, v in got.items()}
+
+
+def oracle_cost(runner, decode, pool, ctx: int, calls: int = 10) -> dict:
+    """Host ms of one decode step at batch 16 over ``ctx`` tokens each
+    (the profiled step's shape; each ends in the logits' pull), the
+    oracle off and on in turn (off, on, on, off; ``calls`` steps each):
+    what arming it costs a step.  Leaves it off, with its stats reset."""
+    rng = np.random.default_rng(SEED + 1)
+    tables = rng.integers(0, pool.shape[0], (16, runner.cfg.max_blocks_per_seq)
+                          ).astype(np.int32)
+    lens = np.full(16, ctx, np.int32)
+    toks = rng.integers(0, runner.vocab, 16).astype(np.int32)
+    ms = {"off": [], "on": []}
+    for mode in ("off", "on", "on", "off"):
+        oracle_armed(mode == "on")
+        t = time.perf_counter()
+        for _ in range(calls):
+            decode(toks, lens, pool, tables, lens)
+        ms[mode].append((time.perf_counter() - t) * 1e3 / calls)
+    return {k: sum(v) / len(v) for k, v in ms.items()}
 
 
 # ----------------------------------------------------------------- engine
@@ -1173,7 +1302,7 @@ def gpt2_engine(block_scale: float = ENGINE_BLOCK_SCALE) -> dict:
         off_path={"layer_norm_fwd_scalar": (ln, "scalar_launches"),
                   "flash_attention_fwd_f32": (fa, "f32_launches"),
                   "flash_attention_fwd_gqa_d128": (fa, "d128_launches")},
-        per_forward=None, profile=(1000, 512))
+        per_forward=None, profile=(1000, 512), oracle=True)
 
 
 def llama_engine(block_scale: float = LLAMA_ENGINE_BLOCK_SCALE) -> dict:
@@ -1305,8 +1434,13 @@ def engine_phase(dev, spec: Optional[dict] = None, tag: str = "") -> dict:
 
     runner.sample, eng._emit = sample, record_emit
     runner.prefill, runner.decode = timed_prefill, timed_decode
+    oracle = spec.get("oracle", False)
     try:
         V = runner.vocab
+        if oracle:
+            # the step-hygiene oracle armed from the warm-up through the
+            # 16 requests: every bucket's first signature is charged
+            oracle_armed(True)
         rng = np.random.default_rng(SEED)
         # warm-up: one short request per prefill bucket, stepped by hand
         # (the loop starts with the first served requests)
@@ -1323,6 +1457,19 @@ def engine_phase(dev, spec: Optional[dict] = None, tag: str = "") -> dict:
         streams, outs, t_sub, wall = serve(prompts,
                                            SamplingParams(max_tokens=32))
         got = counts()
+        if oracle:
+            xla = oracle_check(label, {
+                "llm.prefill": len(cfg.prefill_len_buckets),
+                "llm.decode": len(cfg.decode_batch_buckets)}, tag)
+            xla_controls = oracle_controls(runner, prefill, decode,
+                                           eng.cache.pool, label, tag)
+            xla_cost = oracle_cost(runner, decode, eng.cache.pool,
+                                   spec["profile"][1])
+            print(f"{label} decode step b16 ctx{spec['profile'][1]} host "
+                  f"ms with the oracle off {xla_cost['off']:.3f}, on "
+                  f"{xla_cost['on']:.3f} (off, on, on, off; 10 steps "
+                  f"each) [{tag}]", flush=True)
+            oracle_armed(False)
         launches = {k: got[k] for k in spec["on_path"]}
         # instantiations this path must not take
         off_path = {k: got[k] for k in spec["off_path"]}
@@ -1400,6 +1547,9 @@ def engine_phase(dev, spec: Optional[dict] = None, tag: str = "") -> dict:
                    logits_prefill_max_abs_err=prefill_err,
                    logits_decode_max_abs_err=decode_err, logits_tol=tol,
                    control_logits_max_abs_err=controls, launches=launches)
+        if oracle:
+            res.update(xla_stats=xla, xla_controls=xla_controls,
+                       xla_decode_ms=xla_cost)
         sfx = f" [{tag}]" if tag else ""
         for k, val in res.items():
             print(f"{label} {k} {val}{sfx}", flush=True)
@@ -1410,6 +1560,7 @@ def engine_phase(dev, spec: Optional[dict] = None, tag: str = "") -> dict:
                                            *spec["profile"], tag)
         return res
     finally:
+        oracle_armed(False)
         eng.shutdown()            # closes the pool
         runner.params = None
         del params
@@ -1660,15 +1811,22 @@ def train_phase(dev, card, tag: str) -> dict:
             fail(f"planted fault {fname} passed the gradient check")
 
     # -- the main path: six steps on one batch, no host sync inside a
-    # step; the scalar-I/O LayerNorm (aligned bf16 rows), float32 flash
-    # (bf16 activations) and head-dim-128 kernels launch 0 times
-    state, run = train_steps("train", prog, state, batch, {
-        "layer_norm_fwd": 2 * L + 1 + 2 * L,   # forward + replay
-        "layer_norm_bwd": 2 * L + 1,
-        "flash_attention_fwd": L + L,
-        "flash_attention_bwd": L}, B * T)
+    # step (timed_steps' check and the step-hygiene oracle's, armed);
+    # the scalar-I/O LayerNorm (aligned bf16 rows), float32 flash (bf16
+    # activations) and head-dim-128 kernels launch 0 times
+    oracle_armed(True)
+    try:
+        state, run = train_steps("train", prog, state, batch, {
+            "layer_norm_fwd": 2 * L + 1 + 2 * L,   # forward + replay
+            "layer_norm_bwd": 2 * L + 1,
+            "flash_attention_fwd": L + L,
+            "flash_attention_bwd": L}, B * T)
+    finally:
+        oracle_armed(False)
+    xla = oracle_check("train", {"train.step": 1}, tag)
     res = dict(setup_s=setup_s, grad_rel_err=worst, grad_worst_leaf=worst_leaf,
                grad_rel_tol=GRAD_REL_TOL, grad_controls=controls, **run,
+               xla_stats=xla,
                model_flop_share=gpt2.flops_per_token(cfg, T)
                * run["tokens_per_s"] / card[1])
     for k, val in res.items():
@@ -3815,7 +3973,7 @@ IMPALA_PIXEL = {"env": "RandomPixelEnv",
                 "num_workers": 0, "num_envs_per_worker": 16,
                 "rollout_fragment_length": 32,
                 "num_batches_per_iteration": 4, "lr": 3e-4, "seed": SEED}
-IMPALA_WALL_S = 10.0
+IMPALA_WALL_S = 5.0
 # Step-0 update on the card against the same update on the CPU (same
 # weights, same batch): each leaf's optax update (before it is applied),
 # relative L2.  float32 on both sides, TF32 off; cuDNN's algorithms sum
@@ -4820,7 +4978,7 @@ IMPALA_ASYNC = {"env": "RandomPixelEnv",
 # impala_overlap: rllib_bench.py:101-188's latency_bound workload, SlowEnv
 # (4 ms a step) over CartPole, 4 workers × 1 env × 8 steps, 4 fragments an
 # update; sync_sampling (a broadcast every update) against async (every
-# 4), each for OVERLAP_WALL_S (the bench's 30 s cut to 10).
+# 4), each for OVERLAP_WALL_S (the bench's 30 s cut to 5).
 IMPALA_OVERLAP = {"env": "SlowEnv",
                   "env_config": {"inner": CartPoleLite,
                                  "step_delay_ms": 4.0},
@@ -4830,7 +4988,7 @@ IMPALA_OVERLAP = {"env": "SlowEnv",
                   "num_fragments_per_update": 4, "seed": SEED}
 OVERLAP_MODES = {"sync": {"sync_sampling": True, "broadcast_interval": 1},
                  "async": {"sync_sampling": False, "broadcast_interval": 4}}
-OVERLAP_WALL_S = 10.0
+OVERLAP_WALL_S = 5.0
 # rllib_fleet: BASELINE #1's PPO recipe (rllib_bench.py:24-30, 2 remote
 # workers) on CartPole for FLEET_PPO_ITERS iterations, then save / train /
 # restore; A3C's Hogwild with 4 workers on A3C_PIXEL; Ape-X at
@@ -5730,6 +5888,9 @@ SERVE_AUTOSCALING = dict(min_replicas=1, max_replicas=3,
                          target_ongoing_requests=4,
                          upscale_delay_s=2.0, downscale_delay_s=4.0)
 SERVE_LLM_TOKENS = 32                            # the engine phase's
+# the engine phase's first prompts served one at a time, alone and by
+# naive_llm_deployment (cut from all 16 for the script's wall time)
+SERVE_NAIVE_REQUESTS = 8
 
 
 class BertServer:
@@ -5809,7 +5970,7 @@ def llm_token_totals() -> dict:
     return out
 
 
-def gated_llm_deployment(cfg, device=None):
+def gated_llm_deployment(cfg, device=None, params_fn=None):
     """``llm_deployment(cfg)``'s server (its ``__call__``, token streams,
     multiplexed engine and metrics unchanged) with three methods for the
     check.  ``hold`` stops the engine loop before its next step and
@@ -5817,9 +5978,29 @@ def gated_llm_deployment(cfg, device=None):
     wait in the engine's inbox, so the loop then schedules them as the
     engine phase did (every prefill, then each decode step over all of
     them).  ``report`` gives the launches, the engine's counts, the
-    token counter and each request's emit times from that run."""
+    token counter, each request's emit times from that run and the
+    replica's peak memory.  With ``params_fn``, the replica's engine
+    takes ``params_fn(device)`` for its params (user code: the
+    deployment itself takes none)."""
+    from ray_tpu_torch import serve
     from ray_tpu_torch.serve.llm import llm_deployment
     base = llm_deployment(cfg, device=device).user_class
+    if params_fn is not None:
+        class ParamsLLMServer(base):
+            @serve.multiplexed(max_num_models_per_replica=2)
+            async def _engine_for(self, model_id: str):
+                import asyncio
+                from ray_tpu_torch.serve.llm.engine import LLMEngine
+                eng = LLMEngine(self._cfg, params_fn(device), device=device)
+
+                async def _unload(eng=eng):
+                    await asyncio.get_running_loop().run_in_executor(
+                        None, eng.shutdown)
+
+                eng.__serve_unload__ = _unload
+                return eng
+
+        base = ParamsLLMServer
 
     class GatedLLMServer(base):
         async def hold(self) -> bool:
@@ -5861,10 +6042,70 @@ def gated_llm_deployment(cfg, device=None):
                 tokens=llm_token_totals(), tokens0=h["tokens"],
                 ttft_s=[e[0] - h["t"] for e in emits],
                 tpot_s=[b - a for e in emits for a, b in zip(e, e[1:])],
-                pid=os.getpid(),
+                pid=os.getpid(), device=str(h["eng"].runner.device),
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9
+                if torch.cuda.is_available() else float("nan"),
                 cuda_visible=os.environ.get("CUDA_VISIBLE_DEVICES"))
 
     return GatedLLMServer
+
+
+def gpt2_engine_params(device):
+    """The engine phase's GPT-2 params on ``device``: drawn from SEED with
+    a CPU generator, block matrices x the spec's scale.  The driver
+    publishes them through the weights plane for the serve and
+    serve_llm_split phases' engines."""
+    from ray_tpu_torch.serve.llm.config import resolve_model
+    spec = gpt2_engine()
+    mod, mcfg = resolve_model(spec["cfg"])
+    p = mod.init_params(torch.Generator(device="cpu").manual_seed(SEED),
+                        mcfg, device=device)
+    for name in spec["blocks"]:
+        p["blocks"][name]["kernel"].mul_(spec["block_scale"])
+    return p
+
+
+def gated_llm_run(hl, prompts, max_tokens: int,
+                  http_url: Optional[str] = None) -> tuple:
+    """``prompts`` submitted to a ``gated_llm_deployment`` while its engine
+    is held, then released; each stream drained on a thread of its own
+    (the first through HTTP at ``http_url`` when given).  Their tokens,
+    the replica's report and each stream's first chunk after the
+    release."""
+    hl.hold.remote().result()
+    srcs = []
+    for i, p in enumerate(prompts):
+        body = {"prompt": p, "max_tokens": max_tokens}
+        if http_url and i == 0:
+            import urllib.request
+            r = urllib.request.urlopen(urllib.request.Request(
+                http_url, data=json.dumps(body).encode(), method="POST"),
+                timeout=300)       # headers: the stream is in
+            srcs.append(("http", r))
+        else:
+            srcs.append(("handle", hl.remote(body).result()))
+    outs, first = [None] * len(srcs), [None] * len(srcs)
+
+    def drain(i):
+        kind, src = srcs[i]
+        got = []
+        for chunk in src:
+            first[i] = first[i] or time.perf_counter()
+            got.append(chunk)
+        if kind == "http":
+            src.close()
+        outs[i] = [int(x) for x in got]
+
+    threads = [threading.Thread(target=drain, args=(i,))
+               for i in range(len(srcs))]
+    t_rel = time.perf_counter()
+    hl.release.remote().result()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    rep = hl.report.remote().result()
+    return outs, rep, [f - t_rel for f in first]
 
 
 def _pct(xs, q: float) -> float:
@@ -6194,17 +6435,9 @@ def serve_phase(dev, eng_res: dict, runtime_res: dict, tag: str,
         # -- 3. the LLM deployment: the engine phase's 16 requests
         spec = gpt2_engine()
         lcfg = dataclasses.replace(spec["cfg"], share_weights=True)
-        mod, mcfg = resolve_model(lcfg)
-
-        def engine_phase_params(device):
-            p = mod.init_params(torch.Generator(device="cpu")
-                                .manual_seed(SEED), mcfg, device=device)
-            for name in spec["blocks"]:
-                p["blocks"][name]["kernel"].mul_(spec["block_scale"])
-            return p
-
+        mcfg = resolve_model(lcfg)[1]
         wkey = f"{lcfg.model_key()}_s{lcfg.seed}"
-        weights.publish_or_attach(wkey, engine_phase_params,
+        weights.publish_or_attach(wkey, gpt2_engine_params,
                                   torch.device("cpu"))
         prompts, driver_outs = eng_res["requests"]
         LLM = serve.deployment(
@@ -6224,52 +6457,7 @@ def serve_phase(dev, eng_res: dict, runtime_res: dict, tag: str,
         def toks(chunks) -> list:
             return [int(x) for x in chunks]
 
-        def gated_run(http_first: bool) -> tuple:
-            """The 16 requests submitted while the engine is held, then
-            released; each stream drained on a thread of its own (the
-            first through HTTP when asked).  Their tokens, the replica's
-            report and each stream's first chunk after the release."""
-            hl.hold.remote().result()
-            srcs, ready = [], []
-            for i, p in enumerate(prompts):
-                body = {"prompt": p, "max_tokens": SERVE_LLM_TOKENS}
-                if http_first and i == 0:
-                    import urllib.request
-                    r = urllib.request.urlopen(urllib.request.Request(
-                        f"http://{host}:{port}/llm",
-                        data=json.dumps(body).encode(), method="POST"),
-                        timeout=300)       # headers: the stream is in
-                    srcs.append(("http", r))
-                else:
-                    srcs.append(("handle", hl.remote(body).result()))
-            outs, first = [None] * len(srcs), [None] * len(srcs)
-
-            def drain(i):
-                kind, src = srcs[i]
-                got = []
-                if kind == "http":
-                    for line in src:
-                        first[i] = first[i] or time.perf_counter()
-                        got.append(line)
-                    src.close()
-                else:
-                    for chunk in src:
-                        first[i] = first[i] or time.perf_counter()
-                        got.append(chunk)
-                outs[i] = toks(got)
-
-            threads = [threading.Thread(target=drain, args=(i,))
-                       for i in range(len(srcs))]
-            t_rel = time.perf_counter()
-            hl.release.remote().result()
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(timeout=300)
-            rep = hl.report.remote().result()
-            return outs, rep, [f - t_rel for f in first]
-
-        outs, rep, first = gated_run(http_first=False)
+        outs, rep, first = gated_llm_run(hl, prompts, SERVE_LLM_TOKENS)
         same = [a == b for a, b in zip(outs, driver_outs)]
         got, want = rep["launches"], eng_res["launches"]
         tok = {k: rep["tokens"][k] - rep["tokens0"][k] for k in ("prefill",
@@ -6316,7 +6504,8 @@ def serve_phase(dev, eng_res: dict, runtime_res: dict, tag: str,
             f"p50 {runtime_res['actor_ttft_p50_ms']:.4g} ms (each from "
             f"the release of all 16)")
 
-        outs_b, _, _ = gated_run(http_first=True)
+        outs_b, _, _ = gated_llm_run(hl, prompts, SERVE_LLM_TOKENS,
+                                     http_url=f"http://{host}:{port}/llm")
         same_b = [a == b for a, b in zip(outs_b, driver_outs)]
         say(f"llm 15 handle streams and 1 HTTP stream equal to the engine "
             f"phase's: {sum(same_b)} of 16 (HTTP: {same_b[0]})")
@@ -6327,9 +6516,10 @@ def serve_phase(dev, eng_res: dict, runtime_res: dict, tag: str,
             fail("serve: a stream without its last token passed the check")
         say("control stream without its last token: differs, as it must")
 
+        one_by_one = prompts[:SERVE_NAIVE_REQUESTS]
         solo = [toks(hl.remote({"prompt": p, "max_tokens":
                                 SERVE_LLM_TOKENS}).result())
-                for p in prompts]
+                for p in one_by_one]
         serve.delete("llm")
         wait_status("llm#LLMServer", lambda st: not st, 60, "the delete")
         Naive = naive_llm_deployment(lcfg, device=device).options(
@@ -6339,16 +6529,17 @@ def serve_phase(dev, eng_res: dict, runtime_res: dict, tag: str,
         t0 = time.perf_counter()
         naive = [toks(hn.remote({"prompt": p, "max_tokens":
                                  SERVE_LLM_TOKENS}).result())
-                 for p in prompts]
+                 for p in one_by_one]
         res["naive_wall_s"] = time.perf_counter() - t0
         nst = hn.engine_stats.remote().result()
+        n = len(one_by_one)
         same_n = sum(a == b for a, b in zip(naive, driver_outs))
         same_s = sum(a == b for a, b in zip(naive, solo))
-        say(f"llm naive_llm_deployment: 16 requests one at a time in "
+        say(f"llm naive_llm_deployment: {n} requests one at a time in "
             f"{res['naive_wall_s']:.3f} s; tokens equal to the engine "
-            f"phase's {same_n} of 16, to the continuous deployment's solo "
-            f"runs {same_s} of 16; engine {nst}")
-        if same_s != 16:
+            f"phase's {same_n} of {n}, to the continuous deployment's solo "
+            f"runs {same_s} of {n}; engine {nst}")
+        if same_s != n:
             fail("serve: the naive deployment's tokens differ from the "
                  "same requests run alone")
         serve.delete("naive")
@@ -6375,6 +6566,534 @@ def serve_phase(dev, eng_res: dict, runtime_res: dict, tag: str,
     return res
 
 
+# The serve_llm_split phase: Serve LLM's prefill/decode disaggregation on
+# two engines sharing the card, then Llama-3 8B through llm_deployment.
+# GPT-2 124M: two num_gpus=0.5 actors, each an LLMEngine with the engine
+# phase's config and params (share_weights=True: the driver publishes them
+# through the weights plane, as the serve phase does).  The prefill engine
+# runs prefill_remote on the engine phase's 16 prompts; the decode engine
+# attaches all 16 manifests while its loop is held (gated_llm_deployment's
+# pattern), so its schedule is the engine phase's: one decode batch of 16,
+# and its tokens must equal that phase's bitwise.  Llama-3 8B: one
+# num_gpus=1 llm_deployment replica with the llama_engine phase's config
+# and params (drawn on the card from SEED, block matrices x2), the same
+# 16 requests held and released.
+SPLIT_GPU_WORKERS = 3                 # the two half-card engines, the 8B
+
+
+class SplitEngine:
+    """One engine of a disaggregated pair, in a worker on half the card:
+    ``cfg`` (share_weights=True: the driver's published params) built on
+    ``device`` (None: the card).  The prefill side exports with
+    ``prefill_remote``; the decode side ``attach``es, held or not.  Times
+    each export's device-to-host gather and spool writes and each
+    attach's pulls; counts the kernels' launches of each run from 0 (the
+    prefill side's loop is idle while it exports, and the decode side's
+    attaches launch no kernel, so each count is its one thread's)."""
+
+    def __init__(self, cfg, device=None):
+        from ray_tpu_torch._device import disable_tf32
+        from ray_tpu_torch._private import data_plane
+        from ray_tpu_torch.serve.llm import LLMEngine
+        disable_tf32()                     # as the driver's main() does
+        self.eng = LLMEngine(cfg, device=device)
+        self.counters = kernel_counters()
+        self.streams, self.t_prefill, self.emits = [], {}, {}
+        self._stats0 = self.eng.stats()
+        self.t = {"gather": [], "spool": [], "pull": []}
+        self.finite = True
+        cache, runner = self.eng.cache, self.eng.runner
+        self._blocks_bytes = cache.blocks_bytes
+
+        def timed(key, fn):
+            def call(*a, **kw):
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                self.t[key].append(time.perf_counter() - t)
+                return out
+            return call
+
+        cache.blocks_bytes = timed("gather", cache.blocks_bytes)
+        data_plane.write_spool = timed("spool", data_plane.write_spool)
+        data_plane.DataPlanePool.pull = timed(
+            "pull", data_plane.DataPlanePool.pull)
+        emit, sample = self.eng._emit, runner.sample
+
+        def record(seq, tok):
+            self.emits.setdefault(seq.seq_id, []).append(time.time())
+            emit(seq, tok)
+
+        def checked(logits, sp, step):
+            self.finite = self.finite and bool(np.isfinite(logits).all())
+            return sample(logits, sp, step)
+
+        self.eng._emit, runner.sample = record, checked
+
+    def info(self) -> dict:
+        return {"pid": os.getpid(), "device": str(self.eng.runner.device),
+                "pool": str(self.eng.cache.pool.device),
+                "weights_key": self.eng.runner.weights_key,
+                "gpu_worker": os.environ.get("RTT_GPU_WORKER"),
+                "cuda_visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+    def _counts(self) -> dict:
+        return {k: getattr(m, a) for k, (m, a) in self.counters.items()}
+
+    def _sha(self, block_ids) -> str:
+        import hashlib
+        h = hashlib.sha256()
+        for r in self._blocks_bytes(block_ids):
+            h.update(r)
+        return h.hexdigest()
+
+    # ------------------------------------------------------- prefill side
+    def prefill(self, prompts, probe: int = -1) -> dict:
+        """``prefill_remote`` of each prompt in turn, counted from 0: the
+        manifests, the launches, the engine's counts after, each export's
+        times and bytes, and the sha256 of request ``probe``'s blocks in
+        this pool, read before the next prefill reuses them."""
+        from ray_tpu_torch.serve.llm import SamplingParams
+        zero_counts(self.counters)
+        for v in self.t.values():
+            v.clear()
+        mans, sha, wall = [], None, []
+        for i, p in enumerate(prompts):
+            t = time.perf_counter()
+            mans.append(self.eng.prefill_remote(p, SamplingParams()))
+            wall.append(time.perf_counter() - t)
+            if i == probe:
+                sha = self._sha([int(o.rsplit("_", 1)[1])
+                                 for o in mans[-1]["blocks"]])
+        return dict(manifests=mans, launches=self._counts(),
+                    stats=self.eng.stats(),
+                    free=self.eng.cache.free_block_count(),
+                    num_blocks=self.eng.cfg.num_blocks, probe_sha=sha,
+                    wall_s=wall, gather_s=list(self.t["gather"]),
+                    spool_s=list(self.t["spool"]),
+                    bytes=[len(m["blocks"]) * m["block_nbytes"]
+                           for m in mans])
+
+    def prefill_one(self, prompt) -> tuple:
+        """One ``prefill_remote``: its manifest and its start (host
+        clock)."""
+        t = time.time()
+        return self.eng.prefill_remote(prompt), t
+
+    # -------------------------------------------------------- decode side
+    def hold(self) -> bool:
+        """Stop the engine loop before its next step; zero the counters."""
+        gate, step = threading.Event(), self.eng.step
+
+        def held():
+            gate.wait()
+            return step()
+
+        self.eng.step = held
+        self._held = dict(gate=gate, step=step)
+        zero_counts(self.counters)
+        self.streams.clear()
+        self.emits.clear()
+        return True
+
+    def attach(self, manifests, max_tokens: int, probe: int = -1) -> dict:
+        """Attach each manifest (the loop held): each attach's seconds
+        and its block pulls', and the sha256 of request ``probe``'s
+        blocks as loaded in this pool."""
+        from ray_tpu_torch.serve.llm import SamplingParams
+        self.t["pull"].clear()
+        attach_s, sha = [], None
+        for i, m in enumerate(manifests):
+            t = time.perf_counter()
+            s = self.eng.attach(m, SamplingParams(max_tokens=max_tokens))
+            attach_s.append(time.perf_counter() - t)
+            self.streams.append(s)
+            if i == probe:
+                sha = self._sha(self.eng.cache.table(s.seq_id))
+        return dict(attach_s=attach_s, pull_s=list(self.t["pull"]),
+                    probe_sha=sha)
+
+    def release(self) -> bool:
+        h = self._held
+        self.eng.step = h["step"]
+        h["gate"].set()
+        return True
+
+    def attach_one(self, item, max_tokens: int) -> int:
+        """Attach one (manifest, prefill start) as it arrives, the loop
+        running."""
+        from ray_tpu_torch.serve.llm import SamplingParams
+        man, t = item
+        s = self.eng.attach(man, SamplingParams(max_tokens=max_tokens))
+        self.streams.append(s)
+        self.t_prefill[s.seq_id] = t
+        return len(self.streams) - 1
+
+    def collect(self) -> dict:
+        """Every attached stream's tokens and emit times, the launches
+        counted since ``hold`` (or the last collect) and the engine's
+        counts, now and at the last collect."""
+        outs = [s.tokens() for s in self.streams]
+        stats = self.eng.stats()
+        res = dict(outs=outs, emits=[self.emits[s.seq_id]
+                                     for s in self.streams],
+                   t_prefill=[self.t_prefill.get(s.seq_id)
+                              for s in self.streams],
+                   launches=self._counts(), stats=stats,
+                   stats0=self._stats0, finite=self.finite)
+        self._stats0 = stats
+        zero_counts(self.counters)
+        self.streams.clear()
+        self.emits.clear()
+        return res
+
+    def profile_decode(self, ctx: int, tag: str) -> dict:
+        """One decode step at batch 16 over ``ctx`` tokens each, profiled
+        (``profile_steps``, as the engine phase profiles its own)."""
+        return profile_steps(self.eng.runner, self.eng.cache.pool,
+                             self.eng.runner.device, None, ctx, tag)
+
+    def close(self) -> bool:
+        self.eng.shutdown()
+        return True
+
+
+def llama_engine_params(device=None):
+    """The llama_engine phase's params on ``device`` (None: the card):
+    drawn from SEED by a generator on the card, block matrices x the
+    spec's scale."""
+    from ray_tpu_torch._device import resolve_device
+    from ray_tpu_torch.serve.llm.config import resolve_model
+    spec = llama_engine()
+    mod, mcfg = resolve_model(spec["cfg"])
+    gen = torch.Generator(device=spec["gen_device"]).manual_seed(SEED)
+    p = mod.init_params(gen, mcfg, device=resolve_device(device))
+    for name in spec["blocks"]:
+        p["blocks"][name]["kernel"].mul_(spec["block_scale"])
+    return p
+
+
+def serve_llm_split_phase(dev, eng_res: dict, llama_res: dict, tag: str,
+                          device=None) -> dict:
+    """Disaggregated GPT-2 124M on two half-card engines, then Llama-3 8B
+    through ``llm_deployment``: see the comment above SPLIT_GPU_WORKERS.
+    The engines and the replica are built on ``device`` (None: the
+    card)."""
+    import dataclasses
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private import shm_store
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+    from ray_tpu_torch.serve.llm import LLMEngine, weights
+    from ray_tpu_torch.serve.llm.config import resolve_model
+    from ray_tpu_torch.serve.llm.kv_cache import EXPORT_SPOOL_PREFIX
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    saved = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [here] + ([saved] if saved else []))
+    watch = ClusterWatch(shm_store._SHM_DIR)
+    res: dict = {}
+    spec = gpt2_engine()
+    cfg = dataclasses.replace(spec["cfg"], share_weights=True)
+    wkey = f"{cfg.model_key()}_s{cfg.seed}"
+    published = False
+    prompts, driver_outs = eng_res["requests"]
+    n_layer = eng_res["n_layer"]
+    vocab = resolve_model(cfg)[1].vocab_size
+    want_dev = "cuda" if device is None else torch.device(device).type
+
+    def on(d: str) -> bool:                 # "cuda:0" is on "cuda"
+        return torch.device(d).type == want_dev
+    T = SERVE_LLM_TOKENS
+    probe = int(np.argmax([len(p) for p in prompts]))   # the most blocks
+
+    def say(msg: str) -> None:
+        print(f"serve_llm_split {msg} [{tag}]", flush=True)
+
+    def spools() -> list:
+        return sorted(n for n in _names(shm_store._SHM_DIR)
+                      if n.startswith(EXPORT_SPOOL_PREFIX))
+
+    holders = compute_app_pids()
+    try:
+        t0 = time.perf_counter()
+        info = rt.init(num_cpus=4, _system_config={
+            "gpu_workers_per_node": SPLIT_GPU_WORKERS})
+        res["init_s"] = time.perf_counter() - t0
+        watch.start(rt._head, info["session_dir"])
+        weights.publish_or_attach(wkey, gpt2_engine_params,
+                                  torch.device("cpu"))
+        published = True
+
+        # -- a. GPT-2 124M: prefill on one engine, decode on the other
+        Half = rt.remote(num_gpus=0.5)(SplitEngine)
+        t0 = time.perf_counter()
+        pre, dec = Half.remote(cfg, device), Half.remote(cfg, device)
+        infos = rt.get([pre.info.remote(), dec.info.remote()], timeout=600)
+        res["engines_boot_s"] = time.perf_counter() - t0
+        say(f"engines {infos} booted in {res['engines_boot_s']:.2f} s")
+        if len({i["pid"] for i in infos} | {os.getpid()}) != 3 or any(
+                not on(i["device"]) or not on(i["pool"])
+                or i["gpu_worker"] != "1" or i["weights_key"] != wkey
+                for i in infos):
+            fail(f"serve_llm_split: the engines are not two workers on "
+                 f"the card with the published weights: {infos}")
+        # warm: one prompt a prefill bucket, exported and attached
+        rng = np.random.default_rng(SEED + 2)
+        warm = rt.get(pre.prefill.remote(
+            [rng.integers(0, vocab, n).tolist()
+             for n in spec["warm"]]), timeout=300)
+        rt.get(dec.hold.remote())
+        rt.get(dec.attach.remote(warm["manifests"], 2), timeout=300)
+        rt.get(dec.release.remote())
+        rt.get(dec.collect.remote(), timeout=300)
+
+        # the main path: 16 exports, 16 attaches while held, one batch
+        t0 = time.perf_counter()
+        pf = rt.get(pre.prefill.remote(prompts, probe), timeout=300)
+        rt.get(dec.hold.remote())
+        at = rt.get(dec.attach.remote(pf["manifests"], T, probe),
+                    timeout=300)
+        rt.get(dec.release.remote())
+        run = rt.get(dec.collect.remote(), timeout=300)
+        res["main_wall_s"] = time.perf_counter() - t0
+        mans = pf["manifests"]
+        same = [a == b for a, b in zip(run["outs"], driver_outs)]
+        want_pf = {"flash_attention_fwd": len(prompts) * n_layer,
+                   "layer_norm_fwd": len(prompts) * (2 * n_layer + 1)}
+        dsteps = run["stats"]["decode_steps"] - \
+            run["stats0"]["decode_steps"]
+        say(f"16 disaggregated streams equal to the engine phase's: "
+            f"{sum(same)} of {len(same)}; prefill engine launches "
+            f"{ {k: pf['launches'][k] for k in want_pf} } (expected "
+            f"{want_pf}), its decode_steps {pf['stats']['decode_steps']}, "
+            f"free blocks after export {pf['free']} of {pf['num_blocks']}; "
+            f"decode engine prefill_steps {run['stats']['prefill_steps']}, "
+            f"launches {run['launches']['layer_norm_fwd']} LayerNorm / "
+            f"{run['launches']['flash_attention_fwd']} flash in "
+            f"{dsteps} decode steps")
+        if len(same) != 16 or not all(same):
+            fail("serve_llm_split: the disaggregated tokens differ from "
+                 "the engine phase's")
+        if run["stats"]["prefill_steps"] != 0 or \
+                pf["stats"]["decode_steps"] != 0 or \
+                pf["free"] != pf["num_blocks"]:
+            fail("serve_llm_split: a recompute on the decode side, a "
+                 "decode on the prefill side, or blocks kept after export")
+        bad = {k: v for k, v in pf["launches"].items()
+               if v != want_pf.get(k, 0)}
+        if bad:
+            fail(f"serve_llm_split: the prefill engine's launches {bad}, "
+                 f"expected {want_pf} and no other kernel")
+        want_dc = {"layer_norm_fwd": (2 * n_layer + 1) * dsteps}
+        bad = {k: v for k, v in run["launches"].items()
+               if v != want_dc.get(k, 0)}
+        if bad or dsteps <= 0:
+            fail(f"serve_llm_split: the decode engine's launches {bad} in "
+                 f"{dsteps} decode steps, expected {want_dc} and no other "
+                 f"kernel")
+        need = [-(-len(p) // cfg.block_size) for p in prompts]
+        if [len(m["blocks"]) for m in mans] != need or any(
+                not m["addr"].startswith("tcp://") for m in mans):
+            fail("serve_llm_split: a manifest's blocks or address are wrong")
+        say(f"request {probe} ({len(prompts[probe])} tokens, "
+            f"{len(mans[probe]['blocks'])} blocks of "
+            f"{mans[probe]['block_nbytes']} B): sha256 in the prefill pool "
+            f"{pf['probe_sha'][:16]}, as loaded in the decode pool "
+            f"{at['probe_sha'][:16]}")
+        if not pf["probe_sha"] or pf["probe_sha"] != at["probe_sha"]:
+            fail("serve_llm_split: the decode pool's blocks are not the "
+                 "prefill pool's bytes")
+        ends = np.cumsum([len(m["blocks"]) for m in mans])
+        exp_s = [g + sum(pf["spool_s"][e - len(m["blocks"]):e])
+                 for g, e, m in zip(pf["gather_s"], ends, mans)]
+        res.update(
+            export_ms_p50=1e3 * _pct(exp_s, 50),
+            export_mb_s=sum(pf["bytes"]) / sum(exp_s) / 1e6,
+            gather_ms_p50=1e3 * _pct(pf["gather_s"], 50),
+            prefill_remote_ms_p50=1e3 * _pct(pf["wall_s"], 50),
+            pull_ms_p50=1e3 * _pct(at["pull_s"], 50),
+            attach_s_p50=_pct(at["attach_s"], 50),
+            attach_s_max=max(at["attach_s"]),
+            exported_mb=sum(pf["bytes"]) / 1e6,
+            decode_steps=dsteps,
+            tpot_p50_ms=1e3 * _pct([b - a for e in run["emits"]
+                                    for a, b in zip(e, e[1:])], 50),
+            engine_tpot_p50_ms=eng_res["tpot_p50_ms"],
+            launches={"flash_attention_fwd": pf["launches"][
+                "flash_attention_fwd"], "layer_norm_fwd":
+                pf["launches"]["layer_norm_fwd"] +
+                run["launches"]["layer_norm_fwd"]})
+        say(f"export {res['export_ms_p50']:.3f} ms a request p50 "
+            f"({res['exported_mb']:.1f} MB at {res['export_mb_s']:.0f} "
+            f"MB/s; its device-to-host gather p50 "
+            f"{res['gather_ms_p50']:.3f} ms), prefill_remote "
+            f"{res['prefill_remote_ms_p50']:.3f} ms p50; a block pull "
+            f"{res['pull_ms_p50']:.3f} ms p50, an attach "
+            f"{res['attach_s_p50']:.4f} s p50 / {res['attach_s_max']:.4f} s "
+            f"max; decode tpot p50 {res['tpot_p50_ms']:.3f} ms (engine "
+            f"phase {res['engine_tpot_p50_ms']:.3f} ms)")
+
+        # -- planted fault: one manifest with its last two block ids
+        # swapped (the most recent context: with the first two swapped,
+        # the first card run's tokens did not change)
+        swap = [dict(m) for m in mans]
+        swap[probe]["blocks"] = list(swap[probe]["blocks"])
+        b = swap[probe]["blocks"]
+        b[-1], b[-2] = b[-2], b[-1]
+        rt.get(dec.hold.remote())
+        rt.get(dec.attach.remote(swap, T), timeout=300)
+        rt.get(dec.release.remote())
+        ctl = rt.get(dec.collect.remote(), timeout=300)
+        others = [a == w for i, (a, w) in enumerate(
+            zip(ctl["outs"], driver_outs)) if i != probe]
+        say(f"control manifest with its last two blocks swapped: its tokens "
+            f"differ from the engine phase's: "
+            f"{ctl['outs'][probe] != driver_outs[probe]}; the other 15 "
+            f"equal: {sum(others)} of 15")
+        if ctl["outs"][probe] == driver_outs[probe] or not all(others):
+            fail("serve_llm_split: a manifest with swapped blocks passed "
+                 "the token check, or the others changed with it")
+        # -- planted fault: a decode engine of another block geometry
+        geo = LLMEngine(dataclasses.replace(cfg, block_size=8),
+                        start=False, device=dev if device is None
+                        else device)
+        try:
+            geo.attach(mans[0])
+            fail("serve_llm_split: a block_size=8 engine attached a "
+                 "block_size=16 manifest")
+        except ValueError as e:
+            say(f"control block_size=8 decode engine: {e}")
+            if "geometry" not in str(e):
+                fail(f"serve_llm_split: the geometry control failed "
+                     f"otherwise: {e}")
+        finally:
+            geo.shutdown()
+            del geo
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # ungated: each manifest attached as it arrives, the loop running
+        t0 = time.perf_counter()
+        refs = [pre.prefill_one.remote(p) for p in prompts]
+        rt.get([dec.attach_one.remote(r, T) for r in refs], timeout=300)
+        ung = rt.get(dec.collect.remote(), timeout=300)
+        res["ungated_wall_s"] = time.perf_counter() - t0
+        ttd = [e[1] - t for e, t in zip(ung["emits"], ung["t_prefill"])]
+        res["prefill_to_first_decoded_ms_p50"] = 1e3 * _pct(ttd, 50)
+        res["prefill_to_first_decoded_ms_max"] = 1e3 * max(ttd)
+        ok = all(len(o) == T and all(0 <= t < vocab for t in o)
+                 for o in ung["outs"]) and ung["finite"] and \
+            ung["stats"]["prefill_steps"] == 0
+        differ = sum(a != b for a, b in zip(ung["outs"], driver_outs))
+        say(f"ungated: 16 streams of {T} in-vocab tokens from finite "
+            f"logits, decode prefill_steps 0: {ok}; {differ} of 16 differ "
+            f"from the engine phase's (other decode batches); prefill_remote "
+            f"start to the first decoded token p50 "
+            f"{res['prefill_to_first_decoded_ms_p50']:.2f} ms max "
+            f"{res['prefill_to_first_decoded_ms_max']:.2f} ms; wall "
+            f"{res['ungated_wall_s']:.2f} s")
+        if not ok:
+            fail("serve_llm_split: the ungated run's streams are wrong")
+        ctx = spec["profile"][1]          # the engine phase's decode
+        step = f"decode_b16_ctx{ctx}"
+        prof = rt.get(dec.profile_decode.remote(ctx, tag), timeout=300)
+        res["decode_profile_device_ms"] = prof[step]["device_ms"]
+        res["engine_decode_profile_device_ms"] = \
+            eng_res["profile"][step]["device_ms"]
+        say(f"one decode step b16 ctx{ctx} device_ms "
+            f"{res['decode_profile_device_ms']:.4g} on half the card, the "
+            f"engine phase's {res['engine_decode_profile_device_ms']:.4g}")
+        rt.get([pre.close.remote(), dec.close.remote()], timeout=120)
+        left = spools()
+        rt.kill(pre)
+        rt.kill(dec)
+        say(f"export spools left after the engines' shutdown: {left}")
+        if left:
+            fail("serve_llm_split: an engine's shutdown left its spool")
+        wait_card_holders("serve_llm_split engines", tag, holders)
+        weights.release(wkey)
+        published = False
+
+        # -- b. Llama-3 8B through llm_deployment
+        lspec = llama_engine()
+        lprompts, louts = llama_res["requests"]
+        lvocab = resolve_model(lspec["cfg"])[1].vocab_size
+        LLM = serve.deployment(
+            name="LlamaServer", max_ongoing_requests=64,
+            ray_actor_options={"num_gpus": 1.0})(
+                gated_llm_deployment(lspec["cfg"], device,
+                                     llama_engine_params))
+        t0 = time.perf_counter()
+        hl = serve.run(LLM.bind(), name="llama", route_prefix=None,
+                       _wait_timeout_s=600)
+        hl.engine_stats.remote().result(timeout_s=600)   # engine built
+        res["llama_replica_boot_s"] = time.perf_counter() - t0
+        rng = np.random.default_rng(SEED + 3)
+        for n in lspec["warm"]:
+            list(hl.remote({"prompt": rng.integers(
+                0, lvocab, n).tolist(),
+                "max_tokens": 2}).result())
+        outs, rep, first = gated_llm_run(hl, lprompts, T)
+        same = [a == b for a, b in zip(outs, louts)]
+        got = rep["launches"]
+        want = llama_res["launches"]["flash_attention_fwd_gqa_d128"]
+        res.update(
+            llama_ttft_p50_ms=1e3 * _pct(rep["ttft_s"], 50),
+            llama_ttft_max_ms=1e3 * max(rep["ttft_s"]),
+            llama_tpot_p50_ms=1e3 * _pct(rep["tpot_s"], 50),
+            llama_engine_ttft_p50_ms=llama_res["ttft_p50_ms"],
+            llama_engine_tpot_p50_ms=llama_res["tpot_p50_ms"],
+            llama_peak_mem_gb=rep["peak_mem_gb"])
+        res["launches"]["flash_attention_fwd_gqa_d128"] = \
+            got["flash_attention_fwd_gqa_d128"]
+        say(f"llama3-8b through llm_deployment: 16 streams equal to the "
+            f"llama_engine phase's {sum(same)} of {len(same)}; replica "
+            f"(pid {rep['pid']}, {rep['device']}) launches d128 "
+            f"{got['flash_attention_fwd_gqa_d128']} (llama_engine {want}), "
+            f"<64,64> {got['flash_attention_fwd']}, float32 "
+            f"{got['flash_attention_fwd_f32']}; boot "
+            f"{res['llama_replica_boot_s']:.2f} s, ttft p50 "
+            f"{res['llama_ttft_p50_ms']:.4g} ms max "
+            f"{res['llama_ttft_max_ms']:.4g} ms, tpot p50 "
+            f"{res['llama_tpot_p50_ms']:.4g} ms (llama_engine phase "
+            f"{llama_res['ttft_p50_ms']:.4g} / "
+            f"{llama_res['tpot_p50_ms']:.4g} ms), peak memory "
+            f"{rep['peak_mem_gb']:.2f} GB")
+        if len(same) != 16 or not all(same) or not on(rep["device"]):
+            fail("serve_llm_split: the Llama deployment's tokens differ "
+                 "from the llama_engine phase's, or it ran off the card")
+        if got["flash_attention_fwd_gqa_d128"] != want or want <= 0 or \
+                got["flash_attention_fwd"] or \
+                got["flash_attention_fwd_f32"] or \
+                got["layer_norm_fwd_scalar"]:
+            fail("serve_llm_split: the Llama replica's flash launches are "
+                 "not the llama_engine phase's")
+        serve.delete("llama")
+    finally:
+        if published:
+            weights.release(wkey)
+        started = hasattr(watch, "head")
+        if started:
+            watch.poll()
+        serve.shutdown()
+        rt.shutdown()
+        GLOBAL_CONFIG.reset()
+        if started:
+            watch.stop()
+        if saved is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = saved
+    check_cluster_gone(watch, "serve_llm_split", tag)
+    wait_card_holders("serve_llm_split", tag, holders)
+    for k, val in res.items():
+        say(f"{k} {val}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 # The ray_train phase: the port's Ray Train on its own runtime.  BASELINE
 # #5's recipe (xl_train_phase's main path) runs in a num_gpus=1 train
 # worker that TorchTrainer's placement group placed; GPT-2 124M restarts
@@ -6383,7 +7102,8 @@ def serve_phase(dev, eng_res: dict, runtime_res: dict, tag: str,
 # with RAY_TRAIN_LOSS_TOL: the same program, seed, batch and card, so
 # bitwise equality is expected (limit 0); a batch shifted by one token
 # must land beyond it.  The crash-and-restore run's final params must be
-# bitwise those of an uninterrupted run (sha256 over the leaves); a
+# bitwise those of the same run uninterrupted in the driver (sha256 over
+# the leaves: the same program, seed, batches and card, as for xl); a
 # restore that re-initialises the optimizer state must not.
 RAY_TRAIN_LOSS_TOL = 0.0
 RESTORE_BATCH, RESTORE_SEQ = 8, 1024
@@ -6510,6 +7230,32 @@ def restore_loop(config: dict) -> None:
         train.report(row, checkpoint=ckpt)
         if ckpt is not None:
             shutil.rmtree(ckpt.path, ignore_errors=True)
+
+
+def restore_reference(dev) -> dict:
+    """``restore_loop``'s uninterrupted run in this process: the same
+    program, seed, batches and card, so the trainer's crashed and
+    restored run must end with these params bitwise (as its xl run gives
+    the driver's losses bitwise)."""
+    from ray_tpu_torch.models import gpt2
+    cfg = gpt2.gpt2_small()
+    prog = gpt2_program(dev, cfg)
+    state = prog.init_fn(torch.Generator(device=dev).manual_seed(SEED))
+    losses = []
+    t = time.perf_counter()
+    for step in range(1, TRAIN_STEPS + 1):
+        state, m = prog.step_fn(state, xl_batch(
+            dev, cfg.vocab_size, RESTORE_BATCH, RESTORE_SEQ,
+            seed=SEED + step))
+        losses.append(m["loss"].item())
+    out = dict(steps=list(range(1, TRAIN_STEPS + 1)), losses=losses,
+               sha=params_sha256(state.params),
+               wall_s=time.perf_counter() - t, restore_s=None,
+               resume_gap_s=None)
+    del state, prog
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def allreduce_loop(config: dict) -> None:
@@ -6663,10 +7409,15 @@ def ray_train_phase(dev, xl: dict, card, tag: str) -> dict:
         if not ok:
             fail("ray_train: a use_gpu=False worker did not raise")
 
-        # -- 2. crash and restore of GPT-2 124M
-        runs = {}
-        for name, cfg in (("straight", {}),
-                          ("restored", {"crash": True}),
+        # -- 2. crash and restore of GPT-2 124M, against the same run
+        # uninterrupted in this process
+        runs = {"straight": restore_reference(dev)}
+        print(f"ray_train restore straight (this process): steps "
+              f"{runs['straight']['steps']} losses "
+              f"{runs['straight']['losses']} params sha256 "
+              f"{runs['straight']['sha'][:16]} in "
+              f"{runs['straight']['wall_s']:.2f} s [{tag}]", flush=True)
+        for name, cfg in (("restored", {"crash": True}),
                           ("control_no_opt_state",
                            {"crash": True, "plant": "no_opt_state"})):
             cfg["marker"] = os.path.join(storage, f"crashed_{name}")
@@ -7904,6 +8655,8 @@ def main() -> int:
     print(f"llama_engine depth {llama['n_layer']} layers (the preset's, "
           f"uncut) at full width [{tag}]", flush=True)
     phase_done("llama_engine")
+    split = serve_llm_split_phase(dev, eng, llama, tag)
+    phase_done("serve_llm_split")
     train = train_phase(dev, card, tag)
     gc.collect()                  # GPT-2's train state
     torch.cuda.empty_cache()
@@ -7958,7 +8711,7 @@ def main() -> int:
     # every main path's launches of the kernels it counts, each counted
     # from 0 over its own run
     paths = {"engine": eng, "runtime": runtime, "serve": served,
-             "llama_engine": llama,
+             "llama_engine": llama, "serve_llm_split": split,
              "train": train,
              "llama_train": llama_train, "xl_train": xl_train,
              "ray_train": ray_train, "ray_data": ray_data,

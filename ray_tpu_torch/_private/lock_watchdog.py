@@ -551,11 +551,13 @@ DONATED: Dict[str, Tuple[int, ...]] = {
 }
 
 # compile_budget site -> declared steady-state compile ceiling (count
-# of distinct XLA programs one region owner may build).  The runtime
+# of distinct XLA programs one region owner may build; in the port,
+# distinct input signatures, their eager counterpart).  The runtime
 # oracle raises :class:`XlaHygieneViolation` (xla_watchdog.py) when a
-# site's owner exceeds ``budget + RTT_XLA_WATCHDOG_WARMUP``;
-# jaxlint pins each ``compile_budget("<site>")`` call to exactly one
-# row here (``compile-budget-undeclared`` / ``compile-budget-dead``).
+# site's owner exceeds ``budget + RTT_XLA_WATCHDOG_WARMUP``; an AST
+# check (tests/test_torch_xla_watchdog.py) pins each of the port's
+# ``compile_budget("<site>")`` calls to exactly one row here, and each
+# row to a call.
 # Keep ceilings honest: the bucket-table length for the bucketed LLM
 # programs (a site override passes the live ``len(buckets)``), one
 # program for the train step.

@@ -12,8 +12,11 @@ Differences from the reference, each forced by the port:
   params and optimizer moments IN PLACE (the counterpart of
   ``donate_state``), returning the same ``TrainState`` object.
 - The metrics are device tensors and nothing in a step syncs with the
-  host (the counterpart of the reference's ``train.step`` budget); read
-  them after the step.
+  host; read them after the step.  ``step_fn`` runs inside the
+  ``train.step`` region of the step-hygiene oracle
+  (``_private/xla_watchdog.py``, armed by ``RTT_XLA_WATCHDOG=1``), as in
+  the reference: a host read inside the step raises, and so does a
+  second batch signature (shapes, dtypes) for one program.
 - One device only: a ``mesh`` or ``mesh_config`` that describes more than
   one device raises ``NotImplementedError`` until the multi-GPU slice
   (ROADMAP queue A, slice 4) ports meshes, sharding rules and
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
+from ray_tpu_torch._private.xla_watchdog import compile_budget, signature
 from ray_tpu_torch.parallel import transforms as tx
 from ray_tpu_torch.parallel.optim import adamw_compact, apply_updates_mixed
 
@@ -180,7 +184,7 @@ def build_train_program(
                             acc, params)
         return loss_sum * inv, grads
 
-    def step_fn(state: TrainState, batch: Any):
+    def _step(state: TrainState, batch: Any):
         if accum_steps > 1:
             loss, grads = grads_accum(state.params, batch)
         else:
@@ -193,6 +197,16 @@ def build_train_program(
             state.step.add_(1)
         return state, {"loss": loss, "grad_norm": gnorm,
                        "step": state.step.float()}
+
+    # the step region: one batch signature for this program's life
+    # (COMPILE_BUDGETS["train.step"]) and no host read inside the step;
+    # the caller's reads of the metrics happen on its side of it
+    step_budget = compile_budget("train.step")
+
+    def step_fn(state: TrainState, batch: Any):
+        with step_budget:
+            step_budget.see(signature(tx.tree_leaves(batch)))
+            return _step(state, batch)
 
     return SpmdProgram(device=dev, mesh_config=mesh_config, init_fn=init_fn,
                        step_fn=step_fn)

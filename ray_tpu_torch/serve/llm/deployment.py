@@ -21,7 +21,14 @@ On the card: the engine is built on ``device`` (default ``cuda``, which
 raises in a replica that sees no card; give the deployment
 ``ray_actor_options={"num_gpus": ...}``), and ``model_cfg`` overrides the
 preset's model config (the CPU tests run float32).  ``engine_stats``
-returns no ``kv_segment``: the port's KV pool lives on the device.
+returns no ``kv_segment``: the port's KV pool lives on the device, and
+what a killed replica leaves on the host (its weights segment, its KV
+export spool) carries its pid in the name, for the next engine's boot
+to reap.  Disaggregated prefill/decode is the engine's API
+(``LLMEngine.prefill_remote`` / ``attach``), as in the reference: no
+deployment type wraps it.  Any ``EngineConfig`` serves, Llama-3 8B
+included; an 8B replica takes ``share_weights=False``, since the weights
+plane publishes float32 (32 GB of shared memory for 8B).
 """
 
 from __future__ import annotations

@@ -22,17 +22,31 @@ block and occupancy gauges after every step, TTFT and TPOT histograms,
 the preemption counter, and the spans ``llm.prefill``,
 ``llm.decode_step`` and ``llm.preempt`` parented to the submitter's span.
 None of them reads the device: every value is a host count or a host
-clock, so a step gains no synchronisation.
+clock, so a step gains no synchronisation.  With the flight recorder
+installed, each step that runs work and each preemption leave a record.
 
-Not in this slice: disaggregated prefill/decode over the data plane
-(``prefill_remote``, ``attach``, the KV export plane and the KV pool's
-shm segment; the pool lives on the device) and the flight recorder's
-engine records.
+Disaggregated prefill/decode rides the runtime's data plane, as in the
+reference: ``prefill_remote()`` prefills on the caller's thread and
+copies the sequence's filled KV blocks from the device pool (one gather,
+one device-to-host copy) into an export spool, ``rtt_llm_export_<pid>_*``
+in the port's shm directory (``RTT_SHM_DIR``), which the engine's
+``DataPlaneServer`` serves; it returns a manifest.  ``attach()`` on
+another engine pulls the blocks with pooled ``DataPlanePool`` pulls,
+copies each into a freshly allocated block of its own pool, and queues
+the sequence with its first token: it decodes WITHOUT re-running
+prefill (``prefill_steps`` is the no-recompute oracle).  The
+``llm.prefill_remote`` span travels in the manifest and parents
+``llm.attach``, which parents the sequence's decode spans.  Both calls
+share the device's default stream with the engine loop, so a block is
+read only after its prefill's writes.
 """
 
 from __future__ import annotations
 
+import os
 import queue
+import shutil
+import tempfile
 import threading
 import time
 import uuid
@@ -42,10 +56,12 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ray_tpu_torch._device import DeviceLike
-from ray_tpu_torch._private import rtlog
+from ray_tpu_torch._private import flight_recorder, rtlog, shm_store
 from ray_tpu_torch._private.config import GLOBAL_CONFIG
 from ray_tpu_torch.serve.llm.config import EngineConfig, SamplingParams
-from ray_tpu_torch.serve.llm.kv_cache import NoFreeBlocks, PagedKVCache
+from ray_tpu_torch.serve.llm.kv_cache import (EXPORT_SPOOL_PREFIX,
+                                              NoFreeBlocks, PagedKVCache,
+                                              reap_orphan_export_spools)
 from ray_tpu_torch.serve.llm.model_runner import ModelRunner
 from ray_tpu_torch.serve.llm.scheduler import (FAILED, FINISHED,
                                                IterationScheduler, Plan,
@@ -58,6 +74,14 @@ logger = rtlog.get("serve.llm.engine")
 
 _DONE = "__llm_done__"
 _ERR = "__llm_err__"
+_EXPORT_WINDOW = 64           # exported manifests kept for late attachers
+
+
+def _spool_base() -> Optional[str]:
+    """Where export spools live: the port's shm directory, read at call
+    time (``shm_store._SHM_DIR``, ``RTT_SHM_DIR``)."""
+    base = shm_store._SHM_DIR
+    return str(base) if os.path.isdir(base) else None
 
 
 class RequestStream:
@@ -139,6 +163,7 @@ class LLMEngine:
                 f"{cfg.decode_batch_buckets[-1]} < max_num_seqs "
                 f"{cfg.max_num_seqs}: a full batch would have no bucket")
         weights.reap_orphans()
+        reap_orphan_export_spools(_spool_base())
         self.cfg = cfg
         self.runner = ModelRunner(cfg, params, device=device,
                                   model_cfg=model_cfg)
@@ -151,15 +176,23 @@ class LLMEngine:
                                         cfg.max_model_len)
         self._lock = threading.Lock()
         self._inbox: deque = deque()                 # guarded by: _lock
+        self._attached: deque = deque()              # guarded by: _lock
         self._streams: Dict[str, queue.Queue] = {}   # guarded by: _lock
         self._cancels: set = set()                   # guarded by: _lock
         self._wake = threading.Event()
         self._stop = threading.Event()
-        # step-loop-owned counters (read-only elsewhere)
-        self.prefill_steps = 0
+        # decode_steps/preemptions/tokens_out are step-loop-owned
+        # (read-only elsewhere).  prefill_steps has a second writer,
+        # prefill_remote() on the caller's thread, so every += runs
+        # under _lock.
+        self.prefill_steps = 0                       # guarded by: _lock
         self.decode_steps = 0
         self.preemptions = 0
         self.tokens_out = 0
+        self._export_server = None
+        self._export_spool: Optional[str] = None
+        self._exports: deque = deque()               # guarded by: _lock
+        self._pull_pool = None
         self._thread: Optional[threading.Thread] = None
         if start:
             self.start()
@@ -184,6 +217,15 @@ class LLMEngine:
             self._streams.clear()
         for q in streams:           # unblock any readers
             q.put((_ERR, "engine shut down"))
+        if self._export_server is not None:
+            self._export_server.stop()
+            self._export_server = None
+        if self._pull_pool is not None:
+            self._pull_pool.close_all()
+            self._pull_pool = None
+        if self._export_spool:
+            shutil.rmtree(self._export_spool, ignore_errors=True)
+            self._export_spool = None
         if self.runner.weights_key:
             weights.release(self.runner.weights_key)
         self.cache.close()
@@ -240,13 +282,14 @@ class LLMEngine:
 
     def _work_pending(self) -> bool:
         with self._lock:
-            backlog = bool(self._inbox)
+            backlog = bool(self._inbox or self._attached)
         return backlog or self.sched.has_work()
 
     def step(self) -> bool:
         """One iteration: admit, (maybe) prefill, decode, publish.
         Returns False when nothing was runnable (loop backs off)."""
         self._drain_cancels()
+        self._drain_attached()
         with self._lock:
             while self._inbox:
                 seq = self._inbox.popleft()
@@ -267,6 +310,13 @@ class LLMEngine:
                          f"holds ({self.cache.num_blocks})")
         plan = self.sched.plan(self.cache.free_block_count(),
                                self.cache.blocks_needed)
+        if flight_recorder.enabled() and \
+                (plan.prefill is not None or plan.decode):
+            flight_recorder.record(
+                "llm_step",
+                f"prefill={'1' if plan.prefill is not None else '0'} "
+                f"decode={len(plan.decode)} "
+                f"free={self.cache.free_block_count()}")
         if plan.prefill is not None:
             self._do_prefill(plan.prefill)
         elif plan.decode:
@@ -289,7 +339,8 @@ class LLMEngine:
             self.cache.free_seq(seq.seq_id)
             self._finish(seq, FAILED, f"prefill failed: {e!r}")
             return
-        self.prefill_steps += 1
+        with self._lock:
+            self.prefill_steps += 1
         self.cache.scatter_prefill(seq.seq_id, ks, vs, len(seq.prompt))
         # sampling step = tokens generated so far RELATIVE TO THE
         # ORIGINAL prompt, so a preemption re-prefill draws the same rng
@@ -385,6 +436,9 @@ class LLMEngine:
             return False
         logger.info("preempting %s under cache pressure (ctx=%d)",
                     victim.seq_id, victim.ctx_len)
+        if flight_recorder.enabled():
+            flight_recorder.record(
+                "llm_preempt", f"{victim.seq_id} ctx={victim.ctx_len}")
         if victim.trace is not None:
             tracing.emit_span("llm.preempt", victim.trace, time.time(),
                               0.0, cat="llm", seq_id=victim.seq_id,
@@ -398,6 +452,195 @@ class LLMEngine:
                 tags={"model": self.cfg.model})
         return True
 
+    # --------------------------------------------------- prefill/decode split
+    def _ensure_export_plane(self):
+        from ray_tpu_torch._private.data_plane import DataPlaneServer
+        with self._lock:
+            if self._export_server is not None:
+                return self._export_server
+        # built OUTSIDE the lock: the orphan sweep, mkdtemp and the
+        # listener's bind are I/O, and _lock is a leaf guarding handoff
+        # state that is never held across blocking work
+        base = _spool_base()
+        reap_orphan_export_spools(base)
+        # the pid in the name makes a SIGKILLed publisher's spool
+        # reapable by the next engine on the host
+        spool = tempfile.mkdtemp(
+            prefix=f"{EXPORT_SPOOL_PREFIX}{os.getpid()}_", dir=base)
+        server = DataPlaneServer(spool, host="127.0.0.1",
+                                 advertise_host="127.0.0.1")
+        with self._lock:                # prefill_remote races are legal
+            if self._export_server is None:
+                self._export_spool = spool
+                self._export_server = server
+                return server
+            winner = self._export_server
+        server.stop()                   # lost the race: tear ours down
+        shutil.rmtree(spool, ignore_errors=True)
+        return winner
+
+    def prefill_remote(self, prompt: List[int],
+                       sampling: Optional[SamplingParams] = None) -> dict:
+        """Run prefill here; publish the filled KV blocks on the data
+        plane and return the manifest a decode engine ``attach()``es.
+
+        Runs on the caller's thread (the engine loop keeps decoding its
+        own batch meanwhile; cache alloc/free are thread-safe).  The
+        blocks are read back after the prefill's writes on the same
+        stream, in one device-to-host copy."""
+        from ray_tpu_torch._private.data_plane import write_spool
+        sampling = sampling or SamplingParams()
+        if self._stop.is_set():
+            raise RuntimeError("engine shut down")
+        seq_id = "pf_" + uuid.uuid4().hex[:12]
+        prompt = [int(t) for t in prompt]
+        span = tracing.current_span()   # caller's thread context
+        if span is not None and not span.sampled:
+            span = None
+        t0 = time.time()
+        self.cache.alloc_seq(seq_id, len(prompt))
+        try:
+            logits, ks, vs = self.runner.prefill(prompt)
+            with self._lock:
+                self.prefill_steps += 1
+            self.cache.scatter_prefill(seq_id, ks, vs, len(prompt))
+            first = self.runner.sample(logits, sampling, step=0)
+            srv = self._ensure_export_plane()
+            table = self.cache.table(seq_id)
+            oids = []
+            for b, raw in zip(table, self.cache.blocks_bytes(table)):
+                oid = f"llmkv_{seq_id}_{b}"
+                write_spool(self._export_spool, oid, raw)
+                oids.append(oid)
+            # bounded retention: an exported manifest is consumed once by
+            # the attaching decode engine; keep a window for late
+            # attachers and evict beyond it, so a long-lived prefill
+            # engine cannot grow the spool without limit
+            evict: List[str] = []
+            with self._lock:
+                self._exports.append(list(oids))
+                while len(self._exports) > _EXPORT_WINDOW:
+                    evict.extend(self._exports.popleft())
+            for old in evict:
+                srv.delete_local(old)
+            self._count_tokens(len(prompt), phase="prefill")
+            # the manifest carries the prefill side's span (compact wire
+            # form): attach() on the decode engine parents its tree to
+            # it, the link between the two engines
+            ctx = tracing.emit_span(
+                "llm.prefill_remote", span, t0, time.time() - t0,
+                cat="llm", tokens=len(prompt), blocks=len(oids),
+                model=self.cfg.model) if span is not None else None
+            return dict(addr=srv.advertise_addr, blocks=oids,
+                        block_nbytes=self.cache.block_nbytes,
+                        tokens=prompt, first_token=int(first),
+                        model=self.cfg.model,
+                        block_size=self.cfg.block_size,
+                        trace=ctx.to_wire() if ctx is not None else None)
+        except BaseException:
+            if self._stop.is_set():
+                # a shutdown racing this call closed the cache or the
+                # export plane under it: surface the contract error, not
+                # the incidental failure
+                raise RuntimeError("engine shut down") from None
+            raise
+        finally:
+            self.cache.free_seq(seq_id)
+
+    def attach(self, manifest: dict,
+               sampling: Optional[SamplingParams] = None) -> RequestStream:
+        """Adopt a remotely prefilled sequence: pull its KV blocks over
+        the data plane into blocks of this engine's pool and continue
+        decoding, with no re-prefill."""
+        from ray_tpu_torch._private.data_plane import DataPlanePool
+        if manifest["model"] != self.cfg.model:
+            raise ValueError(f"manifest model {manifest['model']!r} != "
+                             f"engine model {self.cfg.model!r}")
+        if manifest["block_nbytes"] != self.cache.block_nbytes or \
+                manifest["block_size"] != self.cfg.block_size:
+            raise ValueError("KV block geometry mismatch")
+        sampling = sampling or SamplingParams()
+        # the admission contract submit() gets through
+        # IterationScheduler.add: an attached sequence must not outgrow
+        # the block-table width every decode step is padded to
+        if len(manifest["tokens"]) + sampling.max_tokens > \
+                self.cfg.max_model_len:
+            raise ValueError(
+                f"manifest context {len(manifest['tokens'])} + "
+                f"max_tokens {sampling.max_tokens} exceeds "
+                f"max_model_len={self.cfg.max_model_len}")
+        with self._lock:          # concurrent attach() races are legal
+            if self._pull_pool is None:
+                self._pull_pool = DataPlanePool()
+            pool = self._pull_pool
+        prompt = [int(t) for t in manifest["tokens"]]
+        seq = Sequence(seq_id=uuid.uuid4().hex[:12], prompt=prompt,
+                       sampling=sampling)
+        # link the decode side's tree to the prefill side's: the
+        # manifest's span parents the attach span, which parents this
+        # sequence's decode spans; an untraced manifest falls back to
+        # the caller's own span
+        parent = tracing.SpanContext.from_wire(manifest.get("trace"),
+                                               name="llm.prefill_remote")
+        if parent is None:
+            cur = tracing.current_span()
+            parent = cur if cur is not None and cur.sampled else None
+        t0 = time.time()
+        self.cache.alloc_seq(seq.seq_id, len(prompt))
+        tok = tracing.adopt(parent) if parent is not None else None
+        try:
+            # with the manifest's span adopted, the block pulls' data.pull
+            # spans (and the holder's serve spans) land in the same tree
+            table = self.cache.table(seq.seq_id)
+            for b, oid in zip(table, manifest["blocks"]):
+                raw = pool.pull(manifest["addr"], oid,
+                                size=manifest["block_nbytes"])
+                self.cache.load_block(b, raw)
+        except BaseException:
+            self.cache.free_seq(seq.seq_id)
+            if self._stop.is_set():
+                raise RuntimeError("engine shut down") from None
+            raise
+        finally:
+            if tok is not None:
+                tracing.restore(tok)
+        if parent is not None:
+            seq.trace = tracing.emit_span(
+                "llm.attach", parent, t0, time.time() - t0, cat="llm",
+                seq_id=seq.seq_id, blocks=len(manifest["blocks"]),
+                tokens=len(prompt), model=self.cfg.model)
+        q: queue.Queue = queue.Queue()
+        released = False
+        with self._lock:
+            # the post-shutdown race submit() closes: a stream registered
+            # after the drain would never be serviced
+            if self._stop.is_set():
+                released = True
+            else:
+                self._streams[seq.seq_id] = q
+                self._attached.append((seq, manifest["first_token"]))
+        if released:
+            self.cache.free_seq(seq.seq_id)
+            raise RuntimeError("engine shut down")
+        self._wake.set()
+        return RequestStream(seq.seq_id, q, self)
+
+    def _drain_attached(self) -> None:
+        # the max_num_seqs gate plan() applies to prefill admission:
+        # adopting more sequences than the largest decode batch bucket
+        # would leave a later decode step without a bucket
+        room = self.max_num_seqs_room()
+        if room <= 0:
+            return
+        items = []
+        with self._lock:
+            while self._attached and len(items) < room:
+                items.append(self._attached.popleft())
+        for seq, first in items:
+            self.sched.start_running(seq)
+            self._emit(seq, int(first))
+            self._maybe_finish(seq)
+
     def _drain_cancels(self) -> None:
         with self._lock:
             if not self._cancels:
@@ -408,6 +651,12 @@ class LLMEngine:
                 self._streams.pop(sid, None)    # nobody is reading
             self._inbox = deque(s for s in self._inbox
                                 if s.seq_id not in cancelled)
+            dropped = [it[0] for it in self._attached
+                       if it[0].seq_id in cancelled]
+            self._attached = deque(it for it in self._attached
+                                   if it[0].seq_id not in cancelled)
+        for seq in dropped:     # blocks freed OUTSIDE _lock: leaf locks
+            self.cache.free_seq(seq.seq_id)    # never nest
         for seq in [s for s in self.sched.running
                     if s.seq_id in cancelled]:
             self.cache.free_seq(seq.seq_id)

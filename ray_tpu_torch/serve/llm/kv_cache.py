@@ -17,18 +17,39 @@ under cache pressure returns exactly the preempted sequence's blocks.
 Shared blocks (``fork_seq``) are refcounted: ``free_seq`` returns a block
 to the free list only at refcount zero.
 
-The reference's shared-memory segment, its orphan reaping and the
-block-transfer helpers wait for the data-plane slice of the port.
+Block transfer (the data-plane export unit of disaggregated
+prefill/decode, ``engine.prefill_remote`` / ``attach``): a block's bytes
+are ``pool[b]`` in C order, float32 ``[n_layer, 2, block_size, n_kv,
+head_dim]``, the reference's layout byte for byte.  ``block_bytes``
+copies one block to the host; ``blocks_bytes`` a whole table in one
+gather on the device and one device-to-host copy (one synchronisation
+for a 61-block prompt, not 61); ``load_block`` copies raw bytes into a
+block with one host-to-device copy.
+
+Crash hygiene: there is no pool segment to reap, as the reference's
+``reap_orphan_segments`` does: the pool lives on the device, and the
+driver frees it when the process dies.  What a SIGKILLed engine leaves
+on the host is its KV export spool, ``rtt_llm_export_<pid>_*``;
+``reap_orphan_export_spools`` removes the ones whose pid is dead, at
+every engine boot and before an engine opens its own spool.
 """
 
 from __future__ import annotations
 
+import os
+import shutil
 import threading
 from typing import Dict, List, Sequence, Union
 
 import torch
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
+from ray_tpu_torch._private import rtlog
+from ray_tpu_torch.serve.llm.weights import _pid_alive
+
+logger = rtlog.get("serve.llm.kv")
+
+EXPORT_SPOOL_PREFIX = "rtt_llm_export_"
 
 
 class NoFreeBlocks(Exception):
@@ -36,6 +57,34 @@ class NoFreeBlocks(Exception):
 
 
 Index = Union[int, Sequence[int], torch.Tensor]
+
+
+def reap_orphan_export_spools(base) -> List[str]:
+    """Remove ``rtt_llm_export_<pid>_*`` spool dirs under ``base`` whose
+    owning pid is dead; never one of a live pid (this process's
+    included)."""
+    reaped: List[str] = []
+    if not base:
+        return reaped
+    try:
+        names = os.listdir(base)
+    except OSError:
+        return reaped
+    for name in names:
+        if not name.startswith(EXPORT_SPOOL_PREFIX):
+            continue
+        try:
+            pid = int(name[len(EXPORT_SPOOL_PREFIX):].split("_")[0])
+        except ValueError:
+            continue
+        if pid == os.getpid() or _pid_alive(pid):
+            continue
+        shutil.rmtree(os.path.join(base, name), ignore_errors=True)
+        reaped.append(name)
+    if reaped:
+        logger.info("reaped %d orphaned export spool(s): %s",
+                    len(reaped), reaped)
+    return reaped
 
 
 class PagedKVCache:
@@ -51,6 +100,7 @@ class PagedKVCache:
         self.device = resolve_device(device)     # None: the card
         self.pool = torch.zeros((num_blocks,) + self.block_shape,
                                 dtype=dtype, device=self.device)
+        self.block_nbytes = self.pool[0].nbytes
         self._lock = threading.Lock()
         self._free: List[int] = list(range(num_blocks - 1, -1, -1))  # guarded by: _lock
         self._tables: Dict[str, List[int]] = {}                      # guarded by: _lock
@@ -169,6 +219,28 @@ class PagedKVCache:
     def seq_ids(self) -> List[str]:
         with self._lock:
             return list(self._tables)
+
+    # ------------------------------------------------------- block transfer
+    def block_bytes(self, block_id: int) -> bytes:
+        """One block's contiguous bytes (the data-plane export unit): a
+        device-to-host copy of ``pool[block_id]``."""
+        return self.pool[block_id].cpu().numpy().tobytes()
+
+    def blocks_bytes(self, block_ids: Sequence[int]) -> List[memoryview]:
+        """``block_bytes`` of each of ``block_ids``: one gather on the
+        device (a copy of each block, no host index) and one
+        device-to-host copy; the views share one host buffer."""
+        host = torch.stack([self.pool[b] for b in block_ids]).cpu()
+        rows = host.numpy().view("uint8").reshape(len(block_ids), -1)
+        return [memoryview(r) for r in rows]
+
+    def load_block(self, block_id: int, raw) -> None:
+        """Copy one block's bytes (``block_bytes``' layout) into
+        ``pool[block_id]``: one host-to-device copy."""
+        if memoryview(raw).readonly:
+            raw = bytearray(raw)
+        src = torch.frombuffer(raw, dtype=self.dtype)
+        self.pool[block_id].copy_(src.view(self.block_shape))
 
     # ------------------------------------------------------- device writes
     def scatter_prefill(self, seq_id: str, ks: torch.Tensor,

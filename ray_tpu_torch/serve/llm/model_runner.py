@@ -5,8 +5,13 @@ Every call is padded up to a configured bucket
 (``EngineConfig.prefill_len_buckets`` / ``decode_batch_buckets``) and the
 block-table width is fixed at ``max_blocks_per_seq``, as in the
 reference, so the set of shapes the card sees is bounded for the
-engine's life (``compiles`` counts the distinct ones).  Only the (V,) or
-(B, V) logits come back to the host; K/V stay on the device.  Sampling
+engine's life (``compiles`` counts the distinct ones).  Each forward
+runs inside a step region of the step-hygiene oracle
+(``_private/xla_watchdog.py``: ``llm.prefill`` and ``llm.decode``, with
+the bucket counts as budgets), as in the reference; the host-to-device
+copies of the inputs and the logits' pull are designed syncs and sit
+outside the regions.  Only the (V,) or (B, V) logits come back to the
+host; K/V stay on the device.  Sampling
 (greedy / temperature / top-k) happens host-side on those logits, with
 the reference's numpy generator, so seeded sampling draws the same
 tokens from the same logits.
@@ -21,6 +26,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
+from ray_tpu_torch._private.xla_watchdog import compile_budget
 from ray_tpu_torch.serve.llm.config import EngineConfig, SamplingParams, \
     resolve_model
 
@@ -56,7 +62,12 @@ class ModelRunner:
         self.head_dim = self.mcfg.head_dim
         self.vocab = self.mcfg.vocab_size
         self.compiles = 0          # distinct bucket shapes seen
-        self._shapes_seen: set = set()
+        # step regions: one signature per bucket for the runner's life,
+        # no host read inside a forward
+        self._prefill_budget = compile_budget(
+            "llm.prefill", len(cfg.prefill_len_buckets))
+        self._decode_budget = compile_budget(
+            "llm.decode", len(cfg.decode_batch_buckets))
 
     def _load_params(self):
         def init(device):
@@ -84,12 +95,13 @@ class ModelRunner:
         true length)."""
         n = len(token_ids)
         tb = _bucket(n, self.cfg.prefill_len_buckets)
-        self._note_shape(("prefill", tb))
         toks = np.zeros((1, tb), np.int64)
         toks[0, :n] = token_ids
-        logits, ks, vs = self.mod.forward_prefill(
-            self.params, torch.from_numpy(toks).to(self.device), self.mcfg,
-            last_pos=n - 1)
+        toks = torch.from_numpy(toks).to(self.device)
+        with self._prefill_budget:
+            self._note_shape(self._prefill_budget, ("prefill", tb))
+            logits, ks, vs = self.mod.forward_prefill(
+                self.params, toks, self.mcfg, last_pos=n - 1)
         return logits[0].cpu().numpy(), ks[:, 0], vs[:, 0]
 
     # ----------------------------------------------------------------- decode
@@ -106,7 +118,6 @@ class ModelRunner:
         first B rows are real after bucket padding."""
         b = len(tokens)
         bb = _bucket(b, self.cfg.decode_batch_buckets)
-        self._note_shape(("decode", bb))
         pad = bb - b
 
         def dev(a: np.ndarray, *pad_shape) -> torch.Tensor:
@@ -116,15 +127,16 @@ class ModelRunner:
                                                 np.int64)])
             return torch.from_numpy(a).to(self.device)
 
-        logits, ks, vs = self.mod.forward_decode(
-            self.params, dev(tokens), dev(positions), kv_pool,
-            dev(block_tables, block_tables.shape[1]), dev(ctx_lens),
-            self.mcfg)
+        args = (dev(tokens), dev(positions), kv_pool,
+                dev(block_tables, block_tables.shape[1]), dev(ctx_lens))
+        with self._decode_budget:
+            self._note_shape(self._decode_budget, ("decode", bb))
+            logits, ks, vs = self.mod.forward_decode(self.params, *args,
+                                                     self.mcfg)
         return logits[:b].cpu().numpy(), ks[:, :b], vs[:, :b]
 
-    def _note_shape(self, key) -> None:
-        if key not in self._shapes_seen:
-            self._shapes_seen.add(key)
+    def _note_shape(self, budget: compile_budget, key) -> None:
+        if budget.see(key):
             self.compiles += 1
             logger.info("first %s step (distinct shapes %d)",
                         key, self.compiles)

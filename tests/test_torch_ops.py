@@ -865,7 +865,7 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                     "serialization", "protocol", "data_plane",
                     "actor_server", "worker", "worker_main", "raylet",
                     "replication", "gcs", "flight_recorder",
-                    "lock_watchdog", "ray_perf"))):
+                    "lock_watchdog", "ray_perf", "xla_watchdog"))):
         assert runtime / f"{mod}.py" in _port_sources(), mod
     assert len(_port_sources()) > 10
     assert REPO / "ray_tpu_torch" / "models" / "llama.py" in _port_sources()

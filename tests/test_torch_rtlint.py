@@ -21,7 +21,7 @@ import pytest
 
 from tools.rtlint import REPO_ROOT, load
 from tools.rtlint.__main__ import filter_waived
-from tools.rtlint.guarded import check_guarded
+from tools.rtlint.guarded import check_guarded, collect_annotations
 from tools.rtlint.lockorder import LockSpec, check_locks
 from tools.rtlint.resources import check_resources
 from tools.rtlint.threads import check_threads
@@ -49,6 +49,8 @@ LOCK_FILES = {
     "replication": (PRIV / "replication.py", "REPL", ()),
     "tsdb": (PORT / "util" / "tsdb.py", "TSDB", ()),
     "profiler": (PORT / "util" / "profiler.py", "PROFILER", ()),
+    "kv_cache": (LLM / "kv_cache.py", "LLM_KV", ()),
+    "engine": (LLM / "engine.py", "LLM_ENGINE", ()),
 }
 GUARDED_FILES = {
     "gcs": (PRIV / "gcs.py", "GCS"),
@@ -103,6 +105,24 @@ def test_cancel_lock_is_a_declared_leaf():
     assert lw.WORKER_LOCK_DAG["_cancel_lock"] == set()
     assert not any("_cancel_lock" in after
                    for after in lw.WORKER_LOCK_DAG.values())
+
+
+def test_handoff_state_and_oracle_are_in_the_scan():
+    """The engine's handoff state is declared guarded, so the ``guarded``
+    and ``lockorder`` cases above check every write of it (no new
+    finding, no new waiver); the handoff's and the step-hygiene oracle's
+    files are in the scans."""
+    declared = {g.attr: g.lock for g in collect_annotations(
+        load(LLM / "engine.py"), lw.LLM_ENGINE_CV_ALIASES)}
+    for attr in ("_attached", "_exports", "prefill_steps", "_inbox",
+                 "_streams", "_cancels"):
+        assert declared.get(attr) == "_lock", (attr, declared)
+    assert LOCK_FILES["engine"][0] == GUARDED_FILES["engine"][0]
+    assert LOCK_FILES["kv_cache"][0] == GUARDED_FILES["kv_cache"][0]
+    scanned = set(PORT.rglob("*.py"))           # the threads pass's set
+    for f in (LLM / "engine.py", LLM / "kv_cache.py",
+              PRIV / "xla_watchdog.py"):
+        assert f in scanned and f.exists()
 
 
 def test_threads_of_the_port():
