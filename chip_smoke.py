@@ -81,6 +81,23 @@
    of its segments may appear in ``/dev/shm`` outside that directory
    under either prefix.  The session lives under a root of the run's
    own (``RTT_SESSION_DIR_ROOT``).
+   Then the multinode phase: a head that declares no card
+   (``init(num_cpus=2, num_gpus=0)``) and a ``ClientProxyServer``; a
+   ``NodeAgent`` process (``python -m ray_tpu_torch._private.node_agent
+   --num-cpus 2 --num-gpus 1``, the session's key in ``RTT_AUTH_KEY``)
+   joins as a node labelled ``agent=1`` with ``GPU: 1`` and its raylet
+   attached.  A plain task pinned there sees no card; with its plain
+   workers idle, a ``num_gpus=1`` actor must land in the agent's one GPU
+   worker and answer the engine phase's 16 requests with its tokens and
+   its 192 flash and 1,175 LayerNorm launches; a 64 MB bf16 CUDA tensor
+   it returns arrives on ``cuda`` with its sha256, pulled from the
+   agent's data plane (never staged by the head); a ``ray://`` client in
+   a subprocess replays the 16 requests through the proxy with the same
+   tokens.  A client with a wrong key must be refused at the handshake
+   and a ``num_gpus=1`` task pinned to the head must not run within
+   5 s.  SIGTERM to the agent must remove the node, make the actor's
+   next call raise ``RayActorError``, and leave none of its workers, its
+   spool or a card context of its own.
    Then the serve phase: the port's Serve in a cluster of its own
    (``init(num_cpus=8, _system_config={"gpu_workers_per_node": 4})``).
    BASELINE #4's recipe (``benchmarks/serve_bench.py``): bert-base in a
@@ -5870,6 +5887,426 @@ def check_cluster_gone(watch: ClusterWatch, label: str, tag: str) -> None:
              "directory")
 
 
+# The multinode phase: a NodeAgent joins this run's head through the
+# client proxy as a second node on the same host (the reference's
+# ``ray start --address`` on one machine) and holds the card in its one GPU
+# slot; the head declares none.  The runtime phase's actor and requests
+# then run on the agent's node, reached from the driver and from a ray://
+# client.
+MULTINODE_ACTOR = "multinode_engine"
+MULTINODE_BLOB_MB = 64
+MULTINODE_BUDGET_S = 60.0
+MULTINODE_CLIENT = r"""
+import json, os, sys, time
+from ray_tpu_torch._private import protocol
+port, name, path = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+# planted: a key other than the session's is refused at the handshake
+protocol.set_authkey(os.urandom(32))
+try:
+    protocol.tunnel_connect("127.0.0.1", port, "gcs").close()
+    refused = None
+except Exception as e:
+    refused = f"{type(e).__name__}: {e}"
+import ray_tpu_torch as rt
+t0 = time.perf_counter()
+info = rt.init(address=f"ray://127.0.0.1:{port}")  # key from RTT_AUTH_KEY
+connect_s = time.perf_counter() - t0
+actor = rt.get_actor(name)
+rtt = []
+for _ in range(20):
+    t0 = time.perf_counter()
+    rt.get(actor.ping.remote(), timeout=60)
+    rtt.append(time.perf_counter() - t0)
+with open(path) as f:
+    prompts = json.load(f)
+outs = rt.get(actor.replay.remote(prompts, 32), timeout=300)
+print(json.dumps({"refused": refused, "client": info["client"],
+                  "connect_s": connect_s, "rtt_s": sorted(rtt),
+                  "outs": outs}), flush=True)
+rt.shutdown()
+"""
+
+
+class AgentEngineActor(EngineActor):
+    """``EngineActor`` on an agent's node, with what the multinode phase
+    asks of it: where it runs, a bf16 CUDA tensor to pull, a ping, and a
+    replay of the engine phase's schedule for a client."""
+
+    def where(self) -> dict:
+        import ray_tpu_torch as rt
+        return {"node_id": rt.get_runtime_context().get_node_id(),
+                "spool": os.environ.get("RTT_SPOOL_DIR"),
+                "raylet": os.environ.get("RTT_RAYLET_SOCK") is not None}
+
+    def ping(self) -> int:
+        return os.getpid()
+
+    def blob(self, mb: int, seed: int):
+        """``mb`` MB of bf16 on the engine's device, with the sha256 of
+        its bytes."""
+        import hashlib
+        dev = self.eng.runner.device
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        t = torch.randn(mb * 2 ** 19, generator=gen, device=dev).to(
+            torch.bfloat16)
+        return t, hashlib.sha256(
+            t.cpu().view(torch.int16).numpy().tobytes()).hexdigest()
+
+    def replay(self, prompts, max_tokens: int) -> list:
+        """``prompts`` again as the engine phase scheduled them: the loop
+        is held before its next step until all are submitted (every
+        prefill, then each decode step over all of them)."""
+        from ray_tpu_torch.serve.llm import SamplingParams
+        eng, gate = self.eng, threading.Event()
+        step = eng.step
+
+        def held():
+            gate.wait()
+            return step()
+
+        eng.step = held
+        try:
+            streams = [eng.submit(p, SamplingParams(max_tokens=max_tokens))
+                       for p in prompts]
+        finally:
+            eng.step = step
+            gate.set()
+        return [s.tokens() for s in streams]
+
+
+def wait_for(cond, timeout_s: float, poll_s: float = 0.05):
+    """``cond()``'s first truthy value within ``timeout_s``, else None."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        got = cond()
+        if got or time.monotonic() > deadline:
+            return got or None
+        time.sleep(poll_s)
+
+
+def multinode_phase(dev, eng_res: dict, tag: str,
+                    device: Optional[str] = None) -> dict:
+    """Multi-node on one host: a head with no card
+    (``init(num_cpus=2, num_gpus=0)``) and a ``ClientProxyServer``; a
+    ``NodeAgent`` process (``--num-cpus 2 --num-gpus 1``, the session's
+    key in ``RTT_AUTH_KEY``) joins as a node labelled ``agent=1`` with
+    ``GPU: 1`` and its raylet attached.  A plain task pinned there sees no
+    card; then, with its plain workers idle, a ``num_gpus=1``
+    ``EngineActor`` must land in the agent's GPU slot and answer the
+    engine phase's 16 requests with its tokens and launches; a 64 MB
+    bf16 CUDA tensor it returns comes to the driver on ``cuda`` from the
+    agent's data plane; a ray:// client replays the requests through the
+    proxy.  A client with the wrong key and a GPU task pinned to the head
+    must fail.  SIGTERM to the agent must leave no node, actor, worker,
+    spool or card context behind."""
+    import hashlib
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import exceptions as rexc
+    from ray_tpu_torch._private import protocol, shm_store
+    from ray_tpu_torch._private import worker as rt_worker
+    from ray_tpu_torch._private.memory_monitor import _pid_is_local_worker
+    from ray_tpu_torch.util import state
+    from ray_tpu_torch.util.client import ClientProxyServer
+    from ray_tpu_torch.util.scheduling_strategies import \
+        NodeAffinitySchedulingStrategy
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    saved = os.environ.get("PYTHONPATH")
+    # the agent, its workers and the client import the package from here
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [here] + ([saved] if saved else []))
+    holders = compute_app_pids() if device is None else [os.getpid()]
+    watch = ClusterWatch(shm_store._SHM_DIR)
+    # the agent's spool (its TMPDIR) holds the raylet's AF_UNIX socket,
+    # whose path has at most 107 bytes: a long TMPDIR gives way to /tmp
+    scratch = tempfile.mkdtemp(prefix="rtt_mn")
+    if len(scratch) > 40:
+        os.rmdir(scratch)
+        scratch = tempfile.mkdtemp(prefix="rtt_mn", dir="/tmp")
+    res: dict = {}
+    prompts, driver_outs = eng_res["requests"]
+    spec = gpt2_engine()
+    agent = proxy = None
+    agent_log = os.path.join(scratch, "agent.log")
+    t_phase = time.perf_counter()
+    try:
+        info = rt.init(num_cpus=2, num_gpus=0)
+        watch.start(rt._head, info["session_dir"])
+        session = rt_worker.global_worker().session
+        proxy = ClientProxyServer(session, host="127.0.0.1", port=0)
+        port = proxy._listener.address[1]
+        env = dict(os.environ)
+        env["RTT_AUTH_KEY"] = session.auth_key().hex()
+        env["TMPDIR"] = scratch              # the agent's spool lands here
+        env.pop("RTT_NUM_GPUS", None)
+        t0 = time.perf_counter()
+        with open(agent_log, "wb") as log:
+            agent = subprocess.Popen(
+                [sys.executable, "-m", "ray_tpu_torch._private.node_agent",
+                 "--address", f"127.0.0.1:{port}", "--num-cpus", "2",
+                 "--num-gpus", "1"], env=env, cwd=here, stdout=log,
+                stderr=subprocess.STDOUT)
+
+        def agent_node():
+            n = next((n for n in state.list_nodes()
+                      if n["labels"].get("agent") == "1" and n["alive"]),
+                     None)
+            return n if n is not None and any(
+                r["node_id"] == n["node_id"] and r["attached"]
+                for r in state.list_raylets()) else None
+
+        node = wait_for(agent_node, 30)
+        res["join_s"] = time.perf_counter() - t0
+        gpus = rt.cluster_resources().get("GPU")
+        print(f"multinode agent node {node} raylet attached, cluster GPU "
+              f"{gpus}, joined in {res['join_s']:.3f} s [{tag}]",
+              flush=True)
+        if node is None or node["labels"].get("agent") != "1" or \
+                node["resources_total"].get("GPU") != 1.0 or gpus != 1.0:
+            fail("multinode: the agent's node did not join with GPU 1 and "
+                 "its raylet attached")
+        nid = node["node_id"]
+
+        # planted: a GPU task pinned to the card-less head must not run.
+        # Submitted now and read at the end, so it waits the whole phase
+        # (at least 5 s) at no cost of its own.
+        head_pin = NodeAffinitySchedulingStrategy(rt._head.head_node_id,
+                                                  soft=False)
+
+        @rt.remote(num_gpus=1, scheduling_strategy=head_pin)
+        def on_head():
+            return os.getpid()
+
+        href = on_head.remote()
+        t_href = time.perf_counter()
+
+        def gpu_worker():
+            # registered with the head (its task channel then attaches
+            # to the agent's raylet, which the head does not see)
+            return [w for w in state.list_workers()
+                    if w["node_id"] == nid and w["gpu"]
+                    and w["state"] != "dead"]
+
+        boot = wait_for(gpu_worker, 30)
+        res["gpu_worker_boot_s"] = time.perf_counter() - t0
+        if not boot or len(boot) != 1:
+            fail(f"multinode: the agent's GPU slot did not come up: {boot}")
+
+        pin = NodeAffinitySchedulingStrategy(nid, soft=False)
+
+        @rt.remote(scheduling_strategy=pin)
+        def plain_view():
+            import ray_tpu_torch as r
+            import torch as t
+            return (t.cuda.device_count(),
+                    os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    r.get_runtime_context().get_node_id(),
+                    os.environ.get("RTT_SPOOL_DIR"), os.getpid())
+
+        view = rt.get(plain_view.remote(), timeout=60)
+        spool = view[3]
+        print(f"multinode plain task on the agent sees {view[:2]} on node "
+              f"{view[2]} [{tag}]", flush=True)
+        if view[:3] != (0, "", nid) or not spool or \
+                not spool.startswith(scratch + os.sep):
+            fail(f"multinode: the plain task sees {view}, expected (0, '', "
+                 f"{nid}) and a spool under {scratch}")
+
+        def slots_idle():
+            rows = [r for r in state.list_raylets() if r["node_id"] == nid]
+            return rows and rows[0]["stats"].get("idle", 0) >= 3
+
+        # the planted condition (C18): both plain slots idle when the
+        # GPU lease arrives
+        if not wait_for(slots_idle, 30):
+            fail("multinode: the agent's slots did not go idle")
+        args = (spec["cfg"], spec["blocks"], spec["block_scale"], SEED,
+                device)
+        cls = rt.remote(num_gpus=1)(AgentEngineActor)
+        t0 = time.perf_counter()
+        actor = cls.options(name=MULTINODE_ACTOR).remote(*args)
+        vis = rt.get(actor.visible.remote(), timeout=300)
+        res["actor_boot_s"] = time.perf_counter() - t0
+        where = rt.get(actor.where.remote(), timeout=60)
+        print(f"multinode gpu actor sees {vis} on {where} [{tag}]",
+              flush=True)
+        if where["node_id"] != nid or not where["raylet"] or \
+                vis["RTT_GPU_WORKER"] != "1" or vis["device_count"] != 1 \
+                or vis["pid"] != boot[0]["pid"]:
+            fail(f"multinode: the num_gpus=1 actor is not in the agent's "
+                 f"GPU slot (pid {boot[0]['pid']}): {vis} {where}")
+        rt.get(actor.warm.remote(spec["warm"], SEED), timeout=300)
+        rt.get([actor.submit.remote(p, 32) for p in prompts], timeout=120)
+        run = rt.get(actor.run.remote(), timeout=300)
+        same = [a == b for a, b in zip(run["outs"], driver_outs)]
+        print(f"multinode actor tokens equal to the driver's: {sum(same)} "
+              f"of {len(same)} requests [{tag}]", flush=True)
+        if len(same) != 16 or not all(same):
+            fail("multinode: the actor's tokens differ from the driver's")
+        want, got = eng_res["launches"], run["counts"]
+        print(f"multinode actor launches {got}, driver's engine phase "
+              f"{want} [{tag}]", flush=True)
+        for k, n in want.items():
+            if got[k] != n or n <= 0:
+                fail(f"multinode: {k} launched {got[k]} times in the "
+                     f"actor, {n} in the driver's run")
+        for k in ("layer_norm_fwd_scalar", "flash_attention_fwd_f32",
+                  "flash_attention_fwd_gqa_d128"):
+            if got[k]:
+                fail(f"multinode: {k} ran {got[k]} times in the actor")
+        res["launches"] = {k: got[k] for k in want}
+        ttft = sorted(run["ttft_s"])
+        res["actor_ttft_p50_ms"] = 1e3 * ttft[len(ttft) // 2]
+        res["actor_output_tok_s"] = 16 * 32 / run["wall_s"]
+
+        bref = actor.blob.remote(MULTINODE_BLOB_MB, SEED)
+        rt.wait([bref], timeout=120)
+        meta = rt._head.objects[str(bref.id)]
+        t0 = time.perf_counter()
+        blob, digest = rt.get(bref, timeout=120)
+        if blob.is_cuda:
+            torch.cuda.synchronize()
+        pull_s = time.perf_counter() - t0
+        res["pull_gb_s"] = blob.numel() * 2 / pull_s / 1e9
+        addr = rt._head.nodes[nid].data_addr
+        host, dport = protocol.parse_tcp_addr(addr)
+        conn = protocol.connect_tcp(host, dport, timeout=5)
+        conn.send({"op": "stats"})
+        served = conn.recv()
+        conn.close()
+        mine = hashlib.sha256(blob.cpu().view(torch.int16).numpy()
+                              .tobytes()).hexdigest()
+        print(f"multinode bf16 tensor {tuple(blob.shape)} on {blob.device} "
+              f"sha256 {mine[:16]} (actor's {digest[:16]}), object at "
+              f"{meta.loc} on the agent's node "
+              f"{meta.node_id == nid}, agent's data plane served "
+              f"{served['bytes_served']} bytes, head staged it "
+              f"{str(bref.id) in rt._head._staging}, pulled in "
+              f"{pull_s:.4f} s [{tag}]", flush=True)
+        if blob.device.type != "cuda" or blob.dtype != torch.bfloat16 or \
+                mine != digest or meta.loc != "remote" or \
+                meta.node_id != nid or \
+                served["bytes_served"] < blob.numel() * 2 or \
+                str(bref.id) in rt._head._staging:
+            fail("multinode: the CUDA tensor did not come intact on cuda "
+                 "from the agent's data plane")
+        del blob, bref
+
+        ppath = os.path.join(scratch, "prompts.json")
+        with open(ppath, "w") as f:
+            json.dump(prompts, f)
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-c", MULTINODE_CLIENT, str(port),
+             MULTINODE_ACTOR, ppath], env=env, cwd=scratch, capture_output=True, text=True, timeout=300)
+        res["client_s"] = time.perf_counter() - t0
+        lines = [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
+        if out.returncode != 0 or not lines:
+            fail(f"multinode: the ray:// client failed (rc "
+                 f"{out.returncode}): {out.stderr[-2000:]}")
+        cl = json.loads(lines[-1])
+        res["client_rtt_ms"] = 1e3 * cl["rtt_s"][len(cl["rtt_s"]) // 2]
+        res["client_connect_s"] = cl["connect_s"]
+        same = [a == b for a, b in zip(cl["outs"], driver_outs)]
+        print(f"multinode ray:// client: wrong key refused ({cl['refused']})"
+              f", connected in {cl['connect_s']:.3f} s, round trip p50 "
+              f"{res['client_rtt_ms']:.3f} ms, tokens equal to the "
+              f"driver's: {sum(same)} of {len(same)} requests (first 4 "
+              f"{all(same[:4])}) [{tag}]", flush=True)
+        if not cl["refused"] or "Authentication" not in cl["refused"]:
+            fail(f"multinode: a client with the wrong key was not refused "
+                 f"at the handshake: {cl['refused']}")
+        if not cl["client"] or len(same) != 16 or not all(same):
+            fail("multinode: the ray:// client's tokens differ from the "
+                 "driver's")
+
+        # the planted head task: not run, still pending on the head
+        wait_for(lambda: time.perf_counter() - t_href >= 5.0, 10)
+        done, _ = rt.wait([href], timeout=0)
+        pending = [t["state"] for t in state.list_tasks()
+                   if "on_head" in (t["name"] or "")]
+        head_gpu = [w["pid"] for w in state.list_workers()
+                    if w["node_id"] == rt._head.head_node_id and w["gpu"]]
+        print(f"multinode control GPU task pinned to the head: ready "
+              f"{bool(done)}, states {pending} after "
+              f"{time.perf_counter() - t_href:.1f} s, GPU workers on the "
+              f"head {head_gpu} [{tag}]", flush=True)
+        if done or pending != ["PENDING_SCHEDULING"] or head_gpu:
+            fail(f"multinode: a GPU task pinned to the card-less head did "
+                 f"not stay pending (ready {bool(done)}, states {pending}, "
+                 f"GPU workers on the head {head_gpu})")
+        rt.cancel(href, force=True)
+
+        # a clean leave: SIGTERM to the agent
+        pids = sorted({w["pid"] for w in state.list_workers()
+                       if w["node_id"] == nid and w["pid"]})
+        t0 = time.perf_counter()
+        agent.terminate()
+        rc = agent.wait(timeout=60)
+        gone = wait_for(lambda: not any(
+            n["node_id"] == nid and n["alive"] for n in state.list_nodes()),
+            30)
+        try:
+            rt.get(actor.ping.remote(), timeout=60)
+            actor_err = None
+        except rexc.RayActorError as e:
+            actor_err = type(e).__name__
+        except Exception as e:  # noqa: BLE001 - reported below
+            actor_err = f"not RayActorError: {type(e).__name__}: {e}"
+        left = wait_for(lambda: not [p for p in pids
+                                     if _pid_is_local_worker(p)], 30)
+        alive = [p for p in pids if _pid_is_local_worker(p)]
+        res["leave_s"] = time.perf_counter() - t0
+        print(f"multinode after SIGTERM to the agent (rc {rc}, "
+              f"{res['leave_s']:.3f} s): node removed {bool(gone)}, actor "
+              f"call raised {actor_err}, of its {len(pids)} worker pids "
+              f"alive {alive}, spool left {os.path.exists(spool)} "
+              f"[{tag}]", flush=True)
+        if not gone or actor_err != "RayActorError" or alive or not left \
+                or os.path.exists(spool) or not pids:
+            fail("multinode: the agent's leave left something behind")
+        if device is None:
+            wait_card_holders("multinode", tag, holders)
+    except BaseException:
+        if os.path.exists(agent_log):
+            with open(agent_log, errors="replace") as f:
+                print("multinode agent log tail:\n" + f.read()[-4000:],
+                      file=sys.stderr, flush=True)
+        raise
+    finally:
+        if agent is not None and agent.poll() is None:
+            agent.terminate()            # it stops its workers first
+            try:
+                agent.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                agent.kill()
+                agent.wait(timeout=30)
+        if proxy is not None:
+            proxy.stop()
+        started = hasattr(watch, "head")
+        if started:
+            watch.poll()
+        rt.shutdown()
+        if started:
+            watch.stop()
+        shutil.rmtree(scratch, ignore_errors=True)
+        if saved is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = saved
+    check_cluster_gone(watch, "multinode", tag)
+    res["wall_s"] = time.perf_counter() - t_phase
+    for k, val in res.items():
+        print(f"multinode {k} {val} [{tag}]", flush=True)
+    if res["wall_s"] > MULTINODE_BUDGET_S:
+        print(f"multinode over its budget: {res['wall_s']:.1f} s of "
+              f"{MULTINODE_BUDGET_S} s [{tag}]", flush=True)
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return res
+
+
 # The serve phase: BASELINE #4's recipe (benchmarks/serve_bench.py:83-85,
 # 166-245; examples/06_serve_bert.py:16-31) through the port's Serve on
 # its own runtime, then the LLM deployment streaming GPT-2 tokens.
@@ -8649,6 +9086,8 @@ def main() -> int:
     phase_done("weights")
     runtime = runtime_phase(dev, eng, tag)
     phase_done("runtime")
+    multinode = multinode_phase(dev, eng, tag)
+    phase_done("multinode")
     served = serve_phase(dev, eng, runtime, tag)
     phase_done("serve")
     llama = engine_phase(dev, llama_engine(), tag)
@@ -8710,7 +9149,8 @@ def main() -> int:
     rl_cluster_phases(dev, card, tag, phase_done)
     # every main path's launches of the kernels it counts, each counted
     # from 0 over its own run
-    paths = {"engine": eng, "runtime": runtime, "serve": served,
+    paths = {"engine": eng, "runtime": runtime, "multinode": multinode,
+             "serve": served,
              "llama_engine": llama, "serve_llm_split": split,
              "train": train,
              "llama_train": llama_train, "xl_train": xl_train,

@@ -36,6 +36,7 @@ from ray_tpu_torch._private import rtlog
 from ray_tpu_torch._private.config import GLOBAL_CONFIG
 from ray_tpu_torch._private.object_ref import ObjectRef
 from ray_tpu_torch._private.session import Session
+from ray_tpu_torch._private.gpus import detect_gpus as _detect_gpus
 from ray_tpu_torch._private import protocol as _protocol
 from ray_tpu_torch._private import worker as _worker_mod
 from ray_tpu_torch.actor import ActorClass, ActorHandle, get_actor
@@ -62,17 +63,6 @@ def __getattr__(name: str):
 
 _init_lock = threading.Lock()
 _head = None  # GcsServer when this process started the cluster
-
-
-def _detect_gpus() -> float:
-    """The node's CUDA cards: ``RTT_NUM_GPUS`` when set, else
-    ``torch.cuda.device_count()`` (torch is imported here, not when the
-    package is)."""
-    override = os.environ.get("RTT_NUM_GPUS")
-    if override is not None:
-        return float(override)
-    import torch
-    return float(torch.cuda.device_count())
 
 
 def init(address: Optional[str] = None, *,
@@ -116,9 +106,21 @@ def init(address: Optional[str] = None, *,
             _head = GcsServer(session, head_res)
             session.write_descriptor({"gcs": _head.rpc_path})
         elif address.startswith("ray://"):
-            raise NotImplementedError(
-                "ray:// client mode needs the client server, which is not "
-                "ported yet; it comes with the runtime's next slice")
+            # remote-client mode through the TCP proxy (reference:
+            # ray.init("ray://host:10001") — Ray Client)
+            hostport = address[len("ray://"):]
+            host, _, port = hostport.partition(":")
+            key_hex = os.environ.get("RTT_AUTH_KEY")
+            if key_hex:
+                _protocol.set_authkey(bytes.fromhex(key_hex))
+            rtlog.setup("client", None)
+            w = _worker_mod.Worker(None, role="driver",
+                                   proxy_addr=(host, int(port or 10001)))
+            w.namespace = namespace
+            _worker_mod.set_global_worker(w)
+            atexit.register(shutdown)
+            return {"session_dir": None, "node_id": w.node_id,
+                    "client": True}
         elif address == "auto":
             # attach to the latest session on this machine (reference:
             # ray.init(address="auto"))

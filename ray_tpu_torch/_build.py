@@ -196,19 +196,32 @@ def kernel_resources() -> Dict[str, dict]:
     return out
 
 
+_sass: Dict[int, str] = {}   # the library's mtime -> its SASS listing
+
+
+def _sass_listing() -> str:
+    """``cuobjdump -sass`` of the built library, run once a build."""
+    path = BUILD_DIR / LIB_NAME
+    stamp = path.stat().st_mtime_ns
+    if stamp not in _sass:
+        tool = Path(find_nvcc()).parent / "cuobjdump"
+        res = subprocess.run([str(tool), "-sass", str(path)],
+                             capture_output=True, text=True, timeout=300)
+        if res.returncode != 0:
+            raise KernelError(f"cuobjdump failed: {res.stderr}")
+        _sass.clear()
+        _sass[stamp] = res.stdout
+    return _sass[stamp]
+
+
 def sass_counts(opcode: str) -> Dict[str, int]:
     """Per kernel (mangled name) of the built library, the SASS
     instructions with this opcode (``cuobjdump -sass``), e.g. ``HMMA``
     for tensor-core products."""
-    tool = Path(find_nvcc()).parent / "cuobjdump"
-    res = subprocess.run([str(tool), "-sass", str(BUILD_DIR / LIB_NAME)],
-                         capture_output=True, text=True, timeout=300)
-    if res.returncode != 0:
-        raise KernelError(f"cuobjdump failed: {res.stderr}")
     counts: Dict[str, int] = {}
     cur: Optional[str] = None
     op = re.compile(r"\b" + re.escape(opcode) + r"[.\s]")
-    for line in res.stdout.splitlines():
+    for line in _sass_listing().splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             cur = m.group(1)

@@ -1182,14 +1182,12 @@ class GcsServer:
         self.workers[w.worker_id] = w
 
     def _node_cuda_devices(self, node_id: str) -> str:
-        """The node's cards as a CUDA_VISIBLE_DEVICES value: the head's
-        own list when it has one, else ``0..n-1`` for its GPU count."""
+        """The node's cards as a CUDA_VISIBLE_DEVICES value (the rule
+        the NodeAgent's GPU slots follow too)."""
+        from ray_tpu_torch._private.gpus import cuda_visible_devices
         node = self.nodes.get(node_id)
-        n = int(node.resources_total.get("GPU", 0)) if node else 0
-        parent = os.environ.get("CUDA_VISIBLE_DEVICES")
-        if parent:
-            return ",".join(parent.split(",")[:n]) if n else parent
-        return ",".join(str(i) for i in range(n))
+        return cuda_visible_devices(
+            node.resources_total.get("GPU", 0) if node else 0)
 
     def _count_node_workers(self, node: NodeState, include_starting=True,
                             gpu: Optional[bool] = None) -> int:
@@ -2042,6 +2040,10 @@ class GcsServer:
         # a non-refcount frame arrives (stream order preserved) — instead
         # of one lock acquisition per oneway.
         ref_buf: List[Tuple[str, dict]] = []
+        # a remote node added over this conn, until the conn becomes its
+        # liveness channel: an agent that dies between add_node and its
+        # attach (a SIGTERM at startup) leaves no other trace of its end
+        joined: Optional[str] = None
         try:
             while not self._shutdown:
                 try:
@@ -2109,6 +2111,7 @@ class GcsServer:
                     self._attach_worker_ctl(msg["worker_id"], conn)
                     return  # thread parks until the worker disconnects
                 if kind == "agent_attach":
+                    joined = None  # the attach owns the node's liveness
                     self._attach_agent_conn(msg["node_id"], conn)
                     return  # thread parks until the agent disconnects
                 if kind == "raylet_attach":
@@ -2117,6 +2120,7 @@ class GcsServer:
                     # carry lease frames (old peers never see them)
                     if ver < wire.PROTO_RAYLET:
                         break
+                    joined = None
                     self._attach_raylet_conn(msg["node_id"], conn, ver)
                     return  # thread becomes the lease-channel reader
                 if kind == "repl_attach":
@@ -2194,6 +2198,9 @@ class GcsServer:
                 finally:
                     if key is not None:
                         self._dedup_commit(key, reply)
+                if kind == "add_node" and msg.get("remote") \
+                        and reply.get("node_id"):
+                    joined = reply["node_id"]
                 if rid is not None:
                     try:
                         wire.conn_send(conn, {"rid": rid, **reply}, ver,
@@ -2202,6 +2209,14 @@ class GcsServer:
                     except (OSError, ValueError):
                         break
         finally:
+            if joined is not None and not self._shutdown:
+                logger.warning("node %s closed its join conn before "
+                               "attaching; removing node", joined)
+                try:
+                    self.remove_node_internal(joined)
+                    self._pump()
+                except Exception:  # noqa: BLE001 - teardown path
+                    logger.exception("unattached node removal failed")
             # a client that flushed releases and closed must not lose them
             try:
                 self._drain_ref_ops(ref_buf)
@@ -2677,6 +2692,7 @@ class GcsServer:
                 if w is None:
                     w = WorkerState(wid, node_id, went.get("pid", 0))
                     self.workers[wid] = w
+                    w.gpu_capable = bool(went.get("gpu"))
                 else:
                     old = self.nodes.get(w.node_id)
                     if old is not None and old is not node:
@@ -3183,6 +3199,9 @@ class GcsServer:
                 if w is None:
                     w = WorkerState(wid, node_id, msg["pid"])
                     self.workers[wid] = w
+                    # a remote node's worker: only it knows whether it
+                    # sees the cards (its NodeAgent spawned it)
+                    w.gpu_capable = bool(msg.get("gpu"))
                 else:
                     # rekey to the worker's self-chosen id
                     del self.workers[w.worker_id]
@@ -4140,8 +4159,11 @@ class GcsServer:
                                                     or 0))
         self._pump()
         # session name: same-host raylets drop their flight-recorder
-        # rings into this session's tmpfs dir so `debug dump` sees them
-        return {"node_id": nid, "session": self.session.path.name}
+        # rings into this session's tmpfs dir so `debug dump` sees them;
+        # gpu_workers_per_node: an agent starts as many GPU workers as
+        # this head would on a node of its own
+        return {"node_id": nid, "session": self.session.path.name,
+                "gpu_workers_per_node": GLOBAL_CONFIG.gpu_workers_per_node}
 
     def _h_raylet_table(self, msg: dict) -> dict:
         """Per-node local-scheduler state for `ray_tpu_torch status` and
@@ -4586,6 +4608,7 @@ class GcsServer:
             return {"workers": [{
                 "worker_id": w.worker_id, "node_id": w.node_id, "pid": w.pid,
                 "state": w.state, "actor_id": w.actor_id,
+                "gpu": w.gpu_capable,
             } for w in self.workers.values()]}
 
     def _h_resource_demand(self, msg: dict) -> dict:

@@ -58,12 +58,22 @@ class RayletUnsupported(RuntimeError):
     """The head does not speak PROTO_RAYLET: run the legacy agent path."""
 
 
+def _needs_gpu(spec: dict) -> bool:
+    """Does this lease ask for a card?  A funded spec carries its claim
+    (``_req``), a queued lease its shape (``_lease_shape``)."""
+    req = spec.get("_req") or spec.get("_lease_shape") or {}
+    return req.get("GPU", 0) > 0
+
+
 class _Slot:
     """One local worker's scheduling state."""
 
-    def __init__(self, worker_id: str, conn):
+    def __init__(self, worker_id: str, conn, gpu: bool):
         self.worker_id = worker_id
         self.conn = conn              # task push channel (raylet-owned)
+        # the worker sees the node's cards (RTT_GPU_WORKER=1, said at
+        # attach): GPU leases start here alone, other leases never do
+        self.gpu = gpu
         self.conn_lock = threading.Lock()
         self.ctl_conn = None          # OOB channel (cancel / dump_stack)
         self.ctl_conn_lock = threading.Lock()
@@ -256,7 +266,7 @@ class Raylet:
                        "node_id": self.node_id}
                 wire.conn_send(conn, msg, ver)
                 with self._lock:
-                    roster = [{"worker_id": wid}
+                    roster = [{"worker_id": wid, "gpu": s.gpu}
                               for wid, s in self._slots.items()
                               if s.state != "dead"]
                 roster_msg = {"kind": "raylet_workers", "rid": None,
@@ -340,23 +350,39 @@ class Raylet:
         node-scoped), and the settlement path self-corrects: an
         unfunded spec carries no ``_req``, so nothing is ever released
         that was not acquired.  Waiting for funding instead would idle
-        a worker for a reconcile round-trip per chain break."""
+        a worker for a reconcile round-trip per chain break.
+
+        A lease that asks for ``GPU`` starts only on the GPU slot and
+        any other lease only on a plain one, as the head's
+        ``_idle_worker_on`` matches its own workers: with no matching
+        slot idle, the lease waits."""
         while self._idle and self._queue:
-            spec = None
-            for _ in range(len(self._queue)):
-                cand = self._queue.popleft()
-                if cand.get("_lease_q"):
-                    self._queue.append(cand)
-                    continue
-                spec = cand
-                break
-            if spec is None:
-                spec = self._queue.popleft()  # queued lease: start it
-            slot = self._slots.get(self._idle.popleft())
+            kinds = {s.gpu for s in map(self._slots.get, self._idle)
+                     if s is not None and s.state == "idle"}
+            i = next((i for i, c in enumerate(self._queue)
+                      if not c.get("_lease_q") and _needs_gpu(c) in kinds),
+                     None)
+            if i is None:  # a queued lease may start on a free worker
+                i = next((i for i, c in enumerate(self._queue)
+                          if _needs_gpu(c) in kinds), None)
+            if i is None:
+                return
+            spec = self._queue[i]
+            del self._queue[i]
+            self._start_on_locked(self._pop_idle_locked(_needs_gpu(spec)),
+                                  spec)
+
+    def _pop_idle_locked(self, gpu: bool) -> _Slot:
+        """_lock held.  The first idle slot of the wanted kind (one
+        exists); stale ids ahead of it are dropped."""
+        for wid in list(self._idle):
+            slot = self._slots.get(wid)
             if slot is None or slot.state != "idle":
-                self._queue.appendleft(spec)
-                continue
-            self._start_on_locked(slot, spec)
+                self._idle.remove(wid)
+            elif slot.gpu == gpu:
+                self._idle.remove(wid)
+                return slot
+        raise AssertionError("no idle slot of the kind the lease needs")
 
     def _start_on_locked(self, slot: _Slot, spec: dict) -> None:
         """_lock held.  Push one spec to a worker (push rides _lock by
@@ -390,10 +416,14 @@ class Raylet:
         leased work queued (reference: raylet spawns replacements for
         blocked workers — bounded, or nested task chains deadlock)."""
         with self._lock:
-            if not self._queue or self._stop.is_set():
+            # a replacement is a plain worker: only plain leases wait
+            # for one, and only plain slots count as capacity
+            if self._stop.is_set() or all(map(_needs_gpu, self._queue)):
                 return
-            free = any(s.state == "idle" for s in self._slots.values())
+            free = any(s.state == "idle" and not s.gpu
+                       for s in self._slots.values())
             unblocked_busy = any(s.state == "busy" and not s.blocked
+                                 and not s.gpu
                                  for s in self._slots.values())
             if free or unblocked_busy:
                 return
@@ -424,7 +454,8 @@ class Raylet:
                 return
             kind = first.get("kind")
             if kind == "attach_task_conn":
-                self._worker_loop(first["worker_id"], conn)
+                self._worker_loop(first["worker_id"], conn,
+                                  bool(first.get("gpu")))
                 return  # _worker_loop owns + closes the conn
             if kind == "attach_worker_ctl":
                 self._ctl_park(first["worker_id"], conn)
@@ -492,8 +523,8 @@ class Raylet:
                     logger.warning("non-release kind %r on ref channel",
                                    kind)
 
-    def _worker_loop(self, worker_id: str, conn) -> None:
-        slot = _Slot(worker_id, conn)
+    def _worker_loop(self, worker_id: str, conn, gpu: bool) -> None:
+        slot = _Slot(worker_id, conn, gpu)
         with self._lock:
             old = self._slots.get(worker_id)
             if old is not None and old.state != "dead":

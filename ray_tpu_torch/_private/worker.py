@@ -272,6 +272,11 @@ class Worker:
         # legacy agents) → direct-GCS, byte-identical to before.
         self.raylet_sock = (os.environ.get("RTT_RAYLET_SOCK")
                             if role == "worker" else None)
+        # a worker that sees the node's cards says so when it registers
+        # and attaches: the head and a node's raylet start GPU work on
+        # such workers alone
+        self.gpu = role == "worker" and \
+            os.environ.get("RTT_GPU_WORKER") == "1"
         self._raylet_ref_conn = None
         self._raylet_ref_lock = threading.Lock()
         self.ctx = _TaskContext()
@@ -298,7 +303,7 @@ class Worker:
         # registration happens on first channel creation
         info = self.pool.call("register_client", role=role,
                               client_id=self.worker_id, pid=os.getpid(),
-                              node_id=node_id)
+                              node_id=node_id, gpu=self.gpu)
         self.node_id = info["node_id"]
         if self._gcs_epoch is None:
             self._gcs_epoch = info.get("epoch")
@@ -385,7 +390,8 @@ class Worker:
         if getattr(self, "node_id", None) is not None:
             info = ch.call("register_client", role=self.role,
                            client_id=self.worker_id,
-                           pid=os.getpid(), node_id=self.node_id)
+                           pid=os.getpid(), node_id=self.node_id,
+                           gpu=self.gpu)
             epoch = info.get("epoch")
             if self._gcs_epoch is None:
                 self._gcs_epoch = epoch
@@ -1644,7 +1650,7 @@ class Worker:
                         "reattach": {
                             "pid": os.getpid(),
                             "node_id": self.node_id,
-                            "gpu": os.environ.get("RTT_GPU_WORKER") == "1",
+                            "gpu": self.gpu,
                             # declared up front so the GCS never marks an
                             # actor worker "idle" (its main thread sits in
                             # serve_forever and can't run plain tasks)
@@ -1684,7 +1690,8 @@ class Worker:
         while a task runs; the same kinds are still honored here when they
         arrive on the task conn (ctl-attach race fallback)."""
         conn = self._dial_task_endpoint()
-        conn.send({"kind": "attach_task_conn", "worker_id": self.worker_id})
+        conn.send({"kind": "attach_task_conn", "worker_id": self.worker_id,
+                   "gpu": self.gpu})
         with self._task_conn_lock:
             self._task_conn = conn
         self._open_ctl_conn()

@@ -50,15 +50,28 @@ def main() -> None:
     resource_sanitizer.maybe_install()
 
     node_id = os.environ["RTT_NODE_ID"]
-    # the reference's remote-node branch (a worker its NodeAgent spawns
-    # on another host) waits for node_agent.py, which is not ported yet
-    session_dir = os.environ["RTT_SESSION_DIR"]
-    root, name = os.path.split(session_dir)
-    session = Session(root=root, name=name)
-    from ray_tpu_torch._private import protocol
-    protocol.set_authkey(session.auth_key())
-    rtlog.setup("worker", session.log_dir)
-    worker = Worker(session, role="worker", node_id=node_id)
+    proxy = os.environ.get("RTT_PROXY_ADDR")
+    if proxy:
+        # remote-node worker (spawned by a NodeAgent on another host):
+        # RPCs tunnel to the head; no local session/data plane.  On a
+        # raylet node (RTT_RAYLET_SOCK set) the task/ctl channels and
+        # release oneways instead attach to the LOCAL per-node scheduler
+        # (Worker reads the env; see _dial_task_endpoint / §4i).
+        from ray_tpu_torch._private import protocol
+        protocol.set_authkey_from_env()
+        host, _, port = proxy.partition(":")
+        rtlog.setup("worker", None)
+        session = None
+        worker = Worker(None, role="worker", node_id=node_id,
+                        proxy_addr=(host, int(port)))
+    else:
+        session_dir = os.environ["RTT_SESSION_DIR"]
+        root, name = os.path.split(session_dir)
+        session = Session(root=root, name=name)
+        from ray_tpu_torch._private import protocol
+        protocol.set_authkey(session.auth_key())
+        rtlog.setup("worker", session.log_dir)
+        worker = Worker(session, role="worker", node_id=node_id)
     set_global_worker(worker)
     if GLOBAL_CONFIG.log_to_driver:
         sys.stdout = _LogShipper(worker, "stdout", sys.stdout)

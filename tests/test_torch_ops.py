@@ -858,6 +858,8 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                 "native/__init__", "util/metrics", "util/metrics_catalog",
                 "util/tracing", "util/profiler", "util/tsdb",
                 "util/trace_assembly", "util/scheduling_strategies",
+                "util/state", "util/client/__init__", "util/client/server",
+                "cluster_utils",
                 *(f"_private/{m}" for m in (
                     "config", "ids", "pg_scheduler", "resource_sanitizer",
                     "runtime_env", "rtlog", "session", "shm_store",
@@ -865,7 +867,8 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                     "serialization", "protocol", "data_plane",
                     "actor_server", "worker", "worker_main", "raylet",
                     "replication", "gcs", "flight_recorder",
-                    "lock_watchdog", "ray_perf", "xla_watchdog"))):
+                    "lock_watchdog", "ray_perf", "xla_watchdog",
+                    "node_agent"))):
         assert runtime / f"{mod}.py" in _port_sources(), mod
     assert len(_port_sources()) > 10
     assert REPO / "ray_tpu_torch" / "models" / "llama.py" in _port_sources()
