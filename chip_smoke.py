@@ -74,7 +74,18 @@
    and LayerNorm launches as the driver's run, and returns a bf16 CUDA
    tensor that arrives on ``cuda`` with the actor's checksum.  A
    ``num_gpus=0`` actor and a plain task reading the CUDA tensor must
-   fail.  Then ``ray_perf``'s quick suite, and after ``shutdown`` none
+   fail.  Then, on the same actor (decorated with ``enable_channels``),
+   the util_extras phase: a compiled chain CPU stage -> the actor's
+   GPT-2 forward -> CPU stage over the 16 prompts, pipelined, each
+   sha256 bitwise the actor call's and exactly 12 flash and 25
+   LayerNorm forwards a prompt over it; a bf16 CUDA tensor over a
+   channel arrives on ``cuda`` with the actor's sha256 and, sent to a
+   ``num_gpus=0`` stage, must raise through ``result()`` within 10 s;
+   ``ActorPool`` and ``util.queue.Queue`` keep the prompts' order; the
+   dashboard on port 0 serves the nodes, the live actor, ``rtt_``
+   metrics and a 404 for a ``../`` log path; no channel segment is left
+   or made outside the run's shm directory.  Then ``ray_perf``'s quick
+   suite, and after ``shutdown`` none
    of the workers its GCS spawned may be alive and no segment it made
    may be left; every name it made in the run's own shm directory must
    carry the port's ``rtt_`` prefix (never the JAX package's), and none
@@ -254,6 +265,11 @@
    card holds the driver alone.
 9. Prints each phase's wall seconds, one JSON line of per-kernel numbers,
    then, as the last line, ``{"ok": true, "device": {...}}``.
+
+Every cluster the run boots keeps warm GPU workers (the runtime's pool:
+forked at init and after each exit, torch imported before they
+register), and every process it starts reads and writes a bytecode cache
+of the run's own (``bytecode_cache``).
 
 Exits non-zero, with no result line, when there is no CUDA device or any
 phase fails.  Imports neither JAX nor the ray_tpu package.
@@ -5552,20 +5568,12 @@ class EngineActor:
         """Start the loop on every submitted request; their tokens, each
         one's time to first token and the kernels' launches in this run
         (counted from 0)."""
-        from ray_tpu_torch.ops import flash_attention as fa
-        from ray_tpu_torch.ops import layer_norm as ln
-        counters = {"layer_norm_fwd": (ln, "launches"),
-                    "flash_attention_fwd": (fa, "launches"),
-                    "layer_norm_fwd_scalar": (ln, "scalar_launches"),
-                    "flash_attention_fwd_f32": (fa, "f32_launches"),
-                    "flash_attention_fwd_gqa_d128": (fa, "d128_launches")}
-        for m, a in counters.values():
-            setattr(m, a, 0)
+        self.launch_counts(reset=True)
         t0 = time.perf_counter()
         self.eng.start()
         outs = [s.tokens() for s in self.streams]
         wall = time.perf_counter() - t0
-        counts = {k: getattr(m, a) for k, (m, a) in counters.items()}
+        counts = self.launch_counts()
         ttft = [self.first[s.seq_id] - t0 for s in self.streams]
         return dict(outs=outs, counts=counts, ttft_s=ttft, wall_s=wall,
                     stats=self.eng.stats())
@@ -5582,6 +5590,290 @@ class EngineActor:
         digest = hashlib.sha256(
             out.cpu().view(torch.int16).numpy().tobytes()).hexdigest()
         return out, digest
+
+    def logits_sha(self, prompt) -> tuple:
+        """``logits``'s top-1 id at the last position and its sha256: host
+        data only, the GPU stage of the util_extras phase's chain."""
+        out, digest = self.logits(prompt)
+        return int(out[-1].float().argmax()), digest
+
+    def launch_counts(self, reset: bool = False) -> dict:
+        """The forward kernels' launches in this process (zeroed first
+        with ``reset``)."""
+        from ray_tpu_torch.ops import flash_attention as fa
+        from ray_tpu_torch.ops import layer_norm as ln
+        counters = {"layer_norm_fwd": (ln, "launches"),
+                    "flash_attention_fwd": (fa, "launches"),
+                    "layer_norm_fwd_scalar": (ln, "scalar_launches"),
+                    "layer_norm_fwd_wide": (ln, "wide_launches"),
+                    "flash_attention_fwd_f32": (fa, "f32_launches"),
+                    "flash_attention_fwd_gqa_d128": (fa, "d128_launches")}
+        if reset:
+            for m, a in counters.values():
+                setattr(m, a, 0)
+        return {k: getattr(m, a) for k, (m, a) in counters.items()}
+
+    def relay(self, q_in, q_out, n: int) -> int:
+        """Moves ``n`` items from one ``util.queue.Queue`` to another, in
+        the order they come."""
+        for _ in range(n):
+            q_out.put(q_in.get(timeout=60))
+        return n
+
+
+def with_channels(cls):
+    """``cls`` decorated with the port's ``enable_channels`` (its two pump
+    methods), as a subclass of the same name made here: the decorator adds
+    the methods to the class object, which a worker that imports ``cls``
+    from this module would not see; the subclass travels by value."""
+    from ray_tpu_torch.experimental.channels import enable_channels
+    return enable_channels(type(cls.__name__, (cls,),
+                                {"__doc__": cls.__doc__}))
+
+
+# The util_extras phase's CPU stages (num_gpus=0 actors).  Their methods
+# name no module, so a by-value copy imports nothing in the stage's worker.
+class ChainStage:
+    def __init__(self):
+        self.n = 0
+
+    def encode(self, prompt) -> list:
+        return [int(t) for t in prompt]
+
+    def collect(self, item) -> tuple:
+        self.n += 1
+        return (self.n - 1,) + tuple(item)
+
+
+class CardlessStage:
+    """A stage with torch imported but no card: a CUDA tensor sent to it
+    cannot be decoded here."""
+
+    def __init__(self):
+        import torch as t
+        self.cuda = t.cuda.is_available()
+
+    def has_card(self) -> bool:
+        return self.cuda
+
+    def digest(self, x) -> str:
+        return repr(x)
+
+
+def util_extras_phase(actor, eng_res: dict, tag: str) -> dict:
+    """The util/ extras, compiled channels and the dashboard in the
+    runtime phase's cluster, on its warm GPU ``EngineActor`` (decorated
+    with ``enable_channels``):
+
+    a. a compiled chain (CPU ``encode`` → the engine's ``logits_sha`` →
+       CPU ``collect``) runs the engine phase's 16 prompts pipelined; each
+       result in order, each sha256 bitwise that of ``EngineActor.logits``
+       by an ordinary actor call, and over the chain exactly 12 flash and
+       25 LayerNorm forwards a prompt in the GPU stage, no other
+       instantiation; the chain's per-item time beside the same three
+       stages by actor calls;
+    b. a bf16 CUDA logits tensor over a channel from the engine's process
+       to this one arrives on ``cuda`` with the engine's sha256; sent on
+       to a ``num_gpus=0`` stage it must raise through ``result()``
+       within 10 s (C22);
+    c. ``ActorPool.map`` over the engine gives the 16 sha256 in order,
+       and a ``util.queue.Queue`` filled by a plain task carries the
+       prompts to the engine and back in FIFO order;
+    d. the dashboard on port 0: ``/api/nodes`` with ``GPU``, the engine
+       actor alive in ``/api/actors``, ``rtt_`` series and none under the
+       JAX package's prefix in ``/metrics``, a ``../`` log path 404.
+
+    Check e (no channel segment left in the run's shm directory, none
+    made outside it) runs after the cluster's shutdown
+    (``check_channels_gone``)."""
+    import hashlib
+    import socket
+    import urllib.request
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.dashboard import start_dashboard, stop_dashboard
+    from ray_tpu_torch.experimental.channels import compile_chain
+    from ray_tpu_torch.util.actor_pool import ActorPool
+    from ray_tpu_torch.util.queue import Queue
+
+    def say(msg: str) -> None:
+        print(f"util_extras {msg} [{tag}]", flush=True)
+
+    prompts = eng_res["requests"][0]
+    n = len(prompts)
+    res: dict = {}
+    stage = rt.remote(num_gpus=0)(with_channels(ChainStage))
+    cardless = rt.remote(num_gpus=0)(with_channels(CardlessStage))
+    enc, col, bad = stage.remote(), stage.remote(), cardless.remote()
+    if rt.get(bad.has_card.remote(), timeout=120):
+        fail("util_extras: the num_gpus=0 stage sees a card")
+
+    # -- a. the compiled chain through the kernels
+    refs = [actor.logits.options(num_returns=2).remote(p) for p in prompts]
+    want = rt.get([r[1] for r in refs], timeout=300)
+    del refs
+    calls = []
+    for p in prompts:
+        t0 = time.perf_counter()
+        x = rt.get(enc.encode.remote(p), timeout=60)
+        y = rt.get(actor.logits_sha.remote(x), timeout=60)
+        rt.get(col.collect.remote(y), timeout=60)
+        calls.append(time.perf_counter() - t0)
+    chain = compile_chain([(enc, "encode"), (actor, "logits_sha"),
+                           (col, "collect")])
+    try:
+        chain.execute(prompts[0][:8], timeout=60)          # warm
+        rt.get(actor.launch_counts.remote(True), timeout=60)
+        t_in, t_out, outs = [], [], []
+        t0 = time.perf_counter()
+        for p in prompts:
+            t_in.append(time.perf_counter())
+            chain.execute_async(p, timeout=60)
+        for _ in prompts:
+            outs.append(chain.result(timeout=120))
+            t_out.append(time.perf_counter())
+        wall = time.perf_counter() - t0
+    finally:
+        chain.teardown()
+    got = rt.get(actor.launch_counts.remote(), timeout=60)
+    first = outs[0][0] if outs else 0
+    order = [o[0] - first for o in outs] == list(range(n))
+    same = sum(o[2] == w for o, w in zip(outs, want))
+    lat = [b - a for a, b in zip(t_in, t_out)]
+    res.update(chain_item_ms=1e3 * wall / n,
+               chain_latency_p50_ms=1e3 * _pct(lat, 50),
+               calls_item_p50_ms=1e3 * _pct(calls, 50),
+               launches={k: got[k] for k in ("flash_attention_fwd",
+                                             "layer_norm_fwd")})
+    say(f"compiled chain encode -> logits_sha -> collect: {len(outs)} "
+        f"results in order {order}, sha256 equal to EngineActor.logits by "
+        f"actor calls {same} of {n}; GPU stage launches {got}")
+    say(f"chain per item {res['chain_item_ms']:.4g} ms (16 pipelined; "
+        f"latency p50 {res['chain_latency_p50_ms']:.4g} ms), the same "
+        f"stages by actor calls p50 {res['calls_item_p50_ms']:.4g} ms")
+    if len(outs) != n or not order or same != n:
+        fail("util_extras: the chain's results are out of order or differ "
+             "from EngineActor.logits")
+    if got["flash_attention_fwd"] != 12 * n or \
+            got["layer_norm_fwd"] != 25 * n:
+        fail(f"util_extras: the chain's GPU stage launched {got}, expected "
+             f"{12 * n} flash and {25 * n} LayerNorm forwards")
+    for k in ("layer_norm_fwd_scalar", "layer_norm_fwd_wide",
+              "flash_attention_fwd_f32", "flash_attention_fwd_gqa_d128"):
+        if got[k]:
+            fail(f"util_extras: {k} ran {got[k]} times over the chain")
+
+    # -- b. a CUDA tensor over a channel, then to a stage without the card
+    tensor_chain = compile_chain([(actor, "logits")],
+                                 capacity_bytes=16 * 2 ** 20)
+    try:
+        t, digest = tensor_chain.execute(prompts[0][:32], timeout=60)
+    finally:
+        tensor_chain.teardown()
+    mine = hashlib.sha256(t.cpu().view(torch.int16).numpy().tobytes()
+                          ).hexdigest()
+    say(f"bf16 logits {tuple(t.shape)} over a channel on {t.device}, "
+        f"sha256 {mine[:16]} (the engine's {digest[:16]})")
+    if t.device.type != "cuda" or t.dtype != torch.bfloat16 or \
+            mine != digest:
+        fail("util_extras: the CUDA tensor did not cross the channel intact")
+    fault = compile_chain([(bad, "digest")], capacity_bytes=16 * 2 ** 20)
+    try:
+        t0 = time.perf_counter()
+        fault.execute_async(t, timeout=10)
+        try:
+            fault.result(timeout=10)
+            fail("util_extras: a num_gpus=0 stage decoded a CUDA tensor")
+        except RuntimeError as e:
+            took = time.perf_counter() - t0
+            ok = "could not decode" in str(e) and took < 10
+            say(f"control CUDA tensor to a num_gpus=0 stage: raised through "
+                f"result() in {took:.3f} s ({'decode error' if ok else e})")
+            if not ok:
+                fail(f"util_extras: the card-less stage failed otherwise: "
+                     f"{e!r} after {took:.3f} s")
+    finally:
+        fault.teardown()
+    del t
+
+    # -- c. ActorPool and util.queue.Queue
+    pooled = list(ActorPool([actor]).map(
+        lambda a, p: a.logits_sha.remote(p), prompts))
+    same = sum(o[1] == w for o, w in zip(pooled, want))
+    q_in, q_out = Queue(), Queue()
+
+    @rt.remote
+    def fill(q, items):
+        for it in items:
+            q.put(it)
+        return len(items)
+
+    filled = fill.remote(q_in, prompts)
+    moved = rt.get(actor.relay.remote(q_in, q_out, n), timeout=120)
+    back = [q_out.get(timeout=60) for _ in range(n)]
+    fifo = back == [list(p) for p in prompts]
+    say(f"ActorPool.map over the engine: sha256 equal {same} of {n}, in "
+        f"order; Queue filled by a plain task ({rt.get(filled)} items), "
+        f"relayed by the engine ({moved}): FIFO {fifo}")
+    if len(pooled) != n or same != n or not fifo:
+        fail("util_extras: ActorPool or Queue lost the prompts' order")
+    q_in.shutdown()
+    q_out.shutdown()
+
+    # -- d. the dashboard
+    srv = start_dashboard(port=0)
+    port = srv.server_address[1]
+    try:
+        def fetch(path):
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                        timeout=30) as r:
+                return r.read()
+
+        nodes = json.loads(fetch("/api/nodes"))
+        actors = json.loads(fetch("/api/actors"))
+        metrics = fetch("/metrics").decode()
+        raw = socket.create_connection(("127.0.0.1", port), timeout=30)
+        try:
+            raw.sendall(b"GET /api/logs/../descriptor.json HTTP/1.1\r\n"
+                        b"Host: x\r\nConnection: close\r\n\r\n")
+            resp = b""
+            while chunk := raw.recv(4096):
+                resp += chunk
+        finally:
+            raw.close()
+    finally:
+        stop_dashboard()
+    gpu = [nd["resources_total"].get("GPU") for nd in nodes]
+    alive = [a["class_name"] for a in actors if a["state"] == "ALIVE"]
+    series = sorted({ln.split("{")[0].split()[0] for ln in metrics.splitlines()
+                     if ln and not ln.startswith("#")})
+    ours = [s for s in series if s.startswith("rtt_")]
+    foreign = [s for s in series if s.startswith(REFERENCE_SHM_PREFIX)]
+    status = resp.split(b"\r\n", 1)[0].decode()
+    say(f"dashboard on port {port}: nodes' GPU {gpu}, actors alive "
+        f"{sorted(set(alive))}, /metrics {len(ours)} rtt_ series of "
+        f"{len(series)} ({REFERENCE_SHM_PREFIX} ones: {foreign}), "
+        f"/api/logs/../descriptor.json -> {status}")
+    if not any(gpu) or "EngineActor" not in alive or not ours or foreign \
+            or "404" not in status:
+        fail("util_extras: the dashboard's nodes, actors, metrics or log "
+             "guard are wrong")
+    for a in (enc, col, bad):
+        rt.kill(a)
+    return res
+
+
+def check_channels_gone(watch, tag: str) -> None:
+    """Check e (C21): the util_extras phase's channels were made in the
+    run's shm directory, and after the chains' teardown and the cluster's
+    shutdown none is left there or was made outside it."""
+    made = sorted(m for m in watch.made if m.startswith("rtt_chan_"))
+    left = [m for m in watch.left() if m.startswith("rtt_chan_")]
+    stray = sorted(s for s in watch.stray if "chan_" in s)
+    print(f"util_extras channels made in {watch.shm_dir} {len(made)}, left "
+          f"{left}, made outside it {stray} [{tag}]", flush=True)
+    if not made or left or stray:
+        fail("util_extras: a channel segment was left, or made outside the "
+             "run's shm directory")
 
 
 def _names(d) -> set:
@@ -5665,6 +5957,45 @@ class ClusterWatch:
                       if not os.path.isdir(os.path.join(self.shm_dir, n)))
 
 
+# Every process this run starts imports torch, and the card's image ships
+# torch without bytecode and with PYTHONDONTWRITEBYTECODE=1, so each process
+# compiled torch's modules from source: 7.6-9.0 s of every cold worker's
+# boot (probes/actor_boot_probe.py).  The run keeps a bytecode cache of its
+# own (PYTHONPYCACHEPREFIX, a temporary directory removed at exit) that
+# every process it starts reads and writes; one process fills it with what
+# the workers import while the kernels build.
+WARM_MODULES = ("numpy", "torch", "ray_tpu_torch._private.worker_main",
+                "ray_tpu_torch.serve", "ray_tpu_torch.serve.llm",
+                "ray_tpu_torch.models.gpt2", "ray_tpu_torch.models.bert",
+                "ray_tpu_torch.models.llama", "ray_tpu_torch.models.resnet",
+                "ray_tpu_torch.train", "ray_tpu_torch.data",
+                "ray_tpu_torch.tune", "ray_tpu_torch.rllib",
+                "ray_tpu_torch.experimental.channels", "chip_smoke")
+
+
+def bytecode_cache() -> subprocess.Popen:
+    """Points this process and every process it starts at a bytecode cache
+    of this run's own, and starts the process that fills it."""
+    root = tempfile.mkdtemp(prefix="rtt_pyc_")
+    atexit.register(shutil.rmtree, root, ignore_errors=True)
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = root
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = root
+    code = ("import importlib\n"
+            f"for m in {WARM_MODULES!r}:\n"
+            "    try:\n"
+            "        importlib.import_module(m)\n"
+            "    except Exception as e:\n"
+            "        print(m, repr(e))\n")
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=here,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    atexit.register(proc.kill)
+    return proc
+
+
 def session_root() -> str:
     """A session root of this run's own, removed at exit.  A session's
     actor sockets are AF_UNIX paths of at most 107 bytes, about 80 of
@@ -5684,8 +6015,9 @@ def runtime_phase(dev, eng_res: dict, tag: str) -> dict:
     put/get of 64 MB, a plain task that sees no card, the GPU actor
     answering the engine phase's 16 requests (token ids and kernel
     launches equal to the driver's run), a bf16 CUDA tensor through the
-    store, two planted faults that must fail, ray_perf's quick suite,
-    then shutdown with no segment and no worker left."""
+    store, two planted faults that must fail, the util_extras phase on
+    the same actor (``util_extras_phase``), ray_perf's quick suite, then
+    shutdown with no segment, channel or worker left."""
     import hashlib
     import ray_tpu_torch as rt
     from ray_tpu_torch import exceptions as rexc
@@ -5757,7 +6089,7 @@ def runtime_phase(dev, eng_res: dict, tag: str) -> dict:
             fail(f"runtime: a plain task sees {view}, expected (0, '')")
 
         args = (spec["cfg"], spec["blocks"], spec["block_scale"], SEED)
-        gpu_actor = rt.remote(num_gpus=1)(EngineActor)
+        gpu_actor = rt.remote(num_gpus=1)(with_channels(EngineActor))
         t0 = time.perf_counter()
         actor = gpu_actor.remote(*args)
         vis = rt.get(actor.visible.remote(), timeout=600)
@@ -5834,9 +6166,12 @@ def runtime_phase(dev, eng_res: dict, tag: str) -> dict:
                   flush=True)
             if not ok:
                 fail(f"runtime: the plain read failed otherwise: {e}")
+        del t_logits, lref
+        t0 = time.perf_counter()
+        res["util_extras"] = util_extras_phase(actor, eng_res, tag)
+        res["util_extras"]["wall_s"] = time.perf_counter() - t0
         rt.kill(actor)
         rt.kill(cpu_actor)
-        del t_logits, lref
 
         perf = ray_perf.main(quick=True)
         for row in perf:
@@ -5859,6 +6194,7 @@ def runtime_phase(dev, eng_res: dict, tag: str) -> dict:
         else:
             os.environ["PYTHONPATH"] = saved
     check_cluster_gone(watch, "runtime", tag)
+    check_channels_gone(watch, tag)
     for k, val in res.items():
         print(f"runtime {k} {val} [{tag}]", flush=True)
     gc.collect()
@@ -9034,6 +9370,9 @@ def main() -> int:
     atexit.register(shutil.rmtree, shm_dir, ignore_errors=True)
     os.environ["RTT_SHM_DIR"] = shm_dir
     os.environ["RTT_SESSION_DIR_ROOT"] = session_root()
+    # every process reads the run's bytecode cache
+    t_warm = time.perf_counter()
+    warm = bytecode_cache()
     from ray_tpu_torch import _build
     from ray_tpu_torch._device import disable_tf32, resolve_device
     tag = gpu_line()
@@ -9046,9 +9385,16 @@ def main() -> int:
     t_start = t0 = time.perf_counter()
     phase_s = {}
 
-    def phase_done(name: str) -> None:
+    def phase_done(name: str, parts: Optional[dict] = None) -> None:
+        """``parts``: phases run inside this one, with their own wall
+        times, which are taken out of its."""
         nonlocal t0
         phase_s[name] = time.perf_counter() - t0
+        for part, wall in (parts or {}).items():
+            phase_s[part] = wall
+            phase_s[name] -= wall
+            print(f"phase {part} wall_s {wall:.1f} (inside {name}) [{tag}]",
+                  flush=True)
         print(f"phase {name} wall_s {phase_s[name]:.1f} (run so far "
               f"{time.perf_counter() - t_start:.1f}) [{tag}]", flush=True)
         t0 = time.perf_counter()
@@ -9082,10 +9428,20 @@ def main() -> int:
     phase_done("kernels")
     eng = engine_phase(dev, gpt2_engine(), tag)
     phase_done("engine")
+    try:
+        out = warm.communicate(timeout=300)[0].strip()
+        print(f"bytecode cache {os.environ['PYTHONPYCACHEPREFIX']} filled "
+              f"(exit {warm.returncode}{', ' + out if out else ''}) "
+              f"{time.perf_counter() - t_warm:.1f} s after the run began",
+              flush=True)
+    except subprocess.TimeoutExpired:
+        warm.kill()
+        print("bytecode cache: the filling process was stopped after 300 s",
+              flush=True)
     weights_phase(dev, tag)
     phase_done("weights")
     runtime = runtime_phase(dev, eng, tag)
-    phase_done("runtime")
+    phase_done("runtime", {"util_extras": runtime["util_extras"]["wall_s"]})
     multinode = multinode_phase(dev, eng, tag)
     phase_done("multinode")
     served = serve_phase(dev, eng, runtime, tag)
@@ -9149,7 +9505,8 @@ def main() -> int:
     rl_cluster_phases(dev, card, tag, phase_done)
     # every main path's launches of the kernels it counts, each counted
     # from 0 over its own run
-    paths = {"engine": eng, "runtime": runtime, "multinode": multinode,
+    paths = {"engine": eng, "runtime": runtime,
+             "util_extras": runtime["util_extras"], "multinode": multinode,
              "serve": served,
              "llama_engine": llama, "serve_llm_split": split,
              "train": train,

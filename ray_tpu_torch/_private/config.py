@@ -197,7 +197,9 @@ _FLAG_DEFS = [
     _flag("gpu_workers_per_node", 1,
           "Device-holding worker processes per node (one process holds "
           "the card; raise only with per-worker card partitioning "
-          "through CUDA_VISIBLE_DEVICES)."),
+          "through CUDA_VISIBLE_DEVICES).  The head keeps each local "
+          "node with cards at this many, warm: forked at start and after "
+          "each exit, torch imported before they register."),
     # --- wire protocol -------------------------------------------------------
     _flag("proto_min_version", 0,
           "Minimum control-plane wire version the GCS accepts (0 = legacy "

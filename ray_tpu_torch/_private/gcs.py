@@ -473,6 +473,11 @@ class GcsServer:
         self.log_sink = None                              # callable(line)
         self._shutdown = False
         self._spawn_counter = 0
+        # warm GPU pool back-off (_top_up_gpu_workers), per node: GPU
+        # workers that died in a row before registering, and the
+        # monotonic time before which none is forked there again
+        self._gpu_boot_failures: Dict[str, int] = {}    # guarded by: lock
+        self._gpu_fork_after: Dict[str, float] = {}     # guarded by: lock
         threading.Thread(target=self._peer_delete_loop, daemon=True,
                          name="gcs-peer-delete").start()
 
@@ -1117,37 +1122,25 @@ class GcsServer:
             return w
         return None
 
-    def _idle_worker_on(self, node: NodeState, need_gpu: bool = False,
-                        actor: bool = False) -> Optional[WorkerState]:
+    def _idle_worker_on(self, node: NodeState,
+                        need_gpu: bool = False) -> Optional[WorkerState]:
         """Pop an idle worker matching the device requirement.  GPU work
         only runs on GPU-capable workers (spawned with device access);
-        a CPU task prefers plain workers but may ride a GPU-capable one.
-        A CPU actor never does: it would hold a process that sees the
+        CPU work never rides a GPU-capable one: the warm pool keeps those
+        for the cards, and a CPU actor would hold a process that sees the
         cards for its lifetime, though it asked for none."""
         skipped = []
         found = None
-        fallback = None  # gpu-capable worker a CPU task may ride if no
-        # plain worker is idle (but plain ones are preferred)
         while node.idle_workers:
             wid = node.idle_workers.popleft()
             w = self.workers.get(wid)
             if w is None or w.state != "idle":
                 continue
-            if need_gpu and not w.gpu_capable:
+            if need_gpu != w.gpu_capable:
                 skipped.append(wid)
-                continue
-            if not need_gpu and w.gpu_capable:
-                if fallback is None and not actor:
-                    fallback = w
-                else:
-                    skipped.append(wid)
                 continue
             found = w
             break
-        if found is None:
-            found = fallback
-        elif fallback is not None:
-            skipped.append(fallback.worker_id)
         node.idle_workers.extendleft(reversed(skipped))
         return found
 
@@ -1162,8 +1155,8 @@ class GcsServer:
         # environment says now: workers and head must map the same files
         env["RTT_SHM_DIR"] = str(shm_store._SHM_DIR)
         if gpu:
-            # GPU-capable worker: sees the node's cards — spawned on
-            # demand when pending work requests GPU resources.
+            # GPU-capable worker: sees the node's cards (forked by the
+            # warm pool, or by the pump for GPU work that finds fewer).
             env["RTT_GPU_WORKER"] = "1"
             env["CUDA_VISIBLE_DEVICES"] = self._node_cuda_devices(node_id)
         else:
@@ -1180,6 +1173,27 @@ class GcsServer:
         w.gpu_capable = gpu
         # registered properly once the process connects; keep it for monitor
         self.workers[w.worker_id] = w
+
+    def _top_up_gpu_workers(self) -> None:
+        """Lock held.  The warm GPU pool: fork GPU workers until every
+        local node with cards has ``gpu_workers_per_node`` (a GPU actor's
+        boot then skips the process start and the torch import, which the
+        worker does before it registers).  Called from the monitor loop,
+        so the pool is filled at start and refilled after each exit.  A
+        node whose GPU workers die before registering (no usable torch,
+        an OOM kill) backs off 1, 2, 4 ... 30 s between forks; a restored
+        head waits out the reattach window, where the old ones return."""
+        if self._shutdown or self._restored_at is not None:
+            return
+        now = time.monotonic()
+        for node in list(self.nodes.values()):
+            if not node.alive or node.is_remote or \
+                    node.resources_total.get("GPU", 0) <= 0 or \
+                    now < self._gpu_fork_after.get(node.node_id, 0.0):
+                continue
+            while self._count_node_workers(node, gpu=True) < \
+                    GLOBAL_CONFIG.gpu_workers_per_node:
+                self._spawn_worker(node.node_id, gpu=True)
 
     def _node_cuda_devices(self, node_id: str) -> str:
         """The node's cards as a CUDA_VISIBLE_DEVICES value (the rule
@@ -1533,8 +1547,7 @@ class GcsServer:
                     misses = 0
                     continue
                 need_gpu = req.get("GPU", 0) > 0
-                worker = self._idle_worker_on(
-                    node, need_gpu, bool(spec.get("is_actor_creation")))
+                worker = self._idle_worker_on(node, need_gpu)
                 if worker is None:
                     spawned = False
                     if node.is_remote:
@@ -1547,7 +1560,9 @@ class GcsServer:
                         # device-holding worker per node (its actor/tasks
                         # own all the node's declared chips)
                         if self._count_node_workers(node, gpu=True) < \
-                                GLOBAL_CONFIG.gpu_workers_per_node:
+                                GLOBAL_CONFIG.gpu_workers_per_node and \
+                                time.monotonic() >= self._gpu_fork_after.get(
+                                    node.node_id, 0.0):
                             self._spawn_worker(node.node_id, gpu=True)
                             spawned = True
                     else:
@@ -1792,6 +1807,20 @@ class GcsServer:
         logger.info("worker death %s pid=%s node=%s state=%s actor=%s task=%s",
                     w.worker_id, w.pid, (w.node_id or "")[:8], w.state,
                     w.actor_id, (w.current_task or {}).get("task_id"))
+        if w.state == "starting" and w.proc is not None:
+            # forked here and never registered: nothing refers to it, so
+            # it leaves the table (a worker that cannot boot must not
+            # grow it forever)
+            self.workers.pop(w.worker_id, None)
+            if w.gpu_capable:
+                n = self._gpu_boot_failures.get(w.node_id, 0) + 1
+                self._gpu_boot_failures[w.node_id] = n
+                delay = min(2.0 ** (n - 1), 30.0)
+                self._gpu_fork_after[w.node_id] = time.monotonic() + delay
+                logger.warning(
+                    "GPU worker pid=%s died before registering (%d in a "
+                    "row on node %s); next fork in %.0f s", w.pid, n,
+                    (w.node_id or "")[:8], delay)
         w.state = "dead"
         self.dead_clients.add(w.worker_id)
         if self.slab is not None and not self._shutdown:
@@ -1964,6 +1993,8 @@ class GcsServer:
                         logger.warning("worker %s pid=%s exited", w.worker_id, w.pid)
                         self._handle_worker_death(w)
                 self._pump()
+            with self.lock:
+                self._top_up_gpu_workers()
             # reap dead publishers' stale metrics snapshots server-side:
             # collect_cluster() reaps on read, but a cluster nobody
             # scrapes must not accumulate one KV snapshot per dead
@@ -3207,6 +3238,9 @@ class GcsServer:
                     del self.workers[w.worker_id]
                     w.worker_id = wid
                     self.workers[wid] = w
+                    if w.gpu_capable:  # the node's GPU workers boot again
+                        self._gpu_boot_failures.pop(w.node_id, None)
+                        self._gpu_fork_after.pop(w.node_id, None)
                 node = self.nodes.get(w.node_id)
                 if node is not None:
                     node.workers.add(wid)

@@ -149,6 +149,9 @@ class Session:
 # An object segment: ``rtt_`` + an ObjectID, ``<owner worker id: its pid
 # in 8 hex digits, 8 more><kind p|r><counter in 10 hex digits>``.
 _OBJECT_SEGMENT = re.compile(r"^rtt_([0-9a-f]{8})[0-9a-f]{8}[pr][0-9a-f]{10}$")
+# A channel's ring (``experimental.channels``): ``rtt_chan_<creator's pid
+# in 8 hex digits>_<12 hex digits>``.
+_CHANNEL_SEGMENT = re.compile(r"^rtt_chan_([0-9a-f]{8})_[0-9a-f]{12}$")
 
 
 def _registry_dir() -> Path:
@@ -185,7 +188,8 @@ def reap_orphan_segments() -> List[str]:
     slab goes, then its entry.  An object segment goes when the process
     that owns it (the pid its ObjectID carries) is listed in a dead
     entry and in no live one: a live session keeps the segments of its
-    dead workers, which its GCS may still serve.  A slab or segment that
+    dead workers, which its GCS may still serve.  A channel's ring goes
+    by the same rule, by the pid of the process that made it.  A slab or segment that
     no entry accounts for (a session that never registered, a client,
     a process of another host) is left alone.  The directory is listed
     before the registry is read and every process registers before it
@@ -217,7 +221,7 @@ def reap_orphan_segments() -> List[str]:
         if name.startswith("rtt_slab_"):
             orphan = name[len("rtt_slab_"):] in dead
         else:
-            m = _OBJECT_SEGMENT.match(name)
+            m = _OBJECT_SEGMENT.match(name) or _CHANNEL_SEGMENT.match(name)
             orphan = m is not None and int(m.group(1), 16) in dead_pids
         if not orphan:
             continue

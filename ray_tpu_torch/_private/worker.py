@@ -257,7 +257,9 @@ class Worker:
         self._owned_specs: "OrderedDict[str, dict]" = OrderedDict()
         # return oid -> task_id                  guarded by: _owned_lock
         self._owned_by_ret: Dict[str, str] = {}
-        self._owned_lock = threading.Lock()
+        # RLock: the cyclic GC may run an ObjectRef's __del__ on a thread
+        # that holds it, and release() re-enters _untrack_owned_ret
+        self._owned_lock = threading.RLock()
         self._gcs_epoch: Optional[str] = None
         self._pull_sem = threading.Semaphore(
             max(1, GLOBAL_CONFIG.transfer_max_inflight))
@@ -1282,14 +1284,15 @@ class Worker:
             spec = self._owned_specs.get(tid)
             if spec is not None and not any(
                     r in self._owned_by_ret for r in spec["return_ids"]):
-                del self._owned_specs[tid]
+                # pop: a re-entry from the GC may have taken it already
+                self._owned_specs.pop(tid, None)
 
     def _resubmit_owned(self, ch: protocol.RpcChannel) -> None:
         """Reconnected to a RESTARTED head: re-seal locally-held arg
         payloads (slab/shm segments survive the head) and resubmit every
         in-flight owned spec as one ordered batch."""
         with self._owned_lock:
-            specs = [dict(s) for s in self._owned_specs.values()]
+            specs = [dict(s) for s in list(self._owned_specs.values())]
         if not specs:
             return
         logger.warning("head restart detected: resubmitting %d in-flight "

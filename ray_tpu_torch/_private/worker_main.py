@@ -48,6 +48,11 @@ def main() -> None:
     # acquisition from here on must be discharged by the clean-stop
     # path below
     resource_sanitizer.maybe_install()
+    if os.environ.get("RTT_GPU_WORKER") == "1":
+        # a GPU worker is kept warm (the head forks it before GPU work
+        # asks): it imports torch before it registers, so the actor it
+        # will host finds it imported (no CUDA context yet)
+        import torch  # noqa: F401
 
     node_id = os.environ["RTT_NODE_ID"]
     proxy = os.environ.get("RTT_PROXY_ADDR")

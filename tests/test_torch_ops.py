@@ -859,6 +859,10 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                 "util/tracing", "util/profiler", "util/tsdb",
                 "util/trace_assembly", "util/scheduling_strategies",
                 "util/state", "util/client/__init__", "util/client/server",
+                "util/actor_pool", "util/queue", "util/iter",
+                "util/multiprocessing", "util/dask", "util/joblib",
+                "experimental/channels", "workflow/__init__",
+                "dashboard/__init__", "dashboard/_index",
                 "cluster_utils",
                 *(f"_private/{m}" for m in (
                     "config", "ids", "pg_scheduler", "resource_sanitizer",

@@ -236,6 +236,33 @@ def test_task_with_ref_arg(cluster):
     assert rt.get(r2) == 40
 
 
+def test_ref_dropped_under_the_lineage_lock_does_not_deadlock(cluster):
+    """The cyclic GC can run an ObjectRef's ``__del__`` on a thread that
+    holds the owner's lineage lock (inside ``_untrack_owned_ret``); the
+    release re-enters that lock and must not hang the thread."""
+    import threading
+
+    @rt.remote
+    def slow_one():
+        time.sleep(1.0)
+        return 1
+
+    keep, drop = slow_one.remote(), slow_one.remote()
+    w = t_worker.global_worker()
+    assert w._owned_by_ret          # both returns still tracked
+    done = threading.Event()
+
+    def drop_under_lock():
+        nonlocal drop
+        with w._owned_lock:
+            del drop                # __del__ -> release -> the same lock
+        done.set()
+
+    threading.Thread(target=drop_under_lock, daemon=True).start()
+    assert done.wait(10)
+    assert rt.get(keep, timeout=30) == 1
+
+
 def test_task_kwargs_and_large_args(cluster):
     @rt.remote
     def f(a, b=None):

@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 
 import ray_tpu_torch as rt
+from ray_tpu_torch._private.config import GLOBAL_CONFIG
 from conftest import time_scale
 from ray_tpu_torch import serve
 from ray_tpu_torch._private import rtlog
@@ -82,6 +83,9 @@ def gpu_cluster(_shared):
             _system_config={"gpu_workers_per_node": 2})
     yield
     _stop()
+    # the override outlives the cluster: later clusters in this process
+    # (another module's, under xdist) must get the default pool
+    GLOBAL_CONFIG.reset()
 
 
 def _http(method, url, body=None, timeout=30):
