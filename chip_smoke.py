@@ -283,6 +283,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -6643,6 +6644,384 @@ def multinode_phase(dev, eng_res: dict, tag: str,
     return res
 
 
+# The autoscaler phase: a head started by the CLI (``python -m ray_tpu_torch
+# start``, no card) and the driver's autoscaler over a FakeMultiNodeProvider,
+# whose logical ``gpu`` nodes declare the card: the head's warm pool forks
+# each one's GPU worker.  The runtime phase's num_gpus=1 actor scales one
+# node up and answers the engine phase's requests there; a planted two-card
+# task stays infeasible; a drain pre-warms a replacement that takes the next
+# GPU task; idle nodes go; ``stop`` ends the head.
+AUTOSCALER_BUDGET_S = 60.0
+AUTOSCALER_TYPES = {"gpu": {"resources": {"CPU": 1, "GPU": 1},
+                            "min_workers": 0, "max_workers": 2}}
+AUTOSCALER_IDLE_S = 2.0
+AUTOSCALER_INTERVAL_S = 0.5
+AUTOSCALER_DRAIN_DEADLINE_S = 30.0
+
+
+class HeadWorkerTable:
+    """``ClusterWatch``'s view of a head in another process: the workers
+    it spawned, read over the state API at most every 0.25 s (nothing once
+    the driver has left the cluster)."""
+
+    def __init__(self):
+        self._rows, self._at = {}, 0.0
+
+    @property
+    def workers(self) -> dict:
+        from types import SimpleNamespace
+        from ray_tpu_torch.util import state
+        if time.monotonic() - self._at >= 0.25:
+            self._at = time.monotonic()
+            try:
+                self._rows = {w["worker_id"]: SimpleNamespace(pid=w["pid"])
+                              for w in state.list_workers()
+                              if w["state"] != "driver" and w["pid"]}
+            except Exception:  # noqa: BLE001 - the driver left the cluster
+                pass
+        return self._rows
+
+
+def run_cli(*argv, env: dict, timeout: float = 120.0):
+    """``python -m ray_tpu_torch <argv>`` from the repo root."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.run([sys.executable, "-m", "ray_tpu_torch", *argv],
+                          env=env, cwd=here, capture_output=True, text=True,
+                          timeout=timeout)
+
+
+def cli_json(out) -> object:
+    """The JSON document a CLI command printed after its text lines."""
+    starts = [i for i in (out.stdout.find("{"), out.stdout.find("["))
+              if i >= 0]
+    return json.loads(out.stdout[min(starts):]) if starts else None
+
+
+def head_descriptor(root: str, pid: int) -> Optional[dict]:
+    """The session descriptor under ``root`` that names ``pid`` as its
+    head, with its directory."""
+    for name in sorted(os.listdir(root)):
+        path = os.path.join(root, name, "session.json")
+        if name == "session_latest" or not os.path.exists(path):
+            continue
+        with open(path) as f:
+            desc = json.load(f)
+        if desc.get("head_pid") == pid:
+            return dict(desc, session_dir=os.path.join(root, name))
+    return None
+
+
+def gpu_task_where() -> dict:
+    import ray_tpu_torch as rt
+    return {"node_id": rt.get_runtime_context().get_node_id(),
+            "pid": os.getpid(),
+            "RTT_GPU_WORKER": os.environ.get("RTT_GPU_WORKER"),
+            "CUDA_VISIBLE_DEVICES": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
+def autoscaler_phase(dev, eng_res: dict, tag: str,
+                     device: Optional[str] = None) -> dict:
+    """The CLI, the autoscaler and the fleet autopilot's pre-warm hook on
+    the port's runtime, in six checked steps:
+
+    1. ``start --num-cpus 2`` (``RTT_NUM_GPUS=0``, a session root of the
+       phase's own) exits 0 naming a pid whose descriptor says ``role:
+       head``; ``status --address auto`` shows one node and no ``GPU``;
+       nvidia-smi's compute apps are unchanged (the head holds no card).
+    2. The driver joins (``init(address="auto")``) and runs an
+       ``AutoscalerLoop`` (``gpu`` nodes of ``{CPU: 1, GPU: 1}``, 0 to 2,
+       idle timeout 2 s, every 0.5 s) over a ``FakeMultiNodeProvider``; a
+       ``num_gpus=1`` ``EngineActor`` (GPT-2 124M) makes exactly one node
+       launch and none more while it boots, lands in that node's GPU
+       worker and answers the engine phase's 16 requests with its tokens
+       and its 192 flash ``<64, 64>`` / 1,175 vector LayerNorm launches;
+       ``status`` and ``list nodes`` show the node, ``GPU: 1.0``, label
+       ``autoscaler=1``.
+    3. A planted ``num_gpus=2`` task is reported infeasible, launches
+       nothing, and is cancelled.
+    4. ``provider.drain_node(nid, deadline_s=30)`` and the autopilot's
+       pre-warm hook (``prewarm_for_drain``): one replacement launches
+       while the drained node is listed ``draining``; a ``num_gpus=1``
+       task runs on the replacement once the actor is killed and the
+       drained node terminated, never on the drained node.
+    5. Idle, the loop reaches zero ``gpu`` nodes within the idle timeout
+       plus 5 s; no GPU worker of either node is alive and the card's
+       compute apps are the driver's alone.
+    6. After ``shutdown``, ``stop`` exits 0, the head's pid is gone within
+       10 s, and the cluster left no segment in the run's shm directory
+       or outside it (``ClusterWatch``)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import exceptions as rexc
+    from ray_tpu_torch._private import shm_store
+    from ray_tpu_torch._private.memory_monitor import _pid_is_local_worker
+    from ray_tpu_torch._private.session import _pid_alive
+    from ray_tpu_torch.autoscaler import (AutoscalerConfig, AutoscalerLoop,
+                                          FakeMultiNodeProvider,
+                                          StandardAutoscaler)
+    from ray_tpu_torch.util import state
+
+    class RecordingProvider(FakeMultiNodeProvider):
+        """Every launch and termination, with its monotonic time."""
+
+        def __init__(self):
+            super().__init__()
+            self.launches, self.terminations = [], []
+
+        def create_node(self, node_config, tags, count):
+            ids = super().create_node(node_config, tags, count)
+            self.launches += [(time.monotonic(), tags.get("node-type"), n)
+                              for n in ids]
+            return ids
+
+        def terminate_node(self, node_id):
+            super().terminate_node(node_id)
+            self.terminations.append((time.monotonic(), node_id))
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    saved = {k: os.environ.get(k)
+             for k in ("PYTHONPATH", "RTT_SESSION_DIR_ROOT")}
+    root = session_root()
+    os.environ["RTT_SESSION_DIR_ROOT"] = root
+    # the head, its workers and the CLI import the package from here
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [here] + ([saved["PYTHONPATH"]] if saved["PYTHONPATH"] else []))
+    env = dict(os.environ, RTT_NUM_GPUS="0")
+    holders = compute_app_pids() if device is None else [os.getpid()]
+    watch = ClusterWatch(shm_store._SHM_DIR)
+    res: dict = {}
+    prompts, driver_outs = eng_res["requests"]
+    spec = gpt2_engine()
+    loop = head_pid = None
+    gpu_pids: set = set()
+    t_phase = time.perf_counter()
+    try:
+        # 1. the CLI head
+        t0 = time.perf_counter()
+        out = run_cli("start", "--num-cpus", "2", env=env)
+        res["start_s"] = time.perf_counter() - t0
+        line = next((ln for ln in out.stdout.splitlines()
+                     if ln.startswith("head started: pid=")), "")
+        head_pid = int(line.split("pid=")[1].split()[0]) if line else None
+        desc = head_descriptor(root, head_pid) if head_pid else None
+        print(f"autoscaler cli start rc {out.returncode} in "
+              f"{res['start_s']:.3f} s: {line!r}, descriptor role "
+              f"{(desc or {}).get('role')} [{tag}]", flush=True)
+        if out.returncode != 0 or desc is None or \
+                desc.get("role") != "head" or not _pid_alive(head_pid):
+            fail(f"autoscaler: `start` did not leave a head (rc "
+                 f"{out.returncode}): {out.stdout[-1000:]} "
+                 f"{out.stderr[-2000:]}")
+        out = run_cli("status", "--address", "auto", env=env)
+        summary = cli_json(out) if out.returncode == 0 else None
+        print(f"autoscaler cli status: {out.stdout.splitlines()[:1]}, "
+              f"nodes {(summary or {}).get('nodes')}, resources "
+              f"{(summary or {}).get('resources_total')} [{tag}]",
+              flush=True)
+        if summary is None or summary["nodes"] != 1 or \
+                "GPU" in summary["resources_total"]:
+            fail(f"autoscaler: `status` does not show one card-less node: "
+                 f"{out.stdout[-1000:]} {out.stderr[-1000:]}")
+        if device is None:
+            apps = compute_app_pids()
+            print(f"autoscaler compute apps with the CLI head up {apps}, "
+                  f"before it {holders} [{tag}]", flush=True)
+            if apps != holders:
+                fail("autoscaler: the CLI head holds a context on the card")
+
+        # 2. scale-up for the num_gpus=1 actor
+        info = rt.init(address="auto")
+        watch.start(HeadWorkerTable(), desc["session_dir"])
+        if info["session_dir"] != desc["session_dir"]:
+            fail(f"autoscaler: the driver joined {info['session_dir']}, "
+                 f"not the CLI head's {desc['session_dir']}")
+        provider = RecordingProvider()
+        scaler = StandardAutoscaler(
+            AutoscalerConfig(AUTOSCALER_TYPES,
+                             idle_timeout_s=AUTOSCALER_IDLE_S), provider)
+        loop = AutoscalerLoop(scaler, interval_s=AUTOSCALER_INTERVAL_S)
+        loop.start()
+        args = (spec["cfg"], spec["blocks"], spec["block_scale"], SEED,
+                device)
+        t0 = time.monotonic()
+        actor = rt.remote(num_gpus=1)(AgentEngineActor).remote(*args)
+        first = wait_for(lambda: provider.launches, 30)
+        if not first:
+            fail("autoscaler: no node launched for the pending GPU actor")
+        t_alive, _, nid = first[0]
+        res["pending_to_node_alive_s"] = t_alive - t0
+        vis = rt.get(actor.visible.remote(), timeout=300)
+        t_ready = time.monotonic()
+        res["node_alive_to_actor_ready_s"] = t_ready - t_alive
+        where = rt.get(actor.where.remote(), timeout=60)
+        launched = [(round(t - t0, 3), ty, n) for t, ty, n in
+                    provider.launches]
+        rows = [w for w in state.list_workers()
+                if w["node_id"] == nid and w["gpu"]]
+        gpu_pids.update(w["pid"] for w in rows if w["pid"])
+        print(f"autoscaler scale-up: launches {launched} (node alive "
+              f"{res['pending_to_node_alive_s']:.3f} s after submit, actor "
+              f"ready {res['node_alive_to_actor_ready_s']:.3f} s later), "
+              f"actor {vis} on {where['node_id']}, the node's GPU workers "
+              f"{[(w['pid'], w['state']) for w in rows]} [{tag}]",
+              flush=True)
+        if len(provider.launches) != 1 or launched[0][1] != "gpu":
+            fail(f"autoscaler: the boot window saw launches {launched}, "
+                 f"not one gpu node")
+        if where["node_id"] != nid or vis["RTT_GPU_WORKER"] != "1" or \
+                vis["pid"] not in gpu_pids or \
+                (device is None and vis["device_count"] != 1):
+            fail(f"autoscaler: the actor is not in the launched node's GPU "
+                 f"worker: {vis} {where}, node {nid}")
+        rt.get(actor.warm.remote(spec["warm"], SEED), timeout=300)
+        rt.get([actor.submit.remote(p, 32) for p in prompts], timeout=120)
+        run = rt.get(actor.run.remote(), timeout=300)
+        same = [a == b for a, b in zip(run["outs"], driver_outs)]
+        want, got = eng_res["launches"], run["counts"]
+        print(f"autoscaler actor tokens equal to the driver's: {sum(same)} "
+              f"of {len(same)} requests; launches {got}, driver's engine "
+              f"phase {want} [{tag}]", flush=True)
+        if len(same) != 16 or not all(same):
+            fail("autoscaler: the actor's tokens differ from the driver's")
+        for k, n in want.items():
+            if got[k] != n or n <= 0:
+                fail(f"autoscaler: {k} launched {got[k]} times in the "
+                     f"actor, {n} in the driver's run")
+        for k in ("layer_norm_fwd_scalar", "layer_norm_fwd_wide",
+                  "flash_attention_fwd_f32", "flash_attention_fwd_gqa_d128"):
+            if got[k]:
+                fail(f"autoscaler: {k} ran {got[k]} times in the actor")
+        res["launches"] = {k: got[k] for k in want}
+        ttft = sorted(run["ttft_s"])
+        res["actor_ttft_p50_ms"] = 1e3 * ttft[len(ttft) // 2]
+        out = run_cli("status", "--address", "auto", env=env)
+        summary = cli_json(out) if out.returncode == 0 else None
+        out_nodes = run_cli("list", "nodes", "--address", "auto", env=env)
+        nodes = cli_json(out_nodes) if out_nodes.returncode == 0 else None
+        row = next((n for n in nodes or [] if n["node_id"] == nid), None)
+        print(f"autoscaler cli status nodes {(summary or {}).get('nodes')}"
+              f" resources {(summary or {}).get('resources_total')}; list "
+              f"nodes row {row and (row['resources_total'], row['labels'])}"
+              f" [{tag}]", flush=True)
+        if summary is None or summary["nodes"] != 2 or \
+                summary["resources_total"].get("GPU") != 1.0 or \
+                row is None or row["resources_total"].get("GPU") != 1.0 or \
+                row["labels"].get("autoscaler") != "1":
+            fail("autoscaler: `status` / `list nodes` do not show the "
+                 "autoscaled node with GPU 1.0 and label autoscaler=1")
+
+        # 3. planted: a two-card task no node type can hold
+        n_launched = len(provider.launches)
+        ref = rt.remote(num_gpus=2, num_cpus=0)(gpu_task_where).remote()
+        rep = wait_for(lambda: (lambda r: r if r["infeasible"] else None)(
+            scaler.update()), 10)
+        print(f"autoscaler control num_gpus=2: infeasible "
+              f"{rep and rep['infeasible']}, launched "
+              f"{rep and rep['launched']} [{tag}]", flush=True)
+        if not rep or not any(s.get("GPU") == 2.0
+                              for s in rep["infeasible"]) or \
+                rep["launched"] or len(provider.launches) != n_launched:
+            fail("autoscaler: the num_gpus=2 task was not reported "
+                 "infeasible, or a node launched for it")
+        rt.cancel(ref, force=True)
+
+        # 4. drain: the autopilot's pre-warm hook launches a replacement
+        # during the warning window
+        t_drain = time.monotonic()
+        provider.drain_node(nid, deadline_s=AUTOSCALER_DRAIN_DEADLINE_S)
+        prewarmed = scaler.prewarm_for_drain(nid)
+        second = wait_for(lambda: provider.launches[n_launched:], 10)
+        phases = {n["node_id"]: n["phase"] for n in state.list_nodes()}
+        rid = second[0][2] if second else None
+        res["drain_to_replacement_alive_s"] = \
+            second[0][0] - t_drain if second else None
+        print(f"autoscaler drain: pre-warm {prewarmed}, replacement "
+              f"{rid} launched {res['drain_to_replacement_alive_s']} s "
+              f"after the drain, phases {phases} [{tag}]", flush=True)
+        if not prewarmed or not second or len(second) != 1 or \
+                second[0][1] != "gpu" or phases.get(nid) != "draining" or \
+                phases.get(rid) != "running":
+            fail("autoscaler: the drain did not launch exactly one "
+                 "replacement while the drained node was draining")
+        # submitted now, so the replacement holds pending work from here
+        # on (never reaped as idle while its GPU worker boots)
+        task = rt.remote(num_gpus=1)(gpu_task_where).remote()
+        rt.kill(actor)
+        provider.terminate_node(nid)
+        got = rt.get(task, timeout=120)
+        t_idle = time.monotonic()
+        gpu_pids.update(w["pid"] for w in state.list_workers()
+                        if w["node_id"] == rid and w["gpu"] and w["pid"])
+        print(f"autoscaler num_gpus=1 task after the drain ran on "
+              f"{got['node_id']} (replacement {rid}, drained {nid}) in pid "
+              f"{got['pid']}, RTT_GPU_WORKER {got['RTT_GPU_WORKER']} "
+              f"[{tag}]", flush=True)
+        if got["node_id"] != rid or got["RTT_GPU_WORKER"] != "1":
+            fail("autoscaler: the GPU task did not run on the replacement")
+        try:
+            rt.get(actor.ping.remote(), timeout=30)
+            fail("autoscaler: the killed actor still answers")
+        except rexc.RayActorError:
+            pass
+
+        # 5. scale-down when idle
+        gone = wait_for(lambda: not provider.non_terminated_nodes({}),
+                        AUTOSCALER_IDLE_S + 5)
+        res["idle_to_scaled_down_s"] = time.monotonic() - t_idle
+        left = wait_for(lambda: not [p for p in gpu_pids
+                                     if _pid_is_local_worker(p)], 10)
+        alive = [p for p in gpu_pids if _pid_is_local_worker(p)]
+        live = [n["node_id"] for n in state.list_nodes()
+                if n["alive"] and n["labels"].get("autoscaler") == "1"]
+        print(f"autoscaler scale-down: provider nodes "
+              f"{provider.non_terminated_nodes({})} after "
+              f"{res['idle_to_scaled_down_s']:.3f} s idle, terminations "
+              f"{[(round(t - t0, 3), n) for t, n in provider.terminations]}"
+              f", autoscaled nodes alive in the cluster {live}, GPU worker "
+              f"pids {sorted(gpu_pids)} alive {alive} [{tag}]", flush=True)
+        if not gone or live or alive or not left or len(gpu_pids) < 2:
+            fail("autoscaler: idle nodes or their GPU workers outlived the "
+                 "idle timeout")
+        if device is None:
+            wait_card_holders("autoscaler", tag, holders)
+    finally:
+        if loop is not None:
+            loop.stop()
+        started = hasattr(watch, "head")
+        if started:
+            watch.poll()
+        if rt.is_initialized():
+            rt.shutdown()
+        # 6. stop
+        t0 = time.perf_counter()
+        out = run_cli("stop", env=env) if head_pid else None
+        stopped = head_pid is None or wait_for(
+            lambda: not _pid_alive(head_pid), 10)
+        res["stop_s"] = time.perf_counter() - t0
+        if head_pid is not None and _pid_alive(head_pid):
+            os.kill(head_pid, signal.SIGKILL)
+        if started:
+            watch.stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print(f"autoscaler cli stop rc {out and out.returncode}: "
+          f"{out and out.stdout.strip()!r}, head pid {head_pid} gone in "
+          f"{res['stop_s']:.3f} s [{tag}]", flush=True)
+    if out is None or out.returncode != 0 or not stopped or \
+            f"pid={head_pid}" not in out.stdout:
+        fail("autoscaler: `stop` did not end the CLI head within 10 s")
+    check_cluster_gone(watch, "autoscaler", tag)
+    res["wall_s"] = time.perf_counter() - t_phase
+    for k, val in res.items():
+        print(f"autoscaler {k} {val} [{tag}]", flush=True)
+    if res["wall_s"] > AUTOSCALER_BUDGET_S:
+        print(f"autoscaler over its budget: {res['wall_s']:.1f} s of "
+              f"{AUTOSCALER_BUDGET_S} s [{tag}]", flush=True)
+    return res
+
+
 # The serve phase: BASELINE #4's recipe (benchmarks/serve_bench.py:83-85,
 # 166-245; examples/06_serve_bert.py:16-31) through the port's Serve on
 # its own runtime, then the LLM deployment streaming GPT-2 tokens.
@@ -9444,6 +9823,8 @@ def main() -> int:
     phase_done("runtime", {"util_extras": runtime["util_extras"]["wall_s"]})
     multinode = multinode_phase(dev, eng, tag)
     phase_done("multinode")
+    autoscaled = autoscaler_phase(dev, eng, tag)
+    phase_done("autoscaler")
     served = serve_phase(dev, eng, runtime, tag)
     phase_done("serve")
     llama = engine_phase(dev, llama_engine(), tag)
@@ -9507,6 +9888,7 @@ def main() -> int:
     # from 0 over its own run
     paths = {"engine": eng, "runtime": runtime,
              "util_extras": runtime["util_extras"], "multinode": multinode,
+             "autoscaler": autoscaled,
              "serve": served,
              "llama_engine": llama, "serve_llm_split": split,
              "train": train,

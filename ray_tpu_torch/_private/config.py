@@ -270,8 +270,65 @@ _FLAG_DEFS = [
           "existing bundle id instead of capturing again."),
     # --- fleet autopilot (DESIGN.md §4n) -------------------------------------
     _flag("autopilot_enabled", False,
-          "The reference's fleet autopilot (DESIGN.md §4n).  Not ported "
-          "yet: init() raises NotImplementedError when it is on."),
+          "Head-side supervision loop closing the observability -> "
+          "actuation gap (DESIGN.md §4n): straggler fleet events drain "
+          "the offending host, drain warnings pre-warm replacement "
+          "capacity, and the 48h TSDB demand history feeds a diurnal "
+          "forecast to the autoscaler.  Every action is rate-limited, "
+          "hysteresis-guarded, and emitted as a fleet event + "
+          "rtt_autopilot_actions_total sample."),
+    _flag("autopilot_interval_s", 1.0,
+          "How often the GCS monitor loop runs an autopilot reflex pass "
+          "(event intake + periodic work)."),
+    _flag("autopilot_drain_window_s", 300.0,
+          "Autopilot drain rate-limit window: at most "
+          "autopilot_max_drains_per_window remediation drains are "
+          "issued per window, cluster-wide (a noisy detector must "
+          "never cause a drain storm)."),
+    _flag("autopilot_max_drains_per_window", 1,
+          "Remediation drains the autopilot may issue per "
+          "autopilot_drain_window_s."),
+    _flag("autopilot_node_cooldown_s", 600.0,
+          "Per-node relapse window: a node that stragglers again "
+          "within this long of being returned to the pool is drained "
+          "again IMMEDIATELY and permanently (the host is genuinely "
+          "sick; operator/autoscaler replacement owns it).  Past the "
+          "window the node starts fresh and a new drain is ordinary "
+          "and recoverable."),
+    _flag("autopilot_undrain_after_s", 120.0,
+          "A straggler-drained node returns to the schedulable pool "
+          "after this long without a fresh straggler signal (see "
+          "autopilot_node_cooldown_s for what a relapse costs it)."),
+    _flag("autopilot_prewarm", True,
+          "Reflex 2: a node_draining warning pre-warms a replacement "
+          "through the attached autoscaler DURING the warning window "
+          "(the pre-warmed node is reserved against the incoming loss "
+          "in _net_pending_capacity, so it is never double-launched)."),
+    _flag("autopilot_forecast", True,
+          "Reflex 3: feed the autoscaler a lead-time demand signal from "
+          "a seasonal-naive forecast over the TSDB demand history, so "
+          "it scales ahead of the diurnal curve instead of behind it."),
+    _flag("autopilot_forecast_interval_s", 30.0,
+          "How often the forecast reflex re-evaluates (two TSDB ladder "
+          "scans + a demand scan per evaluation; the diurnal signal "
+          "moves over minutes, not monitor ticks)."),
+    _flag("autopilot_forecast_horizon_s", 120.0,
+          "Forecast lead time (roughly node boot delay + one reconcile "
+          "period: capacity requested now is ready when the predicted "
+          "demand arrives)."),
+    _flag("autopilot_forecast_period_s", 86400.0,
+          "Seasonal period of the demand forecast (diurnal by "
+          "default; the TSDB's 48h long rung holds two periods)."),
+    _flag("autopilot_standby", True,
+          "Reflex 4 (with autopilot_enabled): keep one warm GCS "
+          "standby attached — launch `python -m "
+          "ray_tpu_torch._private.replication` when rtt_gcs_repl_standbys "
+          "== 0, re-launch on standby death, and emit an "
+          "unprotected_head fleet event while the head is "
+          "unreplicated.  Requires gcs_wal."),
+    _flag("autopilot_standby_backoff_s", 5.0,
+          "Minimum seconds between autopilot standby (re)launch "
+          "attempts."),
     _flag("trace_sample_rate", 0.01,
           "Head-based sampling rate for automatically-rooted request "
           "traces (e.g. one Serve HTTP request = one candidate root). "

@@ -260,16 +260,12 @@ _FENCED_OK_KINDS = frozenset({
     "peek_meta", "pg_table", "list_nodes", "list_actors", "list_tasks",
     "list_objects", "list_workers", "cluster_resources", "store_stats",
     "metrics_query", "fleet_state", "fleet_events", "raylet_table",
-    "resource_demand", "profile_query",
+    "resource_demand", "autopilot_status", "profile_query",
     "debug_incidents"})
 
 
 class GcsServer:
     def __init__(self, session: Session, head_resources: Dict[str, float]):
-        if GLOBAL_CONFIG.autopilot_enabled:
-            raise NotImplementedError(
-                "autopilot_enabled: the fleet autopilot (elastic/) is not "
-                "ported yet; it comes with the runtime's next slice")
         # Sanitizer first (RTT_RESOURCE_SANITIZER=1, §4f): every
         # acquisition below — shm maps, the listener, worker dials —
         # must be discharged by shutdown(), so tracking starts here
@@ -444,6 +440,21 @@ class GcsServer:
         # callback) run on the monitor thread, so this dedup ledger is
         # single-threaded — monitor thread only, no lock.
         self._incident_recent: Dict[str, Tuple[float, str]] = {}
+        # Fleet autopilot (DESIGN.md §4n): the reflex arc turning the
+        # detectors' fleet events + TSDB history into bounded
+        # remediation actions.  Ticked from the monitor loop; reads the
+        # fleet-event ring through its own cursor; actuates through the
+        # internal drain/undrain paths and whatever autoscaler attaches
+        # itself via AutoscalerLoop.  Off by default (autopilot_enabled).
+        self._autopilot = None
+        self._autopilot_cursor = 0
+        self._last_autopilot = 0.0
+        if GLOBAL_CONFIG.autopilot_enabled:
+            from ray_tpu_torch.elastic.autopilot import (Autopilot,
+                                                         AutopilotConfig,
+                                                         GcsActuator)
+            self._autopilot = Autopilot(
+                AutopilotConfig.from_global_config(), GcsActuator(self))
         # reply cache for client-supplied request ids: makes the worker's
         # one post-reconnect retry exactly-once against a still-live GCS
         # (non-idempotent mutations must not double-apply when only the
@@ -855,6 +866,12 @@ class GcsServer:
             with node.raylet_conn_lock:
                 node.raylet_conn = None
             workers = [self.workers[w] for w in list(node.workers)]
+            # and the ones forked for it that have not registered yet (a
+            # GPU worker still importing torch): nothing else would stop
+            # them, and one that registers later joins no node
+            workers += [w for w in self.workers.values()
+                        if w.node_id == node_id and w.state == "starting"
+                        and w.proc is not None and w not in workers]
         for w in workers:
             if w.proc is not None:
                 try:
@@ -869,6 +886,9 @@ class GcsServer:
                 if meta.node_id == node_id and meta.state == READY and meta.loc != "inline":
                     self._mark_object_lost(oid, meta)
             del self.nodes[node_id]
+            # the killed boots were no failure of the node's: it is gone
+            self._gpu_boot_failures.pop(node_id, None)
+            self._gpu_fork_after.pop(node_id, None)
             self.cv.notify_all()
         self._fleet_event("node_removed", node_id,
                           was_draining=was_draining)
@@ -2031,6 +2051,18 @@ class GcsServer:
                     self._run_detectors()
                 except Exception:  # noqa: BLE001 - telemetry best-effort
                     logger.exception("anomaly detectors failed")
+            # fleet autopilot reflex pass (§4n): feed the fleet events
+            # since the last pass through the reflex engine, then tick
+            # its periodic work (undrain, forecast, standby).  No GCS
+            # lock is held here; the actuator takes what it documents.
+            if self._autopilot is not None and \
+                    now - self._last_autopilot > \
+                    GLOBAL_CONFIG.autopilot_interval_s:
+                self._last_autopilot = now
+                try:
+                    self._tick_autopilot()
+                except Exception:  # noqa: BLE001 - reflexes must not
+                    logger.exception("autopilot tick failed")  # kill GCS
             # purge chunked uploads abandoned by a dead uploader
             with self.lock:
                 now = time.time()
@@ -4384,6 +4416,19 @@ class GcsServer:
                     tags={"kind": kind})
             logger.warning("anomaly detected: %s %s", kind, ev)
 
+    def _tick_autopilot(self) -> None:
+        """One autopilot reflex pass (monitor loop, §4n): hand the
+        reflex engine every fleet event it has not seen (cursor over
+        the same ring ``fleet_events`` serves, read head-side without
+        an RPC), then tick."""
+        with self._events_lock:
+            events = [dict(e) for e in self._fleet_events
+                      if e["seq"] > self._autopilot_cursor]
+            self._autopilot_cursor = self._fleet_event_seq
+        for ev in events:
+            self._autopilot.observe(ev)
+        self._autopilot.tick()
+
     def _capture_incident(self, kind: str, node_id: Optional[str],
                           detail: Optional[dict] = None) -> Optional[str]:
         """Write one bounded post-mortem bundle into
@@ -4500,6 +4545,18 @@ class GcsServer:
                     pass
                 out.append(rec)
         return {"incidents": out}
+
+    def _h_autopilot_status(self, msg: dict) -> dict:
+        """The autopilot's bounded action history + reflex counters
+        (§4n) — what `ray_tpu_torch status` and the chaos tests read to
+        assert the loop acted (and, just as important, that it did NOT
+        act more than its rate limits allow)."""
+        if self._autopilot is None:
+            return {"enabled": False, "actions": [], "stats": {}}
+        return {"enabled": True,
+                "actions": self._autopilot.actions(
+                    int(msg.get("limit") or 50)),
+                "stats": self._autopilot.stats()}
 
     def _h_fleet_events(self, msg: dict) -> dict:
         """Cursor read of the fleet lifecycle feed: events with
@@ -4648,12 +4705,28 @@ class GcsServer:
     def _h_resource_demand(self, msg: dict) -> dict:
         """Unfulfilled resource shapes for the autoscaler: dep-ready pending
         tasks/actor creations that lack capacity, plus unplaced PG bundles
-        (reference: autoscaler load_metrics fed by the GCS resource view)."""
+        (reference: autoscaler load_metrics fed by the GCS resource view).
+
+        A pending spec that fits what a schedulable node has free waits
+        for a worker there (a GPU worker importing torch, say), not for
+        capacity: it is netted against that node's free resources, in
+        pending order, and the node is listed in ``waiting_on``.  An
+        autoscaler then neither launches another node for it nor reaps
+        that node as idle while the worker boots."""
         with self.lock:
+            free = {nid: dict(n.resources_avail)
+                    for nid, n in self.nodes.items() if n.schedulable()}
+            waiting = set()
             shapes = []
             for spec in self.pending_tasks:
-                if self._deps_status(spec) == "ready":
-                    shapes.append(self._task_resources(spec))
+                if self._deps_status(spec) != "ready":
+                    continue
+                req = self._task_resources(spec)
+                nid = self._free_node_for(spec, req, free)
+                if nid is None:
+                    shapes.append(req)
+                else:
+                    waiting.add(nid)
             for spec in self.infeasible_tasks:
                 shapes.append(self._task_resources(spec))
             bundles = []
@@ -4662,7 +4735,32 @@ class GcsServer:
                     for i, b in enumerate(pg.bundles):
                         if pg.assignment[i] is None:
                             bundles.append(dict(b))
-            return {"task_shapes": shapes, "pg_bundles": bundles}
+            return {"task_shapes": shapes, "pg_bundles": bundles,
+                    "waiting_on": sorted(waiting)}
+
+    def _free_node_for(self, spec: dict, req: Dict[str, float],
+                       free: Dict[str, Dict[str, float]]) -> Optional[str]:
+        """Lock held.  The node whose entry in ``free`` holds ``req`` for
+        this spec's strategy (consumed there), else None.  Work bound to a
+        placement group stays demand, as the reference counts it."""
+        strategy = spec.get("scheduling_strategy") or "DEFAULT"
+        if isinstance(strategy, dict) and \
+                strategy.get("type") == "placement_group":
+            return None
+        candidates = list(free)
+        if isinstance(strategy, dict) and \
+                strategy.get("type") == "node_affinity":
+            pinned = [strategy["node_id"]] if strategy["node_id"] in free \
+                else []
+            candidates = pinned + ([n for n in candidates if n not in pinned]
+                                   if strategy.get("soft") else [])
+        for nid in candidates:
+            avail = free[nid]
+            if all(avail.get(k, 0.0) >= v - 1e-9 for k, v in req.items()):
+                for k, v in req.items():
+                    avail[k] = avail.get(k, 0.0) - v
+                return nid
+        return None
 
     def _resolve_object_bytes(self, oid: str):
         """One object-resolution ladder for the cross-host data path:
@@ -4903,6 +5001,13 @@ class GcsServer:
         if _INPROC_SERVER is self:
             _INPROC_SERVER = None
         self._shutdown = True
+        if self._autopilot is not None:
+            # stop the supervised standby FIRST: a clean cluster stop
+            # must not leave a warm standby to promote over the corpse
+            try:
+                self._autopilot.actuator.shutdown()
+            except Exception:  # noqa: BLE001 - child already gone
+                logger.debug("autopilot shutdown failed", exc_info=True)
         with self.cv:
             # tell attached raylets to tear their nodes down cleanly
             for n in self.nodes.values():

@@ -52,7 +52,8 @@ class TorchConfig(BackendConfig):
     use_distributed: ``torch.distributed`` over NCCL — the multi-GPU
         slice's (ROADMAP queue A, item 8); ``True`` raises.
     drain_handler: a driver callback for ``node_draining`` fleet events —
-        waits for ``elastic/events``; setting it raises.
+        Train's drain route comes with ``elastic/manager``; setting it
+        raises.
     elastic: the elastic worker loop — waits for ``elastic/manager``;
         ``True`` raises.
     """
@@ -70,8 +71,9 @@ class TorchConfig(BackendConfig):
                 "item 8)")
         if self.drain_handler is not None:
             raise NotImplementedError(
-                "TorchConfig(drain_handler=...): drain events need "
-                "elastic/events, not ported yet (ROADMAP queue A, item 7)")
+                "TorchConfig(drain_handler=...): Train's drain route comes "
+                "with elastic/manager, not ported yet (ROADMAP queue A, "
+                "item 7)")
         if self.elastic:
             raise NotImplementedError(
                 "TorchConfig(elastic=True): the elastic worker loop needs "

@@ -3,8 +3,6 @@
 Reference: ``python/ray/util/state/`` (SURVEY.md §2.3) — ``ray list tasks``,
 ``ray list actors``, ``ray summary``, ``ray memory``.  The data comes from
 the GCS's live tables over the normal control-plane RPC; no side channel.
-The reference's ``autopilot_status`` waits for the fleet autopilot
-(``elastic/``), which the port does not have yet.
 """
 
 from __future__ import annotations
@@ -115,6 +113,16 @@ def metrics_forecast(expr: str, horizon_s: float,
                 smooth_s=smooth_s, at=at)["results"]
 
 
+def autopilot_status(limit: int = 50) -> Dict[str, Any]:
+    """The autopilot's recent remediation actions + reflex counters
+    (DESIGN.md §4n): ``{"enabled": bool, "actions": [...], "stats":
+    {...}}`` — every drain / prewarm / forecast / standby action with
+    its outcome (applied | skipped | error) and reason."""
+    resp = _rpc("autopilot_status", limit=limit)
+    resp.pop("error", None)
+    return resp
+
+
 def profile(window_s: float = 300.0, proc: Optional[str] = None,
             node_id: Optional[str] = None) -> Dict[str, Any]:
     """Query the head-resident continuous-profiling store (DESIGN.md
@@ -146,7 +154,7 @@ def metrics_series(match: Optional[str] = None) -> List[dict]:
 
 
 def cluster_summary() -> Dict[str, Any]:
-    """One-call rollup of the cluster (what a `status` command shows)."""
+    """One-call rollup used by `ray_tpu_torch status`."""
     res = _rpc("cluster_resources")
     return {
         "nodes": len([n for n in list_nodes() if n["alive"]]),

@@ -863,7 +863,14 @@ def test_port_imports_no_jax_and_no_ray_tpu():
                 "util/multiprocessing", "util/dask", "util/joblib",
                 "experimental/channels", "workflow/__init__",
                 "dashboard/__init__", "dashboard/_index",
-                "cluster_utils",
+                "cluster_utils", "__main__", "scripts/__init__",
+                "scripts/cli",
+                *(f"autoscaler/{m}" for m in (
+                    "__init__", "resource_demand_scheduler",
+                    "node_provider", "autoscaler", "kube", "operator")),
+                *(f"elastic/{m}" for m in (
+                    "__init__", "events", "goodput", "traces",
+                    "autopilot", "fleet_sim")),
                 *(f"_private/{m}" for m in (
                     "config", "ids", "pg_scheduler", "resource_sanitizer",
                     "runtime_env", "rtlog", "session", "shm_store",

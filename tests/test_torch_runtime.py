@@ -102,20 +102,32 @@ def test_slab_and_flight_rings_follow_the_shm_dir(monkeypatch, tmp_path):
 
 
 def test_modes_left_out_of_the_slice_raise_and_their_flags_are_gone():
-    """The autopilot waits for its module; the flags that only it reads
-    are not offered.  (The client mode came with the client server:
-    ``init("ray://")`` connects, tests/test_torch_node_agent.py.)"""
+    """The flags that only the modules still left out read (the
+    elasticity manager's, the multi-GPU collectives') are not offered.
+    The autopilot came with ``elastic/``: a head with
+    ``autopilot_enabled`` runs it and answers ``autopilot_status``, and
+    its flags are the reference's.  (The client mode came with the
+    client server: ``init("ray://")`` connects,
+    tests/test_torch_node_agent.py.)"""
+    from ray_tpu._private import config as j_config
     from ray_tpu_torch._private import config as t_config
+    from ray_tpu_torch.util import state
     _stop()
     try:
-        with pytest.raises(NotImplementedError, match="autopilot"):
-            rt.init(num_cpus=1, _system_config={"autopilot_enabled": True})
+        rt.init(num_cpus=1, _system_config={"autopilot_enabled": True,
+                                            "autopilot_standby": False})
+        status = state.autopilot_status()
+        assert status["enabled"] is True and status["actions"] == []
+        assert rt._head._autopilot is not None
     finally:
+        _stop()
         t_config.GLOBAL_CONFIG.reset()
     assert not rt.is_initialized()
     gone = [k for k in t_config._DEFS
-            if k.startswith(("autopilot_", "collective_", "elastic_"))]
-    assert gone == ["autopilot_enabled"]
+            if k.startswith(("collective_", "elastic_"))]
+    assert gone == []
+    assert sorted(k for k in t_config._DEFS if k.startswith("autopilot_")) \
+        == sorted(k for k in j_config._DEFS if k.startswith("autopilot_"))
 
 
 def test_gpu_task_routing_and_worker_capability(monkeypatch):
