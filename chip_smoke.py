@@ -166,7 +166,20 @@
    bitwise those of the same run uninterrupted in the driver (a restore
    without the optimizer state must not); two ``GPU: 0.5`` workers allreducing a
    bf16 CUDA tensor through ``train_default``; then nothing left after
-   ``shutdown``.  Last, moe-small (the top-2 MoE
+   ``shutdown``.  Then the elastic phase, in a ``Cluster`` of its own (a
+   card-less head, two logical nodes of ``GPU: 0.5``): GPT-2 124M at
+   full size, data-parallel over a gloo domain, through
+   ``TorchTrainer(TorchConfig(elastic=True))`` on two ``GPU: 0.5``
+   workers; one node drained after 3 steps (a ``remesh`` to world 1) and
+   a node added at once, whose worker joins the running group (a
+   ``join``), 48 steps in all: every step reported once, no restart, the
+   survivor in one pid through every generation, the joiner cold and
+   mid-run with the 1.5 GB state pulled from the object plane, the
+   restored params bitwise the gathered ones, the train phase's
+   launches every step of every worker, the losses within
+   ``ELASTIC_LOSS_TOL`` of the driver's uninterrupted world-1 run (a
+   dropped shard and a stale restore beyond it), ``last_remesh`` the
+   join, nothing left after ``shutdown``.  Last, moe-small (the top-2 MoE
    transformer, 0.52 B params) at full size, held to its plain path
    (plain LayerNorm, the reference's einsum dispatch) with the routing
    held equal, then six steps on the LayerNorm kernels.
@@ -8660,6 +8673,548 @@ def ray_train_phase(dev, xl: dict, card, tag: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- elastic
+# Elastic training on the port's runtime (the elastic phase): GPT-2 124M
+# at the preset's width and depth, data-parallel over the generation's
+# gloo domain, through TorchTrainer(TorchConfig(elastic=True)) in a
+# Cluster of the phase's own: a card-less head and two logical nodes of
+# GPU: 0.5, each with its warm GPU worker.  One node is drained after
+# ELASTIC_DRAIN_AFTER reported steps (a remesh to world 1) and its
+# replacement added at once (the autopilot's pre-warm): the survivor
+# trains on alone while the new node's GPU worker boots, and its worker
+# joins as soon as it is up (a join to world 2).  A world-1 step takes
+# ~75 ms and the boot ~5 s (PERF.md §6, elastic), so ELASTIC_STEPS leaves
+# the join room to land mid-run on a slower host too.  The global batch
+# is fixed (one ELASTIC_BATCH x ELASTIC_SEQ batch from SEED), split evenly
+# over the generation's ranks; the losses are held to the driver's
+# uninterrupted run of the same program at world 1.  The state (params
+# and both Adam moments in float32, 1.5 GB) is above the inline limit, so
+# it rides the object plane.  gather_every is the step budget: an
+# unwarned loss is not exercised here, so the only gathers are the two
+# quiesces and the last step (each a 1.5 GB device-to-host copy and, on
+# rank 0, a publish), which keeps publishing out of the steps.
+ELASTIC_BATCH, ELASTIC_SEQ = 8, 1024
+ELASTIC_STEPS = 48
+ELASTIC_DRAIN_AFTER = 3
+ELASTIC_GATHER_EVERY = ELASTIC_STEPS
+ELASTIC_BUDGET_S = 60.0
+ELASTIC_STORE_MB = 8192          # two 1.5 GB states may be live at once
+# The elastic run's losses against the driver's uninterrupted world-1 run:
+# max over the steps of |loss - reference| in units of the reference's
+# first loss.  Sums in other orders at world 2 (two 4-row shards
+# averaged, bf16 activations) make the runs drift apart as they train,
+# and the loss falls 5x over the run, so a gap relative to each step's own
+# value grows with the fall (0.027 healthy at step 47).  Set from the
+# healthy gap and the two planted faults measured on the card (PERF.md
+# §6, elastic: probes/elastic_probe.py): rank 1's shard dropped at every
+# world-2 step (run to the last step: its gap grows as the model fits
+# half the batch), and the survivor restoring the state of one step
+# before the drain's quiesce (run ELASTIC_FAULT_STEPS steps past it, a
+# prefix of its trajectory: its gap shows at once, and the gap over a
+# prefix is a lower bound of the whole run's).
+ELASTIC_LOSS_TOL = 0.02
+ELASTIC_FAULT_STEPS = 4
+
+
+def elastic_tokens(vocab: int) -> np.ndarray:
+    """The elastic phase's global batch: (ELASTIC_BATCH, ELASTIC_SEQ + 1)
+    token ids from SEED."""
+    return np.random.default_rng(SEED).integers(
+        0, vocab, (ELASTIC_BATCH, ELASTIC_SEQ + 1)).astype(np.int32)
+
+
+class ElasticGPT2:
+    """GPT-2 data-parallel over the generation's ``multihost`` domain (the
+    ``TorchConfig(elastic=True)`` program contract).  Every rank holds
+    the whole train state (the train phase's program and optimizer) and
+    takes the gradient of its 1/world of the global batch through the
+    hand-written kernels; the loss and gradients are averaged over the
+    ranks between the backward and the optimizer (``grad_reduce``: one
+    gloo all-reduce of a float32 host buffer), so every rank makes the
+    same update.  Each step's metrics carry every rank's kernel launches
+    (a second, tiny all-reduce), the all-reduce's seconds, and, on the
+    first step after a restore, whether the restored params equal the
+    gathered ones bitwise.
+
+    ``config``: ``device`` (None: the card), ``cfg`` (None: gpt2_small()),
+    ``tree`` (numpy params to start from; None: the seed's init),
+    ``tokens`` (None: ``elastic_tokens``), ``lr``, ``schedule_steps``,
+    ``progress`` (a file rank 0 rewrites after each step), ``step_s`` (a
+    sleep after each step), ``save_to`` (rank 0 pickles the params there
+    after the last step, ``total_steps``); the driver's planted faults:
+    ``plant="drop_shard"`` with ``plant_steps`` (the gradient of the
+    batch's first half alone at those steps), ``plant="stale"`` with
+    ``plant_step`` (that step starts from the state of one step
+    before)."""
+
+    def __init__(self, config: dict):
+        from ray_tpu_torch._device import disable_tf32, resolve_device
+        from ray_tpu_torch.models import gpt2
+        from ray_tpu_torch.models.convert import params_from_numpy
+        from ray_tpu_torch.parallel import multihost, spmd
+        self.config = config
+        self.dev = dev = resolve_device(config.get("device"))
+        if dev.type == "cuda":
+            from ray_tpu_torch import _build
+            _build.lib()                # the driver's build: no nvcc here
+            disable_tf32()
+        self.cfg = cfg = config.get("cfg") or gpt2.gpt2_small()
+        self.rank = multihost.process_index()
+        self.world = multihost.process_count()
+        toks = config.get("tokens")
+        if toks is None:
+            toks = elastic_tokens(cfg.vocab_size)
+        rows = toks.shape[0] // self.world
+        tree = config.get("tree")
+        self.prog = spmd.build_train_program(
+            loss_fn=lambda p, b: gpt2.loss_fn(p, b, cfg),
+            init_params_fn=(lambda g: params_from_numpy(tree, cfg, dev))
+            if tree is not None
+            else (lambda g: gpt2.init_params(g, cfg, device=dev)),
+            optimizer=spmd.default_optimizer(
+                lr=config.get("lr", TRAIN_LR), warmup=1,
+                total_steps=config.get("schedule_steps", 1000)),
+            device=dev, grad_reduce=self._reduce)
+        self.batch = spmd.shard_batch(self.prog, {
+            "tokens": toks[self.rank * rows:(self.rank + 1) * rows]})
+        self.half = spmd.shard_batch(self.prog, {
+            "tokens": toks[:toks.shape[0] // 2]})
+        self.counters = kernel_counters()
+        self._before: dict = {}
+        self._t_start = 0.0
+        self._slots: dict = {}
+        self._allreduce: dict = {}
+        self._restored: Optional[dict] = None
+        self._stale = None
+
+    def _counts(self) -> dict:
+        return {k: getattr(m, a) for k, (m, a) in self.counters.items()}
+
+    def _reduce(self, loss, grads):
+        """Between the backward and the optimizer: the loss and gradients
+        averaged over the ranks; every rank's launches this step and the
+        wall time its step began (float64 slots, summed)."""
+        from ray_tpu_torch.parallel import multihost
+        now = self._counts()
+        mine = [now[k] - self._before[k] for k in self.counters] + \
+            [self._t_start]
+        if self.world == 1:
+            self._slots, self._allreduce = {0: mine}, {}
+            return loss, grads
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, grads = multihost.allreduce([loss, grads], "mean")
+        self._allreduce = dict(multihost.last_allreduce,
+                               total=time.perf_counter() - t)
+        slots = torch.zeros(self.world, len(mine), dtype=torch.float64)
+        slots[self.rank] = torch.tensor(mine, dtype=torch.float64)
+        slots = multihost.allreduce(slots, "sum", dtype=torch.float64)
+        self._slots = {r: slots[r].tolist() for r in range(self.world)}
+        return loss, grads
+
+    def init_state(self):
+        return self.prog.init_fn(
+            torch.Generator(device=self.dev).manual_seed(SEED))
+
+    def gather_state(self, state) -> dict:
+        from ray_tpu_torch.parallel import multihost
+        return multihost.gather_to_host({"params": state.params,
+                                         "opt_state": state.opt_state,
+                                         "step": state.step})
+
+    def restore_state(self, host_state: dict, check: bool = True):
+        from ray_tpu_torch.parallel import multihost
+        from ray_tpu_torch.parallel import transforms as tx
+        from ray_tpu_torch.parallel.spmd import TrainState
+        t = time.perf_counter()
+        placed = multihost.put_global(host_state, self.dev)
+        state = TrainState(step=placed["step"], params=placed["params"],
+                           opt_state=placed["opt_state"])
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize()
+        if check:
+            back = multihost.gather_to_host(state.params)
+            differ = [name for (name, a), b in zip(
+                tx.tree_leaves_with_path(back),
+                tx.tree_leaves(host_state["params"]))
+                if not np.array_equal(a, b)]
+            self._restored = {"bitwise": not differ, "differ": differ,
+                              "ms": (time.perf_counter() - t) * 1e3}
+        return state
+
+    def step(self, state, i: int):
+        plant = self.config.get("plant")
+        batch = self.batch
+        if plant == "stale" and i == self.config["plant_step"] - 1:
+            self._stale = self.gather_state(state)
+        if plant == "stale" and i == self.config["plant_step"]:
+            state = self.restore_state(self._stale, check=False)
+        if plant == "drop_shard" and i in self.config["plant_steps"]:
+            batch = self.half
+        self._before = self._counts()
+        self._t_start = time.time()
+        t = time.perf_counter()
+        state, m = self.prog.step_fn(state, batch)
+        loss = m["loss"].item()
+        step_ms = (time.perf_counter() - t) * 1e3
+        out = {"loss": loss, "grad_norm": m["grad_norm"].item(),
+               "step_ms": step_ms, "world": float(self.world)}
+        for k, v in self._allreduce.items():
+            out[f"allreduce_{k}_ms"] = v * 1e3
+        for r, slot in self._slots.items():
+            for k, n in zip(self.counters, slot):
+                out[f"launches/{r}/{k}"] = float(n)
+            out[f"t_start/{r}"] = slot[-1]
+        if self._restored is not None:
+            out["restored_bitwise"] = float(self._restored["bitwise"])
+            out["restored_differ"] = " ".join(self._restored["differ"])
+            out["restore_ms"] = self._restored["ms"]
+            self._restored = None
+        if self.rank == 0 and self.config.get("progress"):
+            tmp = self.config["progress"] + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump({"step": i, "world": self.world}, f)
+            os.replace(tmp, self.config["progress"])
+        if self.rank == 0 and self.config.get("save_to") and \
+                i == self.config["total_steps"] - 1:
+            import pickle
+            from ray_tpu_torch.parallel import multihost
+            with open(self.config["save_to"], "wb") as f:
+                pickle.dump(multihost.gather_to_host(state.params), f)
+        if self.config.get("step_s"):
+            time.sleep(self.config["step_s"])
+        return state, out
+
+
+def elastic_gpt2_loop(config: dict) -> ElasticGPT2:
+    """``TorchConfig(elastic=True)``'s train loop: returns the program."""
+    return ElasticGPT2(config)
+
+
+def elastic_run(dev, config: dict, steps: int,
+                plant: Optional[dict] = None) -> list:
+    """The elastic program run uninterrupted in this process (world 1,
+    the whole global batch, the same init) on ``config`` for ``steps``
+    steps: its losses.  ``plant``'s keys go into the config for a planted
+    fault (which acts at the steps it names)."""
+    prog = ElasticGPT2(dict(config, device=dev, **(plant or {})))
+    state = prog.init_state()
+    losses = []
+    for i in range(steps):
+        state, m = prog.step(state, i)
+        losses.append(m["loss"])
+    del state, prog
+    gc.collect()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    return losses
+
+
+def loss_gap(losses: list, ref: list, first: float) -> float:
+    """max over the steps of |loss - reference| / ``first`` (the
+    reference's first loss)."""
+    return max(abs(a - b) for a, b in zip(losses, ref)) / abs(first)
+
+
+def elastic_phase(dev, train_res: dict, tag: str,
+                  device: Optional[str] = None, cfg=None,
+                  step_s: float = 0.0) -> dict:
+    """The elastic phase (see ELASTIC_*): TorchTrainer's elastic route on
+    the card, drained 2 -> 1 and joined 1 -> 2.  ``train_res``: the train
+    phase's result (its ``launches_per_step``).  ``device`` "cpu" runs the
+    workers' programs on the CPU, ``cfg`` replaces gpt2_small() and
+    ``step_s`` slows each step (a rehearsal; the card checks fail
+    there)."""
+    from ray_tpu_torch.models import gpt2
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    from ray_tpu_torch._private import shm_store
+    from ray_tpu_torch._private import worker as worker_mod
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.util import state
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    saved_path = os.environ.get("PYTHONPATH")
+    # workers import the package, and this module, from this checkout
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [here] + ([saved_path] if saved_path else []))
+    storage = tempfile.mkdtemp(prefix="rtt_elastic_")
+    atexit.register(shutil.rmtree, storage, ignore_errors=True)
+    progress = os.path.join(storage, "progress.json")
+    cfg = cfg or gpt2.gpt2_small()
+    loop_config = {"device": device, "cfg": cfg, "step_s": step_s,
+                   "tokens": elastic_tokens(cfg.vocab_size)}
+    watch = ClusterWatch(shm_store._SHM_DIR)
+    res: dict = {}
+    chaos: dict = {}
+    t_phase = time.perf_counter()
+
+    def seen() -> Optional[dict]:
+        try:
+            with open(progress) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
+
+    try:
+        cluster = Cluster(head_node_args={
+            "num_cpus": 2, "num_gpus": 0,
+            "_system_config": {"gpu_workers_per_node": 1,
+                               "object_store_memory_mb": ELASTIC_STORE_MB}})
+        watch.start(rt._head, str(worker_mod.global_worker().session.path))
+        nodes = [cluster.add_node(num_cpus=1, num_gpus=0.5)
+                 for _ in range(2)]
+        # the driver's uninterrupted run, while the nodes' GPU workers
+        # boot (they import torch on the CPU)
+        t_ref = time.perf_counter()
+        ref = elastic_run(dev, loop_config, ELASTIC_STEPS)
+        res["reference_s"] = time.perf_counter() - t_ref
+
+        def choreography():
+            """Drain a node after ELASTIC_DRAIN_AFTER steps, and add its
+            replacement at once: its GPU worker boots while the group
+            re-meshes to world 1, then it joins."""
+            try:
+                if not wait_for(lambda: (seen() or {}).get("step", -1)
+                                >= ELASTIC_DRAIN_AFTER - 1, 120):
+                    chaos["error"] = "no progress before the drain"
+                    return
+                chaos["drain_t"] = time.time()
+                cluster.drain_node(nodes[1], deadline_s=30.0,
+                                   reason="spot-preemption")
+                chaos["add_t"] = time.time()
+                chaos["added"] = cluster.add_node(num_cpus=1,
+                                                  num_gpus=0.5).node_id
+            except Exception as e:  # noqa: BLE001 - reported by the checks
+                chaos["error"] = repr(e)
+
+        thread = threading.Thread(target=choreography, daemon=True,
+                                  name="elastic-chaos")
+        thread.start()
+        t_fit = time.perf_counter()
+        result = train.TorchTrainer(
+            elastic_gpt2_loop,
+            train_loop_config=dict(loop_config, progress=progress),
+            torch_config=train.TorchConfig(
+                elastic=True, elastic_total_steps=ELASTIC_STEPS,
+                elastic_gather_every=ELASTIC_GATHER_EVERY,
+                elastic_auto_rejoin=True, elastic_timeout_s=300.0),
+            scaling_config=train.ScalingConfig(
+                num_workers=2, resources_per_worker={"GPU": 0.5}),
+            run_config=train.RunConfig(name="elastic_gpt2",
+                                       storage_path=storage)).fit()
+        res["fit_s"] = time.perf_counter() - t_fit
+        thread.join(timeout=10)
+        res["last_remesh"] = state.fleet_state()["last_remesh"]
+        # the manager's kills settle in a moment
+        wait_for(lambda: not [a for a in state.list_actors()
+                              if a["state"] == "ALIVE"], 10)
+        res["actors_alive"] = [a for a in state.list_actors()
+                               if a["state"] == "ALIVE"]
+    finally:
+        started = hasattr(watch, "head")
+        if started:
+            watch.poll()
+        rt.shutdown()
+        if started:
+            watch.stop()
+        if saved_path is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = saved_path
+    check_cluster_gone(watch, "elastic", tag)
+    res["fit_to_gone_s"] = time.perf_counter() - t_phase
+
+    if result.error is not None:
+        fail(f"elastic: the fit failed: {result.error!r}")
+    if chaos.get("error"):
+        fail(f"elastic: choreography: {chaos['error']}")
+    hist = result.metrics_history
+    el = result.metrics["elastic"]
+    steps = [h["training_iteration"] for h in hist]
+    losses = [h["loss"] for h in hist]
+    actions = [t["action"] for t in el["transitions"]]
+    t0 = chaos.get("drain_t", 0.0)
+    rows = [(h["training_iteration"], int(h["world"]), round(h["step_ms"], 1),
+             round(h.get("allreduce_total_ms", 0.0), 1),
+             round(h.get("allreduce_reduce_ms", 0.0), 1),
+             [round(h[f"t_start/{r}"] - t0, 2)
+              for r in range(int(h["world"]))]) for h in hist]
+    print(f"elastic steps (step, world, step ms, all-reduce ms: total / "
+          f"gloo, rank starts s after the drain): {rows} [{tag}]",
+          flush=True)
+    moves = [(t["action"], t["generation"], t["world_size"],
+              round(t.get("duration_s", 0.0), 3)) for t in el["transitions"]]
+    good = {k: el[k] for k in ("useful_steps", "wasted_steps", "pauses",
+                               "paused_s", "goodput_steps_per_s")}
+    print(f"elastic transitions {moves} goodput {good} last_remesh "
+          f"{res['last_remesh']} [{tag}]", flush=True)
+    if steps != list(range(ELASTIC_STEPS)):
+        fail(f"elastic: steps reported {steps}")
+    if el["useful_steps"] != ELASTIC_STEPS or el["wasted_steps"] != 0 \
+            or el["pauses"] != 2:
+        fail(f"elastic: goodput {el}")
+    if actions != ["start", "remesh", "join"]:
+        fail(f"elastic: transitions {actions}")
+    if (res["last_remesh"] or {}).get("action") != "join":
+        fail(f"elastic: fleet_state last_remesh {res['last_remesh']}")
+
+    # -- the workers: one survivor through every generation in one pid,
+    # the drained one, the joiner (cold, mid-run)
+    workers = el["workers"]
+    drained = [w for w in workers if w["drained"]]
+    survivors = [w for w in workers if len(w["generations"]) == 3]
+    joiners = [w for w in workers if not w["drained"]
+               and len(w["generations"]) == 1]
+    for w in workers:
+        gens_ = [(g["gen"], g["rank"], g["world"], g["start_step"],
+                  g["end_step"], g["cold"]) for g in w["generations"]]
+        print(f"elastic worker pid {w['pid']} drained {w['drained']} "
+              f"completed {w['completed']} generations {gens_} "
+              f"pulled {[g['pulled'] for g in w['generations']]} "
+              f"published {[g['published'] for g in w['generations']]} "
+              f"[{tag}]", flush=True)
+    if len(workers) != 3 or len(drained) != 1 or len(survivors) != 1 \
+            or len(joiners) != 1:
+        fail("elastic: expected one survivor, one drained worker and one "
+             "joiner")
+    sv, jn = survivors[0], joiners[0]
+    gens = sv["generations"]
+    if [g["gen"] for g in gens] != [0, 1, 2] or \
+            [g["world"] for g in gens] != [2, 1, 2] or \
+            not gens[0]["cold"] or any(g["cold"] for g in gens[1:]) or \
+            any(g["pid"] != sv["pid"] for g in gens) or \
+            any(b["start_step"] != a["end_step"]
+                for a, b in zip(gens, gens[1:])):
+        fail(f"elastic: the survivor's generations {gens}")
+    jg = jn["generations"][0]
+    if not (jg["gen"] == 2 and jg["cold"]
+            and 0 < jg["start_step"] < ELASTIC_STEPS
+            and jg["world"] == 2 and jg["rank"] == 1
+            and (jg["pulled"] or {}).get("via") == "object"
+            and jn["pid"] != sv["pid"]):
+        fail(f"elastic: the joiner's generation {jg}")
+    if not drained[0]["generations"] or \
+            drained[0]["generations"][0]["world"] != 2:
+        fail(f"elastic: the drained worker {drained[0]}")
+    if res["actors_alive"]:
+        fail(f"elastic: actors alive after the fit: {res['actors_alive']}")
+
+    # -- launches per step of each worker: the train phase's
+    want = {k: train_res["launches_per_step"].get(k, 0)
+            for k in kernel_counters()}
+    bad = []
+    launches = {k: 0 for k in want}
+    for h in hist:
+        for r in range(int(h["world"])):
+            got = {k: int(h[f"launches/{r}/{k}"]) for k in want}
+            for k in want:
+                launches[k] += got[k]
+            if got != want:
+                bad.append((h["training_iteration"], r, got))
+    print(f"elastic launches per step of each worker equal to the train "
+          f"phase's {want} on {sum(int(h['world']) for h in hist) - len(bad)}"
+          f" of {sum(int(h['world']) for h in hist)} worker-steps; in all "
+          f"{launches} [{tag}]", flush=True)
+    if bad or want["layer_norm_fwd"] != 49 or want["layer_norm_bwd"] != 25 \
+            or want["flash_attention_fwd"] != 24 \
+            or want["flash_attention_bwd"] != 12:
+        fail(f"elastic: launches per step {bad[:3]}, expected {want}")
+    restored = [h for h in hist if "restored_bitwise" in h]
+    rows = [(h["training_iteration"], h["restored_bitwise"],
+             round(h["restore_ms"], 1), h["restored_differ"])
+            for h in restored]
+    print(f"elastic restores on rank 0 (the survivor): (step, bitwise, "
+          f"ms, leaves that differ) {rows} [{tag}]", flush=True)
+    if len(restored) != 2 or not all(h["restored_bitwise"] == 1.0
+                                     for h in restored):
+        fail("elastic: the survivor's restored params differ from the "
+             "gathered ones")
+
+    # -- the losses against the driver's uninterrupted run, and the two
+    # planted faults replayed in the driver at this run's re-mesh steps
+    # (rank 1's shard dropped at every world-2 step; the survivor
+    # restoring the state of the step before the drain's quiesce)
+    world2 = [h["training_iteration"] for h in hist if h["world"] == 2]
+    drain_step = gens[1]["start_step"]
+    plants = {"stale": (drain_step, drain_step + ELASTIC_FAULT_STEPS,
+                        {"plant": "stale", "plant_step": drain_step}),
+              "drop_shard": (world2[0], ELASTIC_STEPS,
+                             {"plant": "drop_shard", "plant_steps": world2})}
+    faults = {k: elastic_run(dev, loop_config, end, plant)
+              for k, (_, end, plant) in plants.items()}
+    gap = loss_gap(losses, ref, ref[0])
+    fault_gaps = {k: loss_gap(v, ref, ref[0]) for k, v in faults.items()}
+    print(f"elastic losses {losses} driver's world-1 run {ref} (run in "
+          f"{res['reference_s']:.1f} s): gap {gap:.4g} of the first loss, "
+          f"limit {ELASTIC_LOSS_TOL}; planted faults' gaps "
+          f"{ {k: float(f'{v:.4g}') for k, v in fault_gaps.items()} } from "
+          f"steps { {k: at for k, (at, _, _) in plants.items()} }, their "
+          f"losses { {k: v[plants[k][0]:] for k, v in faults.items()} } "
+          f"[{tag}]", flush=True)
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"elastic: losses {losses}")
+    if gap > ELASTIC_LOSS_TOL:
+        fail("elastic: the losses differ from the driver's run")
+    for k, v in fault_gaps.items():
+        if v <= ELASTIC_LOSS_TOL:
+            fail(f"elastic: planted fault {k} passed the loss check")
+
+    # -- the numbers
+    trans = {t["action"]: t for t in el["transitions"]}
+    first2 = next(h for h in hist if h["training_iteration"]
+                  == jg["start_step"])
+    first1 = next(h for h in hist if h["world"] == 1)
+    pub = [p for g in gens for p in g["published"]]
+    pull = jg["pulled"]
+    # steady steps: not the first, nor a generation's first (its restore)
+    step_ms = {w: [h["step_ms"] for h in hist if h["world"] == w
+                   and h["training_iteration"] > 0
+                   and "restored_bitwise" not in h]
+               for w in (1.0, 2.0)}
+    res.update(
+        losses=losses, reference=ref, loss_gap=gap, fault_gaps=fault_gaps,
+        remesh_pause_s=trans["remesh"]["duration_s"],
+        join_pause_s=trans["join"]["duration_s"],
+        join_to_first_step_s=first2["t_start/1"] - chaos["add_t"],
+        drain_to_world1_step_s=first1["t_start/0"] - chaos["drain_t"],
+        publish=[dict(p, gb_per_s=p["bytes"] / p["s"] / 1e9) for p in pub],
+        pull=dict(pull, gb_per_s=pull["bytes"] / pull["s"] / 1e9),
+        allreduce_ms={k: [h[f"allreduce_{k}_ms"] for h in hist
+                          if h["world"] == 2]
+                      for k in ("total", "to_host", "reduce", "to_device")},
+        step_ms_world1=step_ms[1.0], step_ms_world2=step_ms[2.0],
+        launches=launches, launches_per_step=want)
+    print(f"elastic pauses (quiesce -> new plan): remesh "
+          f"{res['remesh_pause_s']:.3f} s, join {res['join_pause_s']:.3f} s; "
+          f"drain -> first world-1 step {res['drain_to_world1_step_s']:.2f} s; "
+          f"add_node -> the joiner's first step "
+          f"{res['join_to_first_step_s']:.2f} s [{tag}]", flush=True)
+    rows = [(p["step"], p["via"], p["bytes"], round(p["s"], 3),
+             round(p["gb_per_s"], 3)) for p in res["publish"]]
+    print(f"elastic state publishes {rows} "
+          f"(step, via, bytes, s, GB/s); the joiner's pull "
+          f"{res['pull']['bytes']} bytes in {res['pull']['s']:.3f} s, "
+          f"{res['pull']['gb_per_s']:.3f} GB/s [{tag}]", flush=True)
+    res["wall_s"] = time.perf_counter() - t_phase
+    print(f"elastic allreduce ms per world-2 step (total; the "
+          f"device-to-host copies, gloo, host-to-device) "
+          f"{ {k: [round(x, 1) for x in v] for k, v in res['allreduce_ms'].items()} }"
+          f"; step ms at world "
+          f"1 {[round(x, 1) for x in res['step_ms_world1']]}, at world 2 "
+          f"{[round(x, 1) for x in res['step_ms_world2']]}; fit "
+          f"{res['fit_s']:.1f} s, phase {res['wall_s']:.1f} s of its "
+          f"{ELASTIC_BUDGET_S:.0f} [{tag}]", flush=True)
+    if res["wall_s"] > ELASTIC_BUDGET_S:
+        print(f"elastic: the phase took {res['wall_s']:.1f} s, over its "
+              f"budget of {ELASTIC_BUDGET_S:.0f} s [{tag}]", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 # ---------------------------------------------------------------- ray_data
 # Ray Data on the port's runtime (the ray_data phase).  GPT-2 124M at the
 # train phase's shape (model, remat, optimizer, b32 x s1024) from a token
@@ -9843,6 +10398,8 @@ def main() -> int:
     phase_done("xl_train")
     ray_train = ray_train_phase(dev, xl_train, card, tag)
     phase_done("ray_train")
+    elastic = elastic_phase(dev, train, tag)
+    phase_done("elastic")
     moe_train = moe_train_phase(dev, card, tag)
     phase_done("moe_train")
     tiny_reference_check(dev, tag)
@@ -9893,7 +10450,8 @@ def main() -> int:
              "llama_engine": llama, "serve_llm_split": split,
              "train": train,
              "llama_train": llama_train, "xl_train": xl_train,
-             "ray_train": ray_train, "ray_data": ray_data,
+             "ray_train": ray_train, "elastic": elastic,
+             "ray_data": ray_data,
              "tune": tuned,
              "moe_train": moe_train, "resnet50_train": resnet_train,
              "bert_serve": bert_serve, "vit_train": vit_train,

@@ -329,6 +329,14 @@ _FLAG_DEFS = [
     _flag("autopilot_standby_backoff_s", 5.0,
           "Minimum seconds between autopilot standby (re)launch "
           "attempts."),
+    _flag("elastic_state_inline_max_bytes", 4 * 1024 * 1024,
+          "Elastic gathered-state checkpoints at or below this ride "
+          "the GCS KV inline (head-durable, restart-safe).  Larger "
+          "states are published to the object plane and pulled "
+          "peer-to-peer over the streaming data plane instead of "
+          "through the head (the KV holds only the ObjectRef; the "
+          "manager adopts a borrow so the blob outlives the "
+          "publishing worker)."),
     _flag("trace_sample_rate", 0.01,
           "Head-based sampling rate for automatically-rooted request "
           "traces (e.g. one Serve HTTP request = one candidate root). "

@@ -370,10 +370,12 @@ class GcsServer:
         # timeline events                        guarded by: _events_lock
         self.events: List[dict] = []
         # fleet lifecycle feed (DESIGN.md §4j): bounded ring of node
-        # add/drain/remove events, read through the ``fleet_events``
-        # cursor RPC                          guarded by: _events_lock
+        # add/drain/remove + elastic re-mesh events, consumed by the
+        # elasticity manager and `ray_tpu_torch status` through the
+        # ``fleet_events`` cursor RPC          guarded by: _events_lock
         self._fleet_events: deque = deque(maxlen=512)
         self._fleet_event_seq = 0             # guarded by: _events_lock
+        self._last_remesh: Optional[dict] = None  # guarded by: _events_lock
         self.dead_clients: Set[str] = set()            # guarded by: lock
         # in-flight chunked uploads                      guarded by: lock
         self._staging: Dict[str, dict] = {}
@@ -4569,10 +4571,26 @@ class GcsServer:
             seq = self._fleet_event_seq
         return {"events": events, "seq": seq}
 
+    def _h_elastic_event(self, msg: dict) -> dict:
+        """The elasticity manager reports a re-mesh (or restart, or
+        join) so `ray_tpu_torch status` / the dashboard can show the last
+        transition without reaching into the manager's process."""
+        rec = {"ts": time.time(),
+               "group": msg.get("group"),
+               "action": msg.get("action"),   # remesh | join | restart
+               "generation": msg.get("generation"),
+               "world_size": msg.get("world_size"),
+               "detail": msg.get("detail") or {}}
+        with self._events_lock:
+            self._last_remesh = rec
+        self._fleet_event("remesh", None, **{k: v for k, v in rec.items()
+                                             if k != "ts"})
+        return {}
+
     def _h_fleet_state(self, msg: dict) -> dict:
-        """One-call fleet rollup for `ray_tpu_torch status` / state.py: nodes
-        by lifecycle phase and the current demand backlog (DESIGN.md
-        §4j)."""
+        """One-call fleet rollup for `ray_tpu_torch status` / state.py:
+        nodes by lifecycle phase, the current demand backlog, and the last
+        elastic re-mesh event (DESIGN.md §4j)."""
         demand = self._h_resource_demand({})
         now = time.monotonic()
         with self.lock:
@@ -4589,12 +4607,14 @@ class GcsServer:
                             round(n.drain_deadline - now, 3)
                             if n.drain_deadline else None)})
         with self._events_lock:
+            last_remesh = dict(self._last_remesh) \
+                if self._last_remesh else None
             seq = self._fleet_event_seq
         backlog = demand["task_shapes"] + demand["pg_bundles"]
         return {"phases": phases, "draining": draining,
                 "demand_backlog": backlog,
                 "demand_backlog_count": len(backlog),
-                "event_seq": seq}
+                "last_remesh": last_remesh, "event_seq": seq}
 
     def _h_pick_oom_victim(self, msg: dict) -> dict:
         """A NodeAgent reports local memory pressure; the head picks the

@@ -1,5 +1,17 @@
-"""``ray_tpu_torch.elastic`` — fleet elasticity's control plane
-(DESIGN.md §4j, §4n).
+"""``ray_tpu_torch.elastic`` — fleet elasticity (DESIGN.md §4j, §4n).
+
+- **Elasticity manager** (``manager.py``) and its **worker loop**
+  (``worker_loop.py``): a driver-side controller that subscribes to the
+  GCS fleet-event feed (``node_draining`` preemption warnings, node
+  add/remove) and drives *re-mesh-without-restart*: on a warned drain
+  the group's gloo domain (``parallel/multihost.py``) quiesces at a step
+  boundary, every rank leaves it cleanly, survivors re-form it at the
+  new world size and restore model/optimizer state from the gathered
+  checkpoint — the surviving Python processes never die.  On scale-up a
+  new node's worker attaches to the running group the same way.
+  Unwarned (SIGKILL) losses fall back to a full-group restart from the
+  same gathered state.  ``TorchTrainer`` routes through it with
+  ``TorchConfig(elastic=True)``.
 
 - **Fleet events** (``events.py``): ``drain_node`` (a provider's
   preemption warning), the ``FleetEventSubscriber`` polling client and
@@ -22,9 +34,6 @@
   the head keeps a warm GCS standby attached.  Rate-limited,
   hysteresis-guarded, vetoed — and every action is itself a fleet
   event + metric.  The head runs it with ``autopilot_enabled``.
-
-The elasticity manager and its worker loop (re-forming a training group
-at a new world size without a restart) are not here yet.
 """
 
 from ray_tpu_torch.elastic.autopilot import (Autopilot, AutopilotConfig,
@@ -32,8 +41,13 @@ from ray_tpu_torch.elastic.autopilot import (Autopilot, AutopilotConfig,
 from ray_tpu_torch.elastic.events import (FleetEventSubscriber, drain_node,
                                           fleet_events, fleet_state)
 from ray_tpu_torch.elastic.goodput import GoodputTracker
+from ray_tpu_torch.elastic.manager import (ElasticConfig, ElasticResult,
+                                           ElasticityManager)
+from ray_tpu_torch.elastic.worker_loop import ElasticSpec
 
 __all__ = [
-    "Autopilot", "AutopilotConfig", "FleetEventSubscriber", "GcsActuator",
-    "GoodputTracker", "drain_node", "fleet_events", "fleet_state",
+    "Autopilot", "AutopilotConfig", "ElasticConfig", "ElasticResult",
+    "ElasticSpec", "ElasticityManager", "FleetEventSubscriber",
+    "GcsActuator", "GoodputTracker", "drain_node", "fleet_events",
+    "fleet_state",
 ]

@@ -127,14 +127,21 @@ def build_train_program(
         mesh: Optional[MeshLike] = None,
         accum_steps: int = 1,
         accum_dtype: Optional[torch.dtype] = None,
-        device: DeviceLike = None) -> SpmdProgram:
+        device: DeviceLike = None,
+        grad_reduce: Optional[Callable[[torch.Tensor, Any],
+                                       Tuple[torch.Tensor, Any]]] = None
+        ) -> SpmdProgram:
     """Assemble the train step on one device (default ``cuda``).
 
     ``loss_fn(params, batch) -> scalar``.  ``accum_steps > 1`` splits the
     batch on its leading dim into that many microbatches and accumulates
     their gradients (in ``accum_dtype``, default the param dtype) before
     one optimizer update; activation memory then scales with the
-    microbatch."""
+    microbatch.  ``grad_reduce(loss, grads) -> (loss, grads)`` runs
+    between the backward and the optimizer: a data-parallel program
+    whose ranks each hold the whole state averages both over its ranks
+    there (``multihost.allreduce``), so every rank makes the same
+    update."""
     optimizer = optimizer or default_optimizer()
     dev, mesh_config = _resolve_placement(device, mesh, mesh_config)
     if accum_steps < 1:
@@ -189,6 +196,8 @@ def build_train_program(
             loss, grads = grads_accum(state.params, batch)
         else:
             loss, grads = grads_of(state.params, batch)
+        if grad_reduce is not None:
+            loss, grads = grad_reduce(loss, grads)
         with torch.no_grad():
             gnorm = tx.global_norm(grads)      # of the raw gradients
             updates, state.opt_state = optimizer.update(

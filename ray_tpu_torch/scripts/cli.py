@@ -8,7 +8,8 @@ start/stop/status/timeline/memory/microbenchmark`` and the state-API
 ``start`` boots a head session whose control plane outlives the command
 (daemon-style via fork) so other drivers can
 ``ray_tpu_torch.init(address="auto")`` against it; ``stop`` terminates the
-latest session's head via its descriptor pid.  The command forks before
+latest session's head via its descriptor's ``head_pid``, and only when
+that session is a ``start`` head's (``role: head``).  The command forks before
 anything touches a card, so the head holds no CUDA context; its GPU
 workers are the ones that do.
 """
@@ -144,9 +145,13 @@ def cmd_stop(args) -> int:
     except FileNotFoundError:
         print("no running session found")
         return 1
-    pid = desc.get("head_pid") or desc.get("pid")
-    if not pid:
-        print("session has no recorded head pid")
+    # only a head that ``start`` forked records itself so; the ``pid`` of
+    # any other session is the driver whose init() made it, never a head
+    # this command may end
+    pid = desc.get("head_pid")
+    if desc.get("role") != "head" or not pid:
+        print(f"no CLI head runs in the latest session "
+              f"({desc.get('session_name')}): nothing to stop")
         return 1
     try:
         os.kill(pid, signal.SIGTERM)
@@ -161,9 +166,9 @@ def cmd_status(args) -> int:
     _connect(args.address)
     from ray_tpu_torch.util import state
     s = state.cluster_summary()
-    # fleet header (DESIGN.md §4j): lifecycle phases and the demand
-    # backlog — the at-a-glance elasticity view; the full JSON (fleet
-    # section included) follows for tooling
+    # fleet header (DESIGN.md §4j): lifecycle phases, demand backlog,
+    # last elastic re-mesh — the at-a-glance elasticity view; the full
+    # JSON (fleet section included) follows for tooling
     fleet = s.get("fleet") or {}
     phases = fleet.get("phases") or {}
     phase_txt = " ".join(f"{k}={v}" for k, v in sorted(phases.items())) \
@@ -174,6 +179,11 @@ def cmd_status(args) -> int:
         ttl = d.get("deadline_in_s")
         print(f"  draining {d['node_id'][:8]} ({d.get('reason')})"
               + (f" deadline in {ttl:.0f}s" if ttl is not None else ""))
+    lr = fleet.get("last_remesh")
+    if lr:
+        print(f"  last elastic transition: {lr.get('action')} "
+              f"group={lr.get('group')} gen={lr.get('generation')} "
+              f"world={lr.get('world_size')}")
     print(json.dumps(s, indent=2, default=str))
     return 0
 

@@ -52,7 +52,11 @@ class _PgReady:
 
 
 def placement_group(bundles: List[Dict[str, float]], strategy: str = "PACK",
-                    name: str = "") -> PlacementGroup:
+                    name: str = "", lifetime: Optional[str] = None
+                    ) -> PlacementGroup:
+    """``lifetime`` (``None`` or ``"detached"``) is accepted as the
+    reference accepts it: a group lives until ``remove_placement_group``
+    or the cluster's shutdown either way."""
     if strategy not in ("PACK", "SPREAD", "STRICT_PACK", "STRICT_SPREAD"):
         raise ValueError(f"unknown strategy {strategy!r}")
     if not bundles or any(not b for b in bundles):

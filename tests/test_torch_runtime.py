@@ -103,12 +103,12 @@ def test_slab_and_flight_rings_follow_the_shm_dir(monkeypatch, tmp_path):
 
 def test_modes_left_out_of_the_slice_raise_and_their_flags_are_gone():
     """The flags that only the modules still left out read (the
-    elasticity manager's, the multi-GPU collectives') are not offered.
-    The autopilot came with ``elastic/``: a head with
-    ``autopilot_enabled`` runs it and answers ``autopilot_status``, and
-    its flags are the reference's.  (The client mode came with the
-    client server: ``init("ray://")`` connects,
-    tests/test_torch_node_agent.py.)"""
+    multi-GPU collectives') are not offered.  The autopilot came with
+    ``elastic/``: a head with ``autopilot_enabled`` runs it and answers
+    ``autopilot_status``, and its flags are the reference's; so are the
+    elasticity manager's, which came with ``elastic/manager.py``.  (The
+    client mode came with the client server: ``init("ray://")``
+    connects, tests/test_torch_node_agent.py.)"""
     from ray_tpu._private import config as j_config
     from ray_tpu_torch._private import config as t_config
     from ray_tpu_torch.util import state
@@ -123,11 +123,13 @@ def test_modes_left_out_of_the_slice_raise_and_their_flags_are_gone():
         _stop()
         t_config.GLOBAL_CONFIG.reset()
     assert not rt.is_initialized()
-    gone = [k for k in t_config._DEFS
-            if k.startswith(("collective_", "elastic_"))]
+    gone = [k for k in t_config._DEFS if k.startswith("collective_")]
     assert gone == []
-    assert sorted(k for k in t_config._DEFS if k.startswith("autopilot_")) \
-        == sorted(k for k in j_config._DEFS if k.startswith("autopilot_"))
+    for prefix in ("autopilot_", "elastic_"):
+        assert sorted(k for k in t_config._DEFS if k.startswith(prefix)) \
+            == sorted(k for k in j_config._DEFS if k.startswith(prefix))
+    assert t_config._DEFS["elastic_state_inline_max_bytes"].default == \
+        j_config._DEFS["elastic_state_inline_max_bytes"].default
 
 
 def test_gpu_task_routing_and_worker_capability(monkeypatch):

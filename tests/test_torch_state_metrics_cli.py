@@ -401,6 +401,40 @@ def test_cli_start_waits_for_its_own_head(own_root):
         _stop_all(own_root)
 
 
+# a driver whose in-process init() made the root's latest session
+DRIVER = r"""
+import sys, time
+import ray_tpu_torch
+ray_tpu_torch.init(num_cpus=1, num_gpus=0)
+print("READY", flush=True)
+time.sleep(120)
+"""
+
+
+def test_cli_stop_spares_a_driver_session(own_root):
+    """C27: ``stop`` in a root whose latest session is a driver's own
+    (``init()`` in that process, no ``start`` head) names no head, exits
+    non-zero, and leaves the driver alive."""
+    drv = subprocess.Popen(
+        [sys.executable, "-c", DRIVER], stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True, cwd=REPO,
+        env={**os.environ, "RTT_NUM_GPUS": "0"})
+    try:
+        assert drv.stdout.readline().strip() == "READY"
+        desc = json.loads(
+            (Path(own_root) / "session_latest" / "session.json").read_text())
+        assert desc["pid"] == drv.pid and "head_pid" not in desc
+        r = _cli("stop")
+        assert r.returncode != 0, r.stdout
+        assert "no CLI head" in r.stdout
+        time.sleep(1.0)
+        assert drv.poll() is None and _alive(drv.pid), \
+            "stop ended the driver"
+    finally:
+        drv.kill()
+        drv.wait(timeout=30)
+
+
 def test_stack_dump(ray_start_regular):
     """`ray_tpu_torch stack` analog: all-worker thread dumps (SURVEY.md
     §5.1)."""
