@@ -179,7 +179,26 @@
    launches every step of every worker, the losses within
    ``ELASTIC_LOSS_TOL`` of the driver's uninterrupted world-1 run (a
    dropped shard and a stale restore beyond it), ``last_remesh`` the
-   join, nothing left after ``shutdown``.  Last, moe-small (the top-2 MoE
+   join, nothing left after ``shutdown``.  Then the model_parallel phase,
+   in a cluster of its own: ``TorchTrainer(TorchConfig(
+   use_distributed=True))`` on two ``GPU: 0.5`` workers, one
+   ``torch.distributed`` domain whose device group must record the
+   staged transport; GPT-2 124M at full width and depth (b4 x 1024, bf16
+   activations, float32 params from the seed on every rank) trained 3
+   steps under each of ``tensor=2``, ``seq=2``, ``context=2`` with ring
+   and with Ulysses attention, and ``pipeline=2`` (4 microbatches), each
+   layout's losses, first grad norm and first final-LN hidden states
+   within ``MP_LOSS_TOL`` / ``MP_NORM_TOL`` / ``MP_HIDDEN_TOL`` of the
+   driver's one-rank run of the same params and batch; then the ring
+   layouts in float32 at block scale ``MP_F32_SCALE`` (where bf16 paths
+   part) within ``MP_F32_TOL`` of a float32 one-rank run; a
+   matmul-reduce-scatter that drops its last ring step's partial and a
+   ring attention masking with the resident rank's positions (the latter
+   in both legs) must land ``MP_FAULT_MARGIN`` times beyond; every rank's
+   flash and
+   LayerNorm launches a step equal to the layout's predicted counts; the
+   device group's all-reduce of bf16 tensors from 1 KB to 1 GB (BASELINE
+   #6 on one card: no NCCL to compare against).  Last, moe-small (the top-2 MoE
    transformer, 0.52 B params) at full size, held to its plain path
    (plain LayerNorm, the reference's einsum dispatch) with the routing
    held equal, then six steps on the LayerNorm kernels.
@@ -9038,7 +9057,7 @@ def elastic_phase(dev, train_res: dict, tag: str,
     t0 = chaos.get("drain_t", 0.0)
     rows = [(h["training_iteration"], int(h["world"]), round(h["step_ms"], 1),
              round(h.get("allreduce_total_ms", 0.0), 1),
-             round(h.get("allreduce_reduce_ms", 0.0), 1),
+             round(h.get("allreduce_wire_ms", 0.0), 1),
              [round(h[f"t_start/{r}"] - t0, 2)
               for r in range(int(h["world"]))]) for h in hist]
     print(f"elastic steps (step, world, step ms, all-reduce ms: total / "
@@ -9184,7 +9203,7 @@ def elastic_phase(dev, train_res: dict, tag: str,
         pull=dict(pull, gb_per_s=pull["bytes"] / pull["s"] / 1e9),
         allreduce_ms={k: [h[f"allreduce_{k}_ms"] for h in hist
                           if h["world"] == 2]
-                      for k in ("total", "to_host", "reduce", "to_device")},
+                      for k in ("total", "to_host", "wire", "to_device")},
         step_ms_world1=step_ms[1.0], step_ms_world2=step_ms[2.0],
         launches=launches, launches_per_step=want)
     print(f"elastic pauses (quiesce -> new plan): remesh "
@@ -9212,6 +9231,539 @@ def elastic_phase(dev, train_res: dict, tag: str,
               f"budget of {ELASTIC_BUDGET_S:.0f} s [{tag}]", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+    return res
+
+
+# --------------------------------------------------------- model_parallel
+# Model parallelism across ranks (the model_parallel phase): GPT-2 124M at
+# the preset's width and depth, b4 x 1024, bf16 activations, trained
+# MP_STEPS steps under each layout in MP_LAYOUTS by two GPU: 0.5 workers
+# that share the card, in one torch.distributed domain
+# (TorchConfig(use_distributed=True)): its device group must choose the
+# staged transport (NCCL refuses two ranks on one card).  Every rank
+# draws the same float32 params from SEED on the card and takes its
+# slice by the rules.  Each layout is held to the driver's one-rank run
+# of the same program, params and batch: max over steps of |loss - ref|
+# over the reference's first loss; |norm - ref| / ref at step 0; and
+# the relative L2 distance of the final-LN hidden states at the first
+# step's params from the reference's rows (an output of every attention
+# layer: at GPT-2's init a random batch's loss and norm hardly depend on
+# the hidden states).  The block matrices are drawn x3 (as the engine
+# phase's).  The limits come from the card (PERF.md §6, PR 22:
+# probes/model_parallel_probe.py, deterministic run to run): the worst
+# healthy bf16 gaps were 2.89e-4 (loss), 2.76e-4 (norm), 1.44e-2
+# (hidden), all tensor=2, whose reduce-scatter rounds each rank's partial
+# to bf16 before the float32 sum, as the reference's does; the limits are
+# ~3x those.  At x8 the bf16 step is ill-conditioned: against a float32
+# witness (probes/attention_precision_probe.py) every bf16 attention path
+# misses the grad norm by 2-6 % (flash kernel +2.0 %, the ring's numerics
+# -3.2 %, plain dense -5.9 %) while the float32 flash kernel and dense
+# attention agree to 5e-6, so bf16 layouts part there from the one-rank
+# run by up to 4.3 % (the ring layouts).  The float32 leg (MP_F32_*)
+# holds the ring layouts at x8 instead, where float32 can tell them
+# apart: its worst healthy gap was 1.09e-4 (hidden), its limit ~5x that.
+MP_BATCH, MP_SEQ, MP_STEPS = 4, 1024, 3
+MP_BLOCK_SCALE = 3.0
+MP_LAYOUTS = (
+    ("tensor", {"tensor": 2}, {}),
+    ("seq", {"seq": 2}, {}),
+    ("context_ring", {"context": 2},
+     {"attn_impl": "ring", "context_axis": "context"}),
+    ("context_ulysses", {"context": 2},
+     {"attn_impl": "ulysses", "context_axis": "context"}),
+    ("pipeline", {"pipeline": 2},
+     {"pipeline_axis": "pipeline", "num_microbatches": 4}),
+)
+# each planted fault, and the layout it is planted in
+MP_FAULTS = {"mm_rs_drops_last_partial": "tensor",
+             "ring_masks_resident_positions": "context_ring"}
+MP_LR = 1e-3                   # constant after one warm-up step
+MP_LOSS_TOL = 1e-3
+MP_NORM_TOL = 9e-4
+MP_HIDDEN_TOL = 4e-2
+# the float32 leg: the ring layouts at the block scale where bf16 paths
+# part (see above), one step each against the float32 one-rank run (the
+# float32 flash kernel), one limit for the three gaps; and the ring's
+# planted fault there
+MP_F32_SCALE, MP_F32_STEPS = 8.0, 1
+MP_F32_LAYOUTS = ("seq", "context_ring")
+MP_F32_FAULTS = {"ring_masks_resident_positions": "context_ring"}
+MP_F32_TOL = 5e-4
+MP_FAULT_MARGIN = 5.0
+MP_BUDGET_S = 90.0
+# the device group's all-reduce: bf16 tensors of 1 KB, 4 KB, ... 1 GB
+MP_ALLREDUCE_BYTES = tuple(1024 * 4 ** i for i in range(11))
+
+
+def mp_predicted_launches(cfg, layout: str) -> dict:
+    """The flash and LayerNorm launches a rank makes a step under a
+    layout (PERF.md §6, PR 22): with full remat every block's forward runs
+    twice (the step and the backward's replay), each with two LayerNorms;
+    the final LayerNorm once each way.  A rank runs all L layers, at
+    H/tensor heads (Ulysses: H/context over the full sequence), except
+    under the pipeline, where it runs its L/S layers at every one of the
+    M + S - 1 ticks; seq and the ring run no flash."""
+    L = cfg.n_layer
+    ticks, layers = 1, L
+    if layout == "pipeline":
+        S = dict(MP_LAYOUTS[4][1])["pipeline"]
+        ticks, layers = MP_LAYOUTS[4][2]["num_microbatches"] + S - 1, L // S
+    blocks = ticks * layers
+    flash = layout in ("tensor", "context_ulysses", "pipeline")
+    return {"layer_norm_fwd": 4 * blocks + 1, "layer_norm_bwd": 2 * blocks + 1,
+            "flash_attention_fwd": 2 * blocks if flash else 0,
+            "flash_attention_bwd": blocks if flash else 0}
+
+
+def mp_tokens(cfg) -> np.ndarray:
+    """The phase's batch: (MP_BATCH, T + 1) ids from SEED, T the smaller
+    of MP_SEQ and the model's context."""
+    seq = min(MP_SEQ, cfg.n_positions)
+    return np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (MP_BATCH, seq + 1)).astype(np.int32)
+
+
+def mp_optimizer():
+    from ray_tpu_torch.parallel import spmd
+    return spmd.default_optimizer(lr=MP_LR, warmup=1, total_steps=10_000)
+
+
+def mp_run(dev, base, axes: Optional[dict], kw: dict, steps: int,
+           block_scale: float = MP_BLOCK_SCALE) -> dict:
+    """``steps`` steps of GPT-2 ``base`` + ``kw`` over ``axes`` (None: one
+    rank) from the seed's params (block matrices x ``block_scale``):
+    losses, grad norms, step ms, each step's collective seconds and kernel
+    launches; and, at the first step's params, this rank's final-LN
+    hidden states (``hidden``, float32 on the host) and their token
+    positions (``hidden_rows``: first, count)."""
+    import dataclasses
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.parallel import mesh as mesh_lib
+    from ray_tpu_torch.parallel import spmd
+    from ray_tpu_torch.parallel.mesh import MeshConfig
+    cfg = dataclasses.replace(base, **kw)
+    params = gpt2.init_params(
+        torch.Generator(device=dev).manual_seed(SEED), base, dev)
+    for name in BLOCK_MATRICES:
+        params["blocks"][name]["kernel"].mul_(block_scale)
+    prog = spmd.build_train_program(
+        loss_fn=lambda p, b: gpt2.loss_fn(p, b, cfg),
+        init_params_fn=lambda g: params, optimizer=mp_optimizer(),
+        mesh_config=None if axes is None else MeshConfig(**axes),
+        device=dev)
+    state = prog.init_fn(None)
+    del params
+    batch = spmd.shard_batch(prog, {"tokens": mp_tokens(base)})
+    inp = batch["tokens"][:, :-1]
+    with torch.no_grad():
+        if prog.mesh is None:
+            x, rows = gpt2.forward_hidden(state.params, inp, cfg), \
+                (0, inp.shape[1])
+        else:
+            with mesh_lib.ambient_mesh(prog.mesh):
+                x, lay = gpt2._mesh_hidden(state.params, inp, cfg,
+                                           prog.mesh)
+            rows = lay["rows"]
+    counters = kernel_counters()
+    out = {"losses": [], "norms": [], "step_ms": [], "collective_s": [],
+           "launches": [], "hidden": x.float().cpu(),
+           "hidden_rows": list(rows)}
+    del x
+    for _ in range(steps):
+        if prog.mesh is not None:
+            prog.mesh.reset_collective_seconds()
+        zero_counts(counters)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = prog.step_fn(state, batch)
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        out["step_ms"].append((time.perf_counter() - t) * 1e3)
+        out["losses"].append(loss)
+        out["norms"].append(norm)
+        out["launches"].append({k: getattr(mod, a)
+                                for k, (mod, a) in counters.items()})
+        if prog.mesh is not None:
+            out["collective_s"].append(prog.mesh.collective_seconds())
+    if prog.mesh is not None:
+        prog.mesh.destroy()
+    del state, prog
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+class mp_plant:
+    """A planted fault in this process, for the ``with`` block:
+    ``mm_rs_drops_last_partial`` — every matmul-reduce-scatter without
+    its last ring step's partial (each rank's own chunk of rows), its
+    backward the true one's; ``ring_masks_resident_positions`` — ring
+    attention masking each block with the resident rank's key positions
+    instead of the source chunk's; None, no fault."""
+
+    def __init__(self, fault: Optional[str]):
+        self.fault = fault
+
+    def __enter__(self):
+        if self.fault is None:
+            return self
+        from ray_tpu_torch.ops import collective_matmul as cm
+        from ray_tpu_torch.ops import ring_attention as ring_lib
+        if self.fault == "mm_rs_drops_last_partial":
+            self.mod, self.name = cm, "matmul_reduce_scatter"
+            real = cm.matmul_reduce_scatter
+
+            def faulty(x, w, axis_name, axis_size, mesh=None):
+                from ray_tpu_torch.parallel import collectives as col
+                t = x.shape[-2] // axis_size
+                me = col.axis_index(axis_name, mesh)
+                own = (x.narrow(-2, me * t, t) @ w).detach()
+                return real(x, w, axis_name, axis_size, mesh) - own
+        elif self.fault == "ring_masks_resident_positions":
+            self.mod, self.name = ring_lib, "ring_attention"
+
+            def faulty(q, k, v, *, axis_name, axis_size, causal=True,
+                       mesh=None):
+                from ray_tpu_torch.ops.attention import (
+                    NEG_INF, causal_mask, flash_finalize, flash_update)
+                from ray_tpu_torch.parallel import collectives as col
+                B, T, H, D = q.shape
+                me = col.axis_index(axis_name, mesh)
+                pos = me * T + torch.arange(T, device=q.device)
+                carry = (
+                    torch.zeros((B, H, T, D), dtype=torch.float32,
+                                device=q.device),
+                    torch.full((B, H, T), NEG_INF, dtype=torch.float32,
+                               device=q.device),
+                    torch.zeros((B, H, T), dtype=torch.float32,
+                                device=q.device))
+
+                def body(step, carry, kv):
+                    kc, vc = kv.split(D, dim=-1)
+                    # the fault: the resident rank's positions for every
+                    # block, the source chunk's (me - step) ignored
+                    return flash_update(*carry, q, kc, vc,
+                                        causal_mask(pos, pos)[None, None],
+                                        1.0 / math.sqrt(D))
+
+                o, _, l = cm.ring_scan(body, carry, torch.cat([k, v], -1),
+                                       axis_name=axis_name,
+                                       axis_size=axis_size, mesh=mesh)
+                return flash_finalize(o, l, q.dtype)
+        else:
+            raise ValueError(f"unknown fault {self.fault!r}")
+        self.saved = getattr(self.mod, self.name)
+        setattr(self.mod, self.name, faulty)
+        return self
+
+    def __exit__(self, *exc):
+        if self.fault is not None:
+            setattr(self.mod, self.name, self.saved)
+        return False
+
+
+def mp_allreduce_sweep(group, dev, sizes=MP_ALLREDUCE_BYTES) -> list:
+    """BASELINE #6 through the device group: a bf16 tensor of each size
+    all-reduced a few times (one warm-up); seconds a call by the host
+    clock, each call ending with the result on the card, and its legs."""
+    rows = []
+    for nbytes in sizes:
+        x = torch.full((nbytes // 2,), 1.0, dtype=torch.bfloat16,
+                       device=dev)
+        iters = max(2, min(20, int(3e8 // nbytes)))
+        out = group.allreduce(x)                        # warm-up
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        ok = bool(torch.all(out == 2.0))
+        group.seconds.update(to_host=0.0, wire=0.0, to_device=0.0)
+        t = time.perf_counter()
+        for _ in range(iters):
+            out = group.allreduce(x)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        s = (time.perf_counter() - t) / iters
+        n = group.world_size
+        rows.append({"bytes": nbytes, "iters": iters, "s": s,
+                     "alg_gb_per_s": nbytes / s / 1e9,
+                     "bus_gb_per_s": nbytes / s / 1e9 * 2 * (n - 1) / n,
+                     "legs_s": {k: v / iters
+                                for k, v in group.seconds.items()},
+                     "correct": ok})
+        del x, out
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rows
+
+
+def mp_runs(scale: float) -> list:
+    """(kind, name, axes, kw, block scale, fault) of every run a worker
+    makes, in order: the bf16 layouts and their planted faults at
+    ``scale``, then the float32 leg at MP_F32_SCALE."""
+    layouts = {name: (axes, kw) for name, axes, kw in MP_LAYOUTS}
+    f32 = {"dtype": torch.float32}
+    return ([("layouts", n, a, kw, scale, None) for n, a, kw in MP_LAYOUTS]
+            + [("faults", f, *layouts[l], scale, f)
+               for f, l in MP_FAULTS.items()]
+            + [("f32", n, layouts[n][0], {**layouts[n][1], **f32},
+                MP_F32_SCALE, None) for n in MP_F32_LAYOUTS]
+            + [("f32_faults", f, layouts[l][0], {**layouts[l][1], **f32},
+                MP_F32_SCALE, f) for f, l in MP_F32_FAULTS.items()])
+
+
+def mp_steps(kind: str) -> int:
+    """The steps a run of ``kind`` takes: the float32 leg's checks read
+    the first step only."""
+    return MP_F32_STEPS if kind.startswith("f32") else MP_STEPS
+
+
+def mp_loop(config: dict) -> None:
+    """A model_parallel worker: every run of ``mp_runs`` in turn over the
+    domain, then the all-reduce sweep; the rank's results go to
+    ``mp_rank_<r>.json`` in the run's storage, its hidden states to
+    ``mp_hidden_<r>.pt``."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.parallel import multihost
+    from ray_tpu_torch.util.collective import collective as col
+    ctx = train.get_context()
+    rank = ctx.get_world_rank()
+    dev = multihost.device()
+    if dev.type == "cuda":
+        from ray_tpu_torch import _build
+        from ray_tpu_torch._device import disable_tf32
+        _build.lib()                # the driver's build: no nvcc here
+        disable_tf32()
+    group = col._group("train_default")
+    base = config.get("cfg") or gpt2.gpt2_small()
+    out = {"rank": rank, "pid": os.getpid(), "device": str(dev),
+           "process_count": multihost.process_count(),
+           "transport": group.transport}
+    hidden = {}
+    for kind, name, axes, kw, scale, fault in mp_runs(
+            config.get("block_scale", MP_BLOCK_SCALE)):
+        t = time.perf_counter()
+        with mp_plant(fault):
+            run = mp_run(dev, base, axes, kw, mp_steps(kind), scale)
+        run["wall_s"] = time.perf_counter() - t
+        hidden[f"{kind}/{name}"] = run.pop("hidden")
+        out.setdefault(kind, {})[name] = run
+    t = time.perf_counter()
+    out["allreduce"] = mp_allreduce_sweep(
+        group, dev, config.get("allreduce_bytes", MP_ALLREDUCE_BYTES))
+    out["allreduce_wall_s"] = time.perf_counter() - t
+    store = ctx.get_storage_path()
+    torch.save(hidden, os.path.join(store, f"mp_hidden_{rank}.pt"))
+    with open(os.path.join(store, f"mp_rank_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    train.report({"done": 1.0})
+
+
+def mp_gaps(run: dict, hidden: torch.Tensor, ref: dict) -> tuple:
+    """(loss gap, norm gap, hidden gap) of a run against the reference:
+    the max over steps of |loss - ref| in units of the reference's first
+    loss; |norm - ref| / ref at step 0; and the relative L2 distance of
+    the run's final-LN hidden states at the first step's params from the
+    reference's at the same token positions."""
+    loss = max(abs(a - b) for a, b in zip(run["losses"], ref["losses"])) \
+        / ref["losses"][0]
+    norm = abs(run["norms"][0] - ref["norms"][0]) / ref["norms"][0]
+    first, n = run["hidden_rows"]
+    want = ref["hidden"][:, first:first + n]
+    return loss, norm, ((hidden - want).norm() / want.norm()).item()
+
+
+def model_parallel_phase(dev, tag: str, device: Optional[str] = None,
+                         cfg=None, allreduce_bytes=MP_ALLREDUCE_BYTES,
+                         block_scale: float = MP_BLOCK_SCALE) -> dict:
+    """The model_parallel phase (see MP_*).  ``device`` "cpu" runs the
+    workers on the CPU and ``cfg`` replaces gpt2_small() (a rehearsal;
+    the card checks fail there); ``block_scale`` replaces MP_BLOCK_SCALE
+    (the sweep behind it)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    from ray_tpu_torch._private import shm_store
+    from ray_tpu_torch.models import gpt2
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    saved_path = os.environ.get("PYTHONPATH")
+    # workers import the package, and this module, from this checkout
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [here] + ([saved_path] if saved_path else []))
+    storage = tempfile.mkdtemp(prefix="rtt_mp_")
+    atexit.register(shutil.rmtree, storage, ignore_errors=True)
+    base = cfg or gpt2.gpt2_small()
+    watch = ClusterWatch(shm_store._SHM_DIR)
+    res: dict = {}
+    t_phase = time.perf_counter()
+    try:
+        info = rt.init(num_cpus=4, _system_config={"gpu_workers_per_node": 2})
+        watch.start(rt._head, info["session_dir"])
+        # the driver's one-rank runs, bf16 and the float32 leg's, while
+        # the GPU workers boot
+        t = time.perf_counter()
+        ref = mp_run(dev, base, None, {}, MP_STEPS, block_scale)
+        ref32 = mp_run(dev, base, None, {"dtype": torch.float32},
+                       MP_F32_STEPS, MP_F32_SCALE)
+        res["reference_s"] = time.perf_counter() - t
+        gpu = device is None
+        t = time.perf_counter()
+        result = train.TorchTrainer(
+            mp_loop, train_loop_config={"cfg": cfg,
+                                        "allreduce_bytes": allreduce_bytes,
+                                        "block_scale": block_scale},
+            torch_config=train.TorchConfig(use_distributed=True,
+                                           device=device),
+            scaling_config=train.ScalingConfig(
+                num_workers=2, use_gpu=gpu,
+                resources_per_worker={"GPU": 0.5} if gpu else None),
+            run_config=train.RunConfig(name="model_parallel",
+                                       storage_path=storage)).fit()
+        res["fit_s"] = time.perf_counter() - t
+    finally:
+        started = hasattr(watch, "head")
+        if started:
+            watch.poll()
+        rt.shutdown()
+        if started:
+            watch.stop()
+        if saved_path is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = saved_path
+    check_cluster_gone(watch, "model_parallel", tag)
+    if result.error is not None:
+        fail(f"model_parallel: the fit failed: {result.error!r}")
+        return res
+    ranks, hidden = [], []
+    for r in range(2):
+        with open(os.path.join(storage, "model_parallel",
+                               f"mp_rank_{r}.json")) as f:
+            ranks.append(json.load(f))
+        hidden.append(torch.load(os.path.join(
+            storage, "model_parallel", f"mp_hidden_{r}.pt")))
+
+    # -- the domain: two processes, each on the card, the staged transport
+    domain = [(o["rank"], o["pid"], o["device"], o["process_count"],
+               o["transport"]) for o in ranks]
+    print(f"model_parallel domain: {domain} (rank, pid, device, ranks, "
+          f"device group transport) [{tag}]", flush=True)
+    if len({o["pid"] for o in ranks}) != 2 or any(
+            o["process_count"] != 2 or o["transport"] != (
+                "staged" if gpu else "gloo")
+            or not o["device"].startswith("cuda" if gpu else "cpu")
+            for o in ranks):
+        fail("model_parallel: not two ranks on the card over the staged "
+             "transport")
+
+    # -- each layout against the one-rank run, step for step
+    print(f"model_parallel reference (one rank): losses {ref['losses']} "
+          f"norms {ref['norms']} step ms "
+          f"{[round(x, 1) for x in ref['step_ms']]}; float32 x"
+          f"{MP_F32_SCALE}: losses {ref32['losses']} norms "
+          f"{ref32['norms']} [{tag}]", flush=True)
+    res["layouts"], res["launches"], res["f32"] = {}, {}, {}
+    bad = []
+    for name, axes, kw in MP_LAYOUTS:
+        want = mp_predicted_launches(base, name)
+        row = {}
+        for o, hid in zip(ranks, hidden):
+            run = o["layouts"][name]
+            gl, gn, gh = mp_gaps(run, hid[f"layouts/{name}"], ref)
+            coll = [(round(c["to_host"], 3), round(c["wire"], 3),
+                     round(c["to_device"], 3)) for c in run["collective_s"]]
+            got = [{k: s[k] for k in want} for s in run["launches"]]
+            others = sorted({k for s in run["launches"] for k, v in s.items()
+                             if v and k not in want})
+            for s in run["launches"]:
+                for k, v in s.items():
+                    res["launches"][k] = res["launches"].get(k, 0) + v
+            print(f"model_parallel {name} {axes} rank {o['rank']}: losses "
+                  f"{run['losses']} norms {run['norms']} loss gap "
+                  f"{gl:.3g} of {MP_LOSS_TOL} norm gap {gn:.3g} of "
+                  f"{MP_NORM_TOL} hidden gap {gh:.3g} of {MP_HIDDEN_TOL}; "
+                  f"step ms {[round(x, 1) for x in run['step_ms']]}; "
+                  f"collective s a step (to host, gloo, to device) {coll}; "
+                  f"launches a step {got[0]} predicted {want} [{tag}]",
+                  flush=True)
+            if gl > MP_LOSS_TOL or gn > MP_NORM_TOL or gh > MP_HIDDEN_TOL:
+                bad.append(f"{name} rank {o['rank']}: gaps {gl:.3g} / "
+                           f"{gn:.3g} / {gh:.3g}")
+            if any(g != want for g in got) or others:
+                bad.append(f"{name} rank {o['rank']}: launches {got} "
+                           f"(and {others}), predicted {want}")
+            row[o["rank"]] = {"loss_gap": gl, "norm_gap": gn,
+                              "hidden_gap": gh, "step_ms": run["step_ms"],
+                              "collective_s": run["collective_s"],
+                              "wall_s": run["wall_s"]}
+        res["layouts"][name] = row
+
+    # -- the float32 leg: the ring layouts where bf16 cannot tell them
+    # from the one-rank run (MP_F32_SCALE), against its float32 run
+    for name in MP_F32_LAYOUTS:
+        for o, hid in zip(ranks, hidden):
+            run = o["f32"][name]
+            gaps = mp_gaps(run, hid[f"f32/{name}"], ref32)
+            print(f"model_parallel float32 x{MP_F32_SCALE} {name} rank "
+                  f"{o['rank']}: losses {run['losses']} norms "
+                  f"{run['norms']} gaps (loss, norm, hidden) "
+                  f"{[float(f'{g:.3g}') for g in gaps]} of {MP_F32_TOL}; "
+                  f"step ms {[round(x, 1) for x in run['step_ms']]} "
+                  f"[{tag}]", flush=True)
+            if max(gaps) > MP_F32_TOL:
+                bad.append(f"float32 {name} rank {o['rank']}: gaps "
+                           f"{[float(f'{g:.3g}') for g in gaps]}")
+            res["f32"].setdefault(name, {})[o["rank"]] = gaps
+
+    # -- the planted faults land beyond the limits
+    res["faults"] = {}
+    controls = [("faults", f, l, ref, (MP_LOSS_TOL, MP_NORM_TOL,
+                                       MP_HIDDEN_TOL))
+                for f, l in MP_FAULTS.items()] + \
+        [("f32_faults", f, l, ref32, (MP_F32_TOL,) * 3)
+         for f, l in MP_F32_FAULTS.items()]
+    for kind, fault, layout, want, tols in controls:
+        run = ranks[0][kind][fault]
+        gaps = mp_gaps(run, hidden[0][f"{kind}/{fault}"], want)
+        ratio = max(g / t for g, t in zip(gaps, tols))
+        res["faults"][f"{kind}/{fault}"] = {"gaps": gaps, "ratio": ratio}
+        print(f"model_parallel control {fault} ({layout}"
+              f"{', float32' if kind == 'f32_faults' else ''}): losses "
+              f"{run['losses']} norms {run['norms']} gaps (loss, norm, "
+              f"hidden) {[float(f'{g:.3g}') for g in gaps]}: {ratio:.3g} x "
+              f"the limits (must be >= {MP_FAULT_MARGIN}) [{tag}]",
+              flush=True)
+        if ratio < MP_FAULT_MARGIN:
+            bad.append(f"control {kind}/{fault} only {ratio:.3g} x the "
+                       f"limits")
+
+    # -- BASELINE #6 on one card: the device group's all-reduce curve
+    sweep = ranks[0]["allreduce"]
+    rows = [(r["bytes"], r["iters"], round(r["s"] * 1e3, 4),
+             round(r["alg_gb_per_s"], 4), round(r["bus_gb_per_s"], 4),
+             {k: round(v * 1e3, 3) for k, v in r["legs_s"].items()})
+            for r in sweep]
+    print(f"model_parallel allreduce bf16 over the {ranks[0]['transport']} "
+          f"transport, 2 ranks on one card (no NCCL to compare against on "
+          f"one card): (bytes, calls, ms a call, algorithm GB/s, bus GB/s, "
+          f"legs ms) {rows}; sweep {ranks[0]['allreduce_wall_s']:.1f} s "
+          f"[{tag}]", flush=True)
+    if not all(r["correct"] for o in ranks for r in o["allreduce"]):
+        bad.append("the all-reduce sweep summed wrong")
+    res["allreduce"] = sweep
+    res["wall_s"] = time.perf_counter() - t_phase
+    print(f"model_parallel fit {res['fit_s']:.1f} s, reference "
+          f"{res['reference_s']:.1f} s, phase {res['wall_s']:.1f} s of its "
+          f"{MP_BUDGET_S:.0f} [{tag}]", flush=True)
+    if res["wall_s"] > MP_BUDGET_S:
+        print(f"model_parallel: the phase took {res['wall_s']:.1f} s, over "
+              f"its budget of {MP_BUDGET_S:.0f} s [{tag}]", flush=True)
+    if bad:
+        fail(f"model_parallel: {bad}")
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     return res
 
 
@@ -10400,6 +10952,8 @@ def main() -> int:
     phase_done("ray_train")
     elastic = elastic_phase(dev, train, tag)
     phase_done("elastic")
+    model_parallel = model_parallel_phase(dev, tag)
+    phase_done("model_parallel")
     moe_train = moe_train_phase(dev, card, tag)
     phase_done("moe_train")
     tiny_reference_check(dev, tag)
@@ -10451,6 +11005,7 @@ def main() -> int:
              "train": train,
              "llama_train": llama_train, "xl_train": xl_train,
              "ray_train": ray_train, "elastic": elastic,
+             "model_parallel": model_parallel,
              "ray_data": ray_data,
              "tune": tuned,
              "moe_train": moe_train, "resnet50_train": resnet_train,

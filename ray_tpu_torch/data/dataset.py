@@ -638,12 +638,13 @@ class Dataset:
         yielded once more than ``prefetch`` are staged, and the rest
         drain at the end.  Columns torch cannot hold (object, strings,
         bytes) stay numpy.  ``sharding`` places a batch across a mesh of
-        cards: the multi-GPU slice's work."""
+        cards: ROADMAP queue A, item 8b (a mesh program takes its rank's
+        rows with ``spmd.shard_batch``)."""
         if sharding is not None:
             raise NotImplementedError(
                 "iter_device_batches(sharding=...) places a batch across a "
-                "mesh of cards, the multi-GPU slice's work (ROADMAP queue A, "
-                "slice 4)")
+                "mesh of cards: ROADMAP queue A, item 8b; a mesh program "
+                "takes its rank's rows with spmd.shard_batch")
         from ray_tpu_torch._device import resolve_device
         dev = resolve_device(device)
         stager = _CudaStager(dev, prefetch) if dev.type == "cuda" \

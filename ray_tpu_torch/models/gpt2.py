@@ -22,8 +22,29 @@ are selective (``create_selective_checkpoint_contexts``) and save what
 the reference's ``jax.checkpoint`` policies save: the 2-D projections'
 products, the flash op's ``(out, lse)``, and those plus the qkv
 projection (the op ``ray_tpu_torch::attn_qkv``, the reference's
-``checkpoint_name(qkv, "attn_qkv")``).  Meshes, the overlap-scheduled
-block and pipelines belong to later slices.
+``checkpoint_name(qkv, "attn_qkv")``).
+
+Over a mesh of ranks (the ambient mesh ``spmd.build_train_program``
+sets; params sliced by ``TRANSFORMER_RULES``) ``loss_fn`` runs the
+per-rank program and returns the global loss on every rank:
+
+- ``seq`` or ``tensor`` > 1 (with ``context`` = ``pipeline`` = 1 and no
+  ring / Ulysses): the reference's overlap-scheduled block
+  (``_block_manual``): the residual stream split over (seq × tensor)
+  along T, the four projections decomposed collective matmuls over the
+  ``tensor`` ring (``collective_matmul="off"``: the un-decomposed
+  ``_reference`` pair), attention on the T/seq chunk (the flash kernel
+  at H/tensor heads on CUDA; the ring over ``seq`` when seq > 1), the
+  biases added after the reduce-scatter.  A ``tensor``-only mesh whose
+  sequence does not divide runs the Megatron block instead (the stream
+  whole on every tensor rank, one ``psum`` after each row-split
+  product), where the reference falls back to GSPMD's collectives.
+- ``context`` > 1: the sequence split over ``context_axis`` through the
+  whole model, attention by ``attn_impl`` ``ring`` or ``ulysses``.
+- ``pipeline`` > 1 (``pipeline_axis``): the block stack as a pipeline of
+  ``num_microbatches`` (0: ``pick_num_microbatches``).
+- The embedding and the LM head / cross entropy are vocab-parallel over
+  ``tensor`` (``wte`` is split on the vocabulary).
 """
 
 from __future__ import annotations
@@ -43,8 +64,12 @@ from ray_tpu_torch.models._common import layer_views as _layers
 from ray_tpu_torch.models._common import normal_init as _dense_init
 from ray_tpu_torch.models._common import tree_map as _map
 from ray_tpu_torch.ops.attention import NEG_INF
+from ray_tpu_torch.ops import collective_matmul as cm
+from ray_tpu_torch.ops import ring_attention as ring_lib
 from ray_tpu_torch.ops.flash_attention import flash_attention_for_model
 from ray_tpu_torch.ops.layer_norm import layer_norm
+from ray_tpu_torch.parallel import collectives as col
+from ray_tpu_torch.parallel import mesh as mesh_lib
 
 Params = Dict[str, Any]
 AttnImpl = Callable[..., torch.Tensor]  # (q, k, v, cfg) -> out
@@ -69,14 +94,22 @@ class GPT2Config:
     # remat.  Ignored when remat=False.
     remat_policy: str = "full"  # full | dots | attn | attn_qkv
     # "auto" resolves per device: the flash kernel on CUDA, dense
-    # attention elsewhere.
-    attn_impl: str = "auto"    # auto | dense | flash | blockwise
+    # attention elsewhere.  ring / ulysses: context parallelism over
+    # context_axis (dense attention without a mesh).
+    attn_impl: str = "auto"    # auto | dense | flash | blockwise | ring | ulysses
     # >0: the LM head and cross entropy in this many sequence chunks, each
     # checkpointed, so the (B, T, vocab) f32 logits never exist at once.
     loss_chunks: int = 0
     # >0: the LM head chunked over the VOCAB axis instead (running
     # logsumexp, each chunk checkpointed); exclusive with loss_chunks.
     loss_vocab_chunks: int = 0
+    # Over a mesh with seq or tensor > 1: "auto" makes the projections
+    # decomposed collective matmuls (ops/collective_matmul.py), "off" the
+    # un-decomposed all-gather / reduce-scatter pair.
+    collective_matmul: str = "auto"  # auto | off
+    context_axis: Optional[str] = None   # mesh axis for ring / ulysses
+    pipeline_axis: Optional[str] = None  # mesh axis for the pipeline
+    num_microbatches: int = 0  # 0: pick_num_microbatches (4× stages)
 
     @property
     def head_dim(self) -> int:
@@ -193,8 +226,15 @@ def _resolve_attn(cfg: GPT2Config, device: torch.device) -> AttnImpl:
     if impl == "blockwise":
         from ray_tpu_torch.ops.attention import blockwise_attention
         return lambda q, k, v, cfg: blockwise_attention(q, k, v, causal=True)
+    if impl == "ring":
+        return lambda q, k, v, cfg: ring_lib.ring_attention_for_model(
+            q, k, v, cfg, axis_name=cfg.context_axis)
+    if impl == "ulysses":
+        from ray_tpu_torch.ops.ulysses import ulysses_attention_for_model
+        return partial(ulysses_attention_for_model,
+                       axis_name=cfg.context_axis)
     raise ValueError(f"unknown attn_impl {impl!r} (expected auto, dense, "
-                     f"flash or blockwise)")
+                     f"flash, blockwise, ring or ulysses)")
 
 
 def _qkv_projection(h: torch.Tensor, kernel: torch.Tensor,
@@ -323,7 +363,12 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
 
     With ``cfg.remat`` each block runs under ``torch.utils.checkpoint``
     whenever grad is enabled: the backward replays the block's forward,
-    less what ``cfg.remat_policy`` saves."""
+    less what ``cfg.remat_policy`` saves.  Under an ambient mesh of more
+    than one rank: this rank's rows of its token chunk (``_mesh_hidden``),
+    (B, T_local, E)."""
+    mesh = _live_mesh()
+    if mesh is not None:
+        return _mesh_hidden(params, tokens, cfg, mesh)[0]
     B, T = tokens.shape
     attn = _resolve_attn(cfg, tokens.device)
     context = _remat_context(cfg, tokens.device) if cfg.remat else None
@@ -342,7 +387,11 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
 
 def forward(params: Params, tokens: torch.Tensor,
             cfg: GPT2Config) -> torch.Tensor:
-    """tokens (B, T) int → logits (B, T, vocab) in float32."""
+    """tokens (B, T) int → logits (B, T, vocab) in float32 (on one
+    device: a mesh program's entry point is ``loss_fn``)."""
+    if _live_mesh() is not None:
+        raise ValueError("forward() under a mesh of ranks: a mesh program "
+                         "computes its loss with loss_fn")
     x = forward_hidden(params, tokens, cfg)
     return (x @ params["wte"].to(cfg.dtype).t()).float()
 
@@ -419,6 +468,9 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
     tgt = tgt.long()
     if cfg.loss_chunks and cfg.loss_vocab_chunks:
         raise ValueError("loss_chunks and loss_vocab_chunks are exclusive")
+    mesh = _live_mesh()
+    if mesh is not None:
+        return _mesh_loss(params, inp, tgt, cfg, mesh)
     x = forward_hidden(params, inp, cfg)
     wte = params["wte"].to(cfg.dtype)
     if cfg.loss_vocab_chunks:
@@ -432,6 +484,263 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
     lse = torch.logsumexp(logits.float(), dim=-1)
     correct = logits.gather(-1, tgt[..., None])[..., 0]
     return (lse - correct.float()).mean()
+
+
+# ------------------------------------------------------------ mesh of ranks
+def _live_mesh() -> Optional["mesh_lib.Mesh"]:
+    """The ambient mesh when it has more than one rank."""
+    m = mesh_lib.get_ambient_mesh()
+    return m if m is not None and m.size > 1 else None
+
+
+def _manual_parallel_axes(cfg: GPT2Config, mesh, seq_len: int
+                          ) -> Optional[Tuple[int, int]]:
+    """(sp, tp) when the overlap-scheduled block should run, else None.
+
+    A mesh with ``seq > 1`` requires it (the axis has no other meaning):
+    shapes that do not fit raise.  A ``tensor``-only mesh whose shapes do
+    not divide runs the Megatron block (``_block_tp``)."""
+    if mesh is None:
+        return None
+    sp, tp = cm.model_parallel_sizes(mesh)
+    if sp * tp == 1:
+        return None
+    impl = cfg.attn_impl
+    ok = (mesh.shape.get("context", 1) == 1
+          and mesh.shape.get("pipeline", 1) == 1
+          and impl not in ("ring", "ulysses")
+          and cfg.n_head % tp == 0
+          and cfg.n_embd % tp == 0 and (4 * cfg.n_embd) % tp == 0
+          and seq_len % (sp * tp) == 0)
+    if not ok:
+        if sp > 1:
+            raise ValueError(
+                f"mesh has seq={sp} but the sequence-parallel region "
+                f"cannot run: needs context=pipeline=1, a non-ring/ulysses "
+                f"attn_impl (have {impl!r}), heads/embed divisible by "
+                f"tensor={tp}, and seq_len ({seq_len}) divisible by "
+                f"seq*tensor ({sp * tp})")
+        return None
+    return sp, tp
+
+
+def _projections(cfg: GPT2Config):
+    """The (all-gather-matmul, matmul-reduce-scatter) pair of the manual
+    block: decomposed rings, or the reference pair under "off"."""
+    if cfg.collective_matmul == "off":
+        return (cm.all_gather_matmul_reference,
+                cm.matmul_reduce_scatter_reference)
+    if cfg.collective_matmul != "auto":
+        raise ValueError(f"unknown collective_matmul "
+                         f"{cfg.collective_matmul!r} (expected auto or off)")
+    return cm.all_gather_matmul, cm.matmul_reduce_scatter
+
+
+def _block_manual(x: torch.Tensor, lp: Params, cfg: GPT2Config,
+                  attn: AttnImpl, sp: int, tp: int) -> torch.Tensor:
+    """Per-rank overlap-scheduled block.  ``x``: (B, T/(sp·tp), E), the
+    sequence-parallel residual stream; layer norms and residual adds on
+    local tokens; the four projections collective matmuls over the
+    ``tensor`` ring; attention on the T/sp chunk at H/tp heads (the ring
+    over ``seq`` when sp > 1)."""
+    ag, rs = _projections(cfg)
+    B, Tl, E = x.shape
+    Hl, D = cfg.n_head // tp, cfg.head_dim
+    dt = cfg.dtype
+    h = _layer_norm(x, lp["ln_1"]["scale"], lp["ln_1"]["bias"])
+    wqkv = lp["attn_qkv"]["kernel"].to(dt).reshape(E, 3 * Hl * D)
+    qkv = ag(h, wqkv, "tensor", tp)                  # (B, T/sp, 3E/tp)
+    qkv = qkv + lp["attn_qkv"]["bias"].to(dt).reshape(-1)
+    Ts = Tl * tp
+    qkv = qkv.view(B, Ts, 3, Hl, D)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    if sp > 1:
+        a = ring_lib.ring_attention(q, k, v, axis_name="seq", axis_size=sp,
+                                    causal=True)
+    else:
+        a = attn(q, k, v, cfg)
+    wout = lp["attn_out"]["kernel"].to(dt).reshape(Hl * D, E)
+    aout = rs(a.reshape(B, Ts, Hl * D), wout, "tensor", tp)  # (B, Tl, E)
+    # biases after the reduce-scatter: inside it they would be summed tp
+    # times
+    x = x + aout + lp["attn_out"]["bias"].to(dt)
+    h = _layer_norm(x, lp["ln_2"]["scale"], lp["ln_2"]["bias"])
+    m = ag(h, lp["mlp_in"]["kernel"].to(dt), "tensor", tp)
+    m = F.gelu(m + lp["mlp_in"]["bias"].to(dt), approximate="tanh")
+    mo = rs(m, lp["mlp_out"]["kernel"].to(dt), "tensor", tp)
+    return x + mo + lp["mlp_out"]["bias"].to(dt)
+
+
+def _block_tp(x: torch.Tensor, lp: Params, cfg: GPT2Config,
+              attn: AttnImpl) -> torch.Tensor:
+    """Per-rank Megatron block: ``x`` whole on every ``tensor`` rank,
+    heads and MLP columns split, one ``psum`` over ``tensor`` after each
+    row-split product (then the bias)."""
+    B, T, E = x.shape
+    D = cfg.head_dim
+    dt = cfg.dtype
+    h = _layer_norm(x, lp["ln_1"]["scale"], lp["ln_1"]["bias"])
+    w = lp["attn_qkv"]["kernel"].to(dt)               # (E, 3, E/tp)
+    Hl = w.shape[-1] // D
+    qkv = (h.reshape(B * T, E) @ w.reshape(E, 3 * Hl * D)).view(
+        B, T, 3, Hl, D) + lp["attn_qkv"]["bias"].to(dt).view(3, Hl, D)
+    a = attn(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], cfg)
+    a = col.psum(a.reshape(B, T, Hl * D) @ lp["attn_out"]["kernel"].to(dt),
+                 "tensor")
+    x = x + a + lp["attn_out"]["bias"].to(dt)
+    h = _layer_norm(x, lp["ln_2"]["scale"], lp["ln_2"]["bias"])
+    h = h @ lp["mlp_in"]["kernel"].to(dt) + lp["mlp_in"]["bias"].to(dt)
+    h = F.gelu(h, approximate="tanh")
+    h = col.psum(h @ lp["mlp_out"]["kernel"].to(dt), "tensor")
+    return x + h + lp["mlp_out"]["bias"].to(dt)
+
+
+def _vocab_offset(cfg: GPT2Config, mesh) -> int:
+    """The first vocabulary row of this rank's ``wte`` slice."""
+    n, i = mesh_lib.entry_coordinate(mesh, "tensor")
+    return mesh_lib.shard_bounds(cfg.vocab_size, n, i)[0]
+
+
+def _vocab_embed(wte: torch.Tensor, tokens: torch.Tensor, off: int,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """This rank's part of the token embedding: the rows of its vocab
+    slice, zeros for tokens outside it (summed over ``tensor``)."""
+    local = tokens - off
+    inside = (local >= 0) & (local < wte.shape[0])
+    x = F.embedding(local.clamp(0, wte.shape[0] - 1), wte).to(dtype)
+    return x * inside[..., None].to(dtype)
+
+
+def _mesh_hidden(params: Params, tokens: torch.Tensor, cfg: GPT2Config,
+                 mesh) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """This rank's final-LN hidden states and its layout: ``rows`` (the
+    (first, count) token positions of the hidden states), ``lo`` / ``n``
+    (the token range the LM head covers after the all-gather over
+    ``tensor`` in the manual block), ``token_axes`` (the axes that split
+    the tokens), ``manual``."""
+    B, T = tokens.shape
+    dev = tokens.device
+    dt = cfg.dtype
+    tp = mesh.shape["tensor"]
+    if cfg.remat and cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} over a mesh of ranks: the "
+            f"selective policies are {mesh_lib.ITEM_8B}")
+    remat = cfg.remat and torch.is_grad_enabled()
+    manual = _manual_parallel_axes(cfg, mesh, T)
+    cp_axis = cfg.context_axis or "context"
+    cp = mesh.shape.get(cp_axis, 1)
+    pp = mesh.shape["pipeline"]
+    if cp > 1 and cfg.attn_impl not in ("ring", "ulysses"):
+        raise ValueError(f"mesh has {cp_axis}={cp}: attn_impl must be "
+                         f"'ring' or 'ulysses', not {cfg.attn_impl!r}")
+    if pp > 1 and cfg.pipeline_axis is None:
+        raise ValueError(f"mesh has pipeline={pp}: set "
+                         f"GPT2Config.pipeline_axis='pipeline'")
+    if manual is None and tp > 1 and cfg.n_head % tp:
+        raise ValueError(f"n_head {cfg.n_head} does not split over "
+                         f"tensor={tp}")
+    off = _vocab_offset(cfg, mesh)
+    wte, wpe = params["wte"], params["wpe"]
+    attn = _resolve_attn(cfg, dev)
+    if manual is not None:
+        sp, tp = manual
+        Ts = T // sp
+        s, t = mesh.coords["seq"], mesh.coords["tensor"]
+        Tl = Ts // tp
+        x = _vocab_embed(wte, tokens[:, s * Ts:(s + 1) * Ts], off, dt)
+        x = col.psum_scatter(x, "tensor", dim=1)        # (B, T/(sp·tp), E)
+        pos = s * Ts + t * Tl + torch.arange(Tl, device=dev)
+        block = partial(_block_manual, cfg=cfg, attn=attn, sp=sp, tp=tp)
+        layout = {"lo": s * Ts, "n": Ts, "token_axes": ("seq",),
+                  "rows": (s * Ts + t * Tl, Tl)}
+    else:
+        c = mesh.coords.get(cp_axis, 0)
+        Tc = T // cp
+        if T % cp:
+            raise ValueError(f"seq_len {T} not divisible by {cp_axis}={cp}")
+        x = col.psum(_vocab_embed(wte, tokens[:, c * Tc:(c + 1) * Tc], off,
+                                  dt), "tensor")
+        pos = c * Tc + torch.arange(Tc, device=dev)
+        block = partial(_block_tp, cfg=cfg, attn=attn) if tp > 1 \
+            else partial(_block, cfg=cfg, attn=attn)
+        layout = {"lo": c * Tc, "n": Tc, "rows": (c * Tc, Tc),
+                  "token_axes": (cp_axis,) if cp > 1 else ()}
+    layout["manual"] = manual
+    x = x + F.embedding(pos, wpe).to(dt)
+
+    def run(x, lp):
+        if remat:
+            return checkpoint(lambda x, lp: block(x, lp), x, lp,
+                              use_reentrant=False, preserve_rng_state=False)
+        return block(x, lp)
+
+    blocks = params["blocks"]
+    if pp > 1:
+        from ray_tpu_torch.parallel import pipeline as pp_lib
+        n_local = _stacked_layers(blocks)
+
+        def stage_fn(stage, xm):
+            for lp in _layers(stage, n_local):
+                xm = run(xm, lp)
+            return xm
+
+        M = cfg.num_microbatches or pp_lib.pick_num_microbatches(
+            x.shape[0], pp)
+        x = pp_lib.merge_microbatches(pp_lib.pipeline_apply(
+            stage_fn, pp_lib.stack_stages(blocks, 1),
+            pp_lib.split_microbatches(x, M), axis=cfg.pipeline_axis,
+            remat=False))
+    else:
+        for lp in _layers(blocks, _stacked_layers(blocks)):
+            x = run(x, lp)
+    return _layer_norm(x, params["ln_f"]["scale"],
+                       params["ln_f"]["bias"]), layout
+
+
+def _stacked_layers(blocks: Params) -> int:
+    """The number of layers a stacked block tree holds (this rank's
+    stage's under a pipeline)."""
+    return next(iter(blocks["ln_1"].values())).shape[0]
+
+
+def _mesh_loss(params: Params, inp: torch.Tensor, tgt: torch.Tensor,
+               cfg: GPT2Config, mesh) -> torch.Tensor:
+    """The global mean next-token NLL on every rank of the mesh: the LM
+    head and cross entropy vocab-parallel over ``tensor``, this rank's
+    sum over its tokens summed over the axes that split the tokens (and
+    the batch axes), over the global token count."""
+    if cfg.loss_chunks or cfg.loss_vocab_chunks:
+        raise NotImplementedError(
+            f"chunked cross entropy over a mesh of ranks is "
+            f"{mesh_lib.ITEM_8B}")
+    x, lay = _mesh_hidden(params, inp, cfg, mesh)
+    tp = mesh.shape["tensor"]
+    wte = params["wte"].to(cfg.dtype)
+    if lay["manual"] is not None:
+        ag, _ = _projections(cfg)
+        logits = ag(x, wte.t(), "tensor", tp)       # (B, T/sp, V/tp)
+    else:
+        logits = x @ wte.t()
+    t = tgt[:, lay["lo"]:lay["lo"] + lay["n"]]
+    if tp == 1:
+        lse = torch.logsumexp(logits.float(), dim=-1)
+        correct = logits.gather(-1, t[..., None])[..., 0].float()
+    else:
+        off, vl = _vocab_offset(cfg, mesh), logits.shape[-1]
+        lf = logits.float()
+        m = col.pmax(lf.amax(-1), "tensor")
+        lse = torch.log(col.psum(torch.exp(lf - m[..., None]).sum(-1),
+                                 "tensor")) + m
+        local = t - off
+        inside = (local >= 0) & (local < vl)
+        got = logits.gather(-1, local.clamp(0, vl - 1)[..., None])[..., 0]
+        correct = col.psum(torch.where(inside, got.float(), 0.0), "tensor")
+    axes = tuple(mesh.config.batch_axes()) + lay["token_axes"]
+    total = col.psum((lse - correct).sum(), axes)
+    n = inp.shape[1] * inp.shape[0] * math.prod(
+        mesh.shape[a] for a in mesh.config.batch_axes())
+    return total / n
 
 
 # -------------------------------------------------- inference (KV cache)

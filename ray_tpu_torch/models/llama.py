@@ -22,9 +22,14 @@ Training: ``loss_fn`` (the reference's full float32 log-softmax) and
 whole-block remat with ``torch.utils.checkpoint`` (``cfg.remat``).
 RMSNorm, RoPE and SwiGLU are plain PyTorch, differentiated by autograd,
 as the reference leaves them to XLA.  ``LLAMA_RULES`` is the reference's
-sharding table as data; the multi-GPU slice applies it.  The
-context-parallel impls (``ring``, ``ulysses``, with ``context_axis``)
-raise ``NotImplementedError`` until that slice.
+sharding table as data; ``spmd.build_train_program(rules=LLAMA_RULES)``
+applies it.  The context-parallel impls (``ring``, ``ulysses``, over
+``context_axis``) take K/V expanded to the query heads, as the
+reference's; without a mesh they are dense attention.  Over a mesh of
+ranks (data and ``context``) ``loss_fn`` returns the global loss on
+every rank, the sequence split over ``context`` with RoPE at the chunk's
+global positions; ``tensor``, ``seq`` and ``pipeline`` layouts of Llama
+are ROADMAP queue A, item 8b.
 """
 
 from __future__ import annotations
@@ -166,11 +171,12 @@ def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
                      -1).to(x.dtype)
 
 
-def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
-    """Rotary embeddings over (B, T, H, D), positions 0..T-1."""
+def _rope(x: torch.Tensor, theta: float, offset: int = 0) -> torch.Tensor:
+    """Rotary embeddings over (B, T, H, D), positions offset..offset+T-1."""
     T, D = x.shape[1], x.shape[-1]
     freqs = _rope_freqs(theta, D // 2, x.device)
-    pos = torch.arange(T, dtype=torch.float32, device=x.device)
+    pos = torch.arange(offset, offset + T, dtype=torch.float32,
+                       device=x.device)
     return _rotate(x, (pos[:, None] * freqs[None, :])[None, :, None, :])
 
 
@@ -197,11 +203,20 @@ def _resolve_attn(cfg: LlamaConfig, device: torch.device) -> AttnImpl:
     if impl == "flash":
         return flash_attention_for_model
     if impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl={impl!r} (context parallelism) is not ported yet: "
-            f"a later slice (ROADMAP queue A)")
-    raise ValueError(f"unknown attn_impl {impl!r} (expected auto, dense or "
-                     f"flash)")
+        if impl == "ring":
+            from ray_tpu_torch.ops.ring_attention import \
+                ring_attention_for_model as hook
+        else:
+            from ray_tpu_torch.ops.ulysses import \
+                ulysses_attention_for_model as hook
+
+        def context_parallel(q, k, v, cfg):
+            H = q.shape[2]
+            return hook(q, _gqa_expand(k, H), _gqa_expand(v, H), cfg,
+                        axis_name=cfg.context_axis)
+        return context_parallel
+    raise ValueError(f"unknown attn_impl {impl!r} (expected auto, dense, "
+                     f"flash, ring or ulysses)")
 
 
 def _mlp(x: torch.Tensor, lp: Params, cfg: LlamaConfig) -> torch.Tensor:
@@ -214,9 +229,10 @@ def _mlp(x: torch.Tensor, lp: Params, cfg: LlamaConfig) -> torch.Tensor:
 
 
 def _block(x: torch.Tensor, lp: Params, cfg: LlamaConfig, attn: AttnImpl,
-           collect_kv: bool = False):
+           collect_kv: bool = False, pos_offset: int = 0):
     """One decoder block; with ``collect_kv`` also returns the post-RoPE
-    pre-GQA-expand (k, v) for the serving engine's prefill cache fill."""
+    pre-GQA-expand (k, v) for the serving engine's prefill cache fill.
+    ``pos_offset``: the global position of x's first token."""
     B, T, E = x.shape
     H, D, KV = cfg.n_head, cfg.head_dim, cfg.n_kv_head
     dt = cfg.dtype
@@ -224,7 +240,8 @@ def _block(x: torch.Tensor, lp: Params, cfg: LlamaConfig, attn: AttnImpl,
     q = (h @ lp["wq"]["kernel"].to(dt)).view(B, T, H, D)
     k = (h @ lp["wk"]["kernel"].to(dt)).view(B, T, KV, D)
     v = (h @ lp["wv"]["kernel"].to(dt)).view(B, T, KV, D)
-    q, k = _rope(q, cfg.rope_theta), _rope(k, cfg.rope_theta)
+    q = _rope(q, cfg.rope_theta, pos_offset)
+    k = _rope(k, cfg.rope_theta, pos_offset)
     a = attn(q, k, v, cfg).reshape(B, T, E)
     out = _mlp(x + a @ lp["wo"]["kernel"].to(dt), lp, cfg)
     if collect_kv:
@@ -250,17 +267,26 @@ def forward(params: Params, tokens: torch.Tensor,
 
     With ``cfg.remat`` each block runs under ``torch.utils.checkpoint``
     whenever grad is enabled: the backward replays the block's forward
-    (the reference's ``jax.checkpoint`` around the block)."""
+    (the reference's ``jax.checkpoint`` around the block).  Under a mesh
+    of ranks ``tokens`` are this rank's chunk, at global positions from
+    ``pos_offset``."""
+    return _forward(params, tokens, cfg)
+
+
+def _forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+             pos_offset: int = 0) -> torch.Tensor:
     attn = _resolve_attn(cfg, tokens.device)
     remat = cfg.remat and torch.is_grad_enabled()
     x = _embed(params, tokens, cfg)
+    block = functools.partial(_block, cfg=cfg, attn=attn,
+                              pos_offset=pos_offset)
     for lp in layer_views(params["blocks"], cfg.n_layer):
         if remat:
             # no dropout anywhere: no RNG state to save and restore
-            x = checkpoint(_block, x, lp, cfg, attn, use_reentrant=False,
+            x = checkpoint(block, x, lp, use_reentrant=False,
                            preserve_rng_state=False)
         else:
-            x = _block(x, lp, cfg, attn)
+            x = block(x, lp)
     return _head(params, x, cfg)
 
 
@@ -274,8 +300,40 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
         inp, tgt = batch["inputs"], batch["targets"]
     else:
         inp, tgt = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
+    from ray_tpu_torch.parallel import mesh as mesh_lib
+    mesh = mesh_lib.get_ambient_mesh()
+    if mesh is not None and mesh.size > 1:
+        return _mesh_loss(params, inp, tgt.long(), cfg, mesh)
     logp = torch.log_softmax(forward(params, inp, cfg), dim=-1)
     return -logp.gather(-1, tgt.long()[..., None])[..., 0].mean()
+
+
+def _mesh_loss(params: Params, inp: torch.Tensor, tgt: torch.Tensor,
+               cfg: LlamaConfig, mesh) -> torch.Tensor:
+    """The global mean NLL on every rank: this rank's rows of its
+    ``context`` chunk, summed over the batch and context axes."""
+    from ray_tpu_torch.parallel import collectives as col
+    from ray_tpu_torch.parallel.mesh import ITEM_8B
+    for axis in ("tensor", "seq", "pipeline"):
+        if mesh.shape[axis] > 1:
+            raise NotImplementedError(
+                f"Llama over a mesh with {axis}={mesh.shape[axis]} is "
+                f"{ITEM_8B}")
+    axis = cfg.context_axis or "context"
+    cp, c = mesh.shape.get(axis, 1), mesh.coords.get(axis, 0)
+    B, T = inp.shape
+    if cp > 1 and cfg.attn_impl not in ("ring", "ulysses"):
+        raise ValueError(f"mesh has {axis}={cp}: attn_impl must be 'ring' "
+                         f"or 'ulysses', not {cfg.attn_impl!r}")
+    if T % cp:
+        raise ValueError(f"seq_len {T} not divisible by {axis}={cp}")
+    Tc = T // cp
+    logp = torch.log_softmax(_forward(params, inp[:, c * Tc:(c + 1) * Tc],
+                                      cfg, pos_offset=c * Tc), dim=-1)
+    nll = -logp.gather(-1, tgt[:, c * Tc:(c + 1) * Tc, None])[..., 0]
+    axes = tuple(mesh.config.batch_axes()) + ((axis,) if cp > 1 else ())
+    n = B * T * math.prod(mesh.shape[a] for a in mesh.config.batch_axes())
+    return col.psum(nll.sum(), axes) / n
 
 
 # Sharding: attention/MLP matrices split fsdp×tensor; RoPE/norms

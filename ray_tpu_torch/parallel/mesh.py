@@ -1,0 +1,406 @@
+"""Meshes over ranks and sharding rules (port of
+``ray_tpu/parallel/mesh.py``).
+
+The reference lays ONE process's devices out as a ``jax.sharding.Mesh``
+and lets GSPMD derive every collective.  The port's counterpart is the
+PyTorch idiom: one process a rank in a ``torch.distributed`` domain
+(``parallel/multihost.py``), the ranks laid out over the same canonical
+axes, and the collectives written into the per-rank program
+(``parallel/collectives.py``).  ``Mesh(config)``:
+
+- lays the domain's ranks out row-major over ``AXES`` (``pipeline`` and
+  ``data`` outermost, ``tensor`` innermost, as the reference's
+  ``build_mesh``), and holds this rank's coordinates;
+- makes one sub-group an axis of size > 1 (every rank makes every
+  sub-group, in the same order: ``dist.new_group`` deadlocks otherwise),
+  each a ``DeviceCollectiveGroup`` whose transport follows the ranks'
+  placement (``util/collective/collective_group/device_group.py``).
+
+``shard_params`` gives this rank exactly the slice of each leaf that its
+coordinates select under the rules (the shard ``NamedSharding`` would
+place on the device at those coordinates; a dim that does not divide is
+cut in ceil-sized pieces, the last one short).
+
+Specs are tuples, one entry a dim: ``None`` (replicated), an axis name,
+or a tuple of axis names (the dim sharded over their product, the first
+outermost).  The axes ``fsdp`` and ``expert`` at size > 1 raise: ZeRO-3
+and expert parallelism are ROADMAP queue A, item 8b.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import math
+import re
+from dataclasses import dataclass, fields
+from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ray_tpu_torch.parallel import transforms as tx
+
+AXES = ("data", "fsdp", "pipeline", "context", "seq", "tensor", "expert")
+DEFERRED = ("fsdp", "expert")
+ITEM_8B = "ROADMAP queue A, item 8b"
+
+SpecEntry = Union[None, str, Tuple[str, ...]]
+Spec = Tuple[SpecEntry, ...]
+Rules = List[Tuple[str, Spec]]
+
+
+class PartitionSpec(tuple):
+    """A leaf's spec as ``param_specs`` and ``spmd.state_specs`` give it:
+    a tuple of entries, of its own type so that a tree of specs (with the
+    optimizer state's tuples) knows its leaves."""
+
+    def __new__(cls, *entries: SpecEntry) -> "PartitionSpec":
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Logical parallelism layout; -1 on one axis absorbs the remaining
+    ranks."""
+    data: int = -1
+    fsdp: int = 1
+    pipeline: int = 1
+    context: int = 1
+    seq: int = 1
+    tensor: int = 1
+    expert: int = 1
+
+    def as_dict(self) -> Dict[str, int]:
+        return {a: getattr(self, a) for a in AXES}
+
+    def resolved(self, n_devices: int) -> "MeshConfig":
+        sizes = self.as_dict()
+        fixed = [v for v in sizes.values() if v != -1]
+        free = [k for k, v in sizes.items() if v == -1]
+        if len(free) > 1:
+            raise ValueError("at most one mesh axis may be -1")
+        prod = math.prod(fixed)
+        if free:
+            if n_devices % prod:
+                raise ValueError(
+                    f"{n_devices} devices not divisible by fixed axes {sizes}")
+            sizes[free[0]] = n_devices // prod
+        elif prod != n_devices:
+            raise ValueError(
+                f"mesh {sizes} needs {prod} devices, have {n_devices}")
+        return MeshConfig(**sizes)
+
+    @property
+    def num_devices(self) -> int:
+        """Devices the layout needs (a -1 axis counts as 1)."""
+        return math.prod(abs(getattr(self, f.name)) for f in fields(self))
+
+    def batch_axes(self) -> Tuple[str, ...]:
+        """Mesh axes the global batch is sharded over."""
+        return tuple(a for a in ("data", "fsdp")
+                     if self.as_dict()[a] != 1) or ("data",)
+
+
+def check_supported(config: MeshConfig) -> None:
+    """Raise for the axes this port does not shard yet."""
+    for axis in DEFERRED:
+        if abs(getattr(config, axis)) > 1:
+            what = "ZeRO-3 parameter sharding" if axis == "fsdp" \
+                else "expert parallelism"
+            raise NotImplementedError(
+                f"mesh axis {axis}={getattr(config, axis)}: {what} is "
+                f"{ITEM_8B}")
+
+
+# ---------------------------------------------------------------- the mesh
+class Mesh:
+    """The ranks of the ``torch.distributed`` domain over ``AXES``.
+
+    Outside a domain (one process) it is the one-rank mesh: every axis of
+    size 1, no groups, every collective the identity.  ``device``: this
+    rank's device (default: the domain's, ``multihost.device()``)."""
+
+    def __init__(self, config: Optional[MeshConfig] = None,
+                 device: Any = None):
+        from ray_tpu_torch.parallel import multihost
+        from ray_tpu_torch.util.collective.collective_group.device_group \
+            import DeviceCollectiveGroup, choose_transport
+        world = multihost.process_count()
+        self.rank = multihost.process_index()
+        check_supported(config or MeshConfig())
+        self.config = (config or MeshConfig()).resolved(world)
+        self.shape: Dict[str, int] = self.config.as_dict()
+        dims = [self.shape[a] for a in AXES]
+        self.coords: Dict[str, int] = dict(zip(
+            AXES, (int(c) for c in np.unravel_index(self.rank, dims))))
+        self.device = torch.device(device) if device is not None \
+            else multihost.device()
+        self.transport = choose_transport(self.device) \
+            if world > 1 else "local"
+        self.groups: Dict[str, DeviceCollectiveGroup] = {}
+        grid = np.arange(world).reshape(dims)
+        for i, axis in enumerate(AXES):
+            if dims[i] == 1:
+                continue
+            # every line of ranks along this axis, in one order on every rank
+            lines = np.moveaxis(grid, i, -1).reshape(-1, dims[i])
+            for line in lines:
+                g = DeviceCollectiveGroup.new(
+                    [int(r) for r in line], self.device, self.transport,
+                    name=f"mesh/{axis}")
+                if self.rank in line:
+                    self.groups[axis] = g
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def group(self, axis: str):
+        """The sub-group along ``axis`` that holds this rank."""
+        return self.groups[axis]
+
+    def collective_seconds(self) -> Dict[str, float]:
+        """Seconds spent in every group's collectives since the last
+        ``reset_collective_seconds``: device-to-host, the wire, and
+        host-to-device."""
+        out = {"to_host": 0.0, "wire": 0.0, "to_device": 0.0}
+        for g in self.groups.values():
+            for k in out:
+                out[k] += g.seconds[k]
+        return out
+
+    def reset_collective_seconds(self) -> None:
+        for g in self.groups.values():
+            g.seconds.update(to_host=0.0, wire=0.0, to_device=0.0)
+
+    def destroy(self) -> None:
+        """Every rank calls it: the groups go in the axes' order (each
+        group's destroy is a barrier of its ranks)."""
+        for g in self.groups.values():
+            g.destroy()
+        self.groups.clear()
+
+    def __repr__(self) -> str:
+        live = {a: n for a, n in self.shape.items() if n > 1}
+        return (f"Mesh({live or 'one rank'}, rank={self.rank}, "
+                f"device={self.device}, transport={self.transport})")
+
+
+def single_device_mesh(device: Any = None) -> Mesh:
+    """The one-rank mesh on ``device`` (outside any domain)."""
+    return Mesh(MeshConfig(data=1), device=device)
+
+
+# ------------------------------------------------------------ ambient mesh
+# Lets model code reach the program's mesh (ring and Ulysses attention,
+# GPT-2's manual region): spmd.build_train_program sets it around each
+# step, as the reference sets it around tracing.  A contextvar, with the
+# innermost mesh of the process behind it: the autograd engine runs a
+# CUDA backward (and so every checkpointed block's replay) on a device
+# thread of its own, which does not see the caller's contextvars.
+_AMBIENT_MESH: contextvars.ContextVar[Optional[Mesh]] = \
+    contextvars.ContextVar("ray_tpu_torch_ambient_mesh", default=None)
+_PROCESS_MESH: List[Optional[Mesh]] = []
+
+
+def get_ambient_mesh() -> Optional[Mesh]:
+    mesh = _AMBIENT_MESH.get()
+    if mesh is None and _PROCESS_MESH:
+        return _PROCESS_MESH[-1]
+    return mesh
+
+
+@contextlib.contextmanager
+def ambient_mesh(mesh: Optional[Mesh]) -> Iterator[Optional[Mesh]]:
+    token = _AMBIENT_MESH.set(mesh)
+    _PROCESS_MESH.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _PROCESS_MESH.pop()
+        _AMBIENT_MESH.reset(token)
+
+
+def live_size(mesh: Optional[Mesh], axis: Optional[str]) -> int:
+    """``axis``'s size in ``mesh`` (1 without a mesh or an axis)."""
+    if mesh is None or axis is None:
+        return 1
+    return mesh.shape.get(axis, 1)
+
+
+# ------------------------------------------------------------------- rules
+# (param-path regex, spec) — first match wins.  Paths are "/"-joined
+# tree keys, e.g. "blocks/attn_qkv/kernel"; blocks/... leaves are stacked
+# on a leading n_layer axis, which maps to ``pipeline``.
+TRANSFORMER_RULES: Rules = [
+    (r".*wte$", ("tensor", "fsdp")),               # (vocab, embed)
+    (r".*wpe$", (None, "fsdp")),                   # (pos, embed)
+    (r".*blocks/attn_qkv/kernel$", ("pipeline", "fsdp", None, "tensor")),
+    (r".*blocks/attn_qkv/bias$", ("pipeline", None, "tensor")),
+    (r".*blocks/attn_out/kernel$", ("pipeline", "tensor", "fsdp")),
+    (r".*blocks/attn_out/bias$", ("pipeline", "fsdp")),
+    (r".*blocks/mlp_in/kernel$", ("pipeline", "fsdp", "tensor")),
+    (r".*blocks/mlp_in/bias$", ("pipeline", "tensor")),
+    (r".*blocks/mlp_out/kernel$", ("pipeline", "tensor", "fsdp")),
+    (r".*blocks/mlp_out/bias$", ("pipeline", "fsdp")),
+    (r".*blocks/(ln_1|ln_2)/(scale|bias)$", ("pipeline", None)),
+    # non-stacked variants (single-layer modules)
+    (r".*attn_qkv/kernel$", ("fsdp", None, "tensor")),
+    (r".*attn_out/kernel$", ("tensor", "fsdp")),
+    (r".*mlp_in/kernel$", ("fsdp", "tensor")),
+    (r".*mlp_out/kernel$", ("tensor", "fsdp")),
+    (r".*(ln_1|ln_2|ln_f)/(scale|bias)$", (None,)),
+    (r".*", (None,)),
+]
+
+# Logical activation axis → mesh axis (or a tuple of them, or None).
+ACTIVATION_RULES: Dict[str, Any] = {
+    "batch": ("data", "fsdp"),
+    "seq": ("seq", "tensor"),     # the sequence-parallel residual stream
+    "seq_attn": "context",        # the sequence through attention
+    "heads": "tensor",
+    "embed": None,
+    "mlp": "tensor",
+    "kv": None,
+    "vocab": "tensor",
+}
+
+
+def spec_for_path(path: str, rules: Rules) -> Spec:
+    for pat, spec in rules:
+        if re.fullmatch(pat, path):
+            return tuple(spec)
+    return (None,)
+
+
+def _fit(spec: Spec, ndim: int) -> PartitionSpec:
+    """A spec trimmed or padded with None to a leaf's rank."""
+    return P(*(tuple(spec)[:ndim] + (None,) * (ndim - len(spec))))
+
+
+def param_specs(params: Any, rules: Rules = TRANSFORMER_RULES,
+                extra_leading: Optional[str] = None) -> Any:
+    """Tree of specs matching ``params``, each fitted to its leaf's rank;
+    ``extra_leading`` prepends an axis to every spec."""
+    specs = {path: spec_for_path(path, rules)
+             for path, _ in tx.tree_leaves_with_path(params)}
+
+    def leaf(path: str, p: Any) -> Spec:
+        spec = specs[path]
+        if extra_leading is not None:
+            spec = (extra_leading,) + spec
+        return _fit(spec, len(p.shape))
+
+    return _map_with_path(leaf, params)
+
+
+def _map_with_path(fn, tree: Any, prefix: str = "") -> Any:
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, tree[k], f"{prefix}{k}/")
+                for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [_map_with_path(fn, v, f"{prefix}{i}/")
+                for i, v in enumerate(tree)]
+    return fn(prefix[:-1], tree)
+
+
+def entry_axes(entry: SpecEntry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_axes(spec: Spec) -> Tuple[str, ...]:
+    """Every axis a spec shards over."""
+    return tuple(a for e in spec for a in entry_axes(e))
+
+
+def shard_bounds(dim: int, n: int, i: int) -> Tuple[int, int]:
+    """Piece ``i`` of ``n`` of a dim of ``dim``: ceil-sized pieces, the
+    last one short where ``n`` does not divide ``dim``."""
+    c = -(-dim // n)
+    return min(dim, i * c), min(dim, (i + 1) * c)
+
+
+def entry_coordinate(mesh: Mesh, entry: SpecEntry) -> Tuple[int, int]:
+    """(pieces, this rank's piece) for one spec entry: the product of its
+    axes' sizes, and this rank's row-major index over them."""
+    n, idx = 1, 0
+    for a in entry_axes(entry):
+        n, idx = n * mesh.shape[a], idx * mesh.shape[a] + mesh.coords[a]
+    return n, idx
+
+
+def local_slice(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
+    """The slice of a global tensor that this rank's coordinates select."""
+    for d, entry in enumerate(_fit(spec, t.ndim)):
+        n, i = entry_coordinate(mesh, entry)
+        if n > 1:
+            lo, hi = shard_bounds(t.shape[d], n, i)
+            t = t.narrow(d, lo, hi - lo)
+    return t
+
+
+def shard_params(mesh: Mesh, params: Any,
+                 rules: Rules = TRANSFORMER_RULES) -> Any:
+    """This rank's slice of every leaf of a global tree, on the mesh's
+    device (a copy: the global tree is left as it is)."""
+    specs = param_specs(params, rules)
+    return tx.tree_map(
+        lambda p, s: local_slice(p, s, mesh).to(mesh.device, copy=True)
+        .contiguous(), params, specs)
+
+
+def replicated_axes(mesh: Mesh, spec: Spec) -> Tuple[str, ...]:
+    """The live axes a leaf of ``spec`` is replicated over: its gradient
+    is summed over them."""
+    sharded = set(spec_axes(spec))
+    return tuple(a for a in AXES if mesh.shape[a] > 1 and a not in sharded)
+
+
+def sharded_axes(mesh: Mesh, spec: Spec) -> Tuple[str, ...]:
+    """The live axes a leaf of ``spec`` is split over: its squares are
+    summed over them for a global norm."""
+    return tuple(a for a in spec_axes(spec) if mesh.shape[a] > 1)
+
+
+# -------------------------------------------------------------------- batch
+def batch_spec(config: MeshConfig, rank: int = 2) -> Spec:
+    """The reference's placement of a (batch, seq, ...) array: batch over
+    data (+fsdp), sequence over context.  The port's ``shard_batch``
+    takes the batch dim alone: the model cuts its own sequence chunk,
+    whose next-token targets need the token after it."""
+    batch = config.batch_axes()
+    axes: List[SpecEntry] = [batch[0] if len(batch) == 1 else batch]
+    if rank >= 2:
+        axes.append("context" if config.context != 1 else None)
+    return P(*axes, *((None,) * (rank - len(axes))))
+
+
+def local_batch_size(global_batch: int, config: MeshConfig,
+                     n_devices: int) -> int:
+    cfg = config.resolved(n_devices)
+    denom = math.prod(cfg.as_dict()[a] for a in cfg.batch_axes())
+    if global_batch % denom:
+        raise ValueError(f"global batch {global_batch} not divisible by "
+                         f"data-parallel degree {denom}")
+    return global_batch // denom
+
+
+def shard_batch_rows(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of a global batch (its data coordinate)."""
+    n, i = entry_coordinate(mesh, mesh.config.batch_axes())
+    if n == 1:
+        return x
+    if x.shape[0] % n:
+        raise ValueError(f"global batch {x.shape[0]} not divisible by "
+                         f"data-parallel degree {n}")
+    lo, hi = shard_bounds(x.shape[0], n, i)
+    return x[lo:hi]

@@ -6,21 +6,27 @@ domain (``jax.distributed.initialize``), after which one program spans
 the processes and XLA inserts the collectives.  The port's counterpart
 is a ``torch.distributed`` process group over the gloo backend: the
 processes exchange host (CPU) tensors, so any number of ranks may share
-one card.  NCCL refuses two ranks on one device, and meshes, shardings
-and device collectives are the multi-GPU slice's (ROADMAP queue A,
-item 8).  This is the part the elastic worker loop needs:
+one card (NCCL refuses two ranks on one device).  Meshes over the
+domain's ranks are ``parallel/mesh.py``; their device collectives ride
+the transport ``util/collective/collective_group/device_group.py``
+chooses by placement (NCCL, or this domain's gloo through pinned host
+buffers where ranks share a card).
 
 - ``initialize()`` / ``shutdown()`` — join and leave the domain
   (``init_method="tcp://<coordinator>"``; rank 0 hosts the rendezvous);
   leaving is idempotent, so a process can join a domain of another size
-  later (the re-mesh).
+  later (the re-mesh).  ``device=`` gives the rank its device
+  (``device()``): the card when the worker holds a GPU share, the CPU
+  only when the caller asks.
 - ``gather_to_host()`` / ``put_global()`` — checkpoint plumbing: a tree
   whose leaves are replicated, or this rank's shards along one axis, is
   gathered to plain numpy holding the GLOBAL value on every rank, and a
-  host tree is placed back as this rank's tensors on an explicit device.
+  host tree is placed back as this rank's tensors on an explicit device
+  (whole, split along one axis, or sliced by sharding specs over a
+  mesh).
 - ``broadcast_one_to_all()`` — rank 0's value on every rank;
   ``allreduce()`` — a tree summed (or averaged) over the ranks, in one
-  host buffer.
+  flat buffer, through the domain's device group (``domain_group()``).
 
 Outside a domain (one process) every call is the single-process
 identity, as in the reference.
@@ -38,9 +44,9 @@ import torch
 from ray_tpu_torch.parallel import transforms as tx
 
 __all__ = [
-    "initialize", "shutdown", "is_distributed", "process_index",
+    "initialize", "shutdown", "is_distributed", "process_index", "device",
     "process_count", "gather_to_host", "put_global",
-    "broadcast_one_to_all", "allreduce",
+    "broadcast_one_to_all", "allreduce", "domain_group",
 ]
 
 _LOOPBACK = ("127.0.0.1", "localhost", "::1")
@@ -51,13 +57,31 @@ def _dist():
     return dist
 
 
+_device: list = []
+
+
+def device() -> torch.device:
+    """This rank's device: the one ``initialize`` was given, else the card
+    (``resolve_device(None)``: no card raises)."""
+    from ray_tpu_torch._device import resolve_device
+    return _device[0] if _device else resolve_device(None)
+
+
 def initialize(coordinator_address: str, num_processes: int,
                process_id: int, *,
-               init_timeout_s: Optional[float] = None) -> None:
+               init_timeout_s: Optional[float] = None,
+               device: Any = None, store: Any = None) -> None:
     """Join this process to a gloo domain of ``num_processes`` ranks whose
-    rendezvous rank 0 hosts at ``coordinator_address`` (``host:port``).
-    A domain of one process is no domain (nothing to join).  A rank that
-    cannot form the domain within ``init_timeout_s`` raises."""
+    rendezvous rank 0 hosts at ``coordinator_address`` (``host:port``),
+    or, with ``store``, through that ``torch.distributed`` store (a
+    ``TCPStore`` another process hosts, e.g. on port 0).  A domain of one
+    process is no domain (nothing to join).  A rank that cannot form the
+    domain within ``init_timeout_s`` raises.  ``device`` (None: the card)
+    is the rank's device for meshes and device groups."""
+    _device.clear()
+    if device is not None:
+        from ray_tpu_torch._device import resolve_device
+        _device.append(resolve_device(device))
     if num_processes <= 1:
         return
     dist = _dist()
@@ -72,15 +96,18 @@ def initialize(coordinator_address: str, num_processes: int,
     kw = {}
     if init_timeout_s is not None:
         kw["timeout"] = timedelta(seconds=float(init_timeout_s))
-    dist.init_process_group(backend="gloo",
-                            init_method=f"tcp://{coordinator_address}",
-                            world_size=int(num_processes),
+    if store is not None:
+        kw["store"] = store
+    else:
+        kw["init_method"] = f"tcp://{coordinator_address}"
+    dist.init_process_group(backend="gloo", world_size=int(num_processes),
                             rank=int(process_id), **kw)
 
 
 def shutdown() -> None:
-    """Leave the domain (idempotent); the all-reduce's host buffer goes."""
-    _pinned.clear()
+    """Leave the domain (idempotent); its device groups go with it."""
+    _domain.clear()
+    _device.clear()
     dist = _dist()
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
@@ -130,12 +157,62 @@ def _map(fn, tree: Any) -> Any:
     return fn(tree)
 
 
-def gather_to_host(tree: Any, axis: Optional[int] = None) -> Any:
+def _gather_spec(t: torch.Tensor, spec: Any, mesh: Any) -> torch.Tensor:
+    """A leaf's global value from the ranks' slices under ``spec``: each
+    split dim gathered over its axes, the innermost first (a short last
+    piece padded for the gather and cut after it)."""
+    from ray_tpu_torch.parallel.mesh import entry_axes
+    for d, entry in enumerate(spec):
+        for a in reversed(entry_axes(entry)):
+            if mesh.shape[a] == 1:
+                continue
+            g = mesh.group(a)
+            n = torch.tensor([t.shape[d]], device=t.device)
+            sizes = [int(x) for x in g.all_gather(n)]
+            pad = max(sizes) - t.shape[d]
+            if pad:
+                shape = list(t.shape)
+                shape[d] = pad
+                t = torch.cat([t, t.new_zeros(shape)], dim=d)
+            t = torch.cat([p.narrow(d, 0, s) for p, s in
+                           zip(g.all_gather(t), sizes)], dim=d)
+    return t
+
+
+def _map_specs(fn, specs: Any) -> None:
+    """``fn`` over a spec tree's ``PartitionSpec`` leaves in ``_map``'s
+    order."""
+    from ray_tpu_torch.parallel.mesh import PartitionSpec
+    if isinstance(specs, dict):
+        for k in sorted(specs):
+            _map_specs(fn, specs[k])
+    elif isinstance(specs, (list, tuple)) \
+            and not isinstance(specs, PartitionSpec):
+        for v in specs:
+            _map_specs(fn, v)
+    else:
+        fn(specs)
+
+
+def gather_to_host(tree: Any, axis: Optional[int] = None,
+                   specs: Any = None, mesh: Any = None) -> Any:
     """Tree of tensors → numpy tree of GLOBAL values, the same on every
     rank.  ``axis`` None: every leaf is replicated over the ranks, and this
     rank's copy is that value.  An int: every leaf is this rank's shard
     along ``axis``, in rank order, and the shards are all-gathered (equal
-    shard shapes, the ``put_global`` layout)."""
+    shard shapes, the ``put_global`` layout).  ``specs`` (a tree of
+    sharding specs shaped as ``tree``, e.g. ``spmd.state_specs``) with the
+    ``mesh``: every leaf is this rank's slice under its spec."""
+    if specs is not None:
+        if mesh is None:
+            raise ValueError("gather_to_host(specs=...) needs the mesh")
+        leaves = []
+        _map(leaves.append, tree)
+        flat_specs = []
+        _map_specs(flat_specs.append, specs)
+        it = iter([_to_numpy(_gather_spec(t, s, mesh))
+                   for t, s in zip(leaves, flat_specs)])
+        return _map(lambda _: next(it), tree)
     if axis is None or not is_distributed():
         return _map(_to_numpy, tree)
     dist = _dist()
@@ -150,13 +227,25 @@ def gather_to_host(tree: Any, axis: Optional[int] = None) -> Any:
     return _map(gather, tree)
 
 
-def put_global(tree: Any, device: Any, axis: Optional[int] = None) -> Any:
+def put_global(tree: Any, device: Any, axis: Optional[int] = None,
+               specs: Any = None, mesh: Any = None) -> Any:
     """Host tree (every rank holding the same values, the
     ``gather_to_host`` contract) → this rank's tensors on ``device``:
-    each leaf whole (``axis`` None) or its ``process_index()``-th of
-    ``process_count()`` equal chunks along ``axis``."""
+    each leaf whole (``axis`` None), its ``process_index()``-th of
+    ``process_count()`` equal chunks along ``axis``, or, with ``specs``
+    (a tree of sharding specs, ``mesh.param_specs``) and a ``mesh``, the
+    slice its mesh coordinates select (``mesh.local_slice``)."""
     dev = torch.device(device)
     rank, world = process_index(), process_count()
+    if specs is not None:
+        from ray_tpu_torch.parallel.mesh import local_slice
+        if mesh is None:
+            raise ValueError("put_global(specs=...) needs the mesh")
+        flat_specs = []
+        _map_specs(flat_specs.append, specs)
+        it = iter(flat_specs)
+        return _map(lambda h: local_slice(_from_host(h), next(it), mesh).to(
+            dev, copy=True).contiguous(), tree)
 
     def put(h):
         t = _from_host(h)
@@ -179,62 +268,48 @@ def broadcast_one_to_all(x: Any) -> Any:
     return arr if isinstance(x, np.ndarray) else arr.item()
 
 
-def _host_buffer(n: int, dtype: torch.dtype, pinned: bool) -> torch.Tensor:
-    """The all-reduce's host buffer: page-locked, and kept for the next
-    call of the same size, when the leaves live on a card (its copies then
-    run at the link's rate); a fresh one otherwise."""
-    if not pinned:
-        return torch.empty(n, dtype=dtype)
-    buf = _pinned.get((n, dtype))
-    if buf is None:
-        _pinned.clear()
-        buf = _pinned[(n, dtype)] = torch.empty(n, dtype=dtype,
-                                                pin_memory=True)
-    return buf
-
-
-_pinned: dict = {}
-# the last all-reduce's seconds: "to_host" (device-to-host copies),
-# "reduce" (gloo), "to_device" (host-to-device copies)
+_domain: dict = {}
+# the last all-reduce's seconds, by the domain group's legs: "to_host"
+# (device-to-host copies), "wire" (gloo), "to_device" (host-to-device
+# copies)
 last_allreduce: dict = {}
+
+
+def domain_group(dev: torch.device):
+    """The device group of every rank of the domain on ``dev``
+    (``util/collective/collective_group/device_group.py``: its transport
+    by the ranks' placement), made at the first call for ``dev``; every
+    rank makes it at the same point of its program."""
+    group = _domain.get(dev)
+    if group is None:
+        from ray_tpu_torch.util.collective.collective_group.device_group \
+            import DeviceCollectiveGroup, choose_transport
+        group = _domain[dev] = DeviceCollectiveGroup.new(
+            range(process_count()), dev, choose_transport(dev),
+            f"domain-{dev}")
+    return group
 
 
 def allreduce(tree: Any, op: str = "mean",
               dtype: torch.dtype = torch.float32) -> Any:
     """Tree of tensors summed (``op="sum"``) or averaged (``"mean"``) over
-    the ranks: every leaf rides one host buffer of ``dtype`` through one
-    gloo all-reduce, and comes back on its device in its dtype.  One
-    process: the tree itself."""
+    the ranks: every leaf rides one flat buffer of ``dtype`` through one
+    all-reduce of the domain's device group on the leaves' device, and
+    comes back on its device in its dtype.  One process: the tree
+    itself."""
     if op not in ("sum", "mean"):
         raise ValueError(f"op must be 'sum' or 'mean', got {op!r}")
     if not is_distributed():
         return tree
-    import time
+    from ray_tpu_torch.util.collective.collective_group import device_group
     leaves = tx.tree_leaves(tree)
-    cuda = any(t.is_cuda for t in leaves)
-    t0 = time.perf_counter()
-    flat = _host_buffer(sum(t.numel() for t in leaves), dtype, cuda)
-    at = 0
-    for t in leaves:
-        flat[at:at + t.numel()].copy_(t.detach().reshape(-1),
-                                      non_blocking=cuda)
-        at += t.numel()
-    if cuda:
-        torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    _dist().all_reduce(flat)
+    group = domain_group(leaves[0].device)
+    before = dict(group.seconds)
+    flat = group.all_reduce(device_group.flatten(leaves, dtype))
     if op == "mean":
         flat /= process_count()
-    t2 = time.perf_counter()
-    out, at = [], 0
-    for t in leaves:
-        n = t.numel()
-        out.append(flat[at:at + n].view(t.shape).to(
-            t.device, t.dtype, non_blocking=cuda, copy=True))
-        at += n
-    if cuda:
-        torch.cuda.synchronize()    # the buffer is free for the next call
-    last_allreduce.update(to_host=t1 - t0, reduce=t2 - t1,
-                          to_device=time.perf_counter() - t2)
+    out = device_group.unflatten(flat, leaves)
+    last_allreduce.update({k: v - before[k]
+                           for k, v in group.seconds.items()})
     it = iter(out)
     return tx.tree_map(lambda _: next(it), tree)

@@ -22,8 +22,10 @@ tensors.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Any, Callable, List, NamedTuple, Tuple, Union
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -74,8 +76,26 @@ def zero_count(params: Tree) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32, device=dev)
 
 
+_NORM: contextvars.ContextVar[Optional[Callable[[Tree], torch.Tensor]]] \
+    = contextvars.ContextVar("ray_tpu_torch_global_norm", default=None)
+
+
+@contextlib.contextmanager
+def norm_override(fn: Callable[[Tree], torch.Tensor]):
+    """``global_norm`` (and so ``clip_by_global_norm``) computed by ``fn``
+    inside the block: a mesh program's norm over the ranks' slices."""
+    token = _NORM.set(fn)
+    try:
+        yield
+    finally:
+        _NORM.reset(token)
+
+
 def global_norm(tree: Tree) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's sum of squares."""
+    override = _NORM.get()
+    if override is not None:
+        return override(tree)
     total = None
     for x in tree_leaves(tree):
         sq = torch.sum(x * x)

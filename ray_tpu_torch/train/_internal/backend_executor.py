@@ -33,7 +33,8 @@ def _run_train_fn(run_id: str, run_name: str, rank: int, world_size: int,
                   train_fn_blob: bytes,
                   config: Dict[str, Any],
                   dataset_shard_blobs: Optional[Dict[str, Any]],
-                  attempt: int = 0, start_iteration: int = 0) -> Any:
+                  attempt: int = 0, start_iteration: int = 0,
+                  mesh_config: Any = None) -> Any:
     """Runs inside each worker actor."""
     import cloudpickle
 
@@ -56,7 +57,7 @@ def _run_train_fn(run_id: str, run_name: str, rank: int, world_size: int,
     sess.init_session(run_id=run_id, run_name=run_name, rank=rank,
                       world_size=world_size, storage_dir=storage_dir,
                       restore_checkpoint=restore, dataset_shards=shards, attempt=attempt,
-                      start_iteration=start_iteration)
+                      start_iteration=start_iteration, mesh_config=mesh_config)
     try:
         train_fn = cloudpickle.loads(train_fn_blob)
         import inspect
@@ -77,8 +78,10 @@ def _setup_session_only(run_id, run_name, rank, world_size, storage_dir,
 
 class BackendExecutor:
     def __init__(self, backend_config: BackendConfig, scaling: ScalingConfig,
-                 run_config: Optional[RunConfig] = None):
+                 run_config: Optional[RunConfig] = None,
+                 mesh_config: Any = None):
         self.backend_config = backend_config
+        self.mesh_config = mesh_config
         self.backend = backend_config.backend_cls()
         self.scaling = scaling
         self.run_config = run_config or RunConfig()
@@ -166,7 +169,7 @@ class BackendExecutor:
                                latest_ckpt_path, fn_blob,
                                dict(config or {}),
                                shard_blobs[i] if shard_blobs else None,
-                               self.attempt, len(history))
+                               self.attempt, len(history), self.mesh_config)
                 for i, w in enumerate(wg.workers)]
             seen: set = set()
             error: Optional[BaseException] = None

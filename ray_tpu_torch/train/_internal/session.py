@@ -66,6 +66,11 @@ class TrainContext:
     def get_storage_path(self) -> str:
         return self._s.storage_dir
 
+    def get_mesh_config(self):
+        """The trainer's ``mesh_config`` (None when it gave none): the
+        layout a loop builds its mesh program with."""
+        return self._s.mesh_config
+
 
 class _TrainSession:
     def __init__(self, run_id: str, run_name: str, rank: int, world_size: int,
@@ -74,8 +79,9 @@ class _TrainSession:
                  local_world_size: Optional[int] = None, node_rank: int = 0,
                  dataset_shards: Optional[Dict[str, Any]] = None,
                  attempt: int = 0, start_iteration: int = 0,
-                 sync_report: bool = False):
+                 sync_report: bool = False, mesh_config: Any = None):
         self.run_id = run_id
+        self.mesh_config = mesh_config
         self.run_name = run_name
         self.rank = rank
         self.world_size = world_size

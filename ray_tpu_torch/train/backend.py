@@ -8,9 +8,13 @@ than one worker joins the shm collective group (``train_default``), the
 gradient-sync path of one host; ``drain_handler`` subscribes the driver
 to ``node_draining`` fleet events while the run is live, and
 ``elastic=True`` routes ``TorchTrainer.fit`` through the elasticity
-manager (``train/base_trainer.py``).  ``torch.distributed`` over NCCL
-waits for the multi-GPU slice, and asking for it raises
-``NotImplementedError``.
+manager (``train/base_trainer.py``).  ``use_distributed=True`` joins the
+workers to one ``torch.distributed`` domain (``parallel/multihost.py``,
+the driver picking the coordinator) on each rank's device (its card; the
+CPU when ``device="cpu"``), and ``train_default`` becomes the domain's
+device group (``util/collective/collective_group/device_group.py``),
+whose transport the ranks' placement chooses: NCCL where every rank has
+a card of its own, pinned host buffers over gloo where ranks share one.
 """
 
 from __future__ import annotations
@@ -52,8 +56,16 @@ class TorchConfig(BackendConfig):
     init_collective_group: with more than one worker, every rank joins a
         shm collective group under a run- and attempt-unique name,
         aliased to ``train_default`` in each worker.
-    use_distributed: ``torch.distributed`` over NCCL — the multi-GPU
-        slice's (ROADMAP queue A, item 8); ``True`` raises.
+    use_distributed: with more than one worker, every rank joins one
+        ``torch.distributed`` domain (the reference's
+        ``dist.init_process_group``), and ``train_default`` is its device
+        group (instead of the shm group).  Mesh programs
+        (``spmd.build_train_program(mesh_config=...)``) run over it.
+    device: the ranks' device under ``use_distributed``: None is the
+        worker's card (a worker without one raises); ``"cpu"`` only when
+        asked.
+    coordinator_port: the port of the domain's rendezvous store, which
+        the driver hosts (0: a free one the kernel picks).
     drain_handler: preemption-warning subscription (DESIGN.md §4j):
         called on the DRIVER with each ``node_draining`` fleet event
         while the run is live — the hook where a training loop arranges
@@ -73,6 +85,8 @@ class TorchConfig(BackendConfig):
     """
 
     use_distributed: Optional[bool] = None
+    device: Optional[str] = None
+    coordinator_port: int = 0
     init_collective_group: bool = True
     drain_handler: Optional[Callable] = None
     elastic: bool = False
@@ -84,11 +98,10 @@ class TorchConfig(BackendConfig):
     elastic_timeout_s: float = 600.0
 
     def __post_init__(self):
-        if self.use_distributed:
-            raise NotImplementedError(
-                "TorchConfig(use_distributed=True): torch.distributed "
-                "over NCCL is the multi-GPU slice's (ROADMAP queue A, "
-                "item 8)")
+        if self.use_distributed and self.elastic:
+            raise ValueError(
+                "TorchConfig(use_distributed=True, elastic=True): the "
+                "elastic route forms each generation's domain itself")
 
     @property
     def backend_cls(self):
@@ -102,9 +115,23 @@ class _TorchBackend(Backend):
 
     def on_start(self, worker_group, backend_config: TorchConfig) -> None:
         import ray_tpu_torch
+        world = worker_group.num_workers
+        coord = None
+        if backend_config.use_distributed and world > 1:
+            # the driver hosts the domain's rendezvous store (port 0: the
+            # kernel's free port, no probe to race), the ranks join it
+            from datetime import timedelta
+
+            import torch.distributed as dist
+            self._store = dist.TCPStore(
+                "127.0.0.1", backend_config.coordinator_port, None, True,
+                timeout=timedelta(seconds=backend_config.init_timeout_s),
+                wait_for_workers=False)
+            coord = f"127.0.0.1:{self._store.port}"
         ray_tpu_torch.get(worker_group.execute_async(
-            _torch_worker_setup_by_rank, worker_group.num_workers,
-            self.GROUP, backend_config.init_collective_group),
+            _torch_worker_setup_by_rank, world, self.GROUP,
+            backend_config.init_collective_group, coord,
+            backend_config.device, backend_config.init_timeout_s),
             timeout=backend_config.init_timeout_s)
 
     def on_training_start(self, worker_group,
@@ -120,21 +147,59 @@ class _TorchBackend(Backend):
         if sub is not None:
             sub.stop()
             self._drain_sub = None
+        if getattr(self, "_store", None) is not None:
+            # leave the domain before the actors go (a force-killed group
+            # skips this; the OS reaps), then close its store
+            import ray_tpu_torch
+            try:
+                ray_tpu_torch.get(worker_group.execute_async(
+                    _torch_worker_teardown), timeout=10)
+            except Exception:  # noqa: BLE001 - workers may be dead
+                pass
+            self._store = None
 
 
-def _torch_worker_setup_by_rank(world, alias, init_col):
+def _torch_worker_setup_by_rank(world, alias, init_col, coord=None,
+                                device=None, init_timeout_s=120.0):
     # Executed via WorkerGroup.execute_async → same fn on every worker; the
     # rank is read from the session (set before backend hooks run).
     from ray_tpu_torch.train._internal.session import get_session
     from ray_tpu_torch.util import collective as col
     from ray_tpu_torch.util.collective import collective as col_mod
-    if not (init_col and world > 1):
-        return
     s = get_session()
     group = f"train_{s.run_id}_a{s.attempt}"
+    if coord is not None:
+        from datetime import timedelta
+
+        import torch.distributed as dist
+
+        from ray_tpu_torch.parallel import multihost
+        if multihost.is_distributed():      # a restarted group's worker
+            multihost.shutdown()
+        host, port = coord.rsplit(":", 1)
+        store = dist.TCPStore(host, int(port), world, False,
+                              timeout=timedelta(seconds=init_timeout_s))
+        multihost.initialize(coord, world, s.rank, device=device,
+                             init_timeout_s=init_timeout_s, store=store)
+        if init_col:
+            col.init_collective_group(world, s.rank, "device", group)
+            col_mod._register_alias(alias, group)
+        return
+    if not (init_col and world > 1):
+        return
     if not col.is_group_initialized(group):
         col.init_collective_group(world, s.rank, "shm", group)
     col_mod._register_alias(alias, group)
+
+
+def _torch_worker_teardown():
+    from ray_tpu_torch.parallel import multihost
+    from ray_tpu_torch.util import collective as col
+    for name in list(col.collective._groups):
+        g = col.collective._groups.get(name)
+        if getattr(g, "transport", None) is not None:
+            col.destroy_collective_group(name)
+    multihost.shutdown()
 
 
 def _free_port() -> int:

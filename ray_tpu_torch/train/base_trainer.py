@@ -66,18 +66,21 @@ class DataParallelTrainer(BaseTrainer):
                  backend_config: Optional[BackendConfig] = None,
                  scaling_config: Optional[ScalingConfig] = None,
                  run_config: Optional[RunConfig] = None,
-                 datasets: Optional[Dict[str, Any]] = None):
+                 datasets: Optional[Dict[str, Any]] = None,
+                 mesh_config: Any = None):
         super().__init__(scaling_config=scaling_config,
                          run_config=run_config, datasets=datasets)
         self.train_loop_per_worker = train_loop_per_worker
         self.train_loop_config = train_loop_config or {}
         self.backend_config = backend_config or self._default_backend_config
+        # the layout each worker reads from get_context().get_mesh_config()
+        self.mesh_config = mesh_config
 
     def fit(self) -> Result:
         if getattr(self.backend_config, "elastic", False):
             return self._fit_elastic()
         executor = BackendExecutor(self.backend_config, self.scaling_config,
-                                   self.run_config)
+                                   self.run_config, self.mesh_config)
         try:
             return executor.run(self.train_loop_per_worker,
                                 self.train_loop_config, self.datasets)
@@ -180,7 +183,11 @@ class TorchTrainer(DataParallelTrainer):
     Each worker runs ``train_loop_per_worker`` in its own process; with
     ``ScalingConfig(use_gpu=True)`` that process sees the card, and the
     loop finds it with ``resolve_device(None)``.  A loop that finds none
-    raises there, and the error reaches ``Result.error``.
+    raises there, and the error reaches ``Result.error``.  With
+    ``TorchConfig(use_distributed=True)`` the workers form one
+    ``torch.distributed`` domain first, and a loop builds its mesh program
+    with ``spmd.build_train_program(mesh_config=get_context()
+    .get_mesh_config(), ...)`` (the trainer's ``mesh_config``).
     """
 
     _default_backend_config = TorchConfig()

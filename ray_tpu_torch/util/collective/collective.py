@@ -6,13 +6,17 @@ Reference: ``python/ray/util/collective/collective.py`` —
 / ``send`` / ``recv`` / ``destroy_collective_group`` / ``get_rank`` /
 ``get_collective_group_size``.
 
-One backend (types.Backend): ``shm`` — object-plane collectives among
-arbitrary actors/processes (the GLOO analog; ``gloo`` is its alias).  The
-NCCL group waits for the multi-GPU slice (ROADMAP queue A, item 8).
+Backends (types.Backend): ``shm`` — object-plane collectives among
+arbitrary actors/processes (the GLOO analog; ``gloo`` is its alias); and
+``device`` (``nccl`` forces its NCCL transport) — the device group over
+the ranks of this process's ``torch.distributed`` domain
+(``parallel.multihost``), each tensor on its rank's device, the
+transport chosen by placement (``collective_group/device_group.py``).
 
-Rendezvous is through the GCS KV (namespace "collective"): each rank
-registers ``<group>/meta/<rank>`` and init blocks until all ranks are
-present, mirroring the reference's named-actor NCCL-uid rendezvous.
+The shm group's rendezvous is through the GCS KV (namespace
+"collective"): each rank registers ``<group>/meta/<rank>`` and init
+blocks until all ranks are present, mirroring the reference's
+named-actor NCCL-uid rendezvous.  The device group's is the domain's.
 """
 
 from __future__ import annotations
@@ -21,12 +25,15 @@ import pickle
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
+from ray_tpu_torch.util.collective.collective_group.device_group import (
+    DeviceCollectiveGroup,
+)
 from ray_tpu_torch.util.collective.collective_group.shm_group import (
     ShmCollectiveGroup, _POLL_MAX, _POLL_MIN,
 )
 from ray_tpu_torch.util.collective.types import Backend, ReduceOp
 
-_groups: Dict[str, ShmCollectiveGroup] = {}
+_groups: Dict[str, Any] = {}
 
 
 def _register_alias(alias: str, group_name: str) -> None:
@@ -53,15 +60,26 @@ def init_collective_group(world_size: int, rank: int,
                           backend: str = "shm",
                           group_name: str = "default") -> None:
     """Register this process as ``rank`` of ``group_name`` and block until
-    all ``world_size`` ranks have registered."""
+    all ``world_size`` ranks have registered.  ``device`` / ``nccl``: the
+    ranks of this process's ``torch.distributed`` domain, which must be
+    ``world_size`` ranks with this one at ``rank`` (``nccl`` forces that
+    transport)."""
     if group_name in _groups:
         raise RuntimeError(f"collective group {group_name!r} already "
                            "initialized in this process")
     b = Backend.coerce(backend)
-    if b != Backend.SHM:
-        raise NotImplementedError(
-            f"the {b.value!r} backend is the device group of the multi-GPU "
-            "slice (ROADMAP queue A, item 8); use 'shm'")
+    if b in (Backend.DEVICE, Backend.NCCL):
+        from ray_tpu_torch.parallel import multihost
+        if multihost.is_distributed() and (
+                multihost.process_count(), multihost.process_index()) \
+                != (world_size, rank):
+            raise ValueError(
+                f"group {group_name!r}: rank {rank} of {world_size}, but "
+                f"this process is rank {multihost.process_index()} of a "
+                f"domain of {multihost.process_count()}")
+        _groups[group_name] = DeviceCollectiveGroup.over_domain(
+            group_name, "nccl" if b == Backend.NCCL else None)
+        return
     g = ShmCollectiveGroup(world_size, rank, group_name)
     meta = pickle.dumps({"world_size": world_size, "backend": b.value})
     g._kv_put(f"{group_name}/meta/{rank}", meta)
@@ -118,6 +136,9 @@ def destroy_collective_group(group_name: str = "default") -> None:
     for k, v in list(_groups.items()):
         if v is g:
             del _groups[k]
+    if isinstance(g, DeviceCollectiveGroup):
+        g.destroy()
+        return
     import re
     # exactly this rank's phase keys (<group>/<seq>/<phase>/<rank>), its
     # meta key, and p2p keys it SENT (<group>/p2p/<rank>-<dst>/<seq>) —
@@ -131,7 +152,7 @@ def destroy_collective_group(group_name: str = "default") -> None:
     g.destroy()
 
 
-def _group(group_name: str) -> ShmCollectiveGroup:
+def _group(group_name: str) -> Any:
     g = _groups.get(group_name)
     if g is None:
         raise RuntimeError(

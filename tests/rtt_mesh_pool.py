@@ -1,0 +1,432 @@
+"""A pool of gloo ranks for the port's mesh tests, and the functions the
+ranks run.
+
+``RankPool(world)`` spawns ``world`` processes once (a test module's
+fixture), each joined to one ``torch.distributed`` gloo domain through a
+``TCPStore`` this process hosts on a free port (``port=0``: nothing waits
+on a fixed port), on the CPU (``multihost.initialize(device="cpu")``).
+``pool.run(fn, *args)`` runs ``fn(*args)`` on every rank and returns the
+ranks' results in rank order; a rank that raises fails the call with its
+traceback, and the pool is torn down (its peers may be stuck in a
+collective).  ``fn`` must be importable by the ranks without JAX: the
+rank-side functions live in this module, which imports no JAX.
+"""
+
+from __future__ import annotations
+
+import os
+import traceback
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+RESULT_TIMEOUT_S = 120.0
+
+
+def _rank_main(rank: int, world: int, port: int, conn) -> None:
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import multihost
+    torch.set_num_threads(1)
+    try:
+        store = dist.TCPStore("127.0.0.1", port, world, False)
+        multihost.initialize(f"127.0.0.1:{port}", world, rank,
+                             device="cpu", store=store)
+        conn.send(("ok", None))
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        conn.send(("err", traceback.format_exc()))
+        return
+    while True:
+        msg = conn.recv()
+        if msg is None:
+            break
+        fn, args = msg
+        try:
+            conn.send(("ok", fn(*args)))
+        except BaseException:  # noqa: BLE001 - reported to the parent
+            conn.send(("err", traceback.format_exc()))
+    multihost.shutdown()
+
+
+class RankPool:
+    """``world`` gloo ranks on the CPU, spawned once."""
+
+    def __init__(self, world: int):
+        import multiprocessing as mp
+
+        import torch.distributed as dist
+        self.world = world
+        self.store = dist.TCPStore("127.0.0.1", 0, world + 1, True,
+                                   wait_for_workers=False)
+        ctx = mp.get_context("spawn")
+        self.conns, self.procs = [], []
+        for r in range(world):
+            parent, child = ctx.Pipe()
+            p = ctx.Process(target=_rank_main, args=(
+                r, world, self.store.port, child), daemon=True,
+                name=f"rtt-rank-{r}")
+            p.start()
+            self.conns.append(parent)
+            self.procs.append(p)
+        self._collect("the domain's rendezvous")
+
+    def _collect(self, what: str) -> List[Any]:
+        out = []
+        for r, c in enumerate(self.conns):
+            if not c.poll(RESULT_TIMEOUT_S):
+                self.close()
+                raise TimeoutError(f"rank {r}: no answer to {what} in "
+                                   f"{RESULT_TIMEOUT_S} s")
+            status, val = c.recv()
+            if status != "ok":
+                self.close()
+                raise RuntimeError(f"rank {r} failed in {what}:\n{val}")
+            out.append(val)
+        return out
+
+    def run(self, fn, *args) -> List[Any]:
+        for c in self.conns:
+            c.send((fn, args))
+        return self._collect(getattr(fn, "__name__", str(fn)))
+
+    def close(self) -> None:
+        for c in self.conns:
+            try:
+                c.send(None)
+            except (OSError, BrokenPipeError):
+                pass
+        for p in self.procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=5)
+        self.conns, self.procs = [], []
+
+
+# ------------------------------------------------------------ rank helpers
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def _tree_np(tree: Any) -> Any:
+    from ray_tpu_torch.parallel import transforms as tx
+    return tx.tree_map(_np, tree)
+
+
+def _mesh(**axes):
+    from ray_tpu_torch.parallel.mesh import Mesh, MeshConfig
+    return Mesh(MeshConfig(**axes), device="cpu")
+
+
+def _grads(loss_fn, leaves: List[torch.Tensor]) -> List[torch.Tensor]:
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = loss_fn()
+    return list(torch.autograd.grad(loss, leaves))
+
+
+# --------------------------------------------------- collective matmuls
+def rank_collective_matmul(kind: str, n: int, x: np.ndarray,
+                           w: np.ndarray) -> Dict[str, Any]:
+    """Rank side of the primitives' test: this rank's shards of x and w
+    (``kind`` "ag": x split on rows, w on columns; "rs": x on columns,
+    w on rows) over a ``tensor`` ring of n (the pool's other ranks on
+    ``data``), the output and the gradients of sum(sin(y)) for the ring
+    and the ``_reference`` pair."""
+    from ray_tpu_torch.ops import collective_matmul as cm
+    world = int(torch.distributed.get_world_size())
+    mesh = _mesh(data=world // n, tensor=n)
+    i = mesh.coords["tensor"]
+    X, W = torch.from_numpy(x), torch.from_numpy(w)
+    if kind == "ag":
+        xl = X.chunk(n, dim=-2)[i].contiguous()
+        wl = W.chunk(n, dim=-1)[i].contiguous()
+        fns = {"ring": cm.all_gather_matmul,
+               "reference": cm.all_gather_matmul_reference}
+    else:
+        xl = X.chunk(n, dim=-1)[i].contiguous()
+        wl = W.chunk(n, dim=-2)[i].contiguous()
+        fns = {"ring": cm.matmul_reduce_scatter,
+               "reference": cm.matmul_reduce_scatter_reference}
+    out = {}
+    for name, fn in fns.items():
+        a, b = xl.clone(), wl.clone()
+        y = fn(a, b, "tensor", n, mesh)
+        gx, gw = _grads(lambda: torch.sin(fn(a, b, "tensor", n, mesh)).sum(),
+                        [a, b])
+        out[name] = {"y": _np(y), "dx": _np(gx), "dw": _np(gw)}
+    mesh.destroy()
+    return {"tensor": i, **out}
+
+
+def rank_ring_scan_order(n: int) -> List[int]:
+    """The source of each step's resident block: (block value) - (me - s)
+    mod n, which must be 0 at every step."""
+    from ray_tpu_torch.ops.collective_matmul import ring_scan
+    world = int(torch.distributed.get_world_size())
+    mesh = _mesh(data=world // n, tensor=n)
+    me = mesh.coords["tensor"]
+
+    def body(step, seen, blk):
+        seen.append(int(blk.item()) - (me - step) % n)
+        return seen
+
+    seen = ring_scan(body, [], torch.tensor(me), axis_name="tensor",
+                     axis_size=n, mesh=mesh)
+    mesh.destroy()
+    return seen
+
+
+def rank_ring_scan_overlap(n: int) -> List[str]:
+    """The order of events in a ring_scan under autograd: each
+    permutation issued (``start``) and waited for (``wait``), and body's
+    forward and backward at each step (``fwd<s>`` / ``bwd<s>``), through
+    the forward and the backward of sum(carry)."""
+    from ray_tpu_torch.ops.collective_matmul import ring_scan
+    from ray_tpu_torch.util.collective.collective_group import device_group
+    world = int(torch.distributed.get_world_size())
+    mesh = _mesh(data=world // n, tensor=n)
+    log: List[str] = []
+
+    class Mark(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, step):
+            ctx.step = step
+            log.append(f"fwd{step}")
+            return x.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            log.append(f"bwd{ctx.step}")
+            return g, None
+
+    start, wait = (device_group.DeviceCollectiveGroup.permute_start,
+                   device_group._Pending.wait)
+
+    def logged_start(self, *a, **kw):
+        log.append("start")
+        return start(self, *a, **kw)
+
+    def logged_wait(self):
+        log.append("wait")
+        return wait(self)
+
+    device_group.DeviceCollectiveGroup.permute_start = logged_start
+    device_group._Pending.wait = logged_wait
+    try:
+        x = torch.full((4,), float(mesh.coords["tensor"] + 1),
+                       requires_grad=True)
+        out = ring_scan(lambda s, c, blk: c + Mark.apply(blk, s).sum(),
+                        torch.zeros(()), x, axis_name="tensor",
+                        axis_size=n, mesh=mesh)
+        log.append("backward")
+        out.backward()
+    finally:
+        device_group.DeviceCollectiveGroup.permute_start = start
+        device_group._Pending.wait = wait
+    mesh.destroy()
+    return log
+
+
+# ------------------------------------------------ ring / Ulysses attention
+def rank_context_attention(impl: str, n: int, q: np.ndarray, k: np.ndarray,
+                           v: np.ndarray) -> Dict[str, Any]:
+    """This rank's sequence chunk of ring or Ulysses attention over a
+    ``context`` axis of n, and the gradients of sum(sin(out)) w.r.t. its
+    chunks of q, k, v."""
+    from ray_tpu_torch.ops.ring_attention import ring_attention
+    from ray_tpu_torch.ops.ulysses import ulysses_attention
+    world = int(torch.distributed.get_world_size())
+    mesh = _mesh(data=world // n, context=n)
+    c = mesh.coords["context"]
+    loc = [torch.from_numpy(a).chunk(n, dim=1)[c].contiguous()
+           for a in (q, k, v)]
+
+    def attn(q, k, v):
+        if impl == "ring":
+            return ring_attention(q, k, v, axis_name="context", axis_size=n,
+                                  mesh=mesh)
+        return ulysses_attention(q, k, v, axis_name="context", mesh=mesh)
+
+    out = attn(*loc)
+    grads = _grads(lambda: torch.sin(attn(*loc)).sum(), loc)
+    mesh.destroy()
+    return {"context": c, "out": _np(out), "grads": [_np(g) for g in grads]}
+
+
+# ------------------------------------------------------------- pipeline
+def _pipe_stage(p, x):
+    for i in range(p["w"].shape[0]):
+        x = torch.tanh(x @ p["w"][i])
+    return x
+
+
+def rank_pipeline(stage_params: Dict[str, np.ndarray], x_micro: np.ndarray,
+                  stages: int, remat: bool) -> Dict[str, Any]:
+    """``pipeline_apply`` over a ``pipeline`` axis of ``stages`` (the other
+    ranks on ``data``): the output (every rank's), and the gradients of
+    sum(out²) for this rank's stage and for x by the mesh program's rule
+    (summed over the ranks that hold a copy, over the number of ranks)."""
+    from ray_tpu_torch.parallel import collectives as col
+    from ray_tpu_torch.parallel.pipeline import pipeline_apply
+    world = int(torch.distributed.get_world_size())
+    mesh = _mesh(data=world // stages, pipeline=stages)
+    s = mesh.coords["pipeline"]
+    local = {k: torch.from_numpy(v[s:s + 1]).clone()
+             for k, v in stage_params.items()}
+    x = torch.from_numpy(x_micro).clone()
+
+    def run():
+        return pipeline_apply(_pipe_stage, local, x, mesh=mesh,
+                              remat=remat)
+
+    out = run()
+    gw, gx = _grads(lambda: (run() ** 2).sum(), [local["w"], x])
+    gw = col.psum(gw, "data", mesh)              # a copy on every data rank
+    gx = col.psum(gx, ("data", "pipeline"), mesh)  # on every rank
+    mesh.destroy()
+    return {"stage": s, "out": _np(out), "dw": _np(gw / world),
+            "dx": _np(gx / world)}
+
+
+# ---------------------------------------------------------- device group
+def rank_device_group(rows: np.ndarray) -> Dict[str, Any]:
+    """The device group's ops over the whole pool, this rank's tensor
+    being row ``rank`` of ``rows`` (world, world, ...)."""
+    from ray_tpu_torch.util.collective.collective_group.device_group \
+        import DeviceCollectiveGroup
+    g = DeviceCollectiveGroup.over_domain("test")
+    mine = torch.from_numpy(rows[g.rank]).clone()
+    out = {"transport": g.transport, "rank": g.rank,
+           "allreduce": _np(g.allreduce(mine)),
+           "allreduce_max": _np(g.allreduce(mine, "max")),
+           "allgather": _np(g.allgather(mine)),
+           "reducescatter": _np(g.reducescatter(mine)),
+           "alltoall": _np(g.alltoall(mine)),
+           "broadcast": _np(g.broadcast(mine, 1))}
+    g.barrier()
+    return out
+
+
+def rank_multihost_allreduce(rows: np.ndarray) -> Dict[str, Any]:
+    """``multihost.allreduce`` of a tree holding rank r's row r (float32
+    and float64, mean and sum): the results, their dtypes, and the
+    domain device group it rode (its transport, the legs it timed)."""
+    from ray_tpu_torch.parallel import multihost
+    r = multihost.process_index()
+    mine = torch.from_numpy(rows[r])
+    mean = multihost.allreduce({"f": mine, "d": mine.double()}, "mean")
+    total = multihost.allreduce([mine], "sum", dtype=torch.float64)
+    group = multihost.domain_group(torch.device("cpu"))
+    return {"mean": _np(mean["f"]), "mean_dtypes": [str(mean["f"].dtype),
+                                                    str(mean["d"].dtype)],
+            "sum": _np(total[0]), "transport": group.transport,
+            "legs": sorted(multihost.last_allreduce)}
+
+
+def rank_transport(device: str, requested) -> str:
+    """The transport ``choose_transport`` gives for this placement (an
+    error's type and message when it raises)."""
+    from ray_tpu_torch.util.collective.collective_group.device_group \
+        import choose_transport
+    try:
+        return choose_transport(torch.device(device), requested)
+    except (ValueError, RuntimeError) as e:
+        return f"{type(e).__name__}: {e}"
+
+
+# ------------------------------------------------------------ GPT-2 mesh
+def rank_gpt2_train(axes: Dict[str, int], cfg_kw: Dict[str, Any],
+                    params: Dict[str, Any], tokens: np.ndarray,
+                    steps: int, opt_kw: Dict[str, Any],
+                    family: str = "gpt2") -> Dict[str, Any]:
+    """A tiny GPT-2 (or Llama) over the mesh ``axes`` through
+    ``spmd.build_train_program``: the step-0 gradients of this rank's
+    slices (the program's reduction), then ``steps`` steps' losses and
+    grad norms, and this rank's coordinates."""
+    import dataclasses
+
+    from ray_tpu_torch.models import gpt2, llama
+    from ray_tpu_torch.models.convert import params_from_numpy
+    from ray_tpu_torch.parallel import mesh as mesh_lib
+    from ray_tpu_torch.parallel import spmd
+    from ray_tpu_torch.parallel import transforms as tx
+    mod = gpt2 if family == "gpt2" else llama
+    base = mod.tiny(**cfg_kw.pop("tiny", {}))
+    cfg = dataclasses.replace(base, dtype=torch.float32, **cfg_kw)
+    rules = mesh_lib.TRANSFORMER_RULES if family == "gpt2" \
+        else mod.LLAMA_RULES
+    mesh = mesh_lib.Mesh(mesh_lib.MeshConfig(**axes), device="cpu")
+    prog = spmd.build_train_program(
+        loss_fn=lambda p, b: mod.loss_fn(p, b, cfg),
+        init_params_fn=lambda g: params_from_numpy(params, cfg, "cpu"),
+        optimizer=spmd.default_optimizer(**opt_kw), mesh=mesh,
+        rules=rules)
+    state = prog.init_fn(torch.Generator())
+    batch = spmd.shard_batch(prog, {"tokens": tokens})
+    # the step-0 gradients, as the program reduces them
+    leaves = tx.tree_leaves(state.params)
+    with mesh_lib.ambient_mesh(mesh):
+        gs = _grads(lambda: mod.loss_fn(state.params, batch, cfg), leaves)
+    for p in leaves:
+        p.requires_grad_(False)
+    specs = spmd._spec_leaves(mesh_lib.param_specs(state.params, rules))
+    it = iter(gs)
+    gtree = spmd._mesh_reduce(mesh, specs, tx.tree_map(lambda _: next(it),
+                                                       state.params))
+    losses, norms = [], []
+    for _ in range(steps):
+        state, m = prog.step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    mesh.destroy()
+    return {"coords": dict(mesh.coords), "losses": losses, "norms": norms,
+            "grads": _tree_np(gtree), "transport": mesh.transport}
+
+
+
+# ------------------------------------------------------- shards and state
+def rank_shard_params(axes: Dict[str, int], params: Dict[str, Any]
+                      ) -> Dict[str, Any]:
+    """This rank's ``shard_params`` slice of a global GPT-2 tree, and the
+    tree gathered back (``gather_to_host`` by the specs) and placed again
+    (``put_global`` by the specs)."""
+    from ray_tpu_torch.parallel import mesh as mesh_lib
+    from ray_tpu_torch.parallel import multihost
+    from ray_tpu_torch.parallel import transforms as tx
+    mesh = _mesh(**axes)
+    glob = tx.tree_map(torch.from_numpy, params)
+    local = mesh_lib.shard_params(mesh, glob)
+    specs = mesh_lib.param_specs(glob)
+    back = multihost.gather_to_host(local, specs=specs, mesh=mesh)
+    again = multihost.put_global(back, "cpu", specs=specs, mesh=mesh)
+    same = all(torch.equal(a, b) for a, b in zip(tx.tree_leaves(again),
+                                                 tx.tree_leaves(local)))
+    mesh.destroy()
+    return {"coords": dict(mesh.coords), "local": _tree_np(local),
+            "back": back, "placed_again": same}
+
+
+def rank_collective_api(rows: np.ndarray) -> Dict[str, Any]:
+    """util.collective's API over the ``device`` backend: the domain's
+    ranks as one group."""
+    from ray_tpu_torch.util import collective as col
+    world = int(torch.distributed.get_world_size())
+    rank = int(torch.distributed.get_rank())
+    col.init_collective_group(world, rank, "device", "api")
+    try:
+        mine = torch.from_numpy(rows[rank]).clone()
+        out = {"allreduce": _np(col.allreduce(mine, "api")),
+               "rank": col.get_rank("api"),
+               "size": col.get_collective_group_size("api")}
+        if rank == 0:
+            col.send(mine * 3, 1, "api")
+        elif rank == 1:
+            out["recv"] = _np(col.recv(0, "api"))
+        col.barrier("api")
+    finally:
+        col.destroy_collective_group("api")
+    out["after"] = col.is_group_initialized("api")
+    return out

@@ -320,6 +320,8 @@ def test_recv_reads_before_it_releases_the_key():
 def test_backends():
     assert Backend.coerce("gloo") == Backend.SHM
     assert Backend.coerce("shm") == Backend.SHM
-    with pytest.raises(NotImplementedError, match="queue A, item 8"):
+    assert Backend.coerce("xla") == Backend.DEVICE
+    # the device group needs a torch.distributed domain to stand on
+    with pytest.raises(RuntimeError, match="torch.distributed domain"):
         col.init_collective_group(1, 0, "nccl", "never")
     assert not col.is_group_initialized("never")

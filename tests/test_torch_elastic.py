@@ -617,12 +617,14 @@ def test_placement_group_lifetime_detached(ray_start_regular):
 
 def test_torch_config_elastic_fields_and_nccl_still_raises():
     """``elastic`` and ``drain_handler`` are accepted with the reference's
-    knobs; ``use_distributed=True`` still raises, naming item 8."""
+    knobs; ``use_distributed=True`` is the mesh route, and with
+    ``elastic`` (which forms each generation's domain itself) it raises."""
     from ray_tpu_torch.train import TorchConfig
     cfg = TorchConfig(elastic=True, drain_handler=print,
                       elastic_total_steps=3, elastic_gather_every=2)
     assert (cfg.elastic_min_workers, cfg.elastic_auto_rejoin,
             cfg.elastic_quiesce_timeout_s, cfg.elastic_timeout_s) == \
         (1, True, 60.0, 600.0)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TorchConfig(use_distributed=True)
+    assert TorchConfig(use_distributed=True).use_distributed
+    with pytest.raises(ValueError, match="elastic"):
+        TorchConfig(use_distributed=True, elastic=True)

@@ -224,7 +224,10 @@ def test_auto_attention_is_flash_on_cuda_and_context_parallel_raises():
     assert resolved_attn_impl(cfg, torch.device("cuda")) == "flash"
     assert resolved_attn_impl(cfg, torch.device("cpu")) == "dense"
     toks = torch.zeros((1, 4), dtype=torch.long)
+    # context parallelism without a mesh is dense attention, as the
+    # reference's ring hook (over a mesh: tests/test_torch_context_parallel)
     _, tcfg = _cfgs("ring")
+    _, dcfg = _cfgs("dense")
     tp = tllama.init_params(torch.Generator(), tcfg, "cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tllama.forward(tp, toks, tcfg)
+    torch.testing.assert_close(tllama.forward(tp, toks, tcfg),
+                               tllama.forward(tp, toks, dcfg))

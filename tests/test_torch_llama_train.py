@@ -125,7 +125,8 @@ def test_remat_on_matches_remat_off(init_trees, name):
 
 def test_config_takes_the_reference_fields():
     """remat and context_axis are the reference's fields, with its
-    defaults; ring and ulysses still wait for the multi-GPU slice."""
+    defaults; ulysses without a mesh is dense attention (over a mesh:
+    tests/test_torch_context_parallel.py)."""
     for field in ("remat", "context_axis"):
         assert getattr(tllama.LlamaConfig(), field) == \
             getattr(jllama.LlamaConfig(), field)
@@ -134,8 +135,10 @@ def test_config_takes_the_reference_fields():
     cfg = dataclasses.replace(tllama.tiny(), attn_impl="ulysses",
                               context_axis="context")
     tp = tllama.init_params(torch.Generator(), cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tllama.forward(tp, torch.zeros((1, 4), dtype=torch.long), cfg)
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    torch.testing.assert_close(
+        tllama.forward(tp, toks, cfg),
+        tllama.forward(tp, toks, dataclasses.replace(cfg, attn_impl="dense")))
 
 
 def test_rules_are_the_reference_partition_specs():

@@ -512,7 +512,10 @@ def test_entry_points_raise_without_card_unless_cpu(monkeypatch, init_tree):
     {"mesh": ["cpu", "cpu"]},
 ])
 def test_more_than_one_device_raises(placement):
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    """Outside a torch.distributed domain a layout of more than one
+    device cannot be placed (a mesh is one process a rank, over a
+    domain), and a list of devices is not a mesh."""
+    with pytest.raises(ValueError, match="devices|not a mesh"):
         tspmd.build_train_program(loss_fn=lambda p, b: 0,
                                   init_params_fn=lambda g: {},
                                   device="cpu", **placement)

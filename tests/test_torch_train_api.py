@@ -327,14 +327,14 @@ def test_use_gpu_without_a_card_times_out(cluster, tmp_path):
 
 
 @pytest.mark.parametrize("setting, unported", [
-    ({"use_distributed": True}, True),
+    ({"use_distributed": True}, False),
     ({"drain_handler": print}, False),
     ({"elastic": True}, False)],
     ids=["use_distributed", "drain_handler", "elastic"])
 def test_unported_settings_raise(setting, unported):
-    """NCCL (``use_distributed``) waits for the multi-GPU slice and raises
-    naming it; the drain subscription and the elastic route are ported
-    and take their settings."""
+    """Every setting is ported now: the distributed domain
+    (``use_distributed``, the mesh route), the drain subscription and
+    the elastic route take their settings."""
     if unported:
         with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
             TorchConfig(**setting)
