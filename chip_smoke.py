@@ -8733,8 +8733,6 @@ ELASTIC_STORE_MB = 8192          # two 1.5 GB states may be live at once
 # prefix is a lower bound of the whole run's).
 ELASTIC_LOSS_TOL = 0.02
 ELASTIC_FAULT_STEPS = 4
-
-
 def elastic_tokens(vocab: int) -> np.ndarray:
     """The elastic phase's global batch: (ELASTIC_BATCH, ELASTIC_SEQ + 1)
     token ids from SEED."""
@@ -9236,7 +9234,8 @@ def elastic_phase(dev, train_res: dict, tag: str,
 
 # --------------------------------------------------------- model_parallel
 # Model parallelism across ranks (the model_parallel phase): GPT-2 124M at
-# the preset's width and depth, b4 x 1024, bf16 activations, trained
+# the preset's width and MP_LAYERS of its 12 layers, b4 x 1024, bf16
+# activations, trained
 # MP_STEPS steps under each layout in MP_LAYOUTS by two GPU: 0.5 workers
 # that share the card, in one torch.distributed domain
 # (TorchConfig(use_distributed=True)): its device group must choose the
@@ -9249,19 +9248,22 @@ def elastic_phase(dev, train_res: dict, tag: str,
 # step's params from the reference's rows (an output of every attention
 # layer: at GPT-2's init a random batch's loss and norm hardly depend on
 # the hidden states).  The block matrices are drawn x3 (as the engine
-# phase's).  The limits come from the card (PERF.md §6, PR 22:
-# probes/model_parallel_probe.py, deterministic run to run): the worst
-# healthy bf16 gaps were 2.89e-4 (loss), 2.76e-4 (norm), 1.44e-2
-# (hidden), all tensor=2, whose reduce-scatter rounds each rank's partial
-# to bf16 before the float32 sum, as the reference's does; the limits are
-# ~3x those.  At x8 the bf16 step is ill-conditioned: against a float32
+# phase's).  The limits come from the card (PERF.md §6:
+# probes/model_parallel_probe.py, deterministic run to run): at 6
+# layers the worst healthy bf16 gaps were 2.77e-4 (loss, tensor=2),
+# 1.16e-4 (norm, Ulysses), 1.16e-2 (hidden, tensor=2, whose
+# reduce-scatter rounds each rank's partial to bf16 before the float32
+# sum, as the reference's does); the limits are ~3x those (at 12 layers
+# the gaps were 2.89e-4 / 2.76e-4 / 1.44e-2, the norm's limit 9e-4).  At
+# x8 the bf16 step is ill-conditioned: against a float32
 # witness (probes/attention_precision_probe.py) every bf16 attention path
 # misses the grad norm by 2-6 % (flash kernel +2.0 %, the ring's numerics
 # -3.2 %, plain dense -5.9 %) while the float32 flash kernel and dense
 # attention agree to 5e-6, so bf16 layouts part there from the one-rank
 # run by up to 4.3 % (the ring layouts).  The float32 leg (MP_F32_*)
 # holds the ring layouts at x8 instead, where float32 can tell them
-# apart: its worst healthy gap was 1.09e-4 (hidden), its limit ~5x that.
+# apart: its worst healthy gap was 4.15e-5 (hidden; 1.09e-4 at 12
+# layers), its limit ~5x that.
 MP_BATCH, MP_SEQ, MP_STEPS = 4, 1024, 3
 MP_BLOCK_SCALE = 3.0
 MP_LAYOUTS = (
@@ -9279,7 +9281,7 @@ MP_FAULTS = {"mm_rs_drops_last_partial": "tensor",
              "ring_masks_resident_positions": "context_ring"}
 MP_LR = 1e-3                   # constant after one warm-up step
 MP_LOSS_TOL = 1e-3
-MP_NORM_TOL = 9e-4
+MP_NORM_TOL = 4e-4
 MP_HIDDEN_TOL = 4e-2
 # the float32 leg: the ring layouts at the block scale where bf16 paths
 # part (see above), one step each against the float32 one-rank run (the
@@ -9288,9 +9290,18 @@ MP_HIDDEN_TOL = 4e-2
 MP_F32_SCALE, MP_F32_STEPS = 8.0, 1
 MP_F32_LAYOUTS = ("seq", "context_ring")
 MP_F32_FAULTS = {"ring_masks_resident_positions": "context_ring"}
-MP_F32_TOL = 5e-4
+MP_F32_TOL = 2e-4
 MP_FAULT_MARGIN = 5.0
 MP_BUDGET_S = 90.0
+# GPT-2 124M's width at MP_LAYERS of its 12 layers (each layout's steps
+# are gloo's, which the depth scales)
+MP_LAYERS = 6
+
+
+def mp_config():
+    import dataclasses
+    from ray_tpu_torch.models import gpt2
+    return dataclasses.replace(gpt2.gpt2_small(), n_layer=MP_LAYERS)
 # the device group's all-reduce: bf16 tensors of 1 KB, 4 KB, ... 1 GB
 MP_ALLREDUCE_BYTES = tuple(1024 * 4 ** i for i in range(11))
 
@@ -9524,7 +9535,6 @@ def mp_loop(config: dict) -> None:
     ``mp_rank_<r>.json`` in the run's storage, its hidden states to
     ``mp_hidden_<r>.pt``."""
     from ray_tpu_torch import train
-    from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.parallel import multihost
     from ray_tpu_torch.util.collective import collective as col
     ctx = train.get_context()
@@ -9536,27 +9546,31 @@ def mp_loop(config: dict) -> None:
         _build.lib()                # the driver's build: no nvcc here
         disable_tf32()
     group = col._group("train_default")
-    base = config.get("cfg") or gpt2.gpt2_small()
+    base = config.get("cfg") or mp_config()
     out = {"rank": rank, "pid": os.getpid(), "device": str(dev),
            "process_count": multihost.process_count(),
            "transport": group.transport}
     hidden = {}
-    for kind, name, axes, kw, scale, fault in mp_runs(
-            config.get("block_scale", MP_BLOCK_SCALE)):
-        t = time.perf_counter()
-        with mp_plant(fault):
-            run = mp_run(dev, base, axes, kw, mp_steps(kind), scale)
-        run["wall_s"] = time.perf_counter() - t
-        hidden[f"{kind}/{name}"] = run.pop("hidden")
-        out.setdefault(kind, {})[name] = run
-    t = time.perf_counter()
-    out["allreduce"] = mp_allreduce_sweep(
-        group, dev, config.get("allreduce_bytes", MP_ALLREDUCE_BYTES))
-    out["allreduce_wall_s"] = time.perf_counter() - t
     store = ctx.get_storage_path()
-    torch.save(hidden, os.path.join(store, f"mp_hidden_{rank}.pt"))
-    with open(os.path.join(store, f"mp_rank_{rank}.json"), "w") as f:
-        json.dump(out, f)
+    if config.get("layouts", True):
+        for kind, name, axes, kw, scale, fault in mp_runs(
+                config.get("block_scale", MP_BLOCK_SCALE)):
+            t = time.perf_counter()
+            with mp_plant(fault):
+                run = mp_run(dev, base, axes, kw, mp_steps(kind), scale)
+            run["wall_s"] = time.perf_counter() - t
+            hidden[f"{kind}/{name}"] = run.pop("hidden")
+            out.setdefault(kind, {})[name] = run
+        t = time.perf_counter()
+        out["allreduce"] = mp_allreduce_sweep(
+            group, dev, config.get("allreduce_bytes", MP_ALLREDUCE_BYTES))
+        out["allreduce_wall_s"] = time.perf_counter() - t
+        torch.save(hidden, os.path.join(store, f"mp_hidden_{rank}.pt"))
+        with open(os.path.join(store, f"mp_rank_{rank}.json"), "w") as f:
+            json.dump(out, f)
+    if config.get("ze_dataset") is not None:
+        # the zero_expert phase, on the same workers
+        ze_worker(dev, config, store, rank)
     train.report({"done": 1.0})
 
 
@@ -9576,15 +9590,20 @@ def mp_gaps(run: dict, hidden: torch.Tensor, ref: dict) -> tuple:
 
 def model_parallel_phase(dev, tag: str, device: Optional[str] = None,
                          cfg=None, allreduce_bytes=MP_ALLREDUCE_BYTES,
-                         block_scale: float = MP_BLOCK_SCALE) -> dict:
-    """The model_parallel phase (see MP_*).  ``device`` "cpu" runs the
-    workers on the CPU and ``cfg`` replaces gpt2_small() (a rehearsal;
-    the card checks fail there); ``block_scale`` replaces MP_BLOCK_SCALE
-    (the sweep behind it)."""
+                         block_scale: float = MP_BLOCK_SCALE,
+                         layouts: bool = True, zero_expert: bool = True,
+                         ze_cfgs: Optional[dict] = None) -> dict:
+    """The model_parallel phase (see MP_*), and on its workers the
+    zero_expert phase (see ZE_*; its results under ``"zero_expert"``,
+    with its own ``wall_s``: the driver's one-rank runs, the workers'
+    legs and the checks).  ``device`` "cpu" runs the workers on the CPU
+    and ``cfg`` replaces mp_config(), ``ze_cfgs`` the legs' configs (a
+    rehearsal; the card checks fail there); ``block_scale`` replaces
+    MP_BLOCK_SCALE (the sweep behind it); ``layouts`` / ``zero_expert``
+    False leave either out."""
     import ray_tpu_torch as rt
     from ray_tpu_torch import train
     from ray_tpu_torch._private import shm_store
-    from ray_tpu_torch.models import gpt2
 
     here = os.path.dirname(os.path.abspath(__file__))
     saved_path = os.environ.get("PYTHONPATH")
@@ -9593,7 +9612,7 @@ def model_parallel_phase(dev, tag: str, device: Optional[str] = None,
         [here] + ([saved_path] if saved_path else []))
     storage = tempfile.mkdtemp(prefix="rtt_mp_")
     atexit.register(shutil.rmtree, storage, ignore_errors=True)
-    base = cfg or gpt2.gpt2_small()
+    base = cfg or mp_config()
     watch = ClusterWatch(shm_store._SHM_DIR)
     res: dict = {}
     t_phase = time.perf_counter()
@@ -9603,16 +9622,33 @@ def model_parallel_phase(dev, tag: str, device: Optional[str] = None,
         # the driver's one-rank runs, bf16 and the float32 leg's, while
         # the GPU workers boot
         t = time.perf_counter()
-        ref = mp_run(dev, base, None, {}, MP_STEPS, block_scale)
-        ref32 = mp_run(dev, base, None, {"dtype": torch.float32},
-                       MP_F32_STEPS, MP_F32_SCALE)
+        if layouts:
+            ref = mp_run(dev, base, None, {}, MP_STEPS, block_scale)
+            ref32 = mp_run(dev, base, None, {"dtype": torch.float32},
+                           MP_F32_STEPS, MP_F32_SCALE)
         res["reference_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        ze = {}
+        if zero_expert:
+            ze["dataset"] = ze_dataset(ze_config("xl", ze_cfgs))
+            batches = list(ze["dataset"].iter_batches(batch_size=ZE_BATCH))
+            ze["refs"] = {leg: ze_run(dev, leg, None, ZE_STEPS,
+                                      batches=batches, cfgs=ze_cfgs)
+                          for leg, _ in ZE_LEGS}
+            ze["sums"] = {rows: [host_checksums({"tokens": b["tokens"][
+                slice(*rows)]}) for b in batches]
+                for rows in ((0, ZE_BATCH), (0, ZE_BATCH // 2),
+                             (ZE_BATCH // 2, ZE_BATCH))}
+        ze_ref_s = time.perf_counter() - t
         gpu = device is None
         t = time.perf_counter()
         result = train.TorchTrainer(
             mp_loop, train_loop_config={"cfg": cfg,
                                         "allreduce_bytes": allreduce_bytes,
-                                        "block_scale": block_scale},
+                                        "block_scale": block_scale,
+                                        "layouts": layouts,
+                                        "ze_dataset": ze.get("dataset"),
+                                        "ze_cfgs": ze_cfgs},
             torch_config=train.TorchConfig(use_distributed=True,
                                            device=device),
             scaling_config=train.ScalingConfig(
@@ -9635,6 +9671,30 @@ def model_parallel_phase(dev, tag: str, device: Optional[str] = None,
     check_cluster_gone(watch, "model_parallel", tag)
     if result.error is not None:
         fail(f"model_parallel: the fit failed: {result.error!r}")
+        return res
+    if zero_expert:
+        t = time.perf_counter()
+        ze_ranks, ze_hidden = [], []
+        for r in range(2):
+            with open(os.path.join(storage, "model_parallel",
+                                   f"ze_rank_{r}.json")) as f:
+                ze_ranks.append(json.load(f))
+            ze_hidden.append(torch.load(os.path.join(
+                storage, "model_parallel", f"ze_hidden_{r}.pt")))
+            ze_ranks[-1]["rank"] = r
+        res["zero_expert"] = zero_expert_check(
+            ze_ranks, ze_hidden, ze["refs"], ze["sums"], gpu, tag, ze_cfgs)
+        workers_s = max(o["wall_s"] for o in ze_ranks)
+        wall = ze_ref_s + workers_s + time.perf_counter() - t
+        res["zero_expert"]["wall_s"] = wall
+        print(f"zero_expert driver's one-rank runs {ze_ref_s:.1f} s, the "
+              f"workers' legs {workers_s:.1f} s, phase {wall:.1f} s of "
+              f"its {ZE_BUDGET_S:.0f} [{tag}]", flush=True)
+        if wall > ZE_BUDGET_S:
+            print(f"zero_expert: the phase took {wall:.1f} s, over its "
+                  f"budget of {ZE_BUDGET_S:.0f} s [{tag}]", flush=True)
+        del ze
+    if not layouts:
         return res
     ranks, hidden = [], []
     for r in range(2):
@@ -9752,7 +9812,8 @@ def model_parallel_phase(dev, tag: str, device: Optional[str] = None,
     if not all(r["correct"] for o in ranks for r in o["allreduce"]):
         bad.append("the all-reduce sweep summed wrong")
     res["allreduce"] = sweep
-    res["wall_s"] = time.perf_counter() - t_phase
+    res["wall_s"] = time.perf_counter() - t_phase - res.get(
+        "zero_expert", {}).get("wall_s", 0.0)
     print(f"model_parallel fit {res['fit_s']:.1f} s, reference "
           f"{res['reference_s']:.1f} s, phase {res['wall_s']:.1f} s of its "
           f"{MP_BUDGET_S:.0f} [{tag}]", flush=True)
@@ -9764,6 +9825,484 @@ def model_parallel_phase(dev, tag: str, device: Optional[str] = None,
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+    return res
+
+
+# ------------------------------------------------------------- zero_expert
+# ZeRO-3 and expert parallelism on two ranks that share the card, run by
+# the model_parallel phase's workers after its layouts (one boot for
+# both).  Leg "xl": BASELINE #5's recipe (bench.py:366-374: remat "attn",
+# bf16 params, bf16 moments) at GPT-2 xl's full width (E 1600, 25 heads,
+# T 1024, vocab 50257) and ZE_XL_LAYERS of its 48 layers under
+# MeshConfig(fsdp=2), a global batch of 8 (4 rows a rank).  Leg "moe":
+# moe-small at full width and depth (E 768, 8 experts, ff 3072, top-2,
+# capacity 1.25, 12 layers) under MeshConfig(expert=2), b8 x 1024
+# (MOE_TRAIN_BATCH) on both ranks.  Each leg takes ZE_STEPS steps, its
+# batches from one token Dataset through iter_device_batches(sharding=
+# NamedSharding(mesh, batch_spec)) (each rank's rows checked on the card
+# against the driver's numpy rows by checksum), and is held to the
+# driver's one-rank run of the same params and batches: the losses (max
+# over steps of |loss - ref| in units of the reference's first loss), the
+# first grad norm (relative), the step-0 final-LN hidden states (relative
+# L2 over the rank's rows), and for MoE the step-0 aux loss (relative)
+# and fraction dropped (absolute).  The limits come from the card
+# (PERF.md §6: probes/zero_expert_probe.py).  The worst healthy
+# gaps were: xl loss 2.39e-6, norm 2.18e-3 (the one-rank norm sums bf16
+# squares and rounds to bf16, up to ~4e-3 off; the mesh's is float32),
+# hidden 0; moe loss 5.68e-5 (from the second update on), norm, hidden,
+# aux and dropped 0.  The step-0 forward is bitwise the one-rank one
+# (the gather returns the weights bitwise; each token's two expert
+# products meet in one float32 add on either side), so a gap of 0 gets a
+# floor (hidden 1e-4, norm 1e-4, aux 1e-5, dropped 1e-4: ten token-layer
+# flips of 8,192 x 12), the others ~3-4x the worst gap.  Each planted
+# fault (ZE_FAULTS, one step each: the first step's numbers read them)
+# must land beyond the limits by ZE_FAULT_MARGIN.
+ZE_XL_LAYERS = 4
+ZE_BATCH, ZE_SEQ, ZE_STEPS = 8, 1024, 3
+ZE_LEGS = (("xl", {"fsdp": 2}), ("moe", {"expert": 2}))
+ZE_FAULTS = {"fsdp_rs_keeps_own": "xl", "clip_counts_one_shard": "xl",
+             "capacity_from_local_experts": "moe",
+             "reads_other_expert_slice": "moe"}
+ZE_FAULT_STEPS = 1
+ZE_TOLS = {"xl": {"loss": 1e-5, "norm": 1e-2, "hidden": 1e-4},
+           "moe": {"loss": 2e-4, "norm": 1e-4, "hidden": 1e-4,
+                   "aux": 1e-5, "dropped": 1e-4}}
+ZE_FAULT_MARGIN = 5.0
+ZE_BUDGET_S = 75.0
+
+
+def ze_config(leg: str, cfgs: Optional[dict] = None):
+    """A leg's model config (``cfgs``: a rehearsal's replacements)."""
+    import dataclasses
+
+    from ray_tpu_torch.models import moe_transformer as mt
+    if cfgs and leg in cfgs:
+        return cfgs[leg]
+    if leg == "xl":
+        return dataclasses.replace(xl_config(), n_layer=ZE_XL_LAYERS)
+    return mt.moe_small()
+
+
+def ze_family(leg: str):
+    """(module, rules) of a leg."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.models import moe_transformer as mt
+    from ray_tpu_torch.parallel import mesh as mesh_lib
+    return (gpt2, mesh_lib.TRANSFORMER_RULES) if leg == "xl" \
+        else (mt, mt.MOE_TRANSFORMER_RULES)
+
+
+def ze_dataset(cfg, batches: int = ZE_STEPS, rows: int = ZE_BATCH):
+    """The legs' token Dataset: ``batches`` blocks of ``rows`` rows of
+    ZE_SEQ + 1 tokens (``token_dataset``), materialized once."""
+    return token_dataset(rows, batches, min(ZE_SEQ, cfg.n_positions),
+                         cfg.vocab_size).materialize()
+
+
+class ze_plant:
+    """A planted fault in this process, for the ``with`` block:
+    ``fsdp_rs_keeps_own`` — the gather's backward keeps this rank's own
+    piece of the gradient, unsummed over ``fsdp``;
+    ``clip_counts_one_shard`` — the global norm (clip and report) counts
+    an ``fsdp``-split leaf's squares on this rank only;
+    ``capacity_from_local_experts`` — the capacity computed from this
+    rank's X/ep experts instead of X; ``reads_other_expert_slice`` — the
+    rank runs its expert slice as the other rank's experts; None, no
+    fault."""
+
+    def __init__(self, fault: Optional[str]):
+        self.fault, self.undo = fault, []
+
+    def _swap(self, owner, name, value):
+        self.undo.append((owner, name, owner.__dict__[name]))
+        setattr(owner, name, value)
+
+    def __enter__(self):
+        from ray_tpu_torch.ops import moe
+        from ray_tpu_torch.parallel import collectives as col
+        from ray_tpu_torch.parallel import mesh as mesh_lib
+        from ray_tpu_torch.parallel import spmd
+        f = self.fault
+        if f is None:
+            return self
+        if f == "fsdp_rs_keeps_own":
+            def backward(ctx, gy):
+                i, d = ctx.g.rank, ctx.dim
+                gy = col._pad_to(gy.float(), d, ctx.piece * ctx.g.world_size)
+                own = gy.narrow(d, i * ctx.piece, ctx.piece)
+                return own.narrow(d, 0, ctx.n).to(ctx.dtype), None, None, \
+                    None, None
+            self._swap(col._AllGatherUneven, "backward",
+                       staticmethod(backward))
+        elif f == "clip_counts_one_shard":
+            real = spmd._mesh_norm
+
+            def one_shard(mesh, specs):
+                def strip(s):
+                    return mesh_lib.P(*(None if "fsdp" in
+                                        mesh_lib.entry_axes(e) else e
+                                        for e in s))
+                return real(mesh, [strip(s) for s in specs])
+            self._swap(spmd, "_mesh_norm", one_shard)
+        elif f == "capacity_from_local_experts":
+            real = moe.expert_capacity
+            self._swap(moe, "expert_capacity",
+                       lambda n, e, k, cf: real(n, e // 2, k, cf))
+        elif f == "reads_other_expert_slice":
+            real = moe._route
+
+            def other(mesh, gates):
+                r = real(mesh, gates)
+                e = 1 - mesh.coords["expert"]
+                return r._replace(e0=mesh_lib.shard_bounds(
+                    gates.shape[1], mesh.shape["expert"], e)[0])
+            self._swap(moe, "_route", other)
+        else:
+            raise ValueError(f"unknown fault {f!r}")
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, value in reversed(self.undo):
+            setattr(owner, name, value)
+        return False
+
+
+class ze_bytes:
+    """Bytes gathered (the gathered tensors' size), reduce-scattered (the
+    reduced tensors' size) and all-reduced (the tensors' size: psums and
+    the step's gradient sums) by the mesh collectives while it is
+    entered, counted around ``collectives``' two primitives and the
+    device group's all-reduce."""
+
+    KEYS = ("gathered", "reduce_scattered", "all_reduced")
+
+    def __enter__(self):
+        from ray_tpu_torch.parallel import collectives as col
+        from ray_tpu_torch.util.collective.collective_group.device_group \
+            import DeviceCollectiveGroup as group
+        self.col, self.group = col, group
+        self.counts = dict.fromkeys(self.KEYS, 0)
+        self.real = (col._all_gather, col._psum_scatter, group.all_reduce)
+
+        def gather(x, g, dim):
+            out = self.real[0](x, g, dim)
+            self.counts["gathered"] += out.numel() * out.element_size()
+            return out
+
+        def scatter(x, g, dim):
+            self.counts["reduce_scattered"] += x.numel() * x.element_size()
+            return self.real[1](x, g, dim)
+
+        def all_reduce(g, t, *a, **kw):
+            self.counts["all_reduced"] += t.numel() * t.element_size()
+            return self.real[2](g, t, *a, **kw)
+
+        col._all_gather, col._psum_scatter = gather, scatter
+        group.all_reduce = all_reduce
+        return self
+
+    def take(self) -> dict:
+        out = dict(self.counts)
+        self.counts.update(dict.fromkeys(self.KEYS, 0))
+        return out
+
+    def __exit__(self, *exc):
+        self.col._all_gather, self.col._psum_scatter = self.real[:2]
+        self.group.all_reduce = self.real[2]
+        return False
+
+
+def ze_state_check(state, params, mesh, rules, moments_dtype) -> dict:
+    """A rank's state against the global init: every param leaf bitwise
+    the slice its coordinates select, every Adam moment shaped as its
+    param's slice and stored in ``moments_dtype``."""
+    from ray_tpu_torch.parallel import mesh as mesh_lib
+    from ray_tpu_torch.parallel import transforms as tx
+    specs = mesh_lib.param_specs(params, rules)
+    exact = all(torch.equal(p, mesh_lib.NamedSharding(mesh, s)
+                            .local_slice(g))
+                for p, g, s in zip(tx.tree_leaves(state.params),
+                                   tx.tree_leaves(params),
+                                   tx.tree_leaves(specs)))
+    moments = []
+
+    def walk(node):
+        if isinstance(node, dict) and sorted(node) == sorted(state.params):
+            moments.append(node)
+        elif isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+
+    walk(state.opt_state)
+    shaped = len(moments) == 2 and all(
+        m.shape == p.shape and m.dtype == (moments_dtype or p.dtype)
+        for tree in moments for m, p in zip(tx.tree_leaves(tree),
+                                            tx.tree_leaves(state.params)))
+    return {"params_exact": exact, "moments_shaped": shaped,
+            "moments": len(moments)}
+
+
+def ze_run(dev, leg: str, axes: Optional[dict], steps: int,
+           dataset=None, batches=None, cfgs: Optional[dict] = None) -> dict:
+    """``steps`` steps of a leg over ``axes`` (None: one rank, on the
+    numpy ``batches``; else on ``dataset`` through
+    ``iter_device_batches(sharding=...)``) from the seed's params:
+    losses, grad norms, step ms, each step's launches, collective
+    seconds and bytes; this rank's step-0 final-LN hidden states and
+    their batch rows, MoE's step-0 aux loss and fraction dropped; the
+    batches' checksums on the card; the state's layout check; the peak
+    memory."""
+    from ray_tpu_torch.parallel import mesh as mesh_lib
+    from ray_tpu_torch.parallel import spmd
+    from ray_tpu_torch.parallel.mesh import MeshConfig
+    cfg = ze_config(leg, cfgs)
+    mod, rules = ze_family(leg)
+    moments = torch.bfloat16 if leg == "xl" else None
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    params = mod.init_params(torch.Generator(device=dev).manual_seed(SEED),
+                             cfg, dev)
+    prog = spmd.build_train_program(
+        loss_fn=lambda p, b: mod.loss_fn(p, b, cfg),
+        init_params_fn=lambda g: params,
+        optimizer=spmd.default_optimizer(lr=TRAIN_LR, warmup=1,
+                                         total_steps=1000,
+                                         moments_dtype=moments),
+        mesh_config=None if axes is None else MeshConfig(**axes),
+        device=dev, rules=rules)
+    state = prog.init_fn(None)
+    mesh = prog.mesh
+    out = {"losses": [], "norms": [], "step_ms": [], "collective_s": [],
+           "launches": [], "bytes": [], "sums": []}
+    if mesh is not None:
+        out.update(ze_state_check(state, params, mesh, rules, moments))
+        out["transport"] = mesh.transport
+        spec = mesh_lib.batch_spec(mesh.config)
+        feed = dataset.iter_device_batches(
+            batch_size=ZE_BATCH, prefetch=1,
+            sharding=mesh_lib.NamedSharding(mesh, spec))
+        n, i = mesh_lib.entry_coordinate(mesh, spec[0])
+        out["rows"] = list(mesh_lib.shard_bounds(ZE_BATCH, n, i))
+    else:
+        feed = iter(batches)
+        out["rows"] = [0, ZE_BATCH]
+    del params
+    counters = kernel_counters()
+    with ze_bytes() as moved:
+        for step in range(steps):
+            got = next(feed)
+            if mesh is not None:
+                # this rank's rows already: no shard_batch
+                out["sums"].append(device_checksums(got).tolist())
+                toks = got["tokens"].long()
+                batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+            else:
+                batch = spmd.shard_batch(prog, {
+                    "inputs": got["tokens"][:, :-1],
+                    "targets": got["tokens"][:, 1:]})
+            if step == 0:
+                with torch.no_grad(), mesh_lib.ambient_mesh(mesh):
+                    if leg == "xl":
+                        x = (gpt2_hidden(state.params, batch["inputs"], cfg,
+                                         mesh))
+                    else:
+                        x, m = mod.forward_hidden(state.params,
+                                                  batch["inputs"], cfg,
+                                                  mesh)
+                        out["aux0"] = float(m["moe_aux_loss"])
+                        out["dropped0"] = float(m["moe_fraction_dropped"])
+                out["hidden"] = x.float().cpu()
+                del x
+                moved.take()
+            if mesh is not None:
+                mesh.reset_collective_seconds()
+            zero_counts(counters)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = prog.step_fn(state, batch)
+            loss, norm = float(m["loss"]), float(m["grad_norm"])
+            out["step_ms"].append((time.perf_counter() - t) * 1e3)
+            out["losses"].append(loss)
+            out["norms"].append(norm)
+            out["launches"].append({k: getattr(mod_, a) for k, (mod_, a)
+                                    in counters.items()})
+            out["bytes"].append(moved.take())
+            if mesh is not None:
+                out["collective_s"].append(mesh.collective_seconds())
+    if dev.type == "cuda":
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if mesh is not None:
+        mesh.destroy()
+    del state, prog, feed
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def gpt2_hidden(params, inp, cfg, mesh):
+    """GPT-2's final-LN hidden states: over a mesh this rank's rows
+    (``gpt2._mesh_hidden``), else the one-rank forward's."""
+    from ray_tpu_torch.models import gpt2
+    if mesh is None:
+        return gpt2.forward_hidden(params, inp, cfg)
+    return gpt2._mesh_hidden(params, inp, cfg, mesh)[0]
+
+
+def ze_runs() -> list:
+    """(kind, leg, axes, steps, fault) of every run a worker makes, in
+    order: the two legs, then their planted faults."""
+    legs = dict(ZE_LEGS)
+    return ([("legs", leg, axes, ZE_STEPS, None) for leg, axes in ZE_LEGS]
+            + [("faults", f, legs[leg], ZE_FAULT_STEPS, f)
+               for f, leg in ZE_FAULTS.items()])
+
+
+def ze_worker(dev, config: dict, store: str, rank: int) -> None:
+    """The zero_expert legs and faults in a model_parallel worker; the
+    rank's results to ``ze_rank_<r>.json``, its hidden states to
+    ``ze_hidden_<r>.pt``."""
+    out, hidden = {}, {}
+    t0 = time.perf_counter()
+    for kind, name, axes, steps, fault in ze_runs():
+        leg = ZE_FAULTS.get(name, name)
+        t = time.perf_counter()
+        with ze_plant(fault):
+            run = ze_run(dev, leg, axes, steps, config["ze_dataset"],
+                         cfgs=config.get("ze_cfgs"))
+        run["wall_s"] = time.perf_counter() - t
+        hidden[f"{kind}/{name}"] = run.pop("hidden")
+        out.setdefault(kind, {})[name] = run
+    out["wall_s"] = time.perf_counter() - t0
+    torch.save(hidden, os.path.join(store, f"ze_hidden_{rank}.pt"))
+    with open(os.path.join(store, f"ze_rank_{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def ze_predicted_launches(cfg, leg: str) -> dict:
+    """The launches a rank makes a step (PERF.md §6): xl under
+    the "attn" policy runs each block's two wide-row LayerNorms forward
+    twice (the step and the replay) and its flash forward once (the
+    replay reads the saved (out, lse)); moe-small under full remat runs
+    each block's two vector LayerNorms twice and no flash (dense
+    attention); the final LayerNorm once each way."""
+    L = cfg.n_layer
+    if leg == "xl":
+        return {"layer_norm_fwd_wide": 4 * L + 1,
+                "layer_norm_bwd_wide": 2 * L + 1,
+                "flash_attention_fwd": L, "flash_attention_bwd": L}
+    return {"layer_norm_fwd": 4 * L + 1, "layer_norm_bwd": 2 * L + 1}
+
+
+def ze_gaps(leg: str, run: dict, hidden: torch.Tensor, ref: dict) -> dict:
+    """A run's gaps to the one-rank reference (ZE_TOLS' keys) over the
+    steps it took: the loss gap in units of the reference's first loss,
+    the first grad norm's and the aux loss's relative gaps, the fraction
+    dropped's absolute one, the hidden states' relative L2 over the
+    run's rows."""
+    lo, hi = run["rows"]
+    want = ref["hidden"][lo:hi]
+    gaps = {"loss": max(abs(a - b) for a, b in zip(
+                run["losses"], ref["losses"])) / ref["losses"][0],
+            "norm": abs(run["norms"][0] - ref["norms"][0])
+            / ref["norms"][0],
+            "hidden": ((hidden - want).norm() / want.norm()).item()}
+    if leg == "moe":
+        gaps["aux"] = abs(run["aux0"] - ref["aux0"]) / ref["aux0"]
+        gaps["dropped"] = abs(run["dropped0"] - ref["dropped0"])
+    return gaps
+
+
+def zero_expert_check(ranks: list, hidden: list, refs: dict,
+                      ref_sums: dict, gpu: bool, tag: str,
+                      cfgs: Optional[dict] = None) -> dict:
+    """The zero_expert phase's checks and lines from the workers'
+    results (``ranks``, ``hidden``) and the driver's one-rank runs
+    (``refs``) and batches' host checksums by rows (``ref_sums``)."""
+    res = {"legs": {}, "faults": {}, "launches": {}}
+    bad = []
+    for leg, axes in ZE_LEGS:
+        cfg = ze_config(leg, cfgs)
+        want = ze_predicted_launches(cfg, leg)
+        ref = refs[leg]
+        tols = ZE_TOLS[leg]
+        print(f"zero_expert {leg} reference (one rank): losses "
+              f"{ref['losses']} norms {ref['norms']} step ms "
+              f"{[round(x, 1) for x in ref['step_ms']]} peak "
+              f"{ref.get('peak_gb', 0):.2f} GB"
+              + (f" aux {ref['aux0']} dropped {ref['dropped0']}"
+                 if leg == "moe" else "") + f" [{tag}]", flush=True)
+        row = {}
+        for o, hid in zip(ranks, hidden):
+            run = o["legs"][leg]
+            gaps = ze_gaps(leg, run, hid[f"legs/{leg}"], ref)
+            got = [{k: s[k] for k in want} for s in run["launches"]]
+            others = sorted({k for s in run["launches"] for k, v in s.items()
+                             if v and k not in want})
+            for s in run["launches"]:
+                for k, v in s.items():
+                    res["launches"][k] = res["launches"].get(k, 0) + v
+            coll = [(round(c["to_host"], 3), round(c["wire"], 3),
+                     round(c["to_device"], 3)) for c in run["collective_s"]]
+            sums_ok = run["sums"] == ref_sums[tuple(run["rows"])]
+            print(f"zero_expert {leg} {axes} rank {o['rank']}: rows "
+                  f"{run['rows']} losses {run['losses']} norms "
+                  f"{run['norms']} gaps "
+                  f"{ {k: float(f'{v:.3g}') for k, v in gaps.items()} } "
+                  f"limits {tols}; step ms "
+                  f"{[round(x, 1) for x in run['step_ms']]}; collective s "
+                  f"a step (to host, gloo, to device) {coll}; bytes a step "
+                  f"{run['bytes']} over {run['transport']}; peak "
+                  f"{run.get('peak_gb', 0):.2f} GB "
+                  f"(one rank {ref.get('peak_gb', 0):.2f}); params exact "
+                  f"{run['params_exact']} moments shaped "
+                  f"{run['moments_shaped']} ({run['moments']}); batch "
+                  f"checksums {'equal' if sums_ok else 'DIFFER'}; launches "
+                  f"a step {got[0]} predicted {want} [{tag}]", flush=True)
+            if any(gaps[k] > tols[k] for k in tols):
+                bad.append(f"{leg} rank {o['rank']}: gaps {gaps}")
+            if gpu and (any(g != want for g in got) or others):
+                bad.append(f"{leg} rank {o['rank']}: launches {got} (and "
+                           f"{others}), predicted {want}")
+            if run["transport"] != ("staged" if gpu else "gloo"):
+                bad.append(f"{leg} rank {o['rank']}: transport "
+                           f"{run['transport']}")
+            if not (run["params_exact"] and run["moments_shaped"]):
+                bad.append(f"{leg} rank {o['rank']}: the state is not the "
+                           f"slice its coordinates select")
+            if not sums_ok:
+                bad.append(f"{leg} rank {o['rank']}: batch checksums "
+                           f"{run['sums']} != the driver's rows' "
+                           f"{ref_sums[tuple(run['rows'])]}")
+            row[o["rank"]] = {"gaps": gaps, "step_ms": run["step_ms"],
+                              "collective_s": run["collective_s"],
+                              "bytes": run["bytes"],
+                              "peak_gb": run.get("peak_gb"),
+                              "wall_s": run["wall_s"]}
+        res["legs"][leg] = row
+    for fault, leg in ZE_FAULTS.items():
+        tols = ZE_TOLS[leg]
+        ratios = []
+        for o, hid in zip(ranks, hidden):
+            run = o["faults"][fault]
+            gaps = ze_gaps(leg, run, hid[f"faults/{fault}"], refs[leg])
+            ratios.append(max(gaps[k] / tols[k] for k in tols))
+            print(f"zero_expert control {fault} ({leg}) rank {o['rank']}: "
+                  f"losses {run['losses']} norms {run['norms']} gaps "
+                  f"{ {k: float(f'{v:.3g}') for k, v in gaps.items()} }: "
+                  f"{ratios[-1]:.3g} x the limits (must be >= "
+                  f"{ZE_FAULT_MARGIN}) [{tag}]", flush=True)
+        res["faults"][fault] = min(ratios)
+        if min(ratios) < ZE_FAULT_MARGIN:
+            bad.append(f"control {fault} only {min(ratios):.3g} x the "
+                       f"limits")
+    if bad:
+        fail(f"zero_expert: {bad}")
     return res
 
 
@@ -10405,11 +10944,25 @@ TUNE_BATCH_NOTE = ("cut from 32: alone, b16 reserves 20.4 GB, b24 29.8, "
                    "b32 39.3 (probes/tune_batch_probe.py)")
 TUNE_TRAINER_LRS = (3e-4, 3e-3)
 TUNE_TRAINER_STEPS = 3
+# GPT-2 124M's width at TUNE_LAYERS of its 12 layers: the trials and the
+# driver's replays of them are the phase's compute
+TUNE_LAYERS = 6
+
+
+def gpt2_launches(n_layer: int) -> dict:
+    """The flash and LayerNorm launches of one GPT-2 train step under
+    full remat (PERF.md §6): every block's forward twice (the step and
+    the backward's replay), two LayerNorms and a flash forward each; two
+    LayerNorm backwards and a flash backward a block; the final
+    LayerNorm once each way (49 / 25 / 24 / 12 at 12 layers)."""
+    L = n_layer
+    return {"layer_norm_fwd": 4 * L + 1, "layer_norm_bwd": 2 * L + 1,
+            "flash_attention_fwd": 2 * L, "flash_attention_bwd": L}
 
 
 class TuneGPT2:
-    """One trial's model on its share of the card: GPT-2 at ``cfg`` (124M
-    at full width and depth on the card) through the train phase's
+    """One trial's model on its share of the card: GPT-2 at ``cfg`` (124M's
+    width at TUNE_LAYERS on the card) through the train phase's
     program at the trial's ``lr``, params from SEED, fitting one batch of
     ``batch`` x ``seq`` tokens drawn from SEED (the same for every trial,
     so the lr alone sets a trial apart).  Every kernel counter is zeroed
@@ -10531,20 +11084,23 @@ def tune_phase(dev, card, train_res: dict, tag: str,
                device: Optional[str] = None) -> dict:
     """Ray Tune on the port's runtime, in a cluster of this run's own
     (``init(num_cpus=4)``, the card detected, TUNE_CONCURRENT GPU
-    workers).  a. ASHA over TUNE_TRIALS GPT-2 124M trials
-    (``tune_gpt2_trial``), TUNE_CONCURRENT at once on the card: each
-    trial's losses bitwise the prefix of the driver's run of its config,
-    the decision log (a logging ASHA in this process, where the
-    controller runs) replayed through a fresh ``ASHAScheduler`` to the
-    same decisions, each trial ending at its first STOP, every early stop
-    at a rung, at least one, the train phase's launches every step in
-    every trial.  b. ``Tuner(TorchTrainer)``: two trials of
+    workers).  a. ASHA over TUNE_TRIALS trials of GPT-2 124M's width at
+    TUNE_LAYERS layers (``tune_gpt2_trial``), TUNE_CONCURRENT at once on
+    the card: each trial's losses bitwise the prefix of the driver's run
+    of its config, the decision log (a logging ASHA in this process,
+    where the controller runs) replayed through a fresh
+    ``ASHAScheduler`` to the same decisions, each trial ending at its
+    first STOP, every early stop at a rung, at least one, GPT-2's
+    launches at that depth (``gpt2_launches``) every step in every
+    trial.  b. ``Tuner(TorchTrainer)``: two trials of
     ``tune_trainer_loop`` on GPU: 0.5 workers at once, their losses
     bitwise the driver's, ``get_best_result`` the lower final loss,
     ``Tuner.restore`` both trials.  After each fit the card holds this
     process alone; after shutdown nothing of the cluster is left.
     ``device`` goes to the trials (None: the card; "cpu" rehearses the
     phase off the card, where the card's checks fail by design)."""
+    import dataclasses
+
     import ray_tpu_torch as rt
     from ray_tpu_torch import train, tune
     from ray_tpu_torch._private import shm_store
@@ -10575,17 +11131,18 @@ def tune_phase(dev, card, train_res: dict, tag: str,
     watch = ClusterWatch(shm_store._SHM_DIR)
     torch.cuda.synchronize()             # this process's context exists
     holders = compute_app_pids()
-    cfg = gpt2.gpt2_small()
-    K, L = TUNE_STEPS_PER_REPORT, cfg.n_layer
+    cfg = dataclasses.replace(gpt2.gpt2_small(), n_layer=TUNE_LAYERS)
+    K = TUNE_STEPS_PER_REPORT
     base = {"cfg": cfg, "batch": TUNE_BATCH, "seq": TRAIN_SEQ,
             "device": device}
+    # the rule behind the trials' launches, held to the train phase's
+    # counts at its depth
+    measured = {k: train_res["launches_per_step"].get(k, 0)
+                for k in gpt2_launches(1)}
+    if measured != gpt2_launches(gpt2.gpt2_small().n_layer):
+        fail(f"tune: the train phase's launches per step {measured}")
     want = {k: 0 for k in kernel_counters()}
-    want.update(train_res["launches_per_step"])
-    if want["layer_norm_fwd"] != 4 * L + 1 or \
-            want["layer_norm_bwd"] != 2 * L + 1 or \
-            want["flash_attention_fwd"] != 2 * L or \
-            want["flash_attention_bwd"] != L:
-        fail(f"tune: the train phase's launches per step {want}")
+    want.update(gpt2_launches(cfg.n_layer))
     res: dict = {}
     gc.collect()
     torch.cuda.empty_cache()
@@ -10706,7 +11263,7 @@ def tune_phase(dev, card, train_res: dict, tag: str,
                   f"later reports' {[round(x, 1) for x in tr['step_ms']]});"
                   f" losses bitwise the driver's run {tr['same']} (first "
                   f"step that differs {tr['first_diff']}); launches equal "
-                  f"to the train phase's on {steps_ok} of "
+                  f"to GPT-2's at {cfg.n_layer} layers on {steps_ok} of "
                   f"{len(tr['launches'])} steps; actor pid {tr['pids']} "
                   f"{tr['devices']} RTT_GPU_WORKER {tr['gpu_worker']}; "
                   f"peak {tr['peak_gb']:.3f} GB allocated, "
@@ -10731,8 +11288,8 @@ def tune_phase(dev, card, train_res: dict, tag: str,
             fail("tune asha: a trial's losses differ from the driver's run "
                  "of its config, or are not finite")
         if not all(tr["launch_ok"] for tr in trials):
-            fail("tune asha: a trial's steps launched other than the train "
-                 "phase's kernels")
+            fail("tune asha: a trial's steps launched other than GPT-2's "
+                 "kernels at the phase's depth")
         if any(tr["pids"] & {os.getpid()} or tr["gpu_worker"] != {"1"} or
                not all(d.startswith("cuda") for d in tr["devices"])
                for tr in trials):
@@ -10815,7 +11372,7 @@ def tune_phase(dev, card, train_res: dict, tag: str,
                or m.get("launches") != [want] * TUNE_TRAINER_STEPS
                for m in got.values()):
             fail("tune trainer: a worker ran off the card or launched other "
-                 "than the train phase's kernels")
+                 "than GPT-2's kernels at the phase's depth")
         res["trainer"] = dict(losses={lr: got[lr]["losses"]
                                       for lr in TUNE_TRAINER_LRS},
                               best_lr=best_lr, overlap=overlap_b,
@@ -10953,7 +11510,8 @@ def main() -> int:
     elastic = elastic_phase(dev, train, tag)
     phase_done("elastic")
     model_parallel = model_parallel_phase(dev, tag)
-    phase_done("model_parallel")
+    zero_expert = model_parallel["zero_expert"]
+    phase_done("model_parallel", {"zero_expert": zero_expert["wall_s"]})
     moe_train = moe_train_phase(dev, card, tag)
     phase_done("moe_train")
     tiny_reference_check(dev, tag)
@@ -11006,6 +11564,7 @@ def main() -> int:
              "llama_train": llama_train, "xl_train": xl_train,
              "ray_train": ray_train, "elastic": elastic,
              "model_parallel": model_parallel,
+             "zero_expert": zero_expert,
              "ray_data": ray_data,
              "tune": tuned,
              "moe_train": moe_train, "resnet50_train": resnet_train,

@@ -143,6 +143,19 @@ class _CudaStager:
         return out
 
 
+def _local_slices(batches: Iterator[Dict[str, Any]], sharding
+                  ) -> Iterator[Dict[str, Any]]:
+    """Each batch's columns as this rank's piece under ``sharding`` (a
+    view: the stager's copy reads only it); columns torch cannot hold
+    stay whole, as ``jax.device_put`` leaves them to the reference."""
+    try:
+        for batch in batches:
+            yield {k: v if _torch_dtype(v.dtype) is None
+                   else sharding.local_slice(v) for k, v in batch.items()}
+    finally:
+        batches.close()
+
+
 def _staged(batches: Iterator[Dict[str, Any]], stager, prefetch: int
             ) -> Iterator[Dict[str, Any]]:
     """``stager.put`` of each batch on a thread of its own, ``stager.take``
@@ -637,21 +650,29 @@ class Dataset:
         overlaps step k's kernels.  As in the reference, a batch is
         yielded once more than ``prefetch`` are staged, and the rest
         drain at the end.  Columns torch cannot hold (object, strings,
-        bytes) stay numpy.  ``sharding`` places a batch across a mesh of
-        cards: ROADMAP queue A, item 8b (a mesh program takes its rank's
-        rows with ``spmd.shard_batch``)."""
-        if sharding is not None:
-            raise NotImplementedError(
-                "iter_device_batches(sharding=...) places a batch across a "
-                "mesh of cards: ROADMAP queue A, item 8b; a mesh program "
-                "takes its rank's rows with spmd.shard_batch")
+        bytes) stay numpy.
+
+        ``sharding``: a ``parallel.mesh.NamedSharding(mesh, spec)`` (the
+        reference's ``jax.device_put(v, sharding)``): every rank iterates
+        the same global stream, and only this rank's piece of each column
+        (``sharding.local_slice``, e.g. its rows under
+        ``mesh.batch_spec``) is copied into the ring and onto its device
+        (default: the mesh's); object columns stay whole numpy."""
         from ray_tpu_torch._device import resolve_device
+        batches = self.iter_batches(batch_size=batch_size,
+                                    batch_format="numpy")
+        if sharding is not None:
+            from ray_tpu_torch.parallel.mesh import NamedSharding
+            if not isinstance(sharding, NamedSharding):
+                raise TypeError(f"sharding must be a parallel.mesh."
+                                f"NamedSharding, not {type(sharding)!r}")
+            if device is None:
+                device = sharding.mesh.device
+            batches = _local_slices(batches, sharding)
         dev = resolve_device(device)
         stager = _CudaStager(dev, prefetch) if dev.type == "cuda" \
             else _HostStager(dev)
-        return _staged(self.iter_batches(batch_size=batch_size,
-                                         batch_format="numpy"),
-                       stager, prefetch)
+        return _staged(batches, stager, prefetch)
 
     def to_pandas(self):
         return BlockAccessor(concat_blocks(

@@ -45,10 +45,21 @@ per-rank program and returns the global loss on every rank:
   ``num_microbatches`` (0: ``pick_num_microbatches``).
 - The embedding and the LM head / cross entropy are vocab-parallel over
   ``tensor`` (``wte`` is split on the vocabulary).
+- ``fsdp`` > 1 (ZeRO-3, with any of the above): a rank keeps its
+  ``fsdp`` piece of every matrix and gathers each for use
+  (``mesh.gather_for_use``): a block's inside its checkpointed region,
+  so its gathered weights die with its forward and the backward's
+  replay gathers them again; ``wte`` and ``wpe`` at the embedding, and
+  ``wte`` again at the tied LM head.  The batch splits over ``data`` ×
+  ``fsdp``.
+- The remat policies hold over a mesh as on one device (each rank saves
+  the flash op's outputs and replays the rest, its collectives included,
+  in the same order on every rank).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from functools import partial
@@ -622,12 +633,15 @@ def _mesh_hidden(params: Params, tokens: torch.Tensor, cfg: GPT2Config,
     dev = tokens.device
     dt = cfg.dtype
     tp = mesh.shape["tensor"]
-    if cfg.remat and cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} over a mesh of ranks: the "
-            f"selective policies are {mesh_lib.ITEM_8B}")
+    context = _remat_context(cfg, dev) if cfg.remat else None
     remat = cfg.remat and torch.is_grad_enabled()
     manual = _manual_parallel_axes(cfg, mesh, T)
+    if context is not None and manual is not None and manual[0] > 1 \
+            and cfg.remat_policy in ("attn", "attn_qkv"):
+        raise ValueError(
+            f"remat_policy={cfg.remat_policy!r} under seq={manual[0]}: the "
+            f"block's attention is the ring there, which has no flash op "
+            f"to save")
     cp_axis = cfg.context_axis or "context"
     cp = mesh.shape.get(cp_axis, 1)
     pp = mesh.shape["pipeline"]
@@ -641,7 +655,10 @@ def _mesh_hidden(params: Params, tokens: torch.Tensor, cfg: GPT2Config,
         raise ValueError(f"n_head {cfg.n_head} does not split over "
                          f"tensor={tp}")
     off = _vocab_offset(cfg, mesh)
-    wte, wpe = params["wte"], params["wpe"]
+    specs = _use_specs(cfg)
+    wte = mesh_lib.gather_for_use(params["wte"], specs["wte"], mesh)
+    wpe = mesh_lib.gather_for_use(params["wpe"], specs["wpe"], mesh)
+    block_specs = mesh_lib.layer_specs(specs["blocks"])
     attn = _resolve_attn(cfg, dev)
     if manual is not None:
         sp, tp = manual
@@ -668,12 +685,18 @@ def _mesh_hidden(params: Params, tokens: torch.Tensor, cfg: GPT2Config,
                   "token_axes": (cp_axis,) if cp > 1 else ()}
     layout["manual"] = manual
     x = x + F.embedding(pos, wpe).to(dt)
+    del wte, wpe
+
+    def gathered_block(x, lp):
+        # ZeRO-3: the block's weights gathered inside its region
+        return block(x, mesh_lib.gather_for_use(lp, block_specs, mesh))
 
     def run(x, lp):
         if remat:
-            return checkpoint(lambda x, lp: block(x, lp), x, lp,
-                              use_reentrant=False, preserve_rng_state=False)
-        return block(x, lp)
+            return checkpoint(gathered_block, x, lp, use_reentrant=False,
+                              preserve_rng_state=False,
+                              **({"context_fn": context} if context else {}))
+        return gathered_block(x, lp)
 
     blocks = params["blocks"]
     if pp > 1:
@@ -698,6 +721,14 @@ def _mesh_hidden(params: Params, tokens: torch.Tensor, cfg: GPT2Config,
                        params["ln_f"]["bias"]), layout
 
 
+@functools.lru_cache(maxsize=16)
+def _use_specs(cfg: GPT2Config) -> Params:
+    """``TRANSFORMER_RULES``' specs of the global tree, with the global
+    shapes (``mesh.use_specs``; from the meta tree: nothing drawn)."""
+    return mesh_lib.use_specs(init_params(None, cfg, "meta"),
+                              mesh_lib.TRANSFORMER_RULES)
+
+
 def _stacked_layers(blocks: Params) -> int:
     """The number of layers a stacked block tree holds (this rank's
     stage's under a pipeline)."""
@@ -716,7 +747,10 @@ def _mesh_loss(params: Params, inp: torch.Tensor, tgt: torch.Tensor,
             f"{mesh_lib.ITEM_8B}")
     x, lay = _mesh_hidden(params, inp, cfg, mesh)
     tp = mesh.shape["tensor"]
-    wte = params["wte"].to(cfg.dtype)
+    # the tied head gathers wte again (ZeRO-3: the embedding's gather died
+    # with the embedding)
+    wte = mesh_lib.gather_for_use(params["wte"], _use_specs(cfg)["wte"],
+                                  mesh).to(cfg.dtype)
     if lay["manual"] is not None:
         ag, _ = _projections(cfg)
         logits = ag(x, wte.t(), "tensor", tp)       # (B, T/sp, V/tp)

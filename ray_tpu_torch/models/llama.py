@@ -26,10 +26,13 @@ sharding table as data; ``spmd.build_train_program(rules=LLAMA_RULES)``
 applies it.  The context-parallel impls (``ring``, ``ulysses``, over
 ``context_axis``) take K/V expanded to the query heads, as the
 reference's; without a mesh they are dense attention.  Over a mesh of
-ranks (data and ``context``) ``loss_fn`` returns the global loss on
-every rank, the sequence split over ``context`` with RoPE at the chunk's
-global positions; ``tensor``, ``seq`` and ``pipeline`` layouts of Llama
-are ROADMAP queue A, item 8b.
+ranks (``data``, ``fsdp`` and ``context``) ``loss_fn`` returns the
+global loss on every rank, the batch split over ``data`` × ``fsdp``, the
+sequence over ``context`` with RoPE at the chunk's global positions;
+under ``fsdp`` every matrix is gathered at use (ZeRO-3,
+``mesh.gather_for_use``: a block's inside its checkpointed region, as
+GPT-2's).  ``tensor``, ``seq`` and ``pipeline`` layouts of Llama are
+ROADMAP queue A, item 8b.
 """
 
 from __future__ import annotations
@@ -274,12 +277,26 @@ def forward(params: Params, tokens: torch.Tensor,
 
 
 def _forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
-             pos_offset: int = 0) -> torch.Tensor:
+             pos_offset: int = 0, mesh=None) -> torch.Tensor:
+    """``forward``; ``mesh``: a mesh of ranks whose ``fsdp`` pieces are
+    gathered at use."""
+    from ray_tpu_torch.parallel import mesh as mesh_lib
+    specs = _use_specs(cfg) if mesh is not None else None
+
+    def gather(tree, spec_of):
+        return tree if specs is None else \
+            mesh_lib.gather_for_use(tree, spec_of(specs), mesh)
+
     attn = _resolve_attn(cfg, tokens.device)
     remat = cfg.remat and torch.is_grad_enabled()
-    x = _embed(params, tokens, cfg)
-    block = functools.partial(_block, cfg=cfg, attn=attn,
+    x = _embed({"wte": gather(params["wte"], lambda sp: sp["wte"])},
+               tokens, cfg)
+    plain = functools.partial(_block, cfg=cfg, attn=attn,
                               pos_offset=pos_offset)
+
+    def block(x, lp):
+        return plain(x, gather(lp, lambda sp: mesh_lib.layer_specs(
+            sp["blocks"])))
     for lp in layer_views(params["blocks"], cfg.n_layer):
         if remat:
             # no dropout anywhere: no RNG state to save and restore
@@ -287,7 +304,17 @@ def _forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
                            preserve_rng_state=False)
         else:
             x = block(x, lp)
-    return _head(params, x, cfg)
+    return _head({"norm_f": params["norm_f"],
+                  "lm_head": gather(params["lm_head"],
+                                    lambda sp: sp["lm_head"])}, x, cfg)
+
+
+@functools.lru_cache(maxsize=16)
+def _use_specs(cfg: LlamaConfig) -> Params:
+    """``LLAMA_RULES``' specs of the global tree with its shapes (from the
+    meta tree: nothing drawn)."""
+    from ray_tpu_torch.parallel import mesh as mesh_lib
+    return mesh_lib.use_specs(init_params(None, cfg, "meta"), LLAMA_RULES)
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
@@ -329,7 +356,8 @@ def _mesh_loss(params: Params, inp: torch.Tensor, tgt: torch.Tensor,
         raise ValueError(f"seq_len {T} not divisible by {axis}={cp}")
     Tc = T // cp
     logp = torch.log_softmax(_forward(params, inp[:, c * Tc:(c + 1) * Tc],
-                                      cfg, pos_offset=c * Tc), dim=-1)
+                                      cfg, pos_offset=c * Tc, mesh=mesh),
+                             dim=-1)
     nll = -logp.gather(-1, tgt[:, c * Tc:(c + 1) * Tc, None])[..., 0]
     axes = tuple(mesh.config.batch_axes()) + ((axis,) if cp > 1 else ())
     n = B * T * math.prod(mesh.shape[a] for a in mesh.config.batch_axes())
@@ -338,7 +366,7 @@ def _mesh_loss(params: Params, inp: torch.Tensor, tgt: torch.Tensor,
 
 # Sharding: attention/MLP matrices split fsdp×tensor; RoPE/norms
 # replicated.  (param-path regex, mesh axis per dim), the reference's
-# PartitionSpecs as tuples; the multi-GPU slice applies them.
+# PartitionSpecs as tuples (``tensor`` is ROADMAP queue A, item 8b).
 LLAMA_RULES: List[Tuple[str, Tuple[Optional[str], ...]]] = [
     (r".*wte$", ("tensor", "fsdp")),
     (r".*blocks/w[qku].*kernel$", ("pipeline", "fsdp", "tensor")),

@@ -15,15 +15,26 @@ output and its three metrics) with ``torch.utils.checkpoint``.
 ``forward`` returns the float32 logits and the metrics, each the mean
 over layers; ``loss_fn`` is the next-token NLL plus ``aux_loss_weight``
 × the load-balance loss plus ``z_loss_weight`` × the router z-loss.
-Expert parallelism over a mesh is the multi-GPU slice's work;
-``MOE_TRANSFORMER_RULES`` is the reference's sharding table as data.
+
+Over a mesh of ranks (the ambient mesh ``spmd.build_train_program``
+sets; params sliced by ``MOE_TRANSFORMER_RULES``, the stacked expert
+leaves (L, X/ep, E, ff) a rank) ``loss_fn`` returns the global loss on
+every rank under ``data`` × ``fsdp`` × ``expert``: a rank's rows of the
+batch (split over ``data`` × ``fsdp``, replicated over ``expert``), its
+experts run by ``ops/moe.py``'s expert-parallel form, the NLL summed over
+the batch axes over the global token count, and the global aux and z
+losses.  Under ``fsdp`` every matrix is gathered at use as in GPT-2
+(``mesh.gather_for_use``, a block's inside its checkpointed region).
+``tensor``, ``seq``, ``context`` and ``pipeline`` raise: ROADMAP queue
+A, item 8b.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -32,6 +43,7 @@ from ray_tpu_torch._device import DeviceLike, resolve_device
 from ray_tpu_torch.models import gpt2 as gpt2_lib
 from ray_tpu_torch.models._common import layer_views, normal_init, tree_map
 from ray_tpu_torch.ops import moe as moe_lib
+from ray_tpu_torch.parallel import mesh as mesh_lib
 
 Params = Dict[str, Any]
 
@@ -138,32 +150,59 @@ def _block(x: torch.Tensor, lp: Params, cfg: MoEConfig
     return x + y, m.aux_loss, m.router_z_loss, m.fraction_dropped
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: MoEConfig
-            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """tokens (B, T) → (logits (B, T, vocab) float32, MoE metrics, each
-    the mean over layers)."""
+def forward_hidden(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
+                   mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """tokens (B, T) → (final-LN hidden states (B, T, E), MoE metrics,
+    each the mean over layers).  ``mesh``: a mesh of ranks (gathers under
+    ``fsdp``; the expert-parallel FFN reads the ambient mesh)."""
     B, T = tokens.shape
     dt = cfg.dtype
-    x = torch.nn.functional.embedding(tokens, params["wte"]).to(dt) \
-        + params["wpe"][:T].to(dt)
+    specs = _use_specs(cfg) if mesh is not None else None
+
+    def gather(tree, spec_of):
+        return tree if specs is None else \
+            mesh_lib.gather_for_use(tree, spec_of(specs), mesh)
+
+    wte = gather(params["wte"], lambda sp: sp["wte"])
+    wpe = gather(params["wpe"], lambda sp: sp["wpe"])
+    x = torch.nn.functional.embedding(tokens, wte).to(dt) + wpe[:T].to(dt)
+    del wte, wpe
+
+    def block(x, lp):
+        return _block(x, gather(lp, lambda sp: mesh_lib.layer_specs(
+            sp["blocks"])), cfg)
+
     remat = cfg.remat and torch.is_grad_enabled()
     aux, z, dropped = [], [], []
-    for lp in layer_views(params["blocks"], cfg.n_layer):
+    for lp in layer_views(params["blocks"], _stacked_layers(params)):
         if remat:
             # no dropout anywhere: no RNG state to save and restore
-            x, a, zl, d = checkpoint(_block, x, lp, cfg, use_reentrant=False,
+            x, a, zl, d = checkpoint(block, x, lp, use_reentrant=False,
                                      preserve_rng_state=False)
         else:
-            x, a, zl, d = _block(x, lp, cfg)
+            x, a, zl, d = block(x, lp)
         aux.append(a)
         z.append(zl)
         dropped.append(d)
     x = gpt2_lib._layer_norm(x, params["ln_f"]["scale"],
                              params["ln_f"]["bias"])
-    logits = x @ params["wte"].to(dt).t()
     metrics = {"moe_aux_loss": torch.stack(aux).mean(),
                "moe_z_loss": torch.stack(z).mean(),
                "moe_fraction_dropped": torch.stack(dropped).mean()}
+    return x, metrics
+
+
+def _stacked_layers(params: Params) -> int:
+    return params["blocks"]["ln_1"]["scale"].shape[0]
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: MoEConfig
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """tokens (B, T) → (logits (B, T, vocab) float32, MoE metrics, each
+    the mean over layers); on one device (a mesh program's entry point
+    is ``loss_fn``)."""
+    x, metrics = forward_hidden(params, tokens, cfg)
+    logits = x @ params["wte"].to(cfg.dtype).t()
     return logits.float(), metrics
 
 
@@ -176,6 +215,9 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
         inp, tgt = batch["inputs"], batch["targets"]
     else:
         inp, tgt = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
+    mesh = mesh_lib.get_ambient_mesh()
+    if mesh is not None and mesh.size > 1:
+        return _mesh_loss(params, inp, tgt.long(), cfg, mesh)[0]
     logits, metrics = forward(params, inp, cfg)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, tgt.long()[..., None])[..., 0]
@@ -183,29 +225,39 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
             + cfg.z_loss_weight * metrics["moe_z_loss"])
 
 
-# The reference's TRANSFORMER_RULES (ray_tpu/parallel/mesh.py) as data,
-# (path regex, PartitionSpec entries), until the multi-GPU slice ports
-# the mesh layer.
-_TRANSFORMER_RULES: List[Tuple[str, Tuple[Optional[str], ...]]] = [
-    (r".*wte$", ("tensor", "fsdp")),
-    (r".*wpe$", (None, "fsdp")),
-    (r".*blocks/attn_qkv/kernel$", ("pipeline", "fsdp", None, "tensor")),
-    (r".*blocks/attn_qkv/bias$", ("pipeline", None, "tensor")),
-    (r".*blocks/attn_out/kernel$", ("pipeline", "tensor", "fsdp")),
-    (r".*blocks/attn_out/bias$", ("pipeline", "fsdp")),
-    (r".*blocks/mlp_in/kernel$", ("pipeline", "fsdp", "tensor")),
-    (r".*blocks/mlp_in/bias$", ("pipeline", "tensor")),
-    (r".*blocks/mlp_out/kernel$", ("pipeline", "tensor", "fsdp")),
-    (r".*blocks/mlp_out/bias$", ("pipeline", "fsdp")),
-    (r".*blocks/(ln_1|ln_2)/(scale|bias)$", ("pipeline", None)),
-    (r".*attn_qkv/kernel$", ("fsdp", None, "tensor")),
-    (r".*attn_out/kernel$", ("tensor", "fsdp")),
-    (r".*mlp_in/kernel$", ("fsdp", "tensor")),
-    (r".*mlp_out/kernel$", ("tensor", "fsdp")),
-    (r".*(ln_1|ln_2|ln_f)/(scale|bias)$", (None,)),
-    (r".*", (None,)),
-]
+def _mesh_loss(params: Params, inp: torch.Tensor, tgt: torch.Tensor,
+               cfg: MoEConfig, mesh
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The global loss on every rank (the module docstring), and the
+    global metrics."""
+    from ray_tpu_torch.parallel import collectives as col
+    for axis in ("tensor", "seq", "context", "pipeline"):
+        if mesh.shape[axis] > 1:
+            raise NotImplementedError(
+                f"the MoE transformer over a mesh with {axis}="
+                f"{mesh.shape[axis]} is {mesh_lib.ITEM_8B}")
+    x, metrics = forward_hidden(params, inp, cfg, mesh)
+    # the tied head gathers wte again (ZeRO-3)
+    wte = mesh_lib.gather_for_use(params["wte"], _use_specs(cfg)["wte"],
+                                  mesh)
+    logp = torch.log_softmax((x @ wte.to(cfg.dtype).t()).float(), dim=-1)
+    nll = -logp.gather(-1, tgt[..., None])[..., 0]
+    axes = mesh.config.batch_axes()
+    n = nll.numel() * math.prod(mesh.shape[a] for a in axes)
+    loss = (col.psum(nll.sum(), axes, mesh) / n
+            + cfg.aux_loss_weight * metrics["moe_aux_loss"]
+            + cfg.z_loss_weight * metrics["moe_z_loss"])
+    return loss, metrics
+
+
+@functools.lru_cache(maxsize=16)
+def _use_specs(cfg: MoEConfig) -> Params:
+    """``MOE_TRANSFORMER_RULES``' specs of the global tree with its
+    shapes (from the meta tree: nothing drawn)."""
+    return mesh_lib.use_specs(init_params(None, cfg, "meta"),
+                              MOE_TRANSFORMER_RULES)
+
 
 # MoE rules first (most specific; first match wins), then the
 # transformer set.
-MOE_TRANSFORMER_RULES = moe_lib.MOE_RULES + _TRANSFORMER_RULES
+MOE_TRANSFORMER_RULES = moe_lib.MOE_RULES + mesh_lib.TRANSFORMER_RULES

@@ -22,10 +22,19 @@ max-pool (0, 1) with −inf.  ``_same_pads`` computes XLA's split and an
 explicit ``F.pad`` applies it; PyTorch's symmetric ``padding=k//2``
 would give the same output size shifted by one pixel.
 ``cfg.remat`` checkpoints each bottleneck block.
+
+Over a mesh of ranks (the ambient mesh ``spmd.build_train_program``
+sets; params sliced by ``RESNET_RULES``) ``loss_fn`` returns the global
+mean on every rank under ``data`` × ``fsdp``: the batch split over both,
+every conv kept as its ``fsdp`` piece of ``cout`` and the head as an MLP
+output's piece, each gathered at use (ZeRO-3, ``mesh.gather_for_use``; a
+block's inside its checkpointed region).  Other axes raise: ROADMAP
+queue A, item 8b.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
@@ -190,23 +199,51 @@ def _bottleneck(x: torch.Tensor, bp: Params, cfg: ResNetConfig,
 def forward(params: Params, images: torch.Tensor,
             cfg: ResNetConfig) -> torch.Tensor:
     """images (B, H, W, 3) float → logits (B, num_classes) float32."""
+    return _forward(params, images, cfg)
+
+
+def _forward(params: Params, images: torch.Tensor, cfg: ResNetConfig,
+             mesh=None) -> torch.Tensor:
+    """``forward``; ``mesh``: a mesh of ranks whose ``fsdp`` pieces are
+    gathered at use."""
+    from ray_tpu_torch.parallel import mesh as mesh_lib
+    specs = _use_specs(cfg) if mesh is not None else None
+
+    def gather(tree, spec_of):
+        return tree if specs is None else \
+            mesh_lib.gather_for_use(tree, spec_of(specs), mesh)
+
     x = images.to(cfg.dtype).permute(0, 3, 1, 2)      # channels-last
-    x = _conv(x, params["stem"]["conv"], stride=2)
-    x = F.relu(_group_norm(x, **params["stem"]["gn"], groups=cfg.gn_groups))
+    stem = gather(params["stem"], lambda sp: sp["stem"])
+    x = _conv(x, stem["conv"], stride=2)
+    x = F.relu(_group_norm(x, **stem["gn"], groups=cfg.gn_groups))
+    del stem
     x = _max_pool(x)
     remat = cfg.remat and torch.is_grad_enabled()
     for si, n_blocks in enumerate(cfg.stage_sizes):
         for bi in range(n_blocks):
+            def block(x, bp, si=si, bi=bi):
+                bp = gather(bp, lambda sp: sp[f"stage{si}"][bi])
+                return _bottleneck(x, bp, cfg, _stride(si, bi))
+
             bp = params[f"stage{si}"][bi]
             if remat:
                 # no dropout anywhere: no RNG state to save and restore
-                x = checkpoint(_bottleneck, x, bp, cfg, _stride(si, bi),
-                               use_reentrant=False, preserve_rng_state=False)
+                x = checkpoint(block, x, bp, use_reentrant=False,
+                               preserve_rng_state=False)
             else:
-                x = _bottleneck(x, bp, cfg, _stride(si, bi))
+                x = block(x, bp)
     x = x.mean((2, 3))                                 # global average pool
-    return x.float() @ params["head"]["kernel"].float() \
-        + params["head"]["bias"].float()
+    head = gather(params["head"], lambda sp: sp["head"])
+    return x.float() @ head["kernel"].float() + head["bias"].float()
+
+
+@functools.lru_cache(maxsize=16)
+def _use_specs(cfg: ResNetConfig) -> Params:
+    """``RESNET_RULES``' specs of the global tree with its shapes (from
+    the meta tree: nothing drawn)."""
+    from ray_tpu_torch.parallel import mesh as mesh_lib
+    return mesh_lib.use_specs(init_params(None, cfg, "meta"), RESNET_RULES)
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
@@ -214,15 +251,32 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
     """batch: {"images": (B, H, W, 3), "labels": (B,) int} → mean cross
     entropy against one-hot targets, smoothed by ``label_smoothing``.
     The one-hot is a scatter (``F.one_hot`` checks its labels on the
-    host, a sync inside the step)."""
-    logits = forward(params, batch["images"], cfg)
+    host, a sync inside the step).  Under an ambient mesh of ranks:
+    this rank's rows, the global mean (the module docstring)."""
+    from ray_tpu_torch.parallel import mesh as mesh_lib
+    mesh = mesh_lib.get_ambient_mesh()
+    if mesh is not None and mesh.size > 1:
+        for axis, n in mesh.shape.items():
+            if axis not in ("data", "fsdp") and n > 1:
+                raise NotImplementedError(
+                    f"ResNet over a mesh with {axis}={n} is "
+                    f"{mesh_lib.ITEM_8B}")
+    else:
+        mesh = None
+    logits = _forward(params, batch["images"], cfg, mesh)
     n = logits.shape[-1]
     targets = torch.zeros_like(logits).scatter_(
         -1, batch["labels"].long()[:, None], 1.0)
     if label_smoothing > 0:
         targets = targets * (1 - label_smoothing) + label_smoothing / n
     logp = torch.log_softmax(logits, dim=-1)
-    return -(targets * logp).sum(-1).mean()
+    nll = -(targets * logp).sum(-1)
+    if mesh is None:
+        return nll.mean()
+    from ray_tpu_torch.parallel import collectives as col
+    axes = mesh.config.batch_axes()
+    return col.psum(nll.sum(), axes, mesh) / (
+        nll.numel() * math.prod(mesh.shape[a] for a in axes))
 
 
 def accuracy(params: Params, batch: Dict[str, torch.Tensor],
@@ -232,8 +286,7 @@ def accuracy(params: Params, batch: Dict[str, torch.Tensor],
 
 
 # The reference's RESNET_RULES (convs fsdp-sharded on cout, the head like
-# an MLP output, the rest replicated) as (path regex, mesh axis per dim),
-# until the multi-GPU slice applies them.
+# an MLP output, the rest replicated) as (path regex, mesh axis per dim).
 RESNET_RULES: List[Tuple[str, Tuple[Optional[str], ...]]] = [
     (r".*stem/conv$", (None, None, None, "fsdp")),
     (r".*conv[123]$", (None, None, None, "fsdp")),

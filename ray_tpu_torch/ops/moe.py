@@ -23,17 +23,28 @@ kernel in the reference, and neither is a kernel here.
 Nothing here syncs with the host: the routing is computed on the device
 at fixed shapes (dropped assignments go to a discarded slot), so the
 train step keeps ``torch.cuda.set_sync_debug_mode("error")``.
+
+Expert parallelism (under an ambient mesh of ranks, ``parallel/mesh.py``)
+reproduces the reference's function, whatever GSPMD made of it.  Under
+``MOE_RULES`` the tokens split over the batch axes (``data``, ``fsdp``)
+and are replicated over ``expert``, and rank (d, e) holds experts
+``e·X/ep … (e+1)·X/ep``.  The expert FFN is row-wise, so a rank runs
+exactly its own tokens through its own experts (the index form) and the
+combine is summed over ``expert`` (``collectives.psum``, in float32,
+rounded once): no all-to-all.  Routing stays global: the capacity is
+``expert_capacity`` of the GLOBAL token count, a token's queue position
+counts the tokens of the lower batch ranks before it (an all-gather of
+each rank's (X,) counts), and the load-balance loss, the z-loss and the
+dropped fraction are means over every token (sums over the batch axes).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-
-from ray_tpu_torch.models._common import normal_init
 
 
 class MoEMetrics(NamedTuple):
@@ -74,17 +85,21 @@ def topk_router(x: torch.Tensor, w_router: torch.Tensor, k: int
     return gates, logits, topk_idx
 
 
-def _queue_positions(gates: torch.Tensor, capacity: int
+def _queue_positions(gates: torch.Tensor, capacity: int,
+                     prefix: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(assigned (N, E), position of each token in each expert's queue
     (N, E), kept (N, E)): position is assignment order, a cumsum over
-    tokens in their flattened (B·S) order; past ``capacity`` a token is
-    dropped from that expert."""
+    tokens in their flattened (B·S) order, after ``prefix`` (E,) tokens
+    of lower ranks; past ``capacity`` a token is dropped from that
+    expert."""
     assigned = gates > 0.0
     # the scan runs along the inner dim of the (E, N) transpose: a scan
     # down N rows of only E columns leaves the card idle
     pos = torch.cumsum(assigned.t().to(torch.int32).contiguous(), dim=1,
                        dtype=torch.int32).t() - 1
+    if prefix is not None:
+        pos = pos + prefix
     return assigned, pos, assigned & (pos < capacity)
 
 
@@ -135,18 +150,32 @@ def _ffn_einsum(tokens, gates, cap, w_in, w_out, activation):
     return y, dropped
 
 
-def _ffn_index(tokens, gates, topk_idx, cap, w_in, w_out, activation):
+def _ffn_index(tokens, gates, topk_idx, cap, w_in, w_out, activation,
+               route: Optional["_Route"] = None):
+    """The index form; under a mesh (``route``) this rank's tokens through
+    its experts alone, the combine returned in float32 (the caller sums
+    it over ``expert``)."""
     N, d = tokens.shape
-    E, k = gates.shape[1], topk_idx.shape[1]
+    k = topk_idx.shape[1]
     dev = tokens.device
-    assigned, pos, keep = _queue_positions(gates, cap)
-    # each (token, choice)'s slot e·C + position, or E·C (a discarded
-    # slot) where the assignment was dropped or never made
-    kept = keep.gather(1, topk_idx)                              # (N, k)
-    slot = torch.where(kept, topk_idx * cap + pos.gather(1, topk_idx),
-                       E * cap)
+    prefix = None if route is None else route.prefix
+    assigned, pos, keep = _queue_positions(gates, cap, prefix)
+    # this rank's experts [e0, e0 + E) and C slots an expert: a rank's own
+    # tokens fill at most N of an expert's global queue
+    e0, E = (0, gates.shape[1]) if route is None else (route.e0, route.ne)
+    C = cap if route is None else min(cap, N)
+    local = topk_idx - e0
+    mine = (local >= 0) & (local < E)
+    # each (token, choice)'s slot e·C + position (its own queue position
+    # past the lower ranks'), or E·C (a discarded slot) where the
+    # assignment was dropped, never made, or another rank's expert's
+    kept = keep.gather(1, topk_idx) & mine                       # (N, k)
+    qpos = pos.gather(1, topk_idx)
+    if prefix is not None:
+        qpos = qpos - prefix[topk_idx]
+    slot = torch.where(kept, local * C + qpos, E * C)
     # slot → token, -1 where empty; only the discarded slot repeats
-    owner = torch.full((E * cap + 1,), -1, dtype=torch.long, device=dev)
+    owner = torch.full((E * C + 1,), -1, dtype=torch.long, device=dev)
     owner.scatter_(0, slot.flatten(),
                    torch.arange(N, device=dev).repeat_interleave(k))
     owner = owner[:-1]
@@ -158,33 +187,106 @@ def _ffn_index(tokens, gates, topk_idx, cap, w_in, w_out, activation):
     # dispatch gathers in float32, so its backward sums a token's slots
     # in float32 and rounds once, as the einsum's product does.
     src = torch.where(filled, owner,
-                      torch.arange(E * cap, device=dev) % N)
+                      torch.arange(E * C, device=dev) % N)
     xe = tokens.float().index_select(0, src)
     xe = torch.where(filled[:, None], xe, 0.0).to(tokens.dtype)
-    ye = _experts(xe.view(E, cap, d), w_in, w_out, activation)
-    ye = torch.cat([ye.reshape(E * cap, d), ye.new_zeros((1, d))])
+    ye = _experts(xe.view(E, C, d), w_in, w_out, activation)
+    ye = torch.cat([ye.reshape(E * C, d), ye.new_zeros((1, d))])
     # the gates rounded to the activation dtype (the reference's
     # combine.astype(x.dtype)), the k products summed in float32
     g = gates.gather(1, topk_idx).to(tokens.dtype).float()       # (N, k)
     picked = ye.index_select(0, slot.flatten()).view(N, k, d)
-    y = (g[..., None] * picked.float()).sum(1).to(tokens.dtype)
+    y = (g[..., None] * picked.float()).sum(1)
     dropped = assigned.any(-1) & ~keep.any(-1)
-    return y, dropped
+    return (y if route is not None else y.to(tokens.dtype)), dropped
 
 
-def _moe(x, w_router, w_in, w_out, k, capacity_factor, activation, ffn
-         ) -> Tuple[torch.Tensor, MoEMetrics]:
+class _Route(NamedTuple):
+    """A rank's part of the global routing: its first expert and expert
+    count, and the tokens of the lower batch ranks in each expert's
+    queue ((E,) int32)."""
+    e0: int
+    ne: int
+    prefix: torch.Tensor
+
+
+def _live_mesh():
+    from ray_tpu_torch.parallel.mesh import get_ambient_mesh
+    m = get_ambient_mesh()
+    return m if m is not None and m.size > 1 else None
+
+
+def _route(mesh, gates: torch.Tensor) -> _Route:
+    """This rank's ``_Route``: its slice of the experts by its ``expert``
+    coordinate, and the exclusive prefix over the lower batch ranks of
+    each expert's assignment counts (one all-gather of (E,) counts)."""
+    from ray_tpu_torch.parallel import collectives as col
+    from ray_tpu_torch.parallel import mesh as mesh_lib
+    X = gates.shape[1]
+    ep, e = mesh.shape["expert"], mesh.coords["expert"]
+    e0, e1 = mesh_lib.shard_bounds(X, ep, e)
+    axes = mesh.config.batch_axes()
+    with torch.no_grad():
+        counts = (gates > 0).sum(0, dtype=torch.int32)[None]       # (1, E)
+        for a in reversed(axes):          # inner first: row-major order
+            counts = col.all_gather(counts, a, 0, mesh)
+        _, idx = mesh_lib.entry_coordinate(mesh, axes)
+        prefix = counts[:idx].sum(0, dtype=torch.int32)
+    return _Route(e0, e1 - e0, prefix)
+
+
+def _moe(x, w_router, w_in, w_out, k, capacity_factor, activation, ffn,
+         mesh=None) -> Tuple[torch.Tensor, MoEMetrics]:
     B, S, d = x.shape
     E = w_router.shape[-1]
     N = B * S
     tokens = x.reshape(N, d)
     gates, logits, topk_idx = topk_router(tokens, w_router, k)
-    cap = expert_capacity(N, E, k, capacity_factor)
-    y, dropped = ffn(tokens, gates, topk_idx, cap, w_in, w_out, activation)
-    aux, z = load_balance_loss(gates, logits)
-    metrics = MoEMetrics(aux_loss=aux, router_z_loss=z,
-                         fraction_dropped=dropped.float().mean())
-    return y.reshape(B, S, d), metrics
+    if mesh is None:
+        cap = expert_capacity(N, E, k, capacity_factor)
+        y, dropped = ffn(tokens, gates, topk_idx, cap, w_in, w_out,
+                         activation)
+        aux, z = load_balance_loss(gates, logits)
+        metrics = MoEMetrics(aux_loss=aux, router_z_loss=z,
+                             fraction_dropped=dropped.float().mean())
+        return y.reshape(B, S, d), metrics
+    return _moe_mesh(x, tokens, gates, logits, topk_idx, w_in, w_out, k,
+                     capacity_factor, activation, mesh)
+
+
+def _moe_mesh(x, tokens, gates, logits, topk_idx, w_in, w_out, k,
+              capacity_factor, activation, mesh
+              ) -> Tuple[torch.Tensor, MoEMetrics]:
+    """``_moe`` over a mesh of ranks (the module docstring)."""
+    from ray_tpu_torch.parallel import collectives as col
+    from ray_tpu_torch.parallel.mesh import ITEM_8B
+    for axis in ("tensor", "pipeline", "seq", "context"):
+        if mesh.shape[axis] > 1:
+            raise NotImplementedError(
+                f"moe_ffn over a mesh with {axis}={mesh.shape[axis]} is "
+                f"{ITEM_8B}")
+    B, S, d = x.shape
+    N, E = tokens.shape[0], gates.shape[1]
+    axes = mesh.config.batch_axes()
+    n_global = N * math.prod(mesh.shape[a] for a in axes)
+    cap = expert_capacity(n_global, E, k, capacity_factor)
+    route = _route(mesh, gates)
+    if w_in.shape[0] != route.ne or w_out.shape[0] != route.ne:
+        raise ValueError(f"this rank holds experts {route.e0}.."
+                         f"{route.e0 + route.ne} of {E}, but w_in / w_out "
+                         f"lead with {w_in.shape[0]} / {w_out.shape[0]}")
+    y, dropped = _ffn_index(tokens, gates, topk_idx, cap, w_in, w_out,
+                            activation, route)
+    y = col.psum(y, "expert", mesh).to(x.dtype)
+    probs = torch.softmax(logits, dim=-1)
+    frac = col.psum((gates > 0).float().sum(0), axes, mesh) / n_global
+    mean_prob = col.psum(probs.sum(0), axes, mesh) / n_global
+    aux = E * torch.sum(frac * mean_prob)
+    z = col.psum((torch.logsumexp(logits, dim=-1) ** 2).sum(), axes,
+                 mesh) / n_global
+    dropped = col.psum(dropped.float().sum(), axes, mesh) / n_global
+    return y.reshape(B, S, d), MoEMetrics(aux_loss=aux, router_z_loss=z,
+                                          fraction_dropped=dropped)
 
 
 def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_in: torch.Tensor,
@@ -195,9 +297,11 @@ def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_in: torch.Tensor,
     """Expert feed-forward block, the index form (gathers by slot).
 
     x: (B, S, d).  w_router: (d, E).  w_in: (E, d, ff).  w_out: (E, ff,
-    d)."""
+    d).  Under an ambient mesh of ranks: x this rank's rows, w_in / w_out
+    its slice of the experts (``MOE_RULES``), y its rows, the metrics
+    global (the module docstring)."""
     return _moe(x, w_router, w_in, w_out, k, capacity_factor, activation,
-                _ffn_index)
+                _ffn_index, _live_mesh())
 
 
 def moe_ffn_plain(x: torch.Tensor, w_router: torch.Tensor,
@@ -206,16 +310,16 @@ def moe_ffn_plain(x: torch.Tensor, w_router: torch.Tensor,
                   activation: Callable[[torch.Tensor], torch.Tensor]
                   = gelu_tanh) -> Tuple[torch.Tensor, MoEMetrics]:
     """``moe_ffn`` in the reference's einsum form (one-hot dispatch and
-    combine products): the plain version the index form is held to."""
+    combine products): the plain version the index form is held to, on
+    one device."""
     return _moe(x, w_router, w_in, w_out, k, capacity_factor, activation,
                 lambda tokens, gates, _idx, cap, *rest: _ffn_einsum(
                     tokens, gates, cap, *rest))
 
 
-# Sharding rules for MoE params, as data: (path regex, PartitionSpec
-# entries).  Meshes are the multi-GPU slice's work; the rules are kept so
-# that slice applies them as the reference does (first match wins; the
-# stacked-per-layer variants first).
+# Sharding rules for MoE params: (path regex, PartitionSpec entries),
+# the reference's; compose with the transformer rules by prepending
+# (first match wins; the stacked-per-layer variants first).
 MOE_RULES = [
     (r".*blocks/moe/router$", ("pipeline", None, None)),
     (r".*blocks/moe/w_in$", ("pipeline", "expert", "fsdp", "tensor")),
@@ -232,6 +336,10 @@ def init_moe_params(gen: torch.Generator, d_model: int, d_ff: int,
     """Random expert params drawn from ``gen`` on its device, with the
     reference's shapes and scales (router N(0, 0.02²), w_in 1/√d_model,
     w_out 1/√d_ff)."""
+    # imported here: ``models._common`` loads the ``models`` package,
+    # whose ``moe_transformer`` imports this module (a cycle when this
+    # module is imported first)
+    from ray_tpu_torch.models._common import normal_init
     return {
         "router": normal_init(gen, (d_model, num_experts), dtype, 0.02),
         "w_in": normal_init(gen, (num_experts, d_model, d_ff), dtype,

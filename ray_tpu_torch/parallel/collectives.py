@@ -14,6 +14,8 @@ output feeds (the reference's ``shard_map`` transpose rules):
 - ``ppermute``'s backward is the inverse permutation (``ppermute_start``
   issues it and returns a handle, forward and backward);
 - ``all_gather`` (tiled) and ``psum_scatter`` are each other's backward;
+  ``all_gather_uneven`` (ceil-sized pieces, the last short) is
+  backed by a padded reduce-scatter in float32;
 - ``all_to_all``'s backward swaps the split and concat dims;
 - ``psum``'s backward is ``psum``.
 
@@ -170,6 +172,36 @@ class _PsumScatter(torch.autograd.Function):
         return _all_gather(gy, ctx.g, ctx.dim), None, None
 
 
+def _pad_to(x: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    short = size - x.shape[dim]
+    if short == 0:
+        return x
+    shape = list(x.shape)
+    shape[dim] = short
+    return torch.cat([x, x.new_zeros(shape)], dim=dim)
+
+
+class _AllGatherUneven(torch.autograd.Function):
+    """Pieces of at most ``piece`` along ``dim``, padded to it, gathered
+    and cut to ``total``.  Backward: the gradient padded back to the
+    pieces' layout, reduce-scattered in float32, this rank's piece cut
+    out and rounded once to the input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, g, dim, total, piece):
+        ctx.g, ctx.dim, ctx.piece = g, dim, piece
+        ctx.n, ctx.dtype = x.shape[dim], x.dtype
+        full = _all_gather(_pad_to(x, dim, piece), g, dim)
+        return full.narrow(dim, 0, total)
+
+    @staticmethod
+    def backward(ctx, gy):
+        d = ctx.dim
+        gy = _pad_to(gy.float(), d, ctx.piece * ctx.g.world_size)
+        gx = _psum_scatter(gy, ctx.g, d).narrow(d, 0, ctx.n)
+        return gx.to(ctx.dtype), None, None, None, None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, g, split, concat):
@@ -221,6 +253,23 @@ def all_gather(x: torch.Tensor, axis: str, dim: int = 0,
     reference's ``all_gather(tiled=True)``)."""
     g = _group(axis, mesh)
     return x if g is None else _AllGather.apply(x, g, _dim(x, dim))
+
+
+def all_gather_uneven(x: torch.Tensor, axis: str, dim: int, total: int,
+                      piece: int, mesh: Optional[Mesh] = None
+                      ) -> torch.Tensor:
+    """Every rank's piece of a dim of ``total`` cut in ``piece``-sized
+    pieces (``mesh.shard_bounds``: the last short, or empty),
+    concatenated along ``dim`` in axis order; no piece is trusted to be
+    full.  The backward reduce-scatters in float32 (ZeRO-3's gradient of
+    a gathered weight)."""
+    g = _group(axis, mesh)
+    if g is None:
+        return x
+    if x.shape[dim % x.ndim] > piece:
+        raise ValueError(f"a piece of {x.shape[dim % x.ndim]} along dim "
+                         f"{dim} is larger than {piece}")
+    return _AllGatherUneven.apply(x, g, _dim(x, dim), total, piece)
 
 
 def psum_scatter(x: torch.Tensor, axis: str, dim: int = 0,

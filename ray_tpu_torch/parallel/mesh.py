@@ -23,8 +23,18 @@ cut in ceil-sized pieces, the last one short).
 
 Specs are tuples, one entry a dim: ``None`` (replicated), an axis name,
 or a tuple of axis names (the dim sharded over their product, the first
-outermost).  The axes ``fsdp`` and ``expert`` at size > 1 raise: ZeRO-3
-and expert parallelism are ROADMAP queue A, item 8b.
+outermost).
+
+ZeRO-3 over ``fsdp`` (the reference's GSPMD gathers a weight where it is
+used): a rank keeps its ``fsdp`` piece of every matrix, and the model
+gathers each leaf for use (``gather_for_use``, an autograd all-gather
+whose backward reduce-scatters the gradient back onto the piece), inside
+each block's checkpointed region, so a block's gathered weights die with
+its forward and the backward's replay gathers them again.  The batch
+splits over ``("data", "fsdp")``.  Over ``expert`` a rank keeps its
+slice of the experts' leading axis (``ops/moe.py`` runs them).
+``NamedSharding(mesh, spec)`` is the reference's placement of a global
+array as a plain holder: ``local_slice`` is this rank's piece.
 """
 
 from __future__ import annotations
@@ -34,7 +44,8 @@ import contextvars
 import math
 import re
 from dataclasses import dataclass, fields
-from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
+from typing import (Any, Dict, Iterator, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -42,7 +53,6 @@ import torch
 from ray_tpu_torch.parallel import transforms as tx
 
 AXES = ("data", "fsdp", "pipeline", "context", "seq", "tensor", "expert")
-DEFERRED = ("fsdp", "expert")
 ITEM_8B = "ROADMAP queue A, item 8b"
 
 SpecEntry = Union[None, str, Tuple[str, ...]]
@@ -53,10 +63,16 @@ Rules = List[Tuple[str, Spec]]
 class PartitionSpec(tuple):
     """A leaf's spec as ``param_specs`` and ``spmd.state_specs`` give it:
     a tuple of entries, of its own type so that a tree of specs (with the
-    optimizer state's tuples) knows its leaves."""
+    optimizer state's tuples) knows its leaves.  ``shape``: the GLOBAL
+    leaf's shape where the spec was made from the global tree
+    (``use_specs``), which a gather of a short last piece needs; None
+    otherwise."""
 
-    def __new__(cls, *entries: SpecEntry) -> "PartitionSpec":
-        return super().__new__(cls, entries)
+    def __new__(cls, *entries: SpecEntry,
+                shape: Optional[Tuple[int, ...]] = None) -> "PartitionSpec":
+        self = super().__new__(cls, entries)
+        self.shape = None if shape is None else tuple(shape)
+        return self
 
     def __repr__(self) -> str:
         return f"P{tuple.__repr__(self)}"
@@ -108,17 +124,6 @@ class MeshConfig:
                      if self.as_dict()[a] != 1) or ("data",)
 
 
-def check_supported(config: MeshConfig) -> None:
-    """Raise for the axes this port does not shard yet."""
-    for axis in DEFERRED:
-        if abs(getattr(config, axis)) > 1:
-            what = "ZeRO-3 parameter sharding" if axis == "fsdp" \
-                else "expert parallelism"
-            raise NotImplementedError(
-                f"mesh axis {axis}={getattr(config, axis)}: {what} is "
-                f"{ITEM_8B}")
-
-
 # ---------------------------------------------------------------- the mesh
 class Mesh:
     """The ranks of the ``torch.distributed`` domain over ``AXES``.
@@ -134,7 +139,6 @@ class Mesh:
             import DeviceCollectiveGroup, choose_transport
         world = multihost.process_count()
         self.rank = multihost.process_index()
-        check_supported(config or MeshConfig())
         self.config = (config or MeshConfig()).resolved(world)
         self.shape: Dict[str, int] = self.config.as_dict()
         dims = [self.shape[a] for a in AXES]
@@ -301,6 +305,20 @@ def param_specs(params: Any, rules: Rules = TRANSFORMER_RULES,
     return _map_with_path(leaf, params)
 
 
+def use_specs(global_params: Any, rules: Rules = TRANSFORMER_RULES) -> Any:
+    """``param_specs`` of the GLOBAL tree (meta tensors will do), each
+    spec carrying its leaf's global ``shape``: what ``gather_for_use``
+    reads to cut a short last piece."""
+    return tx.tree_map(lambda p, s: P(*s, shape=p.shape), global_params,
+                       param_specs(global_params, rules))
+
+
+def layer_specs(specs: Any) -> Any:
+    """The specs of one layer's view of stacked leaves (``use_specs``'):
+    the leading (layer) entry and dim dropped."""
+    return tx.tree_map(lambda s: P(*s[1:], shape=s.shape[1:]), specs)
+
+
 def _map_with_path(fn, tree: Any, prefix: str = "") -> Any:
     if isinstance(tree, dict):
         return {k: _map_with_path(fn, tree[k], f"{prefix}{k}/")
@@ -338,14 +356,39 @@ def entry_coordinate(mesh: Mesh, entry: SpecEntry) -> Tuple[int, int]:
     return n, idx
 
 
-def local_slice(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
-    """The slice of a global tensor that this rank's coordinates select."""
-    for d, entry in enumerate(_fit(spec, t.ndim)):
+def shard_index(shape: Sequence[int], spec: Spec,
+                mesh: Mesh) -> Tuple[slice, ...]:
+    """The slices of a global array of ``shape`` that this rank's
+    coordinates select under ``spec`` (numpy and torch alike)."""
+    out = []
+    for d, entry in enumerate(_fit(spec, len(shape))):
         n, i = entry_coordinate(mesh, entry)
-        if n > 1:
-            lo, hi = shard_bounds(t.shape[d], n, i)
-            t = t.narrow(d, lo, hi - lo)
-    return t
+        lo, hi = shard_bounds(shape[d], n, i) if n > 1 else (0, shape[d])
+        out.append(slice(lo, hi))
+    return tuple(out)
+
+
+def local_slice(t: Any, spec: Spec, mesh: Mesh) -> Any:
+    """The slice (a view) of a global tensor or array that this rank's
+    coordinates select."""
+    return t[shard_index(t.shape, spec, mesh)]
+
+
+class NamedSharding:
+    """The reference's ``NamedSharding(mesh, spec)`` as a plain holder:
+    a global array placed over the mesh by ``spec``, of which
+    ``local_slice`` is this rank's piece (what ``jax.device_put`` puts on
+    the device at the rank's coordinates)."""
+
+    def __init__(self, mesh: Mesh, spec: Spec):
+        self.mesh, self.spec = mesh, P(*spec)
+
+    def local_slice(self, x: Any) -> Any:
+        """This rank's piece of ``x`` (a numpy array or tensor), a view."""
+        return local_slice(x, self.spec, self.mesh)
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.mesh!r}, {self.spec!r})"
 
 
 def shard_params(mesh: Mesh, params: Any,
@@ -395,7 +438,8 @@ def local_batch_size(global_batch: int, config: MeshConfig,
 
 
 def shard_batch_rows(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
-    """This rank's rows of a global batch (its data coordinate)."""
+    """This rank's rows of a global batch: its row-major coordinate over
+    the batch axes (``data``, then ``fsdp``)."""
     n, i = entry_coordinate(mesh, mesh.config.batch_axes())
     if n == 1:
         return x
@@ -404,3 +448,49 @@ def shard_batch_rows(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
                          f"data-parallel degree {n}")
     lo, hi = shard_bounds(x.shape[0], n, i)
     return x[lo:hi]
+
+
+# ----------------------------------------------------------- ZeRO-3 gather
+def fsdp_dim(spec: Spec) -> Optional[int]:
+    """The dim a spec splits over ``fsdp`` (None where it does not); the
+    axis must be its entry's only one, as in every rule table."""
+    for d, entry in enumerate(spec):
+        if "fsdp" in entry_axes(entry):
+            if entry != "fsdp":
+                raise NotImplementedError(
+                    f"spec {spec!r}: fsdp shares its entry with another "
+                    f"axis ({ITEM_8B})")
+            return d
+    return None
+
+
+def gather_for_use(tree: Any, specs: Any, mesh: Optional[Mesh] = None
+                   ) -> Any:
+    """ZeRO-3's gather at use: every leaf whose spec splits a dim over
+    ``fsdp`` all-gathered along it over the ``fsdp`` group
+    (``collectives.all_gather_uneven``: each piece padded to the ceil
+    size, gathered, the global dim cut back out of the spec's global
+    ``shape``), the others as they are.  Differentiable: the backward
+    reduce-scatters the gradient of the gathered leaf (summed in float32,
+    rounded once to the leaf's dtype) onto this rank's piece.  ``specs``
+    from ``use_specs`` (``layer_specs`` for a layer's view); ``mesh``
+    None: the ambient mesh.  Outside a mesh with ``fsdp`` > 1 the tree
+    itself."""
+    mesh = mesh if mesh is not None else get_ambient_mesh()
+    if mesh is None or mesh.shape.get("fsdp", 1) == 1:
+        return tree
+    from ray_tpu_torch.parallel import collectives as col
+
+    def leaf(t: torch.Tensor, spec: PartitionSpec) -> torch.Tensor:
+        d = fsdp_dim(spec)
+        if d is None:
+            return t
+        if spec.shape is None:
+            raise ValueError(
+                f"gather_for_use: spec {spec!r} has no global shape (make "
+                f"the specs with use_specs from the global tree)")
+        dim = spec.shape[d]
+        return col.all_gather_uneven(t, "fsdp", d, dim,
+                                     -(-dim // mesh.shape["fsdp"]), mesh)
+
+    return tx.tree_map(leaf, tree, specs)

@@ -23,7 +23,8 @@ buffers where ranks share a card).
   gathered to plain numpy holding the GLOBAL value on every rank, and a
   host tree is placed back as this rank's tensors on an explicit device
   (whole, split along one axis, or sliced by sharding specs over a
-  mesh).
+  mesh: ZeRO-3's ``fsdp`` pieces and the ``expert`` slices included,
+  so a sharded train state checkpoints in the one-rank state's layout).
 - ``broadcast_one_to_all()`` — rank 0's value on every rank;
   ``allreduce()`` — a tree summed (or averaged) over the ranks, in one
   flat buffer, through the domain's device group (``domain_group()``).

@@ -29,7 +29,20 @@ Differences from the reference, each forced by the port:
   not split) and divides by the number of ranks.  The global-norm clip
   and the reported ``grad_norm`` count a split leaf's squares once over
   its pieces and a replicated leaf's once.  AdamW's moments live on the
-  local slice.  ``fsdp`` and ``expert`` are ROADMAP queue A, item 8b.
+  local slice, in ``moments_dtype``.
+- ZeRO-3 (``fsdp``): the model gathers each split leaf at use
+  (``mesh.gather_for_use``), whose backward already reduce-scattered
+  the gradient over ``fsdp`` onto the rank's piece; the step then sums
+  it over the other axes that hold a copy (``data``, ``expert``), never
+  over ``fsdp`` again, while a leaf replicated over ``fsdp`` (LayerNorm,
+  the biases the rules leave whole, the router) is summed over it as
+  over ``data``.  Both kinds are divided by the same number of ranks.
+  The reduce-scatter sums in float32 and rounds once to the leaf's dtype
+  (bf16 params included); the step's own sums ride one flat float32
+  buffer an axis (``device_group.flatten``).
+- Expert parallelism (``expert``): a rank holds its slice of the
+  experts' leading axis; ``ops/moe.py`` sums the combine over
+  ``expert``, and the step sums the rest over it as over ``data``.
 """
 
 from __future__ import annotations
@@ -131,8 +144,6 @@ def _resolve_placement(device: DeviceLike, mesh: Optional[MeshLike],
     ``mesh_config`` inside a ``torch.distributed`` domain, makes a mesh
     program; outside one a config must describe one device."""
     from ray_tpu_torch.parallel import multihost
-    if mesh_config is not None:
-        mesh_lib.check_supported(mesh_config)
     if isinstance(mesh, Mesh):
         if mesh_config is not None and \
                 mesh_config.resolved(mesh.size) != mesh.config:

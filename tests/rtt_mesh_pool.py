@@ -337,35 +337,55 @@ def rank_transport(device: str, requested) -> str:
         return f"{type(e).__name__}: {e}"
 
 
-# ------------------------------------------------------------ GPT-2 mesh
-def rank_gpt2_train(axes: Dict[str, int], cfg_kw: Dict[str, Any],
-                    params: Dict[str, Any], tokens: np.ndarray,
-                    steps: int, opt_kw: Dict[str, Any],
-                    family: str = "gpt2") -> Dict[str, Any]:
-    """A tiny GPT-2 (or Llama) over the mesh ``axes`` through
-    ``spmd.build_train_program``: the step-0 gradients of this rank's
-    slices (the program's reduction), then ``steps`` steps' losses and
-    grad norms, and this rank's coordinates."""
+# ------------------------------------------------------------ model meshes
+def _family(family: str):
+    """(module, rules) of a family, as ``mesh_reference._family``."""
+    from ray_tpu_torch.models import gpt2, llama, moe_transformer, resnet
+    from ray_tpu_torch.parallel import mesh as mesh_lib
+    return {"gpt2": (gpt2, mesh_lib.TRANSFORMER_RULES),
+            "llama": (llama, llama.LLAMA_RULES),
+            "moe": (moe_transformer, moe_transformer.MOE_TRANSFORMER_RULES),
+            "resnet": (resnet, resnet.RESNET_RULES)}[family]
+
+
+def _program(family: str, axes, cfg_kw: Dict[str, Any], params,
+             opt_kw: Dict[str, Any]):
+    """(program, cfg, rules) of a tiny ``family`` model in float32 over
+    the mesh ``axes`` (None: one process) from the global ``params``."""
     import dataclasses
 
-    from ray_tpu_torch.models import gpt2, llama
     from ray_tpu_torch.models.convert import params_from_numpy
     from ray_tpu_torch.parallel import mesh as mesh_lib
     from ray_tpu_torch.parallel import spmd
-    from ray_tpu_torch.parallel import transforms as tx
-    mod = gpt2 if family == "gpt2" else llama
-    base = mod.tiny(**cfg_kw.pop("tiny", {}))
-    cfg = dataclasses.replace(base, dtype=torch.float32, **cfg_kw)
-    rules = mesh_lib.TRANSFORMER_RULES if family == "gpt2" \
-        else mod.LLAMA_RULES
-    mesh = mesh_lib.Mesh(mesh_lib.MeshConfig(**axes), device="cpu")
+    mod, rules = _family(family)
+    cfg_kw = dict(cfg_kw)
+    cfg = dataclasses.replace(mod.tiny(**cfg_kw.pop("tiny", {})),
+                              dtype=torch.float32, **cfg_kw)
+    mesh = None if axes is None else mesh_lib.Mesh(
+        mesh_lib.MeshConfig(**axes), device="cpu")
     prog = spmd.build_train_program(
         loss_fn=lambda p, b: mod.loss_fn(p, b, cfg),
         init_params_fn=lambda g: params_from_numpy(params, cfg, "cpu"),
-        optimizer=spmd.default_optimizer(**opt_kw), mesh=mesh,
-        rules=rules)
+        optimizer=spmd.default_optimizer(**opt_kw),
+        mesh=mesh if mesh is not None else "cpu", rules=rules)
+    return prog, cfg, rules
+
+
+def rank_mesh_train(family: str, axes: Dict[str, int],
+                    cfg_kw: Dict[str, Any], params: Dict[str, Any],
+                    batch: Dict[str, np.ndarray], steps: int,
+                    opt_kw: Dict[str, Any]) -> Dict[str, Any]:
+    """A tiny ``family`` model over the mesh ``axes`` through
+    ``spmd.build_train_program``: the step-0 gradients of this rank's
+    slices (the program's reduction), then ``steps`` steps' losses and
+    grad norms, and this rank's coordinates."""
+    from ray_tpu_torch.parallel import mesh as mesh_lib
+    from ray_tpu_torch.parallel import spmd
+    from ray_tpu_torch.parallel import transforms as tx
+    prog, cfg, rules = _program(family, axes, cfg_kw, params, opt_kw)
+    mod, mesh = _family(family)[0], prog.mesh
     state = prog.init_fn(torch.Generator())
-    batch = spmd.shard_batch(prog, {"tokens": tokens})
+    batch = spmd.shard_batch(prog, batch)
     # the step-0 gradients, as the program reduces them
     leaves = tx.tree_leaves(state.params)
     with mesh_lib.ambient_mesh(mesh):
@@ -385,6 +405,14 @@ def rank_gpt2_train(axes: Dict[str, int], cfg_kw: Dict[str, Any],
     return {"coords": dict(mesh.coords), "losses": losses, "norms": norms,
             "grads": _tree_np(gtree), "transport": mesh.transport}
 
+
+def rank_gpt2_train(axes: Dict[str, int], cfg_kw: Dict[str, Any],
+                    params: Dict[str, Any], tokens: np.ndarray,
+                    steps: int, opt_kw: Dict[str, Any],
+                    family: str = "gpt2") -> Dict[str, Any]:
+    """``rank_mesh_train`` of a GPT-2 (or Llama) on a token batch."""
+    return rank_mesh_train(family, axes, cfg_kw, params,
+                           {"tokens": tokens}, steps, opt_kw)
 
 
 # ------------------------------------------------------- shards and state
@@ -429,4 +457,192 @@ def rank_collective_api(rows: np.ndarray) -> Dict[str, Any]:
     finally:
         col.destroy_collective_group("api")
     out["after"] = col.is_group_initialized("api")
+    return out
+
+
+# ------------------------------------------------------- ZeRO-3 and experts
+def rank_uneven_gather(w: np.ndarray, x: np.ndarray) -> Dict[str, Any]:
+    """A (n, m) weight split over ``fsdp`` = the pool's ranks in ceil
+    pieces (the last short, or empty), gathered at use
+    (``gather_for_use``) into sum(sin(x @ W)), the global loss on every
+    rank: the gathered weight and this rank's piece of the gradient by
+    the program's rule (``spmd._mesh_reduce``)."""
+    from ray_tpu_torch.parallel import mesh as mesh_lib
+    from ray_tpu_torch.parallel import spmd
+    world = int(torch.distributed.get_world_size())
+    mesh = _mesh(data=1, fsdp=world)
+    spec = mesh_lib.P("fsdp", None, shape=w.shape)
+    piece = mesh_lib.NamedSharding(mesh, spec).local_slice(
+        torch.from_numpy(w)).clone()
+    X = torch.from_numpy(x)
+
+    def loss():
+        full = mesh_lib.gather_for_use({"w": piece}, {"w": spec}, mesh)["w"]
+        return torch.sin(X @ full).sum(), full
+
+    (g,) = _grads(lambda: loss()[0], [piece])
+    g = spmd._mesh_reduce(mesh, [spec], [g])[0]
+    full = loss()[1]
+    mesh.destroy()
+    return {"fsdp": mesh.coords["fsdp"], "full": _np(full), "grad": _np(g),
+            "piece_rows": piece.shape[0]}
+
+
+def rank_gathered_alive(axes: Dict[str, int], params: Dict[str, Any],
+                        tokens: np.ndarray, remat: bool) -> Dict[str, Any]:
+    """ZeRO-3's memory contract: the storage of every buffer
+    ``gather_for_use`` makes in one GPT-2 loss forward under grad, held
+    by a weak reference (a view keeps a storage alive); after the
+    forward returns, the shapes of those still alive (what autograd
+    keeps for the backward) and the count made; then after the
+    backward."""
+    import gc
+    import weakref
+
+    from ray_tpu_torch.parallel import collectives as col
+    from ray_tpu_torch.parallel import mesh as mesh_lib
+    from ray_tpu_torch.parallel import spmd
+    from ray_tpu_torch.parallel import transforms as tx
+    prog, cfg, _ = _program("gpt2", axes, {"tiny": {"vocab": 128, "seq": 32},
+                                           "remat": remat}, params,
+                            {"lr": 1e-2})
+    mod = _family("gpt2")[0]
+    state = prog.init_fn(torch.Generator())
+    batch = spmd.shard_batch(prog, {"tokens": tokens})
+    made: List[Any] = []
+    real = col.all_gather_uneven
+
+    def watched(*a, **kw):
+        out = real(*a, **kw)
+        made.append((weakref.ref(out.untyped_storage()), tuple(out.shape)))
+        return out
+
+    col.all_gather_uneven = watched
+    try:
+        for p in tx.tree_leaves(state.params):
+            p.requires_grad_(True)
+        with mesh_lib.ambient_mesh(prog.mesh):
+            loss = mod.loss_fn(state.params, batch, cfg)
+        gc.collect()
+        alive = [shape for r, shape in made if r() is not None]
+        n_forward = len(made)
+        loss.backward()
+        del loss
+        gc.collect()
+        after = [shape for r, shape in made if r() is not None]
+    finally:
+        col.all_gather_uneven = real
+    prog.mesh.destroy()
+    return {"made": n_forward, "alive": alive, "replayed": len(made)
+            - n_forward, "alive_after_backward": after}
+
+
+def rank_moe_ffn(axes: Dict[str, int], x: np.ndarray, router: np.ndarray,
+                 w_in: np.ndarray, w_out: np.ndarray, k: int, cf: float
+                 ) -> Dict[str, Any]:
+    """``moe_ffn`` over the mesh ``axes``: this rank's rows of x (its
+    batch coordinate) through its slice of the experts: its output rows,
+    the metrics, the dropped set of its tokens, and the gradients of the
+    global sum(y²) + 0.01·aux + 0.001·z for the router and its expert
+    slices by the program's rule."""
+    from ray_tpu_torch.ops import moe as tmoe
+    from ray_tpu_torch.parallel import collectives as col
+    from ray_tpu_torch.parallel import mesh as mesh_lib
+    from ray_tpu_torch.parallel import spmd
+    mesh = _mesh(**axes)
+    rows = mesh_lib.NamedSharding(mesh, mesh_lib.batch_spec(mesh.config, 3))
+    xs = rows.local_slice(torch.from_numpy(x)).clone()
+    specs = [mesh_lib.P(None, None), mesh_lib.P("expert", None, None),
+             mesh_lib.P("expert", None, None)]
+    ws = [mesh_lib.NamedSharding(mesh, s).local_slice(
+        torch.from_numpy(a)).clone() for s, a in zip(specs,
+                                                     (router, w_in, w_out))]
+    axes_b = mesh.config.batch_axes()
+    with mesh_lib.ambient_mesh(mesh):
+        y, m = tmoe.moe_ffn(xs, *ws, k=k, capacity_factor=cf)
+
+        def loss():
+            y, m = tmoe.moe_ffn(xs, *ws, k=k, capacity_factor=cf)
+            return (col.psum((y ** 2).sum(), axes_b, mesh)
+                    + 0.01 * m.aux_loss + 0.001 * m.router_z_loss)
+
+        grads = _grads(loss, ws)
+        tokens = xs.reshape(-1, xs.shape[-1])
+        gates, _, _ = tmoe.topk_router(tokens, ws[0], k)
+        n_global = tokens.shape[0] * int(np.prod(
+            [mesh.shape[a] for a in axes_b]))
+        cap = tmoe.expert_capacity(n_global, router.shape[-1], k, cf)
+        route = tmoe._route(mesh, gates)
+        assigned, _, keep = tmoe._queue_positions(gates, cap, route.prefix)
+    grads = spmd._mesh_reduce(mesh, specs, grads)
+    mesh.destroy()
+    return {"coords": dict(mesh.coords), "y": _np(y),
+            "aux": float(m.aux_loss), "z": float(m.router_z_loss),
+            "dropped_fraction": float(m.fraction_dropped),
+            "dropped": (assigned.any(-1) & ~keep.any(-1)).numpy(),
+            "grads": [_np(g) for g in grads]}
+
+
+def rank_sharded_checkpoint(family: str, axes: Dict[str, int],
+                            cfg_kw: Dict[str, Any], params: Dict[str, Any],
+                            batch: Dict[str, np.ndarray], steps: int,
+                            opt_kw: Dict[str, Any]) -> Dict[str, Any]:
+    """``steps`` steps over the mesh, then the state gathered on the host
+    by its specs (``gather_to_host``: what Train checkpoints), placed back
+    (``put_global``), and the same program's state on one process."""
+    from ray_tpu_torch.parallel import multihost
+    from ray_tpu_torch.parallel import spmd
+    from ray_tpu_torch.parallel import transforms as tx
+    out = {}
+    for name, where in (("mesh", axes), ("one", None)):
+        prog, cfg, rules = _program(family, where, cfg_kw, params, opt_kw)
+        state = prog.init_fn(torch.Generator())
+        b = spmd.shard_batch(prog, batch)
+        for _ in range(steps):
+            state, _ = prog.step_fn(state, b)
+        if prog.mesh is None:
+            out[name] = {"params": _tree_np(state.params),
+                         "opt_state": multihost.gather_to_host(
+                             state.opt_state)}
+            continue
+        specs = spmd.state_specs(state, rules)
+        host = {k: multihost.gather_to_host(
+            getattr(state, k), specs=getattr(specs, k), mesh=prog.mesh)
+            for k in ("params", "opt_state")}
+        again = multihost.put_global(host["params"], "cpu",
+                                     specs=specs.params, mesh=prog.mesh)
+        out["placed_again"] = all(torch.equal(a, b) for a, b in zip(
+            tx.tree_leaves(again), tx.tree_leaves(state.params)))
+        out[name] = host
+        prog.mesh.destroy()
+    return out
+
+
+def rank_axis_mesh(axes: Dict[str, int], deferred: str) -> Dict[str, Any]:
+    """A mesh over ``axes``: this rank's coordinates and every live axis's
+    group (its global ranks); then the model combination ``deferred``
+    names ("llama_tensor", "moe_tensor") run over the last of ``axes``
+    with ``tensor`` = 2 in place of the others, its error."""
+    import dataclasses
+
+    from ray_tpu_torch.models import llama, moe_transformer
+    from ray_tpu_torch.parallel import mesh as mesh_lib
+    mesh = _mesh(**axes)
+    out = {"coords": dict(mesh.coords),
+           "groups": {a: g.ranks for a, g in mesh.groups.items()}}
+    mesh.destroy()
+    last = list(axes)[-1]
+    mesh = _mesh(**{last: axes[last], "tensor": 2})
+    mod = {"llama_tensor": llama, "moe_tensor": moe_transformer}[deferred]
+    cfg = dataclasses.replace(mod.tiny(vocab=128, seq=32),
+                              dtype=torch.float32)
+    params = mod.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    toks = torch.zeros((2, 9), dtype=torch.long)
+    try:
+        with mesh_lib.ambient_mesh(mesh):
+            mod.loss_fn(params, {"tokens": toks}, cfg)
+        out["error"] = None
+    except NotImplementedError as e:
+        out["error"] = str(e)
+    mesh.destroy()
     return out

@@ -320,9 +320,40 @@ def test_iter_device_batches_refuses_without_a_card(cluster):
 
 
 def test_iter_device_batches_refuses_a_sharding(cluster):
-    with pytest.raises(NotImplementedError, match="item 8b"):
+    """``sharding=`` takes a ``NamedSharding`` (anything else raises):
+    every rank iterates the same global stream and gets its piece of
+    each batch (``local_slice``: its rows under ``batch_spec`` over
+    ``(data=2, fsdp=2)``, row-major over both), the object column
+    whole, as ``jax.device_put`` leaves it in the reference."""
+    import types
+
+    import torch
+
+    from ray_tpu_torch.parallel import mesh as tmesh
+    with pytest.raises(TypeError, match="NamedSharding"):
         next(rd.range(16).iter_device_batches(batch_size=8, device="cpu",
                                               sharding=object()))
+    ds = rd.from_items([{"x": np.full(3, i, np.float32), "id": i,
+                         "tag": f"r{i}"} for i in range(16)])
+    config = tmesh.MeshConfig(data=2, fsdp=2)
+    spec = tmesh.batch_spec(config)
+    whole = list(ds.iter_batches(batch_size=8))
+    for rank in range(4):
+        d, f = np.unravel_index(rank, (2, 2))
+        mesh = types.SimpleNamespace(
+            shape=config.resolved(4).as_dict(),
+            coords={**{a: 0 for a in tmesh.AXES}, "data": d, "fsdp": f},
+            device=torch.device("cpu"))
+        sharding = tmesh.NamedSharding(mesh, spec)
+        got = list(ds.iter_device_batches(batch_size=8, sharding=sharding))
+        assert len(got) == len(whole) == 2
+        for g, w in zip(got, whole):
+            rows = slice(2 * rank, 2 * rank + 2)
+            np.testing.assert_array_equal(g["x"].numpy(), w["x"][rows])
+            np.testing.assert_array_equal(
+                g["x"].numpy(), sharding.local_slice(w["x"]))
+            np.testing.assert_array_equal(g["id"].numpy(), w["id"][rows])
+            assert list(g["tag"]) == list(w["tag"])
 
 
 def test_iter_device_batches_prefetch_order(cluster):

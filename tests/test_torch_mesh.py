@@ -109,13 +109,24 @@ def test_uneven_dims_cut_in_ceil_pieces():
 
 
 @pytest.mark.parametrize("axis", ["fsdp", "expert"])
-def test_deferred_axes_raise_naming_item_8b(axis):
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        tmesh.Mesh(tmesh.MeshConfig(**{axis: 2}), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        tspmd.build_train_program(
-            loss_fn=lambda p, b: 0, init_params_fn=lambda g: {},
-            mesh_config=tmesh.MeshConfig(**{axis: 2}), device="cpu")
+def test_deferred_axes_raise_naming_item_8b(pool, axis):
+    """``fsdp`` and ``expert`` (ZeRO-3, expert parallelism) build a mesh
+    now: with ``data=2`` every rank's coordinates are its row-major
+    place in the (data, axis) grid and each live axis's group holds the
+    ranks that differ only along it.  The combinations still deferred
+    (Llama under ``tensor`` with ``fsdp``, the MoE transformer under
+    ``tensor`` with ``expert``) raise naming item 8b."""
+    deferred = {"fsdp": "llama_tensor", "expert": "moe_tensor"}[axis]
+    grid = np.arange(4).reshape(2, 2)
+    for rank, r in enumerate(pool.run(pool_lib.rank_axis_mesh,
+                                      {"data": 2, axis: 2}, deferred)):
+        d, a = np.unravel_index(rank, (2, 2))
+        assert {k: v for k, v in r["coords"].items() if v} == \
+            {k: v for k, v in {"data": d, axis: a}.items() if v}
+        assert r["groups"] == {"data": [int(x) for x in grid[:, a]],
+                               axis: [int(x) for x in grid[d]]}
+        assert r["error"] is not None and "item 8b" in r["error"] \
+            and "tensor=2" in r["error"], r["error"]
 
 
 def test_device_group_matches_xla_group(pool):

@@ -405,3 +405,21 @@ def test_get_model_resolves_the_encoder_and_vision_families(name):
     assert got.__name__.rsplit(".", 1)[1] == ref.__name__.rsplit(".", 1)[1]
     assert set(got.PRESETS) == set(ref.PRESETS)
     assert got is tmodels.REGISTRY[got.__name__.rsplit(".", 1)[1]]
+
+
+def test_ops_moe_imports_first_in_a_fresh_process():
+    """``ray_tpu_torch.ops.moe`` imported before anything else of the
+    package (C30: its top-level import of ``models._common`` loaded the
+    ``models`` package, whose ``moe_transformer`` imported the
+    half-initialised module back)."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    out = subprocess.run(
+        [sys.executable, "-c", "from ray_tpu_torch.ops import moe; "
+         "print(len(moe.MOE_RULES))"], env=env, cwd=root,
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "6"
