@@ -7065,7 +7065,10 @@ def autoscaler_phase(dev, eng_res: dict, tag: str,
 # to BERT_PAD_TOL against the same ids alone.  The autoscaling delays are
 # cut from the reference's 30 s / 600 s to seconds so the phase sees both
 # directions.
-SERVE_REQUESTS, SERVE_CLIENTS = 200, 8           # serve_bench.py:83-85
+# serve_bench.py:83-85's 8 clients; its 200 requests cut to 100 for the
+# script's wall time (every request's logits are still checked bitwise,
+# and 100 samples still give the p50 and p99)
+SERVE_REQUESTS, SERVE_CLIENTS = 100, 8
 SERVE_BERT_TOL = 0.0
 SERVE_GPU_WORKERS = 4
 SERVE_AUTOSCALING = dict(min_replicas=1, max_replicas=3,
@@ -7073,8 +7076,9 @@ SERVE_AUTOSCALING = dict(min_replicas=1, max_replicas=3,
                          upscale_delay_s=2.0, downscale_delay_s=4.0)
 SERVE_LLM_TOKENS = 32                            # the engine phase's
 # the engine phase's first prompts served one at a time, alone and by
-# naive_llm_deployment (cut from all 16 for the script's wall time)
-SERVE_NAIVE_REQUESTS = 8
+# naive_llm_deployment (cut from all 16, then from 8, for the script's
+# wall time: each is checked token for token against its solo run)
+SERVE_NAIVE_REQUESTS = 4
 
 
 class BertServer:
@@ -9571,6 +9575,9 @@ def mp_loop(config: dict) -> None:
     if config.get("ze_dataset") is not None:
         # the zero_expert phase, on the same workers
         ze_worker(dev, config, store, rank)
+    if config.get("mr_tokens") is not None:
+        # the mesh_rest sub-phase, on the same workers
+        mr_worker(dev, config, store, rank)
     train.report({"done": 1.0})
 
 
@@ -9592,7 +9599,9 @@ def model_parallel_phase(dev, tag: str, device: Optional[str] = None,
                          cfg=None, allreduce_bytes=MP_ALLREDUCE_BYTES,
                          block_scale: float = MP_BLOCK_SCALE,
                          layouts: bool = True, zero_expert: bool = True,
-                         ze_cfgs: Optional[dict] = None) -> dict:
+                         ze_cfgs: Optional[dict] = None,
+                         mesh_rest: bool = True,
+                         mr_cfgs: Optional[dict] = None) -> dict:
     """The model_parallel phase (see MP_*), and on its workers the
     zero_expert phase (see ZE_*; its results under ``"zero_expert"``,
     with its own ``wall_s``: the driver's one-rank runs, the workers'
@@ -9600,7 +9609,11 @@ def model_parallel_phase(dev, tag: str, device: Optional[str] = None,
     and ``cfg`` replaces mp_config(), ``ze_cfgs`` the legs' configs (a
     rehearsal; the card checks fail there); ``block_scale`` replaces
     MP_BLOCK_SCALE (the sweep behind it); ``layouts`` / ``zero_expert``
-    False leave either out."""
+    False leave either out.  The mesh_rest sub-phase (see MR_*) runs on
+    the same workers after zero_expert, its results under
+    ``"mesh_rest"`` with its own ``wall_s``; ``mr_cfgs`` replaces its
+    families' configs (by family: a rehearsal), ``mesh_rest`` False
+    leaves it out."""
     import ray_tpu_torch as rt
     from ray_tpu_torch import train
     from ray_tpu_torch._private import shm_store
@@ -9640,6 +9653,17 @@ def model_parallel_phase(dev, tag: str, device: Optional[str] = None,
                 for rows in ((0, ZE_BATCH), (0, ZE_BATCH // 2),
                              (ZE_BATCH // 2, ZE_BATCH))}
         ze_ref_s = time.perf_counter() - t
+        t = time.perf_counter()
+        mr = {}
+        if mesh_rest:
+            # the driver's one-rank runs, each freed before the next
+            mr["tokens"] = {f: mr_tokens(mr_config(f, mr_cfgs), f)
+                            for f in ("llama", "moe", "gpt2")}
+            mr["refs"] = {f: mr_run(dev, f, None, max(
+                steps for _, fam, _, steps in MR_LEGS if fam == f),
+                mr_config(f, mr_cfgs), mr["tokens"][f])
+                for f in ("llama", "moe")}
+        mr_ref_s = time.perf_counter() - t
         gpu = device is None
         t = time.perf_counter()
         result = train.TorchTrainer(
@@ -9648,7 +9672,9 @@ def model_parallel_phase(dev, tag: str, device: Optional[str] = None,
                                         "block_scale": block_scale,
                                         "layouts": layouts,
                                         "ze_dataset": ze.get("dataset"),
-                                        "ze_cfgs": ze_cfgs},
+                                        "ze_cfgs": ze_cfgs,
+                                        "mr_tokens": mr.get("tokens"),
+                                        "mr_cfgs": mr_cfgs},
             torch_config=train.TorchConfig(use_distributed=True,
                                            device=device),
             scaling_config=train.ScalingConfig(
@@ -9694,6 +9720,28 @@ def model_parallel_phase(dev, tag: str, device: Optional[str] = None,
             print(f"zero_expert: the phase took {wall:.1f} s, over its "
                   f"budget of {ZE_BUDGET_S:.0f} s [{tag}]", flush=True)
         del ze
+    if mesh_rest:
+        t = time.perf_counter()
+        mr_ranks, mr_hid = [], []
+        for r in range(2):
+            with open(os.path.join(storage, "model_parallel",
+                                   f"mr_rank_{r}.json")) as f:
+                mr_ranks.append(json.load(f))
+            mr_hid.append(torch.load(os.path.join(
+                storage, "model_parallel", f"mr_hidden_{r}.pt")))
+            mr_ranks[-1]["rank"] = r
+        res["mesh_rest"] = mesh_rest_check(mr_ranks, mr_hid, mr["refs"],
+                                           gpu, tag, mr_cfgs)
+        workers_s = max(o["wall_s"] for o in mr_ranks)
+        wall = mr_ref_s + workers_s + time.perf_counter() - t
+        res["mesh_rest"]["wall_s"] = wall
+        print(f"mesh_rest driver's one-rank runs {mr_ref_s:.1f} s, the "
+              f"workers' legs {workers_s:.1f} s, sub-phase {wall:.1f} s of "
+              f"its {MR_BUDGET_S:.0f} [{tag}]", flush=True)
+        if wall > MR_BUDGET_S:
+            print(f"mesh_rest: the sub-phase took {wall:.1f} s, over its "
+                  f"budget of {MR_BUDGET_S:.0f} s [{tag}]", flush=True)
+        del mr
     if not layouts:
         return res
     ranks, hidden = [], []
@@ -9813,7 +9861,8 @@ def model_parallel_phase(dev, tag: str, device: Optional[str] = None,
         bad.append("the all-reduce sweep summed wrong")
     res["allreduce"] = sweep
     res["wall_s"] = time.perf_counter() - t_phase - res.get(
-        "zero_expert", {}).get("wall_s", 0.0)
+        "zero_expert", {}).get("wall_s", 0.0) - res.get(
+        "mesh_rest", {}).get("wall_s", 0.0)
     print(f"model_parallel fit {res['fit_s']:.1f} s, reference "
           f"{res['reference_s']:.1f} s, phase {res['wall_s']:.1f} s of its "
           f"{MP_BUDGET_S:.0f} [{tag}]", flush=True)
@@ -9951,8 +10000,8 @@ class ze_plant:
         elif f == "reads_other_expert_slice":
             real = moe._route
 
-            def other(mesh, gates):
-                r = real(mesh, gates)
+            def other(mesh, gates, *a):
+                r = real(mesh, gates, *a)
                 e = 1 - mesh.coords["expert"]
                 return r._replace(e0=mesh_lib.shard_bounds(
                     gates.shape[1], mesh.shape["expert"], e)[0])
@@ -9969,12 +10018,13 @@ class ze_plant:
 
 class ze_bytes:
     """Bytes gathered (the gathered tensors' size), reduce-scattered (the
-    reduced tensors' size) and all-reduced (the tensors' size: psums and
-    the step's gradient sums) by the mesh collectives while it is
+    reduced tensors' size), all-reduced (the tensors' size: psums and
+    the step's gradient sums) and broadcast (the tensors' size: the
+    ``pipeline`` layer fetches) by the mesh collectives while it is
     entered, counted around ``collectives``' two primitives and the
-    device group's all-reduce."""
+    device group's all-reduce and broadcast."""
 
-    KEYS = ("gathered", "reduce_scattered", "all_reduced")
+    KEYS = ("gathered", "reduce_scattered", "all_reduced", "broadcast")
 
     def __enter__(self):
         from ray_tpu_torch.parallel import collectives as col
@@ -9982,7 +10032,8 @@ class ze_bytes:
             import DeviceCollectiveGroup as group
         self.col, self.group = col, group
         self.counts = dict.fromkeys(self.KEYS, 0)
-        self.real = (col._all_gather, col._psum_scatter, group.all_reduce)
+        self.real = (col._all_gather, col._psum_scatter, group.all_reduce,
+                     group.broadcast)
 
         def gather(x, g, dim):
             out = self.real[0](x, g, dim)
@@ -9997,8 +10048,12 @@ class ze_bytes:
             self.counts["all_reduced"] += t.numel() * t.element_size()
             return self.real[2](g, t, *a, **kw)
 
+        def broadcast(g, t, *a, **kw):
+            self.counts["broadcast"] += t.numel() * t.element_size()
+            return self.real[3](g, t, *a, **kw)
+
         col._all_gather, col._psum_scatter = gather, scatter
-        group.all_reduce = all_reduce
+        group.all_reduce, group.broadcast = all_reduce, broadcast
         return self
 
     def take(self) -> dict:
@@ -10008,7 +10063,7 @@ class ze_bytes:
 
     def __exit__(self, *exc):
         self.col._all_gather, self.col._psum_scatter = self.real[:2]
-        self.group.all_reduce = self.real[2]
+        self.group.all_reduce, self.group.broadcast = self.real[2:]
         return False
 
 
@@ -10118,22 +10173,7 @@ def ze_run(dev, leg: str, axes: Optional[dict], steps: int,
                 out["hidden"] = x.float().cpu()
                 del x
                 moved.take()
-            if mesh is not None:
-                mesh.reset_collective_seconds()
-            zero_counts(counters)
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
-            t = time.perf_counter()
-            state, m = prog.step_fn(state, batch)
-            loss, norm = float(m["loss"]), float(m["grad_norm"])
-            out["step_ms"].append((time.perf_counter() - t) * 1e3)
-            out["losses"].append(loss)
-            out["norms"].append(norm)
-            out["launches"].append({k: getattr(mod_, a) for k, (mod_, a)
-                                    in counters.items()})
-            out["bytes"].append(moved.take())
-            if mesh is not None:
-                out["collective_s"].append(mesh.collective_seconds())
+            state = mesh_step(dev, prog, state, batch, counters, moved, out)
     if dev.type == "cuda":
         out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     if mesh is not None:
@@ -10143,6 +10183,32 @@ def ze_run(dev, leg: str, axes: Optional[dict], steps: int,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return out
+
+
+def mesh_step(dev, prog, state, batch, counters: dict, moved: "ze_bytes",
+              out: dict):
+    """One step of ``prog`` timed on the host between two synchronizes,
+    its loss, grad norm, launches (the counters zeroed first), bytes and
+    (over a mesh) collective seconds appended to ``out``'s lists; the
+    state."""
+    mesh = prog.mesh
+    if mesh is not None:
+        mesh.reset_collective_seconds()
+    zero_counts(counters)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    state, m = prog.step_fn(state, batch)
+    loss, norm = float(m["loss"]), float(m["grad_norm"])   # synchronizes
+    out["step_ms"].append((time.perf_counter() - t) * 1e3)
+    out["losses"].append(loss)
+    out["norms"].append(norm)
+    out["launches"].append({k: getattr(mod_, a) for k, (mod_, a)
+                            in counters.items()})
+    out["bytes"].append(moved.take())
+    if mesh is not None:
+        out["collective_s"].append(mesh.collective_seconds())
+    return state
 
 
 def gpt2_hidden(params, inp, cfg, mesh):
@@ -10303,6 +10369,413 @@ def zero_expert_check(ranks: list, hidden: list, refs: dict,
                        f"limits")
     if bad:
         fail(f"zero_expert: {bad}")
+    return res
+
+
+# --------------------------------------------------------------- mesh_rest
+# The rest of ROADMAP queue A item 8b on two ranks that share the card,
+# run by the model_parallel phase's workers after zero_expert (one boot
+# for all three).  Leg "llama_tp": Llama-3 8B's width (E 4096, 32 heads
+# over 8 KV heads of 128, SwiGLU 14336, V 128256; the preset's float32
+# params, llama_train's) at MR_LLAMA_LAYERS of its 32 layers, the flash
+# kernel, b2 x 2048 on both ranks under MeshConfig(tensor=2): a rank
+# holds 16 query heads over 4 KV heads, the wo / w_down psums move
+# 2·2048·4096 bf16 (33.6 MB) a call.  Leg "llama_pp": the same model
+# under MeshConfig(pipeline=2), one step: a rank keeps its layer and the
+# whole wte and lm_head, and fetches the other's layer at use (218 M
+# params: 436 MB in bf16 a broadcast).  Leg "moe_tp": moe-small at full
+# width (E 768, 8 experts, ff 3072, top-2, capacity 1.25) at
+# MR_MOE_LAYERS of its 12 layers, b8 x 1024 under MeshConfig(tensor=2):
+# the experts' ff columns split, the combine psum'd over tensor.  Leg
+# "moe_pp": the same moe-small under MeshConfig(pipeline=2), one step:
+# every rank runs every layer, each fetched from its stage at use (40.1
+# M params: 80 MB in bf16 a broadcast).  It carries the pipeline fetch's
+# planted fault: by the shapes its step moves 1.6 GB (0.96 GB of
+# broadcasts, 0.64 GB all-reduced) against llama_pp's 6.8 GB, of which
+# the float32 wte and lm_head gradients summed over pipeline are 4.2.
+# Each leg is held to the driver's one-rank run of the same params and
+# batch (ze_gaps' measures: the losses in units of the first, the first grad
+# norm, the step-0 final-norm hidden states of batch row 0, MoE's aux
+# loss and fraction dropped) and to its peers (every rank's losses equal:
+# a mesh program's loss is one global loss).  Leg "gpt2_chunks": GPT-2
+# 124M at MP_LAYERS under MeshConfig(tensor=2), one step each unchunked,
+# with loss_chunks=4 and with loss_vocab_chunks=4, the chunked loss and
+# grad norm held to the unchunked step's on the same params and batch.
+# The limits come from the card (PERF.md §6, probes/mesh_rest_probe.py):
+# the worst healthy gaps were llama_tp loss 5.63e-6, norm 2.99e-5, hidden
+# 1.05e-2 (bf16 partials summed across ranks); llama_pp and moe_pp 0 but
+# the norm, 5.4e-6 and 4.13e-5 (their forwards read the one-rank weights
+# bitwise; the mesh loss is a logsumexp where the one-rank one is a
+# log_softmax); moe_tp loss 2.07e-3, norm 3.15e-3, the median token's
+# hidden 1.11e-2 (the whole row's 0.133: tokens whose routing flips on a
+# near tie differ wholly), aux 6.65e-5, dropped 2.24e-4; the chunked
+# norms 3.24e-4 / 6.55e-5 and losses 0; the ranks' losses equal.  Each
+# limit is ~3x its gap, a floor where the gap
+# is 0; each planted fault (MR_FAULTS, one step) must land beyond them by
+# MR_FAULT_MARGIN.
+MR_LLAMA_LAYERS = 2
+MR_LLAMA_BATCH, MR_LLAMA_SEQ = 2, 2048
+MR_MOE_LAYERS = 6
+MR_MOE_BATCH, MR_MOE_SEQ = 8, 1024
+# (leg, family, axes, steps)
+MR_LEGS = (("llama_tp", "llama", {"tensor": 2}, 2),
+           ("llama_pp", "llama", {"pipeline": 2}, 1),
+           ("moe_tp", "moe", {"tensor": 2}, 2),
+           ("moe_pp", "moe", {"pipeline": 2}, 1))
+MR_CHUNKS = (("unchunked", {}), ("loss_chunks", {"loss_chunks": 4}),
+             ("loss_vocab_chunks", {"loss_vocab_chunks": 4}))
+# each planted fault, and the leg it is planted in
+MR_FAULTS = {"kv_heads_of_rank0": "llama_tp", "lse_own_max": "llama_tp",
+             "pipeline_grad_twice": "moe_pp",
+             "ff_partials_unsummed": "moe_tp"}
+MR_TOLS = {"llama": {"loss": 2e-5, "norm": 1e-4, "hidden": 3e-2,
+                     "ranks": 1e-6},
+           "moe": {"loss": 6e-3, "norm": 1e-2, "hidden": 3.5e-2,
+                   "hidden_l2": 0.4, "aux": 2e-4, "dropped": 1e-3,
+                   "ranks": 1e-6},
+           "gpt2": {"loss": 1e-5, "norm": 1e-3, "ranks": 1e-6}}
+MR_FAULT_MARGIN = 5.0
+MR_BUDGET_S = 50.0
+
+
+def mr_config(family: str, cfgs: Optional[dict] = None, **kw):
+    """A family's model config for the legs (``cfgs``: a rehearsal's
+    replacements), with ``kw`` (the chunked losses)."""
+    import dataclasses
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models import moe_transformer as mt
+    if cfgs and family in cfgs:
+        return dataclasses.replace(cfgs[family], **kw)
+    if family == "llama":
+        return dataclasses.replace(llama.llama3_8b(),
+                                   n_layer=MR_LLAMA_LAYERS,
+                                   attn_impl="flash", **kw)
+    if family == "moe":
+        return dataclasses.replace(mt.moe_small(), n_layer=MR_MOE_LAYERS,
+                                   **kw)
+    return dataclasses.replace(mp_config(), **kw)
+
+
+def mr_family(family: str):
+    """(module, rules) of a family."""
+    from ray_tpu_torch.models import gpt2, llama
+    from ray_tpu_torch.models import moe_transformer as mt
+    from ray_tpu_torch.parallel import mesh as mesh_lib
+    return {"llama": (llama, llama.LLAMA_RULES),
+            "moe": (mt, mt.MOE_TRANSFORMER_RULES),
+            "gpt2": (gpt2, mesh_lib.TRANSFORMER_RULES)}[family]
+
+
+def mr_tokens(cfg, family: str) -> np.ndarray:
+    """A family's batch: (B, T + 1) ids from SEED."""
+    B, T = {"llama": (MR_LLAMA_BATCH, MR_LLAMA_SEQ),
+            "moe": (MR_MOE_BATCH, MR_MOE_SEQ),
+            "gpt2": (MP_BATCH, MP_SEQ)}[family]
+    T = min(T, getattr(cfg, "max_positions", None)
+            or getattr(cfg, "n_positions"))
+    return np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, T + 1)).astype(np.int32)
+
+
+class mr_plant(ze_plant):
+    """A planted fault of mesh_rest in this process, for the ``with``
+    block: ``kv_heads_of_rank0`` — every ``tensor`` rank's query heads
+    read ``tensor`` rank 0's KV heads (rank 1's read the wrong ones);
+    ``lse_own_max`` — the vocabulary-parallel log-sum-exp is taken
+    against each rank's own max, without the ``pmax``;
+    ``pipeline_grad_twice`` — the layer fetch's backward sums the
+    ``pipeline`` ranks' gradients and sums the sum over ``pipeline``
+    again (the replicated compute counted twice: layer gradients x2);
+    ``ff_partials_unsummed`` — moe's ff partials are summed over
+    ``expert`` alone, not ``tensor``; None, no fault."""
+
+    def __enter__(self):
+        from ray_tpu_torch.models import llama
+        from ray_tpu_torch.parallel import collectives as col
+        f = self.fault
+        if f is None:
+            return self
+        if f == "kv_heads_of_rank0":
+            real = llama._resolve_attn
+
+            def resolve(cfg, device):
+                attn = real(cfg, device)
+
+                def rank0_kv(q, k, v, c):
+                    n = k.shape[2]
+                    k = col.all_gather(k, "tensor", 2)[:, :, :n]
+                    v = col.all_gather(v, "tensor", 2)[:, :, :n]
+                    return attn(q, k.contiguous(), v.contiguous(), c)
+                return rank0_kv
+            self._swap(llama, "_resolve_attn", resolve)
+        elif f == "lse_own_max":
+            self._swap(col, "pmax", lambda x, axes, mesh=None: x.detach())
+        elif f == "pipeline_grad_twice":
+            def backward(ctx, gy):
+                total = ctx.g.all_reduce(ctx.g.all_reduce(gy.contiguous()))
+                gx = total.to(ctx.dtype) if ctx.g.rank == ctx.src else None
+                return gx, None, None, None, None
+            self._swap(col._Broadcast, "backward", staticmethod(backward))
+        elif f == "ff_partials_unsummed":
+            real = col.psum
+
+            def psum(x, axes, mesh=None):
+                if axes == ("expert", "tensor"):
+                    axes = ("expert",)
+                return real(x, axes, mesh)
+            self._swap(col, "psum", psum)
+        else:
+            raise ValueError(f"unknown fault {f!r}")
+        return self
+
+
+def mr_hidden(family: str, params, inp, cfg, mesh) -> tuple:
+    """(the final-norm hidden states of batch row 0, MoE's metrics or
+    None) at ``params``: over ``mesh`` this rank's, else the one-rank
+    forward's."""
+    mod, _ = mr_family(family)
+    m = None
+    if family == "llama":
+        x = mod.mesh_hidden(params, inp, cfg, mesh) if mesh is not None \
+            else mod._hidden(params, inp, cfg)
+    else:
+        x, m = mod.forward_hidden(params, inp, cfg, mesh)
+    return x[:1].float().cpu(), m
+
+
+def mr_run(dev, family: str, axes: Optional[dict], steps: int, cfg,
+           tokens: np.ndarray) -> dict:
+    """``steps`` steps of ``family`` at ``cfg`` over ``axes`` (None: one
+    rank) from the seed's params on ``tokens`` (every rank's rows: no
+    rule splits the batch here): losses, grad norms, step ms, each
+    step's launches, collective seconds and bytes; the step-0 hidden
+    states of row 0 (and MoE's aux loss and fraction dropped); the
+    state's layout check; the peak memory."""
+    from ray_tpu_torch.parallel import mesh as mesh_lib
+    from ray_tpu_torch.parallel import spmd
+    from ray_tpu_torch.parallel.mesh import MeshConfig
+    mod, rules = mr_family(family)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    params = mod.init_params(torch.Generator(device=dev).manual_seed(SEED),
+                             cfg, dev)
+    prog = spmd.build_train_program(
+        loss_fn=lambda p, b: mod.loss_fn(p, b, cfg),
+        init_params_fn=lambda g: params,
+        # no warm-up: the first step moves the params, and the second
+        # loss reads its update (and the Adam moments it wrote)
+        optimizer=spmd.default_optimizer(lr=TRAIN_LR, warmup=0,
+                                         total_steps=1000),
+        mesh_config=None if axes is None else MeshConfig(**axes),
+        device=dev, rules=rules)
+    state = prog.init_fn(None)
+    mesh = prog.mesh
+    out = {"losses": [], "norms": [], "step_ms": [], "collective_s": [],
+           "launches": [], "bytes": []}
+    if mesh is not None:
+        out.update(ze_state_check(state, params, mesh, rules, None))
+        out["transport"] = mesh.transport
+    del params
+    batch = spmd.shard_batch(prog, {"inputs": tokens[:, :-1],
+                                    "targets": tokens[:, 1:]})
+    counters = kernel_counters()
+    with ze_bytes() as moved:
+        if family != "gpt2":
+            with torch.no_grad(), mesh_lib.ambient_mesh(mesh):
+                out["hidden"], m = mr_hidden(family, state.params,
+                                             batch["inputs"], cfg, mesh)
+            if m is not None:
+                out["aux0"] = float(m["moe_aux_loss"])
+                out["dropped0"] = float(m["moe_fraction_dropped"])
+            moved.take()
+        for _ in range(steps):
+            state = mesh_step(dev, prog, state, batch, counters, moved, out)
+    if dev.type == "cuda":
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if mesh is not None:
+        mesh.destroy()
+    del state, prog, batch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def mr_runs() -> list:
+    """(kind, name, family, axes, steps, cfg kw, fault) of every run a
+    worker makes, in order: the legs, GPT-2's chunked losses, then the
+    planted faults."""
+    legs = {leg: (fam, axes) for leg, fam, axes, _ in MR_LEGS}
+    return ([("legs", leg, fam, axes, steps, {}, None)
+             for leg, fam, axes, steps in MR_LEGS]
+            + [("chunks", name, "gpt2", {"tensor": 2}, 1, kw, None)
+               for name, kw in MR_CHUNKS]
+            + [("faults", f, legs[leg][0], legs[leg][1], 1, {}, f)
+               for f, leg in MR_FAULTS.items()])
+
+
+def mr_worker(dev, config: dict, store: str, rank: int) -> None:
+    """The mesh_rest runs in a model_parallel worker; the rank's results
+    to ``mr_rank_<r>.json``, its hidden states to ``mr_hidden_<r>.pt``."""
+    out, hidden = {}, {}
+    t0 = time.perf_counter()
+    for kind, name, family, axes, steps, kw, fault in mr_runs():
+        cfg = mr_config(family, config.get("mr_cfgs"), **kw)
+        t = time.perf_counter()
+        with mr_plant(fault):
+            run = mr_run(dev, family, axes, steps, cfg,
+                         config["mr_tokens"][family])
+        run["wall_s"] = time.perf_counter() - t
+        if "hidden" in run:
+            hidden[f"{kind}/{name}"] = run.pop("hidden")
+        out.setdefault(kind, {})[name] = run
+    out["wall_s"] = time.perf_counter() - t0
+    torch.save(hidden, os.path.join(store, f"mr_hidden_{rank}.pt"))
+    with open(os.path.join(store, f"mr_rank_{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def mr_predicted_launches(cfg, family: str) -> dict:
+    """The launches a rank makes a step (PERF.md §6): Llama (both legs:
+    every rank runs every layer) under full remat runs each block's
+    head-dim-128 flash forward twice (the step and the replay) and its
+    backward once, and no LayerNorm (RMSNorm is plain PyTorch); moe-small
+    each block's two vector LayerNorms twice and no flash (dense
+    attention), the final LayerNorm once each way; GPT-2 as its train
+    step (``gpt2_launches``)."""
+    L = cfg.n_layer
+    if family == "llama":
+        return {"flash_attention_fwd_gqa_d128": 2 * L,
+                "flash_attention_bwd_gqa_d128": L}
+    if family == "moe":
+        return {"layer_norm_fwd": 4 * L + 1, "layer_norm_bwd": 2 * L + 1}
+    return gpt2_launches(L)
+
+
+def mr_gaps(family: str, run: dict, hidden, ref: dict,
+            peers: list) -> dict:
+    """A run's gaps to its reference (MR_TOLS' keys): ``ze_gaps``'
+    measures, the hidden states those of batch row 0; and ``ranks``, the
+    largest gap of its losses to its ``peers``' (every rank's run: a mesh
+    program's loss is the same global loss on every rank), both in units
+    of the reference's first loss."""
+    gaps = {"loss": max(abs(a - b) for a, b in zip(
+                run["losses"], ref["losses"])) / ref["losses"][0],
+            "norm": abs(run["norms"][0] - ref["norms"][0])
+            / ref["norms"][0],
+            "ranks": max(abs(a - b) for p in peers
+                         for a, b in zip(run["losses"], p["losses"]))
+            / ref["losses"][0]}
+    if family == "gpt2":
+        return gaps
+    want = ref["hidden"]
+    gaps["hidden"] = ((hidden - want).norm() / want.norm()).item()
+    if family == "moe":
+        # a token whose routing flips (bf16 partials summed in another
+        # grouping put it past a near tie) differs wholly in any correct
+        # layout: the median token reads the layout's arithmetic
+        gaps["hidden_l2"] = gaps["hidden"]
+        gaps["hidden"] = ((hidden - want).norm(dim=-1)
+                          / want.norm(dim=-1)).median().item()
+        gaps["aux"] = abs(run["aux0"] - ref["aux0"]) / ref["aux0"]
+        gaps["dropped"] = abs(run["dropped0"] - ref["dropped0"])
+    return gaps
+
+
+def mesh_rest_check(ranks: list, hidden: list, refs: dict, gpu: bool,
+                    tag: str, cfgs: Optional[dict] = None) -> dict:
+    """The mesh_rest sub-phase's checks and lines from the workers'
+    results (``ranks``, ``hidden``) and the driver's one-rank runs
+    (``refs``, by family)."""
+    res = {"legs": {}, "chunks": {}, "faults": {}, "launches": {}}
+    bad = []
+    for family in ("llama", "moe"):
+        ref = refs[family]
+        print(f"mesh_rest {family} reference (one rank): losses "
+              f"{ref['losses']} norms {ref['norms']} step ms "
+              f"{[round(x, 1) for x in ref['step_ms']]} peak "
+              f"{ref.get('peak_gb', 0):.2f} GB"
+              + (f" aux {ref['aux0']} dropped {ref['dropped0']}"
+                 if family == "moe" else "") + f" [{tag}]", flush=True)
+
+    def report(kind, name, family, axes, ref_of, tols):
+        want = mr_predicted_launches(mr_config(family, cfgs), family)
+        row = {}
+        for o, hid in zip(ranks, hidden):
+            run, ref = o[kind][name], ref_of(o)
+            gaps = mr_gaps(family, run, hid.get(f"{kind}/{name}"), ref,
+                           [p[kind][name] for p in ranks])
+            got = [{k: s[k] for k in want} for s in run["launches"]]
+            others = sorted({k for s in run["launches"] for k, v in s.items()
+                             if v and k not in want})
+            for s in run["launches"]:
+                for k, v in s.items():
+                    res["launches"][k] = res["launches"].get(k, 0) + v
+            coll = [(round(c["to_host"], 3), round(c["wire"], 3),
+                     round(c["to_device"], 3)) for c in run["collective_s"]]
+            print(f"mesh_rest {name} {axes} rank {o['rank']}: losses "
+                  f"{run['losses']} norms {run['norms']} gaps "
+                  f"{ {k: float(f'{v:.3g}') for k, v in gaps.items()} } "
+                  f"limits {tols}; step ms "
+                  f"{[round(x, 1) for x in run['step_ms']]}; collective s "
+                  f"a step (to host, gloo, to device) {coll}; bytes a step "
+                  f"{run['bytes']} over {run['transport']}; peak "
+                  f"{run.get('peak_gb', 0):.2f} GB (reference "
+                  f"{ref.get('peak_gb', 0):.2f}); params exact "
+                  f"{run['params_exact']} moments shaped "
+                  f"{run['moments_shaped']} ({run['moments']}); launches "
+                  f"a step {got[0]} predicted {want} [{tag}]", flush=True)
+            if any(gaps[k] > tols[k] for k in tols):
+                bad.append(f"{name} rank {o['rank']}: gaps {gaps}")
+            if gpu and (any(g != want for g in got) or others):
+                bad.append(f"{name} rank {o['rank']}: launches {got} (and "
+                           f"{others}), predicted {want}")
+            if run["transport"] != ("staged" if gpu else "gloo"):
+                bad.append(f"{name} rank {o['rank']}: transport "
+                           f"{run['transport']}")
+            if not (run["params_exact"] and run["moments_shaped"]):
+                bad.append(f"{name} rank {o['rank']}: the state is not the "
+                           f"slice its coordinates select")
+            row[o["rank"]] = {"gaps": gaps, "step_ms": run["step_ms"],
+                              "collective_s": run["collective_s"],
+                              "bytes": run["bytes"],
+                              "peak_gb": run.get("peak_gb"),
+                              "wall_s": run["wall_s"]}
+        return row
+
+    for leg, family, axes, _ in MR_LEGS:
+        res["legs"][leg] = report("legs", leg, family, axes,
+                                  lambda o, f=family: refs[f],
+                                  MR_TOLS[family])
+    # each chunked loss against the same rank's unchunked step (itself
+    # first: its launches and layout)
+    for name, kw in MR_CHUNKS:
+        res["chunks"][name] = report(
+            "chunks", name, "gpt2", {"tensor": 2, **kw},
+            lambda o: o["chunks"]["unchunked"], MR_TOLS["gpt2"])
+    legs = {leg: family for leg, family, _, _ in MR_LEGS}
+    for fault, leg in MR_FAULTS.items():
+        family = legs[leg]
+        tols = MR_TOLS[family]
+        ratios = []
+        for o, hid in zip(ranks, hidden):
+            run = o["faults"][fault]
+            gaps = mr_gaps(family, run, hid[f"faults/{fault}"],
+                           refs[family], [p["faults"][fault] for p in ranks])
+            ratios.append(max(gaps[k] / tols[k] for k in tols))
+            print(f"mesh_rest control {fault} ({leg}) rank {o['rank']}: "
+                  f"losses {run['losses']} norms {run['norms']} gaps "
+                  f"{ {k: float(f'{v:.3g}') for k, v in gaps.items()} }: "
+                  f"{ratios[-1]:.3g} x the limits (must be >= "
+                  f"{MR_FAULT_MARGIN}) [{tag}]", flush=True)
+        res["faults"][fault] = min(ratios)
+        if min(ratios) < MR_FAULT_MARGIN:
+            bad.append(f"control {fault} only {min(ratios):.3g} x the "
+                       f"limits")
+    if bad:
+        fail(f"mesh_rest: {bad}")
     return res
 
 
@@ -10928,7 +11401,10 @@ def ray_data_phase(dev, card, train_res: dict, resnet_res: dict,
 # shape (a function trainable a trial, a seeded loguniform lr, ASHA on
 # "loss"), each trial holding the card through a num_gpus=TUNE_GPU_SHARE
 # actor of its own; then Tuner(TorchTrainer) with two GPU: 0.5 trials.
-TUNE_TRIALS = 8
+# one wave of TUNE_CONCURRENT trials (cut from 8 for the script's wall
+# time: the second wave ran the same checks on four more lr draws, and
+# the first wave's draws stop early and promote on their own)
+TUNE_TRIALS = 4
 TUNE_CONCURRENT = 4                  # trials holding the card at once
 TUNE_GPU_SHARE = 1.0 / TUNE_CONCURRENT
 TUNE_SEARCH_SEED = 16                # the trials' lr draws, fixed once
@@ -11511,7 +11987,9 @@ def main() -> int:
     phase_done("elastic")
     model_parallel = model_parallel_phase(dev, tag)
     zero_expert = model_parallel["zero_expert"]
-    phase_done("model_parallel", {"zero_expert": zero_expert["wall_s"]})
+    mesh_rest = model_parallel["mesh_rest"]
+    phase_done("model_parallel", {"zero_expert": zero_expert["wall_s"],
+                                  "mesh_rest": mesh_rest["wall_s"]})
     moe_train = moe_train_phase(dev, card, tag)
     phase_done("moe_train")
     tiny_reference_check(dev, tag)
@@ -11564,7 +12042,7 @@ def main() -> int:
              "llama_train": llama_train, "xl_train": xl_train,
              "ray_train": ray_train, "elastic": elastic,
              "model_parallel": model_parallel,
-             "zero_expert": zero_expert,
+             "zero_expert": zero_expert, "mesh_rest": mesh_rest,
              "ray_data": ray_data,
              "tune": tuned,
              "moe_train": moe_train, "resnet50_train": resnet_train,

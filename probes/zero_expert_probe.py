@@ -2,7 +2,7 @@
 recipe under ``MeshConfig(fsdp=2)`` and moe-small under
 ``MeshConfig(expert=2)``, trained by two ``GPU: 0.5`` workers in one
 ``torch.distributed`` domain (the model_parallel phase's workers, here
-without its layouts), after the kernel build.  Every check runs, and a
+without its layouts or the mesh_rest sub-phase), after the kernel build.  Every check runs, and a
 failed one is printed (``FAIL ...``) instead of ending the run, so one
 call reads every number the phase prints: each leg's gaps to the
 driver's one-rank run beside the planted faults' (the sweep behind
@@ -52,7 +52,7 @@ def main() -> int:
 
     c.fail = record
     for _ in range(int(sys.argv[1]) if len(sys.argv) > 1 else 1):
-        c.model_parallel_phase(dev, tag, layouts=False)
+        c.model_parallel_phase(dev, tag, layouts=False, mesh_rest=False)
     print(f"failed checks: {len(fails)}", flush=True)
     return 1 if fails else 0
 

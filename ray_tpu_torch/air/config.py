@@ -3,6 +3,11 @@
 Reference: ``python/ray/air/config.py``.  ``ScalingConfig`` takes the
 reference's ``use_gpu``: every worker's bundle then asks for CUDA cards
 (``"GPU"``), one each unless ``resources_per_worker`` says otherwise.
+Like the JAX package's, it can ask for a topology-shaped reservation
+instead (``topology="v4-32"``): one worker a host of the slice, every
+host's bundle holding its accelerators (``"GPU"``, where the reference
+asks for ``"TPU"``), the group STRICT_PACK, so the slice is leased
+atomically (``parallel/topology.py``).
 """
 
 from __future__ import annotations
@@ -16,21 +21,40 @@ from typing import Any, Dict, Optional
 class ScalingConfig:
     """How many workers and what each one holds.
 
-    num_workers: data-parallel worker count, one actor each.
+    num_workers: data-parallel worker count, one actor each (one a host
+        of the slice when ``topology`` is set: its hosts are leased
+        together).
     use_gpu: every worker gets CUDA cards: ``resources_per_worker["GPU"]``
         of them, 1.0 by default (0.5 lets two workers share one card).
     resources_per_worker: resources per worker (``"CPU"`` defaults to 1).
+    topology: slice topology string (e.g. "v4-8"); when set, the
+        placement group is STRICT_PACK over one ICI domain, every worker
+        holds a host's accelerators, and ``num_workers`` defaults to the
+        slice's host count.
     """
 
     num_workers: int = 1
     use_gpu: bool = False
     resources_per_worker: Optional[Dict[str, float]] = None
+    topology: Optional[str] = None
     placement_strategy: str = "PACK"
+
+    def __post_init__(self):
+        if self.topology is not None:
+            from ray_tpu_torch.parallel.topology import slice_spec
+            topo = slice_spec(self.topology)
+            self.use_gpu = True
+            if self.num_workers in (0, 1) and topo.num_hosts > 1:
+                self.num_workers = topo.num_hosts
+            self.placement_strategy = "STRICT_PACK"
 
     @property
     def num_gpus_per_worker(self) -> float:
         if not self.use_gpu:
             return 0.0
+        if self.topology is not None:
+            from ray_tpu_torch.parallel.topology import slice_spec
+            return float(slice_spec(self.topology).chips_per_host)
         return float((self.resources_per_worker or {}).get("GPU", 1.0))
 
     def bundle(self) -> Dict[str, float]:
@@ -41,6 +65,15 @@ class ScalingConfig:
         else:
             res.pop("GPU", None)
         return res
+
+    def as_placement_group_factory(self):
+        """A function that makes the worker group's placement group:
+        ``num_workers`` bundles of ``bundle()``, by
+        ``placement_strategy``."""
+        from ray_tpu_torch.util.placement_group import placement_group
+        bundles = [self.bundle() for _ in range(self.num_workers)]
+        return lambda: placement_group(bundles,
+                                       strategy=self.placement_strategy)
 
 
 def _unread(config, **defaults) -> None:

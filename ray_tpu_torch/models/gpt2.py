@@ -206,13 +206,16 @@ def _layer_norm(x, scale, bias, eps=1e-5):
     return layer_norm(x, scale, bias, eps)
 
 
-def dense_causal_attention(q, k, v, cfg: GPT2Config) -> torch.Tensor:
-    """Reference attention: (B, T, H, D) → (B, T, H, D)."""
+def dense_causal_attention(q, k, v, cfg: GPT2Config,
+                           q_offset: int = 0) -> torch.Tensor:
+    """Reference attention: (B, T, H, D) → (B, T, H, D).  ``q_offset``:
+    the queries are those of the key positions from it on (a chunk of the
+    sequence against all its keys)."""
     del cfg
-    T = q.shape[1]
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
-    mask = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+    mask = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
+                      device=q.device).tril(q_offset)
     # The reference's jnp.where with a float32 fill promotes the scores to
     # float32; masked_fill keeps the dtype, and NEG_INF overflows bf16.
     logits = logits.float().masked_fill(~mask, NEG_INF)
@@ -434,14 +437,16 @@ def _chunked_ce(x: torch.Tensor, wte: torch.Tensor, tgt: torch.Tensor,
 
 def _vocab_chunk(x, w, off: int, V: int, tgt, run_lse, correct):
     """One vocab slice: fold its logsumexp into the running one, and pick
-    up the correct-class logit where the target falls in the slice."""
+    up the correct-class logit where the target falls in the slice.
+    Columns at or past ``V`` (the end of the rows this rank holds) are
+    padding: masked out, and never a target's."""
     vc_len = w.shape[0]
     logits = (x @ w.t()).float()
     valid = (off + torch.arange(vc_len, device=x.device)) < V
     logits = logits.masked_fill(~valid, -math.inf)   # padded columns out
     run_lse = torch.logaddexp(run_lse, torch.logsumexp(logits, dim=-1))
     local = tgt - off
-    in_chunk = (local >= 0) & (local < vc_len)
+    in_chunk = (local >= 0) & (local < vc_len) & (tgt < V)
     got = logits.gather(-1, local.clamp(0, vc_len - 1)[..., None])[..., 0]
     return run_lse, correct + torch.where(in_chunk, got, 0.0)
 
@@ -452,6 +457,16 @@ def _vocab_chunked_ce(x: torch.Tensor, wte: torch.Tensor, tgt: torch.Tensor,
     (online logsumexp over the vocab axis): neither the (B, T, V) logits
     nor their gradient exist at once.  V is padded to a multiple of
     ``n_chunks`` with rows whose logits are masked to -inf."""
+    run_lse, correct = _vocab_chunked_lse(x, wte, tgt, n_chunks, 0)
+    return (run_lse - correct).mean()
+
+
+def _vocab_chunked_lse(x: torch.Tensor, wte: torch.Tensor, tgt: torch.Tensor,
+                       n_chunks: int, off: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(logsumexp over ``wte``'s rows, the target's logit where it falls
+    among them (else 0)), both (B, T) float32, by ``n_chunks`` checkpointed
+    vocab chunks; ``wte`` holds the vocabulary rows from ``off``."""
     B, T, E = x.shape
     V = wte.shape[0]
     vc_len = -(-V // n_chunks)
@@ -463,9 +478,9 @@ def _vocab_chunked_ce(x: torch.Tensor, wte: torch.Tensor, tgt: torch.Tensor,
     correct = torch.zeros((B, T), dtype=torch.float32, device=x.device)
     for c, w in enumerate(wte.split(vc_len)):
         run_lse, correct = checkpoint(
-            _vocab_chunk, x, w, c * vc_len, V, tgt, run_lse, correct,
-            use_reentrant=False, preserve_rng_state=False)
-    return (run_lse - correct).mean()
+            _vocab_chunk, x, w, off + c * vc_len, off + V, tgt, run_lse,
+            correct, use_reentrant=False, preserve_rng_state=False)
+    return run_lse, correct
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
@@ -606,12 +621,6 @@ def _block_tp(x: torch.Tensor, lp: Params, cfg: GPT2Config,
     return x + h + lp["mlp_out"]["bias"].to(dt)
 
 
-def _vocab_offset(cfg: GPT2Config, mesh) -> int:
-    """The first vocabulary row of this rank's ``wte`` slice."""
-    n, i = mesh_lib.entry_coordinate(mesh, "tensor")
-    return mesh_lib.shard_bounds(cfg.vocab_size, n, i)[0]
-
-
 def _vocab_embed(wte: torch.Tensor, tokens: torch.Tensor, off: int,
                  dtype: torch.dtype) -> torch.Tensor:
     """This rank's part of the token embedding: the rows of its vocab
@@ -654,7 +663,7 @@ def _mesh_hidden(params: Params, tokens: torch.Tensor, cfg: GPT2Config,
     if manual is None and tp > 1 and cfg.n_head % tp:
         raise ValueError(f"n_head {cfg.n_head} does not split over "
                          f"tensor={tp}")
-    off = _vocab_offset(cfg, mesh)
+    off = vocab_offset(cfg.vocab_size, mesh)
     specs = _use_specs(cfg)
     wte = mesh_lib.gather_for_use(params["wte"], specs["wte"], mesh)
     wpe = mesh_lib.gather_for_use(params["wpe"], specs["wpe"], mesh)
@@ -735,43 +744,100 @@ def _stacked_layers(blocks: Params) -> int:
     return next(iter(blocks["ln_1"].values())).shape[0]
 
 
+def vocab_offset(vocab_size: int, mesh) -> int:
+    """The first vocabulary row of this rank's slice (split over
+    ``tensor``)."""
+    n, i = mesh_lib.entry_coordinate(mesh, "tensor")
+    return mesh_lib.shard_bounds(vocab_size, n, i)[0]
+
+
+def merge_lse(lse: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The log-sum-exp of the whole vocabulary from each ``tensor``
+    rank's over its slice: against the max over the ranks (``pmax``),
+    the exponentials summed over ``tensor``.  Over one rank, ``lse``."""
+    if col.axis_size("tensor", mesh) == 1:
+        return lse
+    m = col.pmax(lse, "tensor", mesh)
+    return torch.log(col.psum(torch.exp(lse - m), "tensor", mesh)) + m
+
+
+def vocab_parallel_nll(logits: torch.Tensor, tgt: torch.Tensor, off: int,
+                       mesh=None) -> torch.Tensor:
+    """Per-token NLL (float32) from logits whose last dim is this rank's
+    slice of the vocabulary (rows ``off`` on, split over ``tensor``):
+    the slice's log-sum-exp met over ``tensor`` (``merge_lse``), the
+    target's logit from the rank that holds it.  Over one ``tensor``
+    rank (``off`` 0), ``logsumexp`` of the whole row."""
+    vl = logits.shape[-1]
+    lse = merge_lse(torch.logsumexp(logits.float(), dim=-1), mesh)
+    local = tgt - off
+    inside = (local >= 0) & (local < vl)
+    got = logits.gather(-1, local.clamp(0, vl - 1)[..., None])[..., 0]
+    return lse - col.psum(torch.where(inside, got.float(), 0.0), "tensor",
+                          mesh)
+
+
+def _mesh_ce_sum(x: torch.Tensor, wte: torch.Tensor, tgt: torch.Tensor,
+                 off: int) -> torch.Tensor:
+    """The summed vocab-parallel NLL of one sequence chunk (checkpointed
+    body: its (B, T/c, V/tp) logits live in one call)."""
+    return vocab_parallel_nll(x @ wte.t(), tgt, off).sum()
+
+
+def _vocab_chunked_nll(x: torch.Tensor, wte: torch.Tensor,
+                       tgt: torch.Tensor, n_chunks: int, off: int
+                       ) -> torch.Tensor:
+    """Per-token NLL by ``n_chunks`` vocab chunks of this rank's slice
+    (an online log-sum-exp, its chunk padded past the slice's end), the
+    ranks' log-sum-exps then met over ``tensor`` (``merge_lse``)."""
+    lse, correct = _vocab_chunked_lse(x, wte, tgt, n_chunks, off)
+    return merge_lse(lse) - col.psum(correct, "tensor")
+
+
 def _mesh_loss(params: Params, inp: torch.Tensor, tgt: torch.Tensor,
                cfg: GPT2Config, mesh) -> torch.Tensor:
     """The global mean next-token NLL on every rank of the mesh: the LM
     head and cross entropy vocab-parallel over ``tensor``, this rank's
     sum over its tokens summed over the axes that split the tokens (and
-    the batch axes), over the global token count."""
-    if cfg.loss_chunks or cfg.loss_vocab_chunks:
-        raise NotImplementedError(
-            f"chunked cross entropy over a mesh of ranks is "
-            f"{mesh_lib.ITEM_8B}")
+    the batch axes), over the global token count.  ``loss_chunks`` cuts
+    this rank's token range into checkpointed chunks, each its own
+    vocab-parallel log-sum-exp; ``loss_vocab_chunks`` cuts this rank's
+    vocabulary slice (``_vocab_chunked_nll``).  On the manual path the
+    chunked heads read the token range all-gathered over ``tensor``
+    (the all-gather matmul's input, gathered once)."""
     x, lay = _mesh_hidden(params, inp, cfg, mesh)
     tp = mesh.shape["tensor"]
     # the tied head gathers wte again (ZeRO-3: the embedding's gather died
     # with the embedding)
     wte = mesh_lib.gather_for_use(params["wte"], _use_specs(cfg)["wte"],
                                   mesh).to(cfg.dtype)
-    if lay["manual"] is not None:
-        ag, _ = _projections(cfg)
-        logits = ag(x, wte.t(), "tensor", tp)       # (B, T/sp, V/tp)
-    else:
-        logits = x @ wte.t()
+    off = vocab_offset(cfg.vocab_size, mesh)
     t = tgt[:, lay["lo"]:lay["lo"] + lay["n"]]
-    if tp == 1:
-        lse = torch.logsumexp(logits.float(), dim=-1)
-        correct = logits.gather(-1, t[..., None])[..., 0].float()
+    chunked = cfg.loss_chunks or cfg.loss_vocab_chunks
+    if lay["manual"] is not None and chunked:
+        x = col.all_gather(x, "tensor", 1)          # (B, T/sp, E)
+    if cfg.loss_vocab_chunks:
+        total = _vocab_chunked_nll(x, wte, t, cfg.loss_vocab_chunks,
+                                   off).sum()
+    elif cfg.loss_chunks:
+        if t.shape[1] % cfg.loss_chunks:
+            raise ValueError(f"this rank's {t.shape[1]} tokens are not "
+                             f"divisible by loss_chunks {cfg.loss_chunks}")
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for xc, tc in zip(x.chunk(cfg.loss_chunks, dim=1),
+                          t.chunk(cfg.loss_chunks, dim=1)):
+            total = total + checkpoint(_mesh_ce_sum, xc, wte, tc, off,
+                                       use_reentrant=False,
+                                       preserve_rng_state=False)
     else:
-        off, vl = _vocab_offset(cfg, mesh), logits.shape[-1]
-        lf = logits.float()
-        m = col.pmax(lf.amax(-1), "tensor")
-        lse = torch.log(col.psum(torch.exp(lf - m[..., None]).sum(-1),
-                                 "tensor")) + m
-        local = t - off
-        inside = (local >= 0) & (local < vl)
-        got = logits.gather(-1, local.clamp(0, vl - 1)[..., None])[..., 0]
-        correct = col.psum(torch.where(inside, got.float(), 0.0), "tensor")
+        if lay["manual"] is not None:
+            ag, _ = _projections(cfg)
+            logits = ag(x, wte.t(), "tensor", tp)   # (B, T/sp, V/tp)
+        else:
+            logits = x @ wte.t()
+        total = vocab_parallel_nll(logits, t, off).sum()
     axes = tuple(mesh.config.batch_axes()) + lay["token_axes"]
-    total = col.psum((lse - correct).sum(), axes)
+    total = col.psum(total, axes)
     n = inp.shape[1] * inp.shape[0] * math.prod(
         mesh.shape[a] for a in mesh.config.batch_axes())
     return total / n

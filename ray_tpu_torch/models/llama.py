@@ -26,13 +26,28 @@ sharding table as data; ``spmd.build_train_program(rules=LLAMA_RULES)``
 applies it.  The context-parallel impls (``ring``, ``ulysses``, over
 ``context_axis``) take K/V expanded to the query heads, as the
 reference's; without a mesh they are dense attention.  Over a mesh of
-ranks (``data``, ``fsdp`` and ``context``) ``loss_fn`` returns the
-global loss on every rank, the batch split over ``data`` × ``fsdp``, the
-sequence over ``context`` with RoPE at the chunk's global positions;
-under ``fsdp`` every matrix is gathered at use (ZeRO-3,
-``mesh.gather_for_use``: a block's inside its checkpointed region, as
-GPT-2's).  ``tensor``, ``seq`` and ``pipeline`` layouts of Llama are
-ROADMAP queue A, item 8b.
+ranks ``loss_fn`` returns the global loss on every rank, the batch split
+over ``data`` × ``fsdp``, the sequence over ``context`` with RoPE at the
+chunk's global positions:
+
+- under ``fsdp`` every matrix is gathered at use (ZeRO-3,
+  ``mesh.gather_for_use``: a block's inside its checkpointed region, as
+  GPT-2's);
+- under ``tensor`` a rank runs the Megatron block: its H/tp query heads
+  over its KV/tp KV heads (local query head h reads local KV head
+  h // (H / KV), as the global head does; ``tensor`` must divide both),
+  ``wo`` and ``w_down`` row-split with a ``psum`` over ``tensor``, the
+  embedding and the LM head vocabulary-parallel (``gpt2._vocab_embed``,
+  ``gpt2.vocab_parallel_nll``: the reference's full float32
+  log-softmax as a log-sum-exp over the ranks' slices);
+- under ``pipeline`` (the reference has no schedule for Llama: its
+  ``forward`` is one ``lax.scan`` over the stacked layers GSPMD splits)
+  every rank runs every layer on its rows, each layer fetched from the
+  stage that holds it at use, in ``cfg.dtype`` (every leaf stacked over
+  ``pipeline`` is a matrix; the RMSNorm scales are replicated), inside
+  its checkpointed region; under ``seq`` (no rule names it, unless
+  ``context_axis`` does) nothing is split.  Both compute the same rows on every rank, counted
+  once by the step (``spmd``'s docstring).
 """
 
 from __future__ import annotations
@@ -52,6 +67,8 @@ from ray_tpu_torch.models.gpt2 import dense_causal_attention, \
     resolved_attn_impl
 from ray_tpu_torch.ops.flash_attention import flash_attention_for_model, \
     gqa_expand as _gqa_expand
+from ray_tpu_torch.parallel import collectives as col
+from ray_tpu_torch.parallel import mesh as mesh_lib
 
 Params = Dict[str, Any]
 AttnImpl = Callable[..., torch.Tensor]  # (q, k, v, cfg) -> out
@@ -222,31 +239,39 @@ def _resolve_attn(cfg: LlamaConfig, device: torch.device) -> AttnImpl:
                      f"flash, ring or ulysses)")
 
 
-def _mlp(x: torch.Tensor, lp: Params, cfg: LlamaConfig) -> torch.Tensor:
-    """x + SwiGLU(RMSNorm(x))."""
+def _mlp(x: torch.Tensor, lp: Params, cfg: LlamaConfig,
+         reduce: Callable[[torch.Tensor], torch.Tensor] = lambda y: y
+         ) -> torch.Tensor:
+    """x + SwiGLU(RMSNorm(x)); ``reduce`` sums the row-split product
+    (``psum`` over ``tensor`` in the Megatron block)."""
     dt = cfg.dtype
     h = _rms_norm(x, lp["mlp_norm"]["scale"], cfg.rms_eps)
     gate = F.silu(h @ lp["w_gate"]["kernel"].to(dt))
     up = h @ lp["w_up"]["kernel"].to(dt)
-    return x + (gate * up) @ lp["w_down"]["kernel"].to(dt)
+    return x + reduce((gate * up) @ lp["w_down"]["kernel"].to(dt))
 
 
 def _block(x: torch.Tensor, lp: Params, cfg: LlamaConfig, attn: AttnImpl,
-           collect_kv: bool = False, pos_offset: int = 0):
+           collect_kv: bool = False, pos_offset: int = 0,
+           reduce: Callable[[torch.Tensor], torch.Tensor] = lambda y: y):
     """One decoder block; with ``collect_kv`` also returns the post-RoPE
     pre-GQA-expand (k, v) for the serving engine's prefill cache fill.
-    ``pos_offset``: the global position of x's first token."""
+    ``pos_offset``: the global position of x's first token.  The heads
+    are those the projections hold: under ``tensor`` (``reduce`` the
+    ``psum`` over it) a rank's H/tp query heads over its KV/tp KV heads,
+    local query head h reading local KV head h // (H / KV), as the
+    global head does."""
     B, T, E = x.shape
-    H, D, KV = cfg.n_head, cfg.head_dim, cfg.n_kv_head
+    D = cfg.head_dim
     dt = cfg.dtype
     h = _rms_norm(x, lp["attn_norm"]["scale"], cfg.rms_eps)
-    q = (h @ lp["wq"]["kernel"].to(dt)).view(B, T, H, D)
-    k = (h @ lp["wk"]["kernel"].to(dt)).view(B, T, KV, D)
-    v = (h @ lp["wv"]["kernel"].to(dt)).view(B, T, KV, D)
+    q = (h @ lp["wq"]["kernel"].to(dt)).view(B, T, -1, D)
+    k = (h @ lp["wk"]["kernel"].to(dt)).view(B, T, -1, D)
+    v = (h @ lp["wv"]["kernel"].to(dt)).view(B, T, -1, D)
     q = _rope(q, cfg.rope_theta, pos_offset)
     k = _rope(k, cfg.rope_theta, pos_offset)
-    a = attn(q, k, v, cfg).reshape(B, T, E)
-    out = _mlp(x + a @ lp["wo"]["kernel"].to(dt), lp, cfg)
+    a = attn(q, k, v, cfg).reshape(B, T, -1)
+    out = _mlp(x + reduce(a @ lp["wo"]["kernel"].to(dt)), lp, cfg, reduce)
     if collect_kv:
         return out, (k, v)
     return out
@@ -278,10 +303,25 @@ def forward(params: Params, tokens: torch.Tensor,
 
 def _forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
              pos_offset: int = 0, mesh=None) -> torch.Tensor:
-    """``forward``; ``mesh``: a mesh of ranks whose ``fsdp`` pieces are
-    gathered at use."""
-    from ray_tpu_torch.parallel import mesh as mesh_lib
+    """``forward``; ``mesh``: a mesh of ranks (``_hidden``), whose
+    ``tensor`` ranks each give the logits of their vocabulary slice."""
+    x = _hidden(params, tokens, cfg, pos_offset, mesh)
+    lm_head = params["lm_head"]
+    if mesh is not None:
+        lm_head = mesh_lib.gather_for_use(lm_head, _use_specs(cfg)[
+            "lm_head"], mesh)
+    return (x @ lm_head["kernel"].to(cfg.dtype)).float()
+
+
+def _hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+            pos_offset: int = 0, mesh=None) -> torch.Tensor:
+    """The final-RMSNorm hidden states.  ``mesh``: a mesh of ranks whose
+    ``fsdp`` pieces are gathered at use, whose layers are fetched from
+    their ``pipeline`` stage at use (in bf16: ``cfg.dtype``), and whose
+    ``tensor`` ranks run the Megatron block (the embedding from the
+    vocabulary slice, summed over ``tensor``)."""
     specs = _use_specs(cfg) if mesh is not None else None
+    tp = 1 if mesh is None else mesh.shape["tensor"]
 
     def gather(tree, spec_of):
         return tree if specs is None else \
@@ -289,31 +329,43 @@ def _forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
 
     attn = _resolve_attn(cfg, tokens.device)
     remat = cfg.remat and torch.is_grad_enabled()
-    x = _embed({"wte": gather(params["wte"], lambda sp: sp["wte"])},
-               tokens, cfg)
+    wte = gather(params["wte"], lambda sp: sp["wte"])
+    if tp > 1:
+        from ray_tpu_torch.models.gpt2 import _vocab_embed, vocab_offset
+        x = col.psum(_vocab_embed(wte, tokens,
+                                  vocab_offset(cfg.vocab_size, mesh),
+                                  cfg.dtype), "tensor", mesh)
+    else:
+        x = _embed({"wte": wte}, tokens, cfg)
+    del wte
+    reduce = (lambda y: col.psum(y, "tensor", mesh)) if tp > 1 \
+        else (lambda y: y)
     plain = functools.partial(_block, cfg=cfg, attn=attn,
-                              pos_offset=pos_offset)
-
-    def block(x, lp):
-        return plain(x, gather(lp, lambda sp: mesh_lib.layer_specs(
-            sp["blocks"])))
-    for lp in layer_views(params["blocks"], cfg.n_layer):
+                              pos_offset=pos_offset, reduce=reduce)
+    if specs is None:
+        layers = [(lp, None) for lp in layer_views(params["blocks"],
+                                                   cfg.n_layer)]
+    else:
+        layers = mesh_lib.layers_for_use(params["blocks"], specs["blocks"],
+                                         cfg.n_layer, mesh)
+    for lp, lspecs in layers:
+        def block(x, lp, lspecs=lspecs):
+            if lspecs is not None:
+                lp = mesh_lib.gather_for_use(lp, lspecs, mesh, cfg.dtype)
+            return plain(x, lp)
         if remat:
             # no dropout anywhere: no RNG state to save and restore
             x = checkpoint(block, x, lp, use_reentrant=False,
                            preserve_rng_state=False)
         else:
             x = block(x, lp)
-    return _head({"norm_f": params["norm_f"],
-                  "lm_head": gather(params["lm_head"],
-                                    lambda sp: sp["lm_head"])}, x, cfg)
+    return _rms_norm(x, params["norm_f"]["scale"], cfg.rms_eps)
 
 
 @functools.lru_cache(maxsize=16)
 def _use_specs(cfg: LlamaConfig) -> Params:
     """``LLAMA_RULES``' specs of the global tree with its shapes (from the
     meta tree: nothing drawn)."""
-    from ray_tpu_torch.parallel import mesh as mesh_lib
     return mesh_lib.use_specs(init_params(None, cfg, "meta"), LLAMA_RULES)
 
 
@@ -327,7 +379,6 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
         inp, tgt = batch["inputs"], batch["targets"]
     else:
         inp, tgt = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
-    from ray_tpu_torch.parallel import mesh as mesh_lib
     mesh = mesh_lib.get_ambient_mesh()
     if mesh is not None and mesh.size > 1:
         return _mesh_loss(params, inp, tgt.long(), cfg, mesh)
@@ -335,38 +386,61 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
     return -logp.gather(-1, tgt.long()[..., None])[..., 0].mean()
 
 
-def _mesh_loss(params: Params, inp: torch.Tensor, tgt: torch.Tensor,
-               cfg: LlamaConfig, mesh) -> torch.Tensor:
-    """The global mean NLL on every rank: this rank's rows of its
-    ``context`` chunk, summed over the batch and context axes."""
-    from ray_tpu_torch.parallel import collectives as col
-    from ray_tpu_torch.parallel.mesh import ITEM_8B
-    for axis in ("tensor", "seq", "pipeline"):
-        if mesh.shape[axis] > 1:
-            raise NotImplementedError(
-                f"Llama over a mesh with {axis}={mesh.shape[axis]} is "
-                f"{ITEM_8B}")
+def check_mesh(cfg: LlamaConfig, mesh) -> Tuple[str, int, int]:
+    """(the context axis, its size, this rank's chunk) of a mesh Llama
+    runs over; raises where it cannot.  A ``tensor`` that does not divide
+    the query and the KV heads raises: the Megatron block keeps whole
+    heads a rank, where the reference's GSPMD re-lays the split columns
+    out with collectives of its own (the same function)."""
+    tp = mesh.shape["tensor"]
+    if tp > 1 and (cfg.n_head % tp or cfg.n_kv_head % tp):
+        raise ValueError(
+            f"tensor={tp} must divide n_head={cfg.n_head} and n_kv_head="
+            f"{cfg.n_kv_head}: a rank holds whole query heads and the "
+            f"whole KV heads they read")
     axis = cfg.context_axis or "context"
-    cp, c = mesh.shape.get(axis, 1), mesh.coords.get(axis, 0)
-    B, T = inp.shape
+    cp = mesh.shape.get(axis, 1)
     if cp > 1 and cfg.attn_impl not in ("ring", "ulysses"):
         raise ValueError(f"mesh has {axis}={cp}: attn_impl must be 'ring' "
                          f"or 'ulysses', not {cfg.attn_impl!r}")
+    return axis, cp, mesh.coords.get(axis, 0)
+
+
+def mesh_hidden(params: Params, inp: torch.Tensor, cfg: LlamaConfig,
+                mesh) -> torch.Tensor:
+    """This rank's final-RMSNorm hidden states over a mesh: its rows, its
+    ``context`` chunk."""
+    axis, cp, c = check_mesh(cfg, mesh)
+    Tc = inp.shape[1] // cp
+    return _hidden(params, inp[:, c * Tc:(c + 1) * Tc], cfg, c * Tc, mesh)
+
+
+def _mesh_loss(params: Params, inp: torch.Tensor, tgt: torch.Tensor,
+               cfg: LlamaConfig, mesh) -> torch.Tensor:
+    """The global mean NLL on every rank: this rank's rows of its
+    ``context`` chunk, the vocabulary-parallel NLL under ``tensor``
+    (``gpt2.vocab_parallel_nll``), summed over the batch and context
+    axes.  ``pipeline`` and ``seq`` (unless it is the context axis)
+    compute the same rows on every rank (``spmd``'s docstring)."""
+    from ray_tpu_torch.models.gpt2 import vocab_offset, vocab_parallel_nll
+    axis, cp, c = check_mesh(cfg, mesh)
+    B, T = inp.shape
     if T % cp:
         raise ValueError(f"seq_len {T} not divisible by {axis}={cp}")
     Tc = T // cp
-    logp = torch.log_softmax(_forward(params, inp[:, c * Tc:(c + 1) * Tc],
-                                      cfg, pos_offset=c * Tc, mesh=mesh),
-                             dim=-1)
-    nll = -logp.gather(-1, tgt[:, c * Tc:(c + 1) * Tc, None])[..., 0]
+    logits = _forward(params, inp[:, c * Tc:(c + 1) * Tc], cfg,
+                      pos_offset=c * Tc, mesh=mesh)
+    t = tgt[:, c * Tc:(c + 1) * Tc]
+    nll = vocab_parallel_nll(logits, t, vocab_offset(cfg.vocab_size, mesh),
+                             mesh)
     axes = tuple(mesh.config.batch_axes()) + ((axis,) if cp > 1 else ())
     n = B * T * math.prod(mesh.shape[a] for a in mesh.config.batch_axes())
-    return col.psum(nll.sum(), axes) / n
+    return col.psum(nll.sum(), axes, mesh) / n
 
 
 # Sharding: attention/MLP matrices split fsdp×tensor; RoPE/norms
 # replicated.  (param-path regex, mesh axis per dim), the reference's
-# PartitionSpecs as tuples (``tensor`` is ROADMAP queue A, item 8b).
+# PartitionSpecs as tuples.
 LLAMA_RULES: List[Tuple[str, Tuple[Optional[str], ...]]] = [
     (r".*wte$", ("tensor", "fsdp")),
     (r".*blocks/w[qku].*kernel$", ("pipeline", "fsdp", "tensor")),

@@ -18,15 +18,19 @@ over layers; ``loss_fn`` is the next-token NLL plus ``aux_loss_weight``
 
 Over a mesh of ranks (the ambient mesh ``spmd.build_train_program``
 sets; params sliced by ``MOE_TRANSFORMER_RULES``, the stacked expert
-leaves (L, X/ep, E, ff) a rank) ``loss_fn`` returns the global loss on
-every rank under ``data`` × ``fsdp`` × ``expert``: a rank's rows of the
-batch (split over ``data`` × ``fsdp``, replicated over ``expert``), its
-experts run by ``ops/moe.py``'s expert-parallel form, the NLL summed over
-the batch axes over the global token count, and the global aux and z
+leaves (L, X/ep, E, ff/tp) a rank) ``loss_fn`` returns the global loss
+on every rank: a rank's rows of the batch (split over ``data`` ×
+``fsdp``) and its ``context`` chunk of the sequence, its experts (and
+their ff columns) run by ``ops/moe.py``'s mesh form, the NLL summed over
+the token axes over the global token count, and the global aux and z
 losses.  Under ``fsdp`` every matrix is gathered at use as in GPT-2
 (``mesh.gather_for_use``, a block's inside its checkpointed region).
-``tensor``, ``seq``, ``context`` and ``pipeline`` raise: ROADMAP queue
-A, item 8b.
+Under ``tensor`` attention is the Megatron split (a rank's heads, the
+output projection ``psum``'d) and the embedding and the tied head are
+vocabulary-parallel.  Under ``context`` a chunk's queries read K and V
+all-gathered over it (dense causal attention over the whole sequence,
+as the reference's).  ``pipeline`` and ``seq`` compute the same rows on
+every rank, each layer fetched from its stage at use, as Llama's.
 """
 
 from __future__ import annotations
@@ -127,20 +131,32 @@ def init_params(gen: Optional[torch.Generator], cfg: MoEConfig,
 
 
 # ------------------------------------------------------------------ forward
-def _block(x: torch.Tensor, lp: Params, cfg: MoEConfig
+def _block(x: torch.Tensor, lp: Params, cfg: MoEConfig, mesh=None,
+           pos0: int = 0
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                       torch.Tensor]:
-    """Attention (dense causal) + MoE FFN → (y, aux, z, dropped)."""
+    """Attention (dense causal) + MoE FFN → (y, aux, z, dropped).  Over a
+    mesh (``mesh``): the heads this rank's qkv columns hold (the Megatron
+    split, the output projection's rows ``psum``'d over ``tensor``, then
+    its bias), and under ``context`` the queries of this rank's chunk
+    (from ``pos0``) against K and V all-gathered over it."""
+    from ray_tpu_torch.parallel import collectives as col
     B, T, E = x.shape
-    H, D = cfg.n_head, cfg.head_dim
+    D = cfg.head_dim
     dt = cfg.dtype
     h = gpt2_lib._layer_norm(x, lp["ln_1"]["scale"], lp["ln_1"]["bias"])
-    qkv = (h.reshape(B * T, E)
-           @ lp["attn_qkv"]["kernel"].to(dt).reshape(E, 3 * E)) \
-        .view(B, T, 3, E) + lp["attn_qkv"]["bias"].to(dt)
-    q, k, v = [qkv[:, :, i].reshape(B, T, H, D) for i in range(3)]
-    a = gpt2_lib.dense_causal_attention(q, k, v, None).reshape(B, T, E)
-    a = a @ lp["attn_out"]["kernel"].to(dt) + lp["attn_out"]["bias"].to(dt)
+    w = lp["attn_qkv"]["kernel"].to(dt)                # (E, 3, E/tp)
+    El = w.shape[-1]
+    qkv = (h.reshape(B * T, E) @ w.reshape(E, 3 * El)) \
+        .view(B, T, 3, El) + lp["attn_qkv"]["bias"].to(dt)
+    q, k, v = [qkv[:, :, i].reshape(B, T, El // D, D) for i in range(3)]
+    if col.axis_size("context", mesh) > 1:
+        k = col.all_gather(k, "context", 1, mesh)
+        v = col.all_gather(v, "context", 1, mesh)
+    a = gpt2_lib.dense_causal_attention(q, k, v, None, pos0).reshape(
+        B, T, El)
+    a = col.psum(a @ lp["attn_out"]["kernel"].to(dt), "tensor", mesh) \
+        + lp["attn_out"]["bias"].to(dt)
     x = x + a
     h = gpt2_lib._layer_norm(x, lp["ln_2"]["scale"], lp["ln_2"]["bias"])
     y, m = moe_lib.moe_ffn(
@@ -153,11 +169,20 @@ def _block(x: torch.Tensor, lp: Params, cfg: MoEConfig
 def forward_hidden(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
                    mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """tokens (B, T) → (final-LN hidden states (B, T, E), MoE metrics,
-    each the mean over layers).  ``mesh``: a mesh of ranks (gathers under
-    ``fsdp``; the expert-parallel FFN reads the ambient mesh)."""
+    each the mean over layers).  ``mesh``: a mesh of ranks, ``tokens``
+    this rank's rows (``_mesh_loss`` cuts the ``context`` chunk): the
+    embedding from the vocabulary slice summed over ``tensor``, the
+    ``fsdp`` pieces gathered at use, each layer fetched from its
+    ``pipeline`` stage at use (in ``cfg.dtype``), the expert-parallel
+    FFN under the ambient mesh."""
+    from ray_tpu_torch.parallel import collectives as col
     B, T = tokens.shape
     dt = cfg.dtype
     specs = _use_specs(cfg) if mesh is not None else None
+    cp = 1 if mesh is None else mesh.shape["context"]
+    pos0 = 0 if cp == 1 else mesh.coords["context"] * (T // cp)
+    if cp > 1:
+        tokens = tokens[:, pos0:pos0 + T // cp]
 
     def gather(tree, spec_of):
         return tree if specs is None else \
@@ -165,16 +190,30 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
 
     wte = gather(params["wte"], lambda sp: sp["wte"])
     wpe = gather(params["wpe"], lambda sp: sp["wpe"])
-    x = torch.nn.functional.embedding(tokens, wte).to(dt) + wpe[:T].to(dt)
-    del wte, wpe
+    pos = wpe[pos0:pos0 + tokens.shape[1]].to(dt)
+    if col.axis_size("tensor", mesh) > 1:
+        off = gpt2_lib.vocab_offset(cfg.vocab_size, mesh)
+        x = col.psum(gpt2_lib._vocab_embed(wte, tokens, off, dt), "tensor",
+                     mesh)
+    else:
+        x = torch.nn.functional.embedding(tokens, wte).to(dt)
+    x = x + pos
+    del wte, wpe, pos
 
-    def block(x, lp):
-        return _block(x, gather(lp, lambda sp: mesh_lib.layer_specs(
-            sp["blocks"])), cfg)
-
+    if specs is None:
+        layers = [(lp, None) for lp in layer_views(params["blocks"],
+                                                   _stacked_layers(params))]
+    else:
+        layers = mesh_lib.layers_for_use(params["blocks"], specs["blocks"],
+                                         cfg.n_layer, mesh)
     remat = cfg.remat and torch.is_grad_enabled()
     aux, z, dropped = [], [], []
-    for lp in layer_views(params["blocks"], _stacked_layers(params)):
+    for lp, lspecs in layers:
+        def block(x, lp, lspecs=lspecs):
+            if lspecs is not None:
+                lp = mesh_lib.gather_for_use(lp, lspecs, mesh,
+                                             _fetch_dtypes(lp, dt))
+            return _block(x, lp, cfg, mesh, pos0)
         if remat:
             # no dropout anywhere: no RNG state to save and restore
             x, a, zl, d = checkpoint(block, x, lp, use_reentrant=False,
@@ -190,6 +229,15 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
                "moe_z_loss": torch.stack(z).mean(),
                "moe_fraction_dropped": torch.stack(dropped).mean()}
     return x, metrics
+
+
+def _fetch_dtypes(lp: Params, dt: torch.dtype) -> Params:
+    """The dtype each leaf of a layer crosses a ``pipeline`` fetch in:
+    the one ``_block`` reads it in (attention's and the experts' matrices
+    and biases in ``dt``; None, their own, for the LayerNorm params and
+    the router, which it reads in float32)."""
+    return {k: {n: None if k.startswith("ln_") or n == "router" else dt
+                for n in v} for k, v in lp.items()}
 
 
 def _stacked_layers(params: Params) -> int:
@@ -231,19 +279,24 @@ def _mesh_loss(params: Params, inp: torch.Tensor, tgt: torch.Tensor,
     """The global loss on every rank (the module docstring), and the
     global metrics."""
     from ray_tpu_torch.parallel import collectives as col
-    for axis in ("tensor", "seq", "context", "pipeline"):
-        if mesh.shape[axis] > 1:
-            raise NotImplementedError(
-                f"the MoE transformer over a mesh with {axis}="
-                f"{mesh.shape[axis]} is {mesh_lib.ITEM_8B}")
+    tp, cp = mesh.shape["tensor"], mesh.shape["context"]
+    B, T = inp.shape
+    if cfg.n_head % tp:
+        raise ValueError(f"n_head {cfg.n_head} does not split over "
+                         f"tensor={tp}")
+    if T % cp:
+        raise ValueError(f"seq_len {T} not divisible by context={cp}")
     x, metrics = forward_hidden(params, inp, cfg, mesh)
     # the tied head gathers wte again (ZeRO-3)
     wte = mesh_lib.gather_for_use(params["wte"], _use_specs(cfg)["wte"],
                                   mesh)
-    logp = torch.log_softmax((x @ wte.to(cfg.dtype).t()).float(), dim=-1)
-    nll = -logp.gather(-1, tgt[..., None])[..., 0]
-    axes = mesh.config.batch_axes()
-    n = nll.numel() * math.prod(mesh.shape[a] for a in axes)
+    c = mesh.coords["context"]
+    t = tgt[:, c * (T // cp):(c + 1) * (T // cp)]
+    logits = (x @ wte.to(cfg.dtype).t()).float()
+    nll = gpt2_lib.vocab_parallel_nll(
+        logits, t, gpt2_lib.vocab_offset(cfg.vocab_size, mesh), mesh)
+    axes = moe_lib._token_axes(mesh)
+    n = B * T * math.prod(mesh.shape[a] for a in mesh.config.batch_axes())
     loss = (col.psum(nll.sum(), axes, mesh) / n
             + cfg.aux_loss_weight * metrics["moe_aux_loss"]
             + cfg.z_loss_weight * metrics["moe_z_loss"])

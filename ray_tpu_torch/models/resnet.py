@@ -25,11 +25,14 @@ would give the same output size shifted by one pixel.
 
 Over a mesh of ranks (the ambient mesh ``spmd.build_train_program``
 sets; params sliced by ``RESNET_RULES``) ``loss_fn`` returns the global
-mean on every rank under ``data`` × ``fsdp``: the batch split over both,
-every conv kept as its ``fsdp`` piece of ``cout`` and the head as an MLP
-output's piece, each gathered at use (ZeRO-3, ``mesh.gather_for_use``; a
-block's inside its checkpointed region).  Other axes raise: ROADMAP
-queue A, item 8b.
+mean on every rank under ``data`` × ``fsdp`` × ``tensor``: the batch
+split over ``data`` and ``fsdp``, every conv kept as its ``fsdp`` piece
+of ``cout`` and the head as an MLP output's piece, each gathered at use
+(ZeRO-3, ``mesh.gather_for_use``; a block's inside its checkpointed
+region).  Under ``tensor`` the convs are replicated, the head's classes
+split: a rank computes its columns of the logits, which are gathered
+over ``tensor`` before the loss (every ``tensor`` rank then computes the
+same loss).  No rule names another axis, and a mesh with one raises.
 """
 
 from __future__ import annotations
@@ -235,7 +238,18 @@ def _forward(params: Params, images: torch.Tensor, cfg: ResNetConfig,
                 x = block(x, bp)
     x = x.mean((2, 3))                                 # global average pool
     head = gather(params["head"], lambda sp: sp["head"])
-    return x.float() @ head["kernel"].float() + head["bias"].float()
+    kernel, bias = head["kernel"].float(), head["bias"].float()
+    tp = 1 if mesh is None else mesh.shape["tensor"]
+    if tp == 1:
+        return x.float() @ kernel + bias
+    # the head's columns split over tensor: this rank's logits, then
+    # every rank's gathered (its backward reduce-scatters)
+    from ray_tpu_torch.parallel import collectives as col
+    n, i = mesh_lib.entry_coordinate(mesh, "tensor")
+    lo, hi = mesh_lib.shard_bounds(cfg.num_classes, n, i)
+    local = x.float() @ kernel + bias[lo:hi]
+    return col.all_gather_uneven(local, "tensor", -1, cfg.num_classes,
+                                 -(-cfg.num_classes // n), mesh)
 
 
 @functools.lru_cache(maxsize=16)
@@ -257,10 +271,11 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
     mesh = mesh_lib.get_ambient_mesh()
     if mesh is not None and mesh.size > 1:
         for axis, n in mesh.shape.items():
-            if axis not in ("data", "fsdp") and n > 1:
-                raise NotImplementedError(
-                    f"ResNet over a mesh with {axis}={n} is "
-                    f"{mesh_lib.ITEM_8B}")
+            if axis not in ("data", "fsdp", "tensor") and n > 1:
+                raise ValueError(
+                    f"ResNet over a mesh with {axis}={n}: no rule of "
+                    f"RESNET_RULES names {axis} (images split over data "
+                    f"and fsdp, the head's classes over tensor)")
     else:
         mesh = None
     logits = _forward(params, batch["images"], cfg, mesh)

@@ -24,18 +24,25 @@ Nothing here syncs with the host: the routing is computed on the device
 at fixed shapes (dropped assignments go to a discarded slot), so the
 train step keeps ``torch.cuda.set_sync_debug_mode("error")``.
 
-Expert parallelism (under an ambient mesh of ranks, ``parallel/mesh.py``)
-reproduces the reference's function, whatever GSPMD made of it.  Under
+Over an ambient mesh of ranks (``parallel/mesh.py``) the op reproduces
+the reference's function, whatever GSPMD made of it.  Under
 ``MOE_RULES`` the tokens split over the batch axes (``data``, ``fsdp``)
-and are replicated over ``expert``, and rank (d, e) holds experts
-``e·X/ep … (e+1)·X/ep``.  The expert FFN is row-wise, so a rank runs
-exactly its own tokens through its own experts (the index form) and the
-combine is summed over ``expert`` (``collectives.psum``, in float32,
-rounded once): no all-to-all.  Routing stays global: the capacity is
-``expert_capacity`` of the GLOBAL token count, a token's queue position
-counts the tokens of the lower batch ranks before it (an all-gather of
-each rank's (X,) counts), and the load-balance loss, the z-loss and the
-dropped fraction are means over every token (sums over the batch axes).
+and the sequence over ``context``, and are replicated over ``expert``
+and ``tensor``; rank (d, e, t) holds experts ``e·X/ep … (e+1)·X/ep``,
+and of each the ff columns ``t·ff/tp … (t+1)·ff/tp``.  The expert FFN
+is row-wise, and ``gelu`` acts column by column, so a rank runs exactly
+its own tokens through its own experts' ff slice (the index form), and
+the partial combine is summed over ``expert`` and ``tensor`` at once
+(``collectives.psum``, in float32, rounded once): no all-to-all.
+``pipeline`` and ``seq`` (no rule splits the op over them) compute the
+same rows on every rank.  Routing stays global: the capacity is
+``expert_capacity`` of the GLOBAL token count, and a token's queue
+position counts the assigned tokens before it in the reference's
+flattened (b, s) order.  Under ``context`` a rank's tokens are not one
+run of that order, so the count before each of its rows comes from an
+all-gather of every rank's per-row (X,) counts over the token axes
+(``_route``).  The load-balance loss, the z-loss and the dropped
+fraction are means over every token (sums over the token axes).
 """
 
 from __future__ import annotations
@@ -90,9 +97,9 @@ def _queue_positions(gates: torch.Tensor, capacity: int,
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(assigned (N, E), position of each token in each expert's queue
     (N, E), kept (N, E)): position is assignment order, a cumsum over
-    tokens in their flattened (B·S) order, after ``prefix`` (E,) tokens
-    of lower ranks; past ``capacity`` a token is dropped from that
-    expert."""
+    tokens in their flattened (B·S) order, after ``prefix`` ((N, E):
+    each token's count of other ranks' tokens before it); past
+    ``capacity`` a token is dropped from that expert."""
     assigned = gates > 0.0
     # the scan runs along the inner dim of the (E, N) transpose: a scan
     # down N rows of only E columns leaves the card idle
@@ -172,7 +179,7 @@ def _ffn_index(tokens, gates, topk_idx, cap, w_in, w_out, activation,
     kept = keep.gather(1, topk_idx) & mine                       # (N, k)
     qpos = pos.gather(1, topk_idx)
     if prefix is not None:
-        qpos = qpos - prefix[topk_idx]
+        qpos = qpos - prefix.gather(1, topk_idx)
     slot = torch.where(kept, local * C + qpos, E * C)
     # slot → token, -1 where empty; only the discarded slot repeats
     owner = torch.full((E * C + 1,), -1, dtype=torch.long, device=dev)
@@ -203,8 +210,10 @@ def _ffn_index(tokens, gates, topk_idx, cap, w_in, w_out, activation,
 
 class _Route(NamedTuple):
     """A rank's part of the global routing: its first expert and expert
-    count, and the tokens of the lower batch ranks in each expert's
-    queue ((E,) int32)."""
+    count, and for each of its tokens, the assigned tokens before its
+    row in each expert's queue that are not this rank's earlier rows
+    ((N, E) int32: added to the local cumsum, it gives the global queue
+    position)."""
     e0: int
     ne: int
     prefix: torch.Tensor
@@ -216,22 +225,39 @@ def _live_mesh():
     return m if m is not None and m.size > 1 else None
 
 
-def _route(mesh, gates: torch.Tensor) -> _Route:
+def _token_axes(mesh) -> Tuple[str, ...]:
+    """The axes that split the op's tokens: the batch axes, then
+    ``context``."""
+    ctx = ("context",) if mesh.shape["context"] > 1 else ()
+    return tuple(mesh.config.batch_axes()) + ctx
+
+
+def _route(mesh, gates: torch.Tensor, rows: int) -> _Route:
     """This rank's ``_Route``: its slice of the experts by its ``expert``
-    coordinate, and the exclusive prefix over the lower batch ranks of
-    each expert's assignment counts (one all-gather of (E,) counts)."""
+    coordinate, and the count of assigned tokens before each of its
+    ``rows`` (one all-gather of the (rows, E) per-row counts over
+    ``context`` and the batch axes).  Global row g of context chunk c
+    follows every chunk of the rows before it and the lower chunks of
+    its own row: the exclusive prefix over (row, chunk) in that order."""
     from ray_tpu_torch.parallel import collectives as col
     from ray_tpu_torch.parallel import mesh as mesh_lib
     X = gates.shape[1]
     ep, e = mesh.shape["expert"], mesh.coords["expert"]
     e0, e1 = mesh_lib.shard_bounds(X, ep, e)
     axes = mesh.config.batch_axes()
+    cp, c = mesh.shape["context"], mesh.coords["context"]
     with torch.no_grad():
-        counts = (gates > 0).sum(0, dtype=torch.int32)[None]       # (1, E)
+        per_row = (gates > 0).view(rows, -1, X).sum(1, dtype=torch.int32)
+        counts = col.all_gather(per_row[None, None], "context", 1, mesh)
         for a in reversed(axes):          # inner first: row-major order
             counts = col.all_gather(counts, a, 0, mesh)
-        _, idx = mesh_lib.entry_coordinate(mesh, axes)
-        prefix = counts[:idx].sum(0, dtype=torch.int32)
+        # (batch ranks, cp, rows, X) -> (global rows x cp, X) in order
+        order = counts.permute(0, 2, 1, 3).reshape(-1, X)
+        before = torch.cumsum(order, 0, dtype=torch.int32) - order
+        _, b = mesh_lib.entry_coordinate(mesh, axes)
+        mine = before.view(-1, cp, X)[b * rows:(b + 1) * rows, c]
+        local = torch.cumsum(per_row, 0, dtype=torch.int32) - per_row
+        prefix = (mine - local).repeat_interleave(gates.shape[0] // rows, 0)
     return _Route(e0, e1 - e0, prefix)
 
 
@@ -259,25 +285,19 @@ def _moe_mesh(x, tokens, gates, logits, topk_idx, w_in, w_out, k,
               ) -> Tuple[torch.Tensor, MoEMetrics]:
     """``_moe`` over a mesh of ranks (the module docstring)."""
     from ray_tpu_torch.parallel import collectives as col
-    from ray_tpu_torch.parallel.mesh import ITEM_8B
-    for axis in ("tensor", "pipeline", "seq", "context"):
-        if mesh.shape[axis] > 1:
-            raise NotImplementedError(
-                f"moe_ffn over a mesh with {axis}={mesh.shape[axis]} is "
-                f"{ITEM_8B}")
     B, S, d = x.shape
     N, E = tokens.shape[0], gates.shape[1]
-    axes = mesh.config.batch_axes()
+    axes = _token_axes(mesh)
     n_global = N * math.prod(mesh.shape[a] for a in axes)
     cap = expert_capacity(n_global, E, k, capacity_factor)
-    route = _route(mesh, gates)
+    route = _route(mesh, gates, B)
     if w_in.shape[0] != route.ne or w_out.shape[0] != route.ne:
         raise ValueError(f"this rank holds experts {route.e0}.."
                          f"{route.e0 + route.ne} of {E}, but w_in / w_out "
                          f"lead with {w_in.shape[0]} / {w_out.shape[0]}")
     y, dropped = _ffn_index(tokens, gates, topk_idx, cap, w_in, w_out,
                             activation, route)
-    y = col.psum(y, "expert", mesh).to(x.dtype)
+    y = col.psum(y, ("expert", "tensor"), mesh).to(x.dtype)
     probs = torch.softmax(logits, dim=-1)
     frac = col.psum((gates > 0).float().sum(0), axes, mesh) / n_global
     mean_prob = col.psum(probs.sum(0), axes, mesh) / n_global
@@ -297,9 +317,10 @@ def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_in: torch.Tensor,
     """Expert feed-forward block, the index form (gathers by slot).
 
     x: (B, S, d).  w_router: (d, E).  w_in: (E, d, ff).  w_out: (E, ff,
-    d).  Under an ambient mesh of ranks: x this rank's rows, w_in / w_out
-    its slice of the experts (``MOE_RULES``), y its rows, the metrics
-    global (the module docstring)."""
+    d).  Under an ambient mesh of ranks: x this rank's rows (and its
+    ``context`` chunk of the sequence), w_in / w_out its slice of the
+    experts and of their ff columns (``MOE_RULES``), y its rows, the
+    metrics global (the module docstring)."""
     return _moe(x, w_router, w_in, w_out, k, capacity_factor, activation,
                 _ffn_index, _live_mesh())
 

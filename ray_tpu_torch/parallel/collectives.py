@@ -17,7 +17,9 @@ output feeds (the reference's ``shard_map`` transpose rules):
   ``all_gather_uneven`` (ceil-sized pieces, the last short) is
   backed by a padded reduce-scatter in float32;
 - ``all_to_all``'s backward swaps the split and concat dims;
-- ``psum``'s backward is ``psum``.
+- ``psum``'s backward is ``psum``;
+- ``broadcast``'s backward sums every rank's gradient onto the source
+  (the others' inputs get none).
 
 ``pmax`` has no gradient (a stabiliser).  Every rank must call the same
 collectives in the same order, forward and backward.
@@ -225,6 +227,25 @@ class _Psum(torch.autograd.Function):
         return ctx.g.all_reduce(gy), None
 
 
+class _Broadcast(torch.autograd.Function):
+    """The source's ``x`` cast to ``dtype`` on every rank of the group
+    (elsewhere ``x`` only carries the graph).  Backward: the gradients
+    summed in ``dtype`` onto the source, cast to ``x``'s dtype there."""
+
+    @staticmethod
+    def forward(ctx, x, g, src, shape, dtype):
+        ctx.g, ctx.src, ctx.dtype = g, src, x.dtype
+        buf = x.to(dtype).contiguous() if g.rank == src \
+            else x.new_empty(shape, dtype=dtype)
+        return g.broadcast(buf, src)
+
+    @staticmethod
+    def backward(ctx, gy):
+        total = ctx.g.all_reduce(gy.contiguous())
+        gx = total.to(ctx.dtype) if ctx.g.rank == ctx.src else None
+        return gx, None, None, None, None
+
+
 def _dim(x: torch.Tensor, dim: int) -> int:
     return dim % x.ndim
 
@@ -270,6 +291,20 @@ def all_gather_uneven(x: torch.Tensor, axis: str, dim: int, total: int,
         raise ValueError(f"a piece of {x.shape[dim % x.ndim]} along dim "
                          f"{dim} is larger than {piece}")
     return _AllGatherUneven.apply(x, g, _dim(x, dim), total, piece)
+
+
+def broadcast(x: torch.Tensor, axis: str, src: int, shape: Sequence[int],
+              dtype: Optional[torch.dtype] = None,
+              mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """The tensor of shape ``shape`` that the rank at coordinate ``src``
+    of ``axis`` holds as ``x``, in ``dtype`` (default ``x``'s), on every
+    rank of the axis; elsewhere ``x`` is a placeholder whose gradient is
+    none.  The backward sums the ranks' gradients onto ``src``."""
+    g = _group(axis, mesh)
+    dtype = dtype or x.dtype
+    if g is None:
+        return x.to(dtype)
+    return _Broadcast.apply(x, g, int(src), tuple(shape), dtype)
 
 
 def psum_scatter(x: torch.Tensor, axis: str, dim: int = 0,

@@ -33,6 +33,26 @@ each block's checkpointed region, so a block's gathered weights die with
 its forward and the backward's replay gathers them again.  The batch
 splits over ``("data", "fsdp")``.  Over ``expert`` a rank keeps its
 slice of the experts' leading axis (``ops/moe.py`` runs them).
+
+The stacked layer dim over ``pipeline`` without a schedule (Llama and
+the MoE transformer: the reference's ``lax.scan`` over a stacked dim
+GSPMD splits): stage s keeps layers ``shard_bounds(L, pp, s)``, every
+rank runs every layer on its own rows, and ``gather_for_use`` fetches
+layer l from its owner at use (``layers_for_use`` gives each layer's
+view and specs), again inside the block's checkpointed region.
+
+What each gather's backward leaves, axis by axis (``spmd``'s docstring
+has the step's side of the contract):
+
+- ``fsdp``: the all-gather's transpose, a reduce-scatter (in float32,
+  rounded once to the leaf's dtype) of every ``fsdp`` rank's gradient
+  onto this rank's piece;
+- ``pipeline``: the broadcast's transpose, the sum of every ``pipeline``
+  rank's gradient of the layer onto its owner (the other stages get
+  none).  The ranks of a pipeline line compute the same rows, so that
+  sum is ``pp`` times the one-rank gradient, exactly as a ``data``
+  copy's is after the step's sum; the step's division by the mesh size
+  takes it back out.  Nothing else divides by ``pp``.
 ``NamedSharding(mesh, spec)`` is the reference's placement of a global
 array as a plain holder: ``local_slice`` is this rank's piece.
 """
@@ -66,12 +86,17 @@ class PartitionSpec(tuple):
     optimizer state's tuples) knows its leaves.  ``shape``: the GLOBAL
     leaf's shape where the spec was made from the global tree
     (``use_specs``), which a gather of a short last piece needs; None
-    otherwise."""
+    otherwise.  ``layer``: for one layer's view of a leaf stacked over
+    ``pipeline`` (``layers_for_use``), (the global layer, the global
+    layer count), which name the stage that owns it; None otherwise."""
 
     def __new__(cls, *entries: SpecEntry,
-                shape: Optional[Tuple[int, ...]] = None) -> "PartitionSpec":
+                shape: Optional[Tuple[int, ...]] = None,
+                layer: Optional[Tuple[int, int]] = None
+                ) -> "PartitionSpec":
         self = super().__new__(cls, entries)
         self.shape = None if shape is None else tuple(shape)
+        self.layer = layer
         return self
 
     def __repr__(self) -> str:
@@ -313,10 +338,54 @@ def use_specs(global_params: Any, rules: Rules = TRANSFORMER_RULES) -> Any:
                        param_specs(global_params, rules))
 
 
-def layer_specs(specs: Any) -> Any:
+def layer_specs(specs: Any, layer: Optional[int] = None) -> Any:
     """The specs of one layer's view of stacked leaves (``use_specs``'):
-    the leading (layer) entry and dim dropped."""
-    return tx.tree_map(lambda s: P(*s[1:], shape=s.shape[1:]), specs)
+    the leading (layer) entry and dim dropped.  ``layer``: the view is
+    that global layer's, and a leaf stacked over ``pipeline`` keeps it
+    (``PartitionSpec.layer``) for ``gather_for_use``."""
+    def leaf(s: PartitionSpec) -> PartitionSpec:
+        owned = layer is not None and "pipeline" in entry_axes(s[0])
+        if owned and s[0] != "pipeline":
+            raise NotImplementedError(
+                f"spec {s!r}: pipeline shares its entry with another "
+                f"axis ({ITEM_8B})")
+        return P(*s[1:], shape=s.shape[1:],
+                 layer=(layer, s.shape[0]) if owned else None)
+
+    return tx.tree_map(leaf, specs)
+
+
+def layer_owner(spec: PartitionSpec, mesh: Mesh) -> Tuple[int, int]:
+    """(the ``pipeline`` stage that holds a layer view's layer, the
+    layer's row in that stage's piece)."""
+    layer, n_layer = spec.layer
+    piece = -(-n_layer // mesh.shape["pipeline"])
+    return layer // piece, layer % piece
+
+
+def layers_for_use(blocks: Any, specs: Any, n_layer: int,
+                   mesh: Optional[Mesh] = None) -> List[Tuple[Any, Any]]:
+    """(this rank's view of layer l, its specs) for every global layer l
+    of a stacked tree: a row of each leaf (one ``unbind`` a leaf, whose
+    backward is one stack).  Under ``pipeline`` > 1 a leaf stacked over
+    it gives its row where this rank's stage owns layer l, and an empty
+    ``(0, *row)`` view of its piece elsewhere, which ``gather_for_use``
+    fills from the owner."""
+    mesh = mesh if mesh is not None else get_ambient_mesh()
+    pp = 1 if mesh is None else mesh.shape.get("pipeline", 1)
+    rows = tx.tree_map(lambda t: t.unbind(0), blocks)
+    out = []
+    for layer in range(n_layer):
+        lspecs = layer_specs(specs, layer if pp > 1 else None)
+
+        def view(t, r, s, layer=layer):
+            if s.layer is None:
+                return r[layer]
+            stage, row = layer_owner(s, mesh)
+            return r[row] if stage == mesh.coords["pipeline"] else t[:0]
+
+        out.append((tx.tree_map(view, blocks, rows, lspecs), lspecs))
+    return out
 
 
 def _map_with_path(fn, tree: Any, prefix: str = "") -> Any:
@@ -464,25 +533,44 @@ def fsdp_dim(spec: Spec) -> Optional[int]:
     return None
 
 
-def gather_for_use(tree: Any, specs: Any, mesh: Optional[Mesh] = None
-                   ) -> Any:
-    """ZeRO-3's gather at use: every leaf whose spec splits a dim over
-    ``fsdp`` all-gathered along it over the ``fsdp`` group
-    (``collectives.all_gather_uneven``: each piece padded to the ceil
-    size, gathered, the global dim cut back out of the spec's global
-    ``shape``), the others as they are.  Differentiable: the backward
-    reduce-scatters the gradient of the gathered leaf (summed in float32,
-    rounded once to the leaf's dtype) onto this rank's piece.  ``specs``
-    from ``use_specs`` (``layer_specs`` for a layer's view); ``mesh``
-    None: the ambient mesh.  Outside a mesh with ``fsdp`` > 1 the tree
-    itself."""
+def gather_for_use(tree: Any, specs: Any, mesh: Optional[Mesh] = None,
+                   dtype: Any = None) -> Any:
+    """The gathers at use (the module docstring), every leaf in turn:
+
+    - a layer view stacked over ``pipeline`` (``layers_for_use``) is
+      broadcast from the stage that owns its layer over the ``pipeline``
+      group, cast on the owner first to ``dtype``: one dtype for every
+      leaf, or a tree shaped as ``tree`` holding a dtype or None (the
+      leaf's own) a leaf.  The model names the dtype its block reads the
+      leaf in, so that a leaf it reads in float32 (LayerNorm params, a
+      router) crosses in float32, as the reference's gather keeps it;
+    - then a leaf whose spec splits a dim over ``fsdp`` is all-gathered
+      along it over the ``fsdp`` group (``collectives.all_gather_uneven``:
+      each piece padded to the ceil size, gathered, the global dim cut
+      back out of the spec's global ``shape``);
+    - the others as they are.
+
+    Differentiable: the broadcast's backward sums the ``pipeline`` ranks'
+    gradients onto the owner, the all-gather's reduce-scatters the
+    gradient of the gathered leaf (summed in float32, rounded once to
+    the leaf's dtype) onto this rank's piece.  ``specs`` from
+    ``use_specs`` (``layer_specs`` for a layer's view); ``mesh`` None:
+    the ambient mesh.  Outside a mesh with ``fsdp`` or ``pipeline`` > 1
+    the tree itself."""
     mesh = mesh if mesh is not None else get_ambient_mesh()
-    if mesh is None or mesh.shape.get("fsdp", 1) == 1:
+    if mesh is None or (mesh.shape.get("fsdp", 1) == 1
+                        and mesh.shape.get("pipeline", 1) == 1):
         return tree
     from ray_tpu_torch.parallel import collectives as col
 
-    def leaf(t: torch.Tensor, spec: PartitionSpec) -> torch.Tensor:
-        d = fsdp_dim(spec)
+    def leaf(t: torch.Tensor, spec: PartitionSpec,
+             dt: Optional[torch.dtype]) -> torch.Tensor:
+        if spec.layer is not None and mesh.shape["pipeline"] > 1:
+            stage, _ = layer_owner(spec, mesh)
+            t = col.broadcast(t, "pipeline", stage,
+                              t.shape if stage == mesh.coords["pipeline"]
+                              else t.shape[1:], dt or t.dtype, mesh)
+        d = fsdp_dim(spec) if mesh.shape["fsdp"] > 1 else None
         if d is None:
             return t
         if spec.shape is None:
@@ -493,4 +581,6 @@ def gather_for_use(tree: Any, specs: Any, mesh: Optional[Mesh] = None
         return col.all_gather_uneven(t, "fsdp", d, dim,
                                      -(-dim // mesh.shape["fsdp"]), mesh)
 
-    return tx.tree_map(leaf, tree, specs)
+    dtypes = dtype if isinstance(dtype, (dict, list)) else \
+        tx.tree_map(lambda _: dtype, tree)
+    return tx.tree_map(leaf, tree, specs, dtypes)

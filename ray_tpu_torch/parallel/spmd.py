@@ -43,6 +43,36 @@ Differences from the reference, each forced by the port:
 - Expert parallelism (``expert``): a rank holds its slice of the
   experts' leading axis; ``ops/moe.py`` sums the combine over
   ``expert``, and the step sums the rest over it as over ``data``.
+
+An axis on which every rank computes the same rows is counted once, and
+the one place that counts it is ``_mesh_reduce``'s division by the mesh
+size (every collective's backward being its exact transpose).  Axis by
+axis, what a rank's autograd gradient holds and what the step does:
+
+- ``data``, ``fsdp``: ranks compute different rows; the loss's ``psum``
+  over them transposes to a ``psum`` of the cotangent, so a rank's
+  gradient is ``size`` times its rows' share; the step sums a copy over
+  the axis (under ``fsdp`` the gather's reduce-scatter already did).
+- ``tensor``, ``context``, ``expert``: a rank computes its part of the
+  same rows (heads, vocab columns, ff columns, tokens, experts) and the
+  parts meet in ``psum``s and gathers whose transposes route each
+  part's gradient back; a leaf replicated over the axis (LayerNorm,
+  RMSNorm scales, the router) is summed over it, and its copies are then
+  equal.
+- ``pipeline`` (Llama, the MoE transformer: no schedule) and ``seq``
+  (the same two, where no ``context_axis`` names it): every rank
+  computes the same loss on the same rows.  A leaf replicated over the
+  axis gets its whole gradient on every rank, and the step's sum over
+  the axis makes it ``size`` times; a layer split over ``pipeline`` gets
+  the same from its gather's transpose (``mesh.gather_for_use``).  The
+  division by the mesh size, which counts the axis, gives back the
+  one-rank gradient: nothing else scales by it.  GPT-2's ``pipeline``
+  is a schedule over microbatches and its ``seq`` a split sequence:
+  neither computes the same rows twice.
+
+``_mesh_norm`` sums a leaf's squares over the axes its spec splits and
+once over the rest, so the clip and the reported norm are the one-rank
+ones on every axis.
 """
 
 from __future__ import annotations

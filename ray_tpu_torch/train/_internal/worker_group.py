@@ -4,7 +4,9 @@ Reference: ``python/ray/train/_internal/worker_group.py``.  Workers are
 plain actors exposing ``apply(fn, *a, **kw)``; the backend executor drives
 them.  Worker i is placed in bundle i; a bundle with ``"GPU"`` makes its
 actor a ``num_gpus`` actor, which the GCS spawns as a GPU worker that sees
-the node's cards.
+the node's cards.  With a slice topology (``ScalingConfig(topology=)``)
+the group is STRICT_PACK over one ICI domain, a bundle a host, so all
+hosts of the slice are leased atomically, as in the reference.
 """
 
 from __future__ import annotations

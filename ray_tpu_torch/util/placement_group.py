@@ -3,7 +3,9 @@
 Reference: ``python/ray/util/placement_group.py`` + the GCS placement-group
 manager.  Bundles are resource dicts; an accelerator bundle asks for
 ``{"GPU": n}`` (CUDA cards on one node, fractions allowed) and is placed
-by the port's ``pg_scheduler`` in the GCS.
+by the port's ``pg_scheduler`` in the GCS, or per host of a slice by
+:func:`tpu_slice_bundles` (the reference's name), which STRICT_PACK
+keeps in one ICI domain.
 """
 
 from __future__ import annotations
@@ -74,3 +76,14 @@ def remove_placement_group(pg: PlacementGroup) -> None:
 
 def placement_group_table() -> dict:
     return _worker.global_worker().rpc("pg_table")["pgs"]
+
+
+def tpu_slice_bundles(topology: str) -> List[Dict[str, float]]:
+    """Expand a slice topology into per-host bundles: ``v4-32`` → 8 hosts
+    of ``{"GPU": 4.0}`` (the reference's ``{"TPU": 4.0}``).  Use with
+    STRICT_PACK so all hosts land in one ICI domain (the slice leased
+    atomically)."""
+    from ray_tpu_torch.parallel.topology import slice_spec
+    spec = slice_spec(topology)
+    return [{"GPU": float(spec.chips_per_host)}
+            for _ in range(spec.num_hosts)]

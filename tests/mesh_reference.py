@@ -52,7 +52,8 @@ def jax_train_run(axes: dict, cfg_kw: dict, tokens: np.ndarray = None,
     ``axes`` on the first devices; a token batch as an inputs / targets
     pair (a (B, T+1) block does not split over ``context``), or
     ``batch`` as it is.  ``grads``: also the step-0 gradient of every
-    leaf (``jax.grad`` of the loss on the mesh-placed params)."""
+    leaf (``jax.value_and_grad`` of the loss on the mesh-placed params)
+    and the loss, ``loss0``."""
     from ray_tpu.parallel import mesh as mesh_lib
     from ray_tpu.parallel import spmd
     from ray_tpu.parallel.mesh import MeshConfig
@@ -74,9 +75,10 @@ def jax_train_run(axes: dict, cfg_kw: dict, tokens: np.ndarray = None,
     placed = spmd.shard_batch(prog, batch)
     out = {"params": params}
     if grads:
-        g = jax.jit(jax.grad(lambda p, b: mod.loss_fn(p, b, cfg)))(
-            state.params, placed)
+        loss0, g = jax.jit(jax.value_and_grad(
+            lambda p, b: mod.loss_fn(p, b, cfg)))(state.params, placed)
         out["grads"] = jax.tree_util.tree_map(np.asarray, jax.device_get(g))
+        out["loss0"] = float(loss0)
     losses, norms = [], []
     for _ in range(steps):
         state, m = prog.step_fn(state, placed)

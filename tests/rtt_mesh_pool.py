@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import os
 import traceback
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -350,8 +350,9 @@ def _family(family: str):
 
 def _program(family: str, axes, cfg_kw: Dict[str, Any], params,
              opt_kw: Dict[str, Any]):
-    """(program, cfg, rules) of a tiny ``family`` model in float32 over
-    the mesh ``axes`` (None: one process) from the global ``params``."""
+    """(program, cfg, rules) of a tiny ``family`` model over the mesh
+    ``axes`` (None: one process) from the global ``params``; float32
+    activations unless ``cfg_kw`` names a ``dtype``."""
     import dataclasses
 
     from ray_tpu_torch.models.convert import params_from_numpy
@@ -360,7 +361,7 @@ def _program(family: str, axes, cfg_kw: Dict[str, Any], params,
     mod, rules = _family(family)
     cfg_kw = dict(cfg_kw)
     cfg = dataclasses.replace(mod.tiny(**cfg_kw.pop("tiny", {})),
-                              dtype=torch.float32, **cfg_kw)
+                              **{"dtype": torch.float32, **cfg_kw})
     mesh = None if axes is None else mesh_lib.Mesh(
         mesh_lib.MeshConfig(**axes), device="cpu")
     prog = spmd.build_train_program(
@@ -552,12 +553,12 @@ def rank_moe_ffn(axes: Dict[str, int], x: np.ndarray, router: np.ndarray,
     mesh = _mesh(**axes)
     rows = mesh_lib.NamedSharding(mesh, mesh_lib.batch_spec(mesh.config, 3))
     xs = rows.local_slice(torch.from_numpy(x)).clone()
-    specs = [mesh_lib.P(None, None), mesh_lib.P("expert", None, None),
-             mesh_lib.P("expert", None, None)]
+    specs = [mesh_lib.P(None, None), mesh_lib.P("expert", None, "tensor"),
+             mesh_lib.P("expert", "tensor", None)]
     ws = [mesh_lib.NamedSharding(mesh, s).local_slice(
         torch.from_numpy(a)).clone() for s, a in zip(specs,
                                                      (router, w_in, w_out))]
-    axes_b = mesh.config.batch_axes()
+    axes_b = tmoe._token_axes(mesh)
     with mesh_lib.ambient_mesh(mesh):
         y, m = tmoe.moe_ffn(xs, *ws, k=k, capacity_factor=cf)
 
@@ -572,7 +573,7 @@ def rank_moe_ffn(axes: Dict[str, int], x: np.ndarray, router: np.ndarray,
         n_global = tokens.shape[0] * int(np.prod(
             [mesh.shape[a] for a in axes_b]))
         cap = tmoe.expert_capacity(n_global, router.shape[-1], k, cf)
-        route = tmoe._route(mesh, gates)
+        route = tmoe._route(mesh, gates, xs.shape[0])
         assigned, _, keep = tmoe._queue_positions(gates, cap, route.prefix)
     grads = spmd._mesh_reduce(mesh, specs, grads)
     mesh.destroy()
@@ -618,31 +619,111 @@ def rank_sharded_checkpoint(family: str, axes: Dict[str, int],
     return out
 
 
-def rank_axis_mesh(axes: Dict[str, int], deferred: str) -> Dict[str, Any]:
+def rank_axis_mesh(axes: Dict[str, int], shared: List[str]
+                   ) -> Dict[str, Any]:
     """A mesh over ``axes``: this rank's coordinates and every live axis's
-    group (its global ranks); then the model combination ``deferred``
-    names ("llama_tensor", "moe_tensor") run over the last of ``axes``
-    with ``tensor`` = 2 in place of the others, its error."""
-    import dataclasses
-
-    from ray_tpu_torch.models import llama, moe_transformer
+    group (its global ranks); then a (4, 4) leaf whose spec puts the
+    axes ``shared`` in one entry (``fsdp`` with another axis: no rule
+    table of the reference does) gathered at use over a mesh of two
+    ranks on each, its error."""
     from ray_tpu_torch.parallel import mesh as mesh_lib
     mesh = _mesh(**axes)
     out = {"coords": dict(mesh.coords),
            "groups": {a: g.ranks for a, g in mesh.groups.items()}}
     mesh.destroy()
-    last = list(axes)[-1]
-    mesh = _mesh(**{last: axes[last], "tensor": 2})
-    mod = {"llama_tensor": llama, "moe_tensor": moe_transformer}[deferred]
-    cfg = dataclasses.replace(mod.tiny(vocab=128, seq=32),
-                              dtype=torch.float32)
-    params = mod.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
-    toks = torch.zeros((2, 9), dtype=torch.long)
+    mesh = _mesh(**{a: 2 for a in shared})
+    spec = mesh_lib.P(tuple(shared), None, shape=(4, 4))
     try:
-        with mesh_lib.ambient_mesh(mesh):
-            mod.loss_fn(params, {"tokens": toks}, cfg)
+        mesh_lib.gather_for_use({"w": torch.zeros(2, 4)}, {"w": spec}, mesh)
         out["error"] = None
     except NotImplementedError as e:
         out["error"] = str(e)
     mesh.destroy()
     return out
+
+
+# ------------------------------------------------------ the rest of 8b
+def rank_attention_heads(axes: Dict[str, int], params: Dict[str, Any],
+                         tokens: np.ndarray) -> Dict[str, Any]:
+    """Llama tiny in float32 over the mesh ``axes`` without grad, on this
+    rank's rows of ``tokens``: the output of every layer's attention on
+    this rank (its heads), and its coordinates."""
+    import dataclasses
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.convert import params_from_numpy
+    from ray_tpu_torch.parallel import mesh as mesh_lib
+    cfg = dataclasses.replace(llama.tiny(vocab=128, seq=32),
+                              dtype=torch.float32, attn_impl="dense")
+    mesh = _mesh(**axes)
+    local = mesh_lib.shard_params(mesh, params_from_numpy(params, cfg, "cpu"),
+                                  llama.LLAMA_RULES)
+    seen = []
+    real = llama._dense_gqa
+
+    def record(q, k, v, c):
+        out = real(q, k, v, c)
+        seen.append(_np(out))
+        return out
+
+    llama._dense_gqa = record
+    try:
+        with torch.no_grad(), mesh_lib.ambient_mesh(mesh):
+            llama.mesh_hidden(local, mesh_lib.shard_batch_rows(
+                mesh, torch.from_numpy(tokens).long()), cfg, mesh)
+    finally:
+        llama._dense_gqa = real
+    mesh.destroy()
+    return {"coords": dict(mesh.coords), "attn": seen}
+
+
+def rank_mesh_hidden(family: str, axes: Optional[Dict[str, int]],
+                     cfg_kw: Dict[str, Any], params: Dict[str, Any],
+                     tokens: np.ndarray) -> np.ndarray:
+    """The final-norm hidden states (float32) of a tiny ``family`` model
+    (Llama or MoE) over the mesh ``axes`` (None: one process) without
+    grad, on this rank's rows of ``tokens``."""
+    from ray_tpu_torch.parallel import mesh as mesh_lib
+    prog, cfg, _ = _program(family, axes, cfg_kw, params, {})
+    mod, mesh = _family(family)[0], prog.mesh
+    params = prog.init_fn(torch.Generator()).params
+    inp = torch.from_numpy(tokens).long()
+    with torch.no_grad(), mesh_lib.ambient_mesh(mesh):
+        if mesh is None:
+            x = mod._hidden(params, inp, cfg) if family == "llama" else \
+                mod.forward_hidden(params, inp, cfg)[0]
+        else:
+            inp = mesh_lib.shard_batch_rows(mesh, inp)
+            x = mod.mesh_hidden(params, inp, cfg, mesh) \
+                if family == "llama" else \
+                mod.forward_hidden(params, inp, cfg, mesh)[0]
+            mesh.destroy()
+    return _np(x.float())
+
+
+def rank_mesh_loss(family: str, axes: Dict[str, int], cfg_kw: Dict[str, Any],
+                   params: Dict[str, Any], batch: Dict[str, np.ndarray]
+                   ) -> Dict[str, Any]:
+    """The loss of a tiny ``family`` model over the mesh ``axes`` on this
+    rank's rows, and the gradients of its slices by the program's rule
+    (``spmd._mesh_reduce``): one forward and backward, no step."""
+    from ray_tpu_torch.parallel import mesh as mesh_lib
+    from ray_tpu_torch.parallel import spmd
+    from ray_tpu_torch.parallel import transforms as tx
+    prog, cfg, rules = _program(family, axes, cfg_kw, params, {})
+    mod, mesh = _family(family)[0], prog.mesh
+    state = prog.init_fn(torch.Generator())
+    b = spmd.shard_batch(prog, batch)
+    leaves = tx.tree_leaves(state.params)
+    with mesh_lib.ambient_mesh(mesh):
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = mod.loss_fn(state.params, b, cfg)
+        gs = list(torch.autograd.grad(loss, leaves))
+    specs = spmd._spec_leaves(mesh_lib.param_specs(state.params, rules))
+    it = iter(gs)
+    grads = spmd._mesh_reduce(mesh, specs, tx.tree_map(lambda _: next(it),
+                                                       state.params))
+    mesh.destroy()
+    return {"coords": dict(mesh.coords), "loss": float(loss.detach()),
+            "grads": _tree_np(grads)}

@@ -113,20 +113,22 @@ def test_deferred_axes_raise_naming_item_8b(pool, axis):
     """``fsdp`` and ``expert`` (ZeRO-3, expert parallelism) build a mesh
     now: with ``data=2`` every rank's coordinates are its row-major
     place in the (data, axis) grid and each live axis's group holds the
-    ranks that differ only along it.  The combinations still deferred
-    (Llama under ``tensor`` with ``fsdp``, the MoE transformer under
-    ``tensor`` with ``expert``) raise naming item 8b."""
-    deferred = {"fsdp": "llama_tensor", "expert": "moe_tensor"}[axis]
+    ranks that differ only along it.  What item 8b still defers, an
+    ``fsdp`` that shares its spec entry with another axis (with
+    ``tensor``, or with ``expert``; no rule table of the reference
+    writes one), raises naming item 8b and the spec."""
+    shared = {"fsdp": ["fsdp", "tensor"], "expert": ["expert", "fsdp"]}[
+        axis]
     grid = np.arange(4).reshape(2, 2)
     for rank, r in enumerate(pool.run(pool_lib.rank_axis_mesh,
-                                      {"data": 2, axis: 2}, deferred)):
+                                      {"data": 2, axis: 2}, shared)):
         d, a = np.unravel_index(rank, (2, 2))
         assert {k: v for k, v in r["coords"].items() if v} == \
             {k: v for k, v in {"data": d, axis: a}.items() if v}
         assert r["groups"] == {"data": [int(x) for x in grid[:, a]],
                                axis: [int(x) for x in grid[d]]}
         assert r["error"] is not None and "item 8b" in r["error"] \
-            and "tensor=2" in r["error"], r["error"]
+            and repr(tuple(shared)) in r["error"], r["error"]
 
 
 def test_device_group_matches_xla_group(pool):
